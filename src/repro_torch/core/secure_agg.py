@@ -1,0 +1,124 @@
+"""Secure aggregation (paper Algorithm 1) over a party-stacked tensor.
+
+The port of the non-membership forms of ``repro.core.secure_agg``.  The q
+parties are the leading dimension of ``partial`` (shape ``(q, ...)``), all
+on one device — the single-device emulation the JAX engine runs under
+``vmap``.  A ``psum`` over the party axis is ``.sum(0)``; a ``ppermute``
+round of a reduction tree is ``acc[dst] += acc[src]`` on dimension 0.
+
+* ``secure_psum`` — masked two-tree reduction: each party adds its own
+  Gaussian mask δ_ℓ, the masked values are reduced (over T1 when
+  ``schedule_faithful``), the masks over the significantly different T2,
+  and the output is ξ1 − ξ2.
+* ``secure_psum_ring`` — pairwise-cancelling ring masks
+  δ_ℓ = r_ℓ − r_{ℓ−1}, Σ_ℓ δ_ℓ ≡ 0, one reduction.
+
+Masks come from an explicit ``torch.Generator``; all q parties' masks are
+drawn in one call, so they are per-party distinct.  The generator cannot
+reproduce the JAX package's threefry bits, so port and reference agree to
+float tolerance (the mask residue), not bit for bit.  Mask arithmetic is
+f32 whatever the partial's dtype, as in the reference.
+
+Each function returns the aggregate every party receives, without the
+party dimension.  ``transcript``, when a list, receives the party-stacked
+tensor of the values that cross the party boundary (for the security
+tests: every transmitted value is mask-offset).
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import trees as trees_lib
+
+
+def mask_generator(seed: int, *key, device) -> torch.Generator:
+    """A generator seeded from ``(seed, *key)`` — the counterpart of
+    ``jax.random.fold_in``: distinct keys give unrelated streams, and the
+    same key gives the same stream on every run."""
+    words = np.random.SeedSequence([int(seed), *map(int, key)]) \
+        .generate_state(2, np.uint64)
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed(int(words[0] >> np.uint64(1)))
+    return gen
+
+
+def _party_normal(shape, gen: torch.Generator, device) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32)
+
+
+def tree_psum_collective_permute(x: torch.Tensor,
+                                 tree: trees_lib.ReductionTree
+                                 ) -> torch.Tensor:
+    """Reduce the party-stacked ``x`` (q, ...) replaying ``tree``'s rounds,
+    then broadcast the root's total back down the tree.
+
+    Round by round, every scheduled pair does ``acc[dst] += acc[src]``
+    (pairs within a round are disjoint, so the in-place update equals the
+    reference's simultaneous ``ppermute``); the reverse rounds copy parent
+    to child.  Returns (q, ...) with every party holding the total."""
+    if x.shape[0] != tree.q:
+        raise ValueError(f"party dimension {x.shape[0]} != tree.q {tree.q}")
+    acc = x.clone()
+    rounds = [(torch.tensor([d for d, _ in rnd], device=x.device),
+               torch.tensor([s for _, s in rnd], device=x.device))
+              for rnd in tree.rounds]
+    for dst, src in rounds:
+        acc[dst] = acc[dst] + acc[src]
+    for dst, src in reversed(rounds):
+        acc[src] = acc[dst]
+    return acc
+
+
+def secure_psum_ring(partial: torch.Tensor, gen: torch.Generator,
+                     mask_scale: float = 1.0,
+                     transcript: Optional[List[torch.Tensor]] = None
+                     ) -> torch.Tensor:
+    """Ring-masked reduction over the party dimension (one collective).
+
+    r_ℓ is party ℓ's seed stream and r_prev = r_{ℓ−1} its ring
+    neighbour's (``roll`` by one on dimension 0), so the masks
+    r_ℓ − r_{ℓ−1} cancel exactly in the sum.  Same collusion caveat as
+    the reference: the two ring neighbours of ℓ can jointly strip δ_ℓ."""
+    out_dtype = partial.dtype
+    partial = partial.float()
+    r_self = _party_normal(partial.shape, gen, partial.device)
+    r_prev = torch.roll(r_self, 1, dims=0)
+    masked = partial + mask_scale * (r_self - r_prev)
+    if transcript is not None:
+        transcript.append(masked)
+    return masked.sum(0).to(out_dtype)
+
+
+def secure_psum(partial: torch.Tensor, gen: torch.Generator,
+                mask_scale: float = 1.0, schedule_faithful: bool = False,
+                transcript: Optional[List[torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """Masked two-tree reduction over the party dimension (Algorithm 1).
+
+    ``schedule_faithful=True`` replays the exact T1/T2 rounds of
+    ``trees.default_tree_pair(q)``; otherwise both reductions are plain
+    sums over the party dimension (the production fast path — security
+    rests on the masks and on distinct schedules, not on the summation
+    order)."""
+    q = partial.shape[0]
+    out_dtype = partial.dtype
+    # Mask arithmetic in f32: masking/unmasking must cancel exactly enough
+    # that the aggregate is lossless (bf16 partial + O(1) mask would lose
+    # the partial's mantissa).
+    partial = partial.float()
+    delta = mask_scale * _party_normal(partial.shape, gen, partial.device)
+    masked = partial + delta
+    if transcript is not None:
+        transcript.append(masked)
+    if schedule_faithful:
+        t1, t2 = trees_lib.default_tree_pair(q)
+        xi1 = tree_psum_collective_permute(masked, t1)[0]
+        xi2 = tree_psum_collective_permute(delta, t2)[0]
+    else:
+        xi1 = masked.sum(0)
+        xi2 = delta.sum(0)
+    return (xi1 - xi2).to(out_dtype)

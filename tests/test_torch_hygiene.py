@@ -1,0 +1,96 @@
+"""The port's boundaries: what it imports and where it runs.
+
+* no module under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
+  ``jax`` or anything of the JAX package ``repro`` (AST scan);
+* without a card every entry point called without ``device=`` raises
+  instead of running on the CPU (``torch.cuda.is_available`` is patched
+  to False, so the test means the same on a machine with a card);
+* ``chip_smoke.py`` exits non-zero and prints no result without a card,
+  and in a directory that holds nothing else of the repository.
+"""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert, resolve_device
+from repro_torch.core import algorithms, engine, losses
+from repro_torch.serve import ServeEngine
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
+    + [REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_reference(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _cpu_engine():
+    x = np.ones((6, 4), np.float32)
+    return engine.FusedEngine(losses.ridge(), x, np.ones(6, np.float32),
+                              algorithms.PartyLayout.even(4, 2, 1),
+                              device="cpu")
+
+
+@pytest.mark.parametrize("entry", [
+    "resolve_device", "FusedEngine", "ServeEngine", "linear_iterate",
+    "deep_params"])
+def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
+                                                               entry):
+    x = np.ones((6, 4), np.float32)
+    calls = {
+        "resolve_device": lambda: resolve_device(),
+        "FusedEngine": lambda: engine.FusedEngine(
+            losses.ridge(), x, np.ones(6, np.float32),
+            algorithms.PartyLayout.even(4, 2, 1)),
+        "ServeEngine": lambda: ServeEngine(_cpu_engine()),
+        "linear_iterate": lambda: convert.linear_iterate(np.ones(4)),
+        "deep_params": lambda: convert.deep_params((x, x, x, x)),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+
+
+def _run_smoke(cwd, script):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""           # no card, even where one is
+    return subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = _run_smoke(REPO, REPO / "chip_smoke.py")
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    script = shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run_smoke(tmp_path, script)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
