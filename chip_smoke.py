@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's secure serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's secure serving and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -10,10 +11,11 @@ JAX or of the JAX package.
 1. Set-up: the card's name and power limit, torch and CUDA versions; the
    hand-written CUDA kernel is built from ``src/repro_torch/kernels/csrc``
    into ``build/kernels/`` (git-ignored) and the build time printed.
-2. Kernel phase: ``vfl_grad`` forward against its plain PyTorch version on
-   the card at the serving shapes, a ragged shape and bf16 (atol = rtol =
-   1e-4); kernel, plain and ``torch.matmul`` times from CUDA events over
-   CUDA-graph replays, beside the byte/FLOP bound.
+2. Kernel phase: ``vfl_grad`` forward and backward against their plain
+   PyTorch versions on the card at the serving and training shapes (the
+   minibatch steps and the full-dataset passes), a ragged shape and bf16
+   (atol = rtol = 1e-4); kernel, plain and ``torch.matmul`` times from
+   CUDA events over CUDA-graph replays, beside the byte/FLOP bound.
 3. Linear serving at q=8 parties, m=2, d=4096 (dp=512 per party),
    n=350,000 samples (webspam's sample count at the repo's widest split),
    ``secure="two_tree"``, ``max_batch=64``: a cold pass over the whole
@@ -26,21 +28,43 @@ JAX or of the JAX package.
    against a float64 plain encoder.
 6. A torch.profiler window: the device busy share of cold and hit
    dispatches.
+7. Training on the same universe, relabelled by the repo's D4 recipe
+   (columns standardised, labels from a planted w*):
+   ``logistic_l2(1e-4)``, batch 32, lr = 1e-3 (the per-sample smoothness
+   of the logistic loss at ‖x‖² ≈ d is about d/4 ≈ 1,024, so a step
+   must stay below 2/L ≈ 2e-3; the quickstart's lr = 0.5 diverges here).
+   Under ``two_tree``, 2 epochs each of SGD, SVRG and SAGA through the
+   engine's epochs, each under ``torch.cuda.set_sync_debug_mode("error")``
+   and each held against the port's float64 oracle run on the card from
+   the same input with the same schedule (‖w − w₆₄‖/‖w₆₄‖ ≤ 1e-4, the
+   objective within a relative 1e-5); then the same 2 epochs through
+   ``algorithms.train(engine="fused")``, which must give the same
+   iterate; then one SGD epoch under ``off`` and ``ring`` on the first
+   schedule, which must agree with ``two_tree`` (the masks are
+   lossless).  Samples/s per algorithm and epoch, the full-gradient pass
+   time beside its bound, and the device busy share of one SGD epoch from
+   a profiler window.
 
-The source holds two kernel programs: ``vfl_forward_narrow`` (M <= 4, the
-linear path) and ``vfl_forward_wide`` (the deep encoder layers).  Their
-launch counters are reset just before phase 3 and read after phase 5;
-each must be non-zero and equal the count the dispatch structure implies
-(narrow: linear full and delta 2, linear hit 1; wide: deep full 4, deep
-hit 2).  The ``kernels`` line has one entry per program, timed at its
-main-path shape (linear full and deep layer 1).  Any failed check exits
-non-zero.  The last three lines are the card's name and power limit, the
-``kernels`` JSON line and ``{"ok": true, "device": {...}}``.  Details go
-to ``results/chip_smoke.json`` (git-ignored).
+The source holds four kernel programs: ``vfl_forward_narrow`` (M <= 4,
+the linear path), ``vfl_forward_wide`` (the deep encoder layers),
+``vfl_backward_rows`` and ``vfl_backward_reduce`` (the reduce pass runs
+only when a backward spans more than one chunk of rows: the full-dataset
+passes).  The launch counters are reset just before phase 3 and read
+after phase 5, and reset again just before phase 7's runs and read after
+them; each count must equal what the dispatch or step structure implies,
+and every program of each path must have run.  The ``kernels`` line has
+one entry per program, timed at its main-path shape (serving: the linear
+full dispatch and deep layer 1; training: the SGD step and the
+full-dataset reduce), with its launches summed over both paths.  Any
+failed check exits non-zero.  The last three lines are the card's name
+and power limit, the ``kernels`` JSON line and ``{"ok": true, "device":
+{...}}``.  Details go to ``results/chip_smoke.json`` (git-ignored).
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -55,6 +79,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 SEED = 0
 BATCH = 64                       # max_batch: requests per dispatch
+Q, M_ACT, D, N = 8, 2, 4096, 350_000
+TRAIN_BATCH, TRAIN_LR, TRAIN_EPOCHS = 32, 1e-3, 2
 
 
 class SmokeFailure(RuntimeError):
@@ -103,21 +129,64 @@ def _graph_ms(torch, fn, reps=50, replays=20):
     return start.elapsed_time(end) / (reps * replays)
 
 
-def _bound(x, w, z, m):
-    nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
-              + z.numel() * z.element_size())
-    flops = 2.0 * x.numel() * m
+def _nbytes(*tensors):
+    """Bytes of the distinct storage the tensors cover: an ``expand``
+    view (a shared ϑ) counts once."""
+    return sum(t.untyped_storage().nbytes() if t.stride(0) == 0
+               else t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes, flops):
+    """The least time for the work: bytes over HBM rate vs f32 FLOPs over
+    the f32 (non-tensor-core) peak, whichever is larger."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / F32_FLOP_PER_S * 1e3
-    return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops
-            else "operations", nbytes)
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def _kernel_row(torch, name, programs, x, kernel, plain, library, nbytes,
+                flops, big=False):
+    """Check ``kernel()`` against ``plain()`` at 1e-4 and time kernel,
+    plain and (where there is one) the library call."""
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((out - want).abs().max())
+    check(tuple(out.shape) == tuple(want.shape)
+          and out.dtype == torch.float32,
+          f"kernel {name}: shape/dtype {tuple(out.shape)} {out.dtype}")
+    check(torch.allclose(out, want, atol=1e-4, rtol=1e-4),
+          f"kernel {name}: max abs err {err} beyond 1e-4")
+    reps = dict(reps=10, replays=5) if big else {}
+    kernel_ms = _graph_ms(torch, kernel, **reps)
+    plain_ms = _graph_ms(torch, plain, **reps)
+    library_ms = None if library is None \
+        else _graph_ms(torch, library, **reps)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    row = dict(name=name, programs=programs, x=list(x.shape),
+               dtype=str(x.dtype).replace("torch.", ""), max_abs_err=err,
+               ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+    lib = "-" if library_ms is None else f"{library_ms*1e3:.2f} us"
+    log(f"{'+'.join(programs)} {name:20s} x{list(x.shape)} {row['dtype']}: "
+        f"err {err:.3e}  kernel {kernel_ms*1e3:.2f} us  plain "
+        f"{plain_ms*1e3:.2f} us  library {lib}  bound "
+        f"{bound_ms*1e3:.3f} us ({bound_by})")
+    return row
 
 
 def kernel_phase(torch, dev):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import vfl_grad as vg
-    # (name, party axis P or None, rows B, width D, columns M or None, dtype)
-    shapes = [
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    rows = []
+    # forward: (name, party axis P or None, rows B, width D, columns M or
+    # None, dtype); serving's shapes, then training's minibatch steps
+    fwd = [
         ("linear_full", 8, 64, 512, None, torch.float32),
         ("linear_hit", None, 64, 512, None, torch.float32),
         ("deep_layer1", 8, 64, 512, 32, torch.float32),
@@ -126,40 +195,90 @@ def kernel_phase(torch, dev):
         ("ragged_wide", 3, 37, 333, 21, torch.float32),
         ("linear_full_bf16", 8, 64, 512, None, torch.bfloat16),
         ("deep_layer1_bf16", 8, 64, 512, 32, torch.bfloat16),
+        ("train_step", 8, 32, 512, None, torch.float32),
+        ("train_svrg_step", 8, 32, 512, 2, torch.float32),
     ]
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    rows = []
-    for name, p, b, d, m, dtype in shapes:
-        xshape = (b, d) if p is None else (p, b, d)
-        wshape = (d,) if m is None else (d, m)
-        wshape = wshape if p is None else (p,) + wshape
-        x = torch.randn(xshape, generator=gen, device=dev).to(dtype)
-        w = torch.randn(wshape, generator=gen, device=dev).to(dtype)
-        z = ops.vfl_grad(x, w, mode="forward")[0]
-        zr = ref.vfl_forward_ref(x, w)
-        torch.cuda.synchronize()
-        err = float((z - zr).abs().max())
-        check(tuple(z.shape) == tuple(zr.shape) and z.dtype == torch.float32,
-              f"kernel {name}: shape/dtype {tuple(z.shape)} {z.dtype}")
-        check(torch.allclose(z, zr, atol=1e-4, rtol=1e-4),
-              f"kernel {name}: max abs err {err} beyond 1e-4")
+    for name, p, b, d, m, dtype in fwd:
+        x = randn(*((b, d) if p is None else (p, b, d)), dtype=dtype)
+        wshape = ((d,) if m is None else (d, m))
+        w = randn(*(wshape if p is None else (p,) + wshape), dtype=dtype)
         wcol = w if m is not None else w.unsqueeze(-1)
-        kernel_ms = _graph_ms(torch, lambda: ops.vfl_grad(x, w)[0])
-        plain_ms = _graph_ms(torch, lambda: ref.vfl_forward_ref(x, w))
-        library_ms = _graph_ms(torch, lambda: torch.matmul(x, wcol))
-        bound_ms, bound_by, nbytes = _bound(x, w, z, 1 if m is None else m)
+        zbytes = math.prod(x.shape[:-1]) * (m or 1) * 4
         program = vg.PROGRAMS[0] if (m or 1) <= vg.NARROW_MAX_M \
             else vg.PROGRAMS[1]
-        rows.append(dict(name=name, program=program, x=list(xshape),
-                         w=list(wshape),
-                         dtype=str(dtype).replace("torch.", ""),
-                         max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, bytes=nbytes))
-        log(f"{program} {name:18s} x{list(xshape)} w{list(wshape)} "
-            f"{rows[-1]['dtype']}: err {err:.3e}  kernel {kernel_ms*1e3:.2f} "
-            f"us  plain {plain_ms*1e3:.2f} us  matmul {library_ms*1e3:.2f} "
-            f"us  bound {bound_ms*1e3:.3f} us ({bound_by})")
+        rows.append(_kernel_row(
+            torch, name, [program], x,
+            lambda: ops.vfl_grad(x, w)[0], lambda: ref.vfl_forward_ref(x, w),
+            lambda: torch.matmul(x, wcol), _nbytes(x, w) + zbytes,
+            2.0 * x.numel() * (m or 1)))
+
+    # backward: (name, P, B, D, M or None, ϑ shared by the parties, with
+    # the λW epilogue, denom or None, dtype)
+    bwd = [
+        ("train_sgd_step", 8, 32, 512, None, True, False, None,
+         torch.float32),
+        ("train_svrg_step", 8, 32, 512, 2, True, False, None,
+         torch.float32),
+        ("train_saga_step", 8, 32, 512, None, False, False, 1,
+         torch.float32),
+        ("ragged", 5, 37, 333, 3, False, True, None, torch.float32),
+        ("ragged_chunks", 3, 2500, 130, 5, True, True, None, torch.float32),
+        ("train_sgd_step_bf16", 8, 32, 512, None, True, False, None,
+         torch.bfloat16),
+    ]
+    for name, p, b, d, m, shared, with_w, denom, dtype in bwd:
+        x = randn(p, b, d, dtype=dtype)
+        tail = () if m is None else (m,)
+        th = randn(*((b,) + tail if shared else (p, b) + tail))
+        thq = th.expand(p, *th.shape) if shared else th
+        w = randn(p, d, *tail, dtype=dtype) if with_w else None
+        lam = 0.03 if with_w else 0.0
+        progs = ["vfl_backward_rows"] + (["vfl_backward_reduce"]
+                                         if b > vg.BWD_CHUNK_ROWS else [])
+        thcol = thq if m is not None else thq.unsqueeze(-1)
+        # one PyTorch call computing x^T θ / denom + λW into f32; none
+        # takes bf16 x with f32 θ
+        base = torch.zeros((p, d, m or 1), device=dev) if w is None \
+            else w.reshape(p, d, m or 1)
+        library = None if dtype == torch.bfloat16 else (
+            lambda: torch.baddbmm(base, x.transpose(1, 2), thcol, beta=lam,
+                                  alpha=1.0 / (denom or b)))
+        rows.append(_kernel_row(
+            torch, name, progs, x,
+            lambda: ops.vfl_grad(x, w, thq, lam, mode="backward",
+                                 denom=denom)[1],
+            lambda: ref.vfl_backward_ref(x, thq, w, lam, denom), library,
+            _nbytes(x, thq) + (0 if w is None else _nbytes(w))
+            + p * d * (m or 1) * 4, 2.0 * x.numel() * (m or 1)))
+
+    # the full-dataset passes: (8, 350000, 512) against one column
+    x = randn(Q, N, D // Q)
+    w = randn(Q, D // Q)
+    rows.append(_kernel_row(
+        torch, "full_dataset", ["vfl_forward_narrow"], x,
+        lambda: ops.vfl_grad(x, w)[0], lambda: ref.vfl_forward_ref(x, w),
+        lambda: torch.matmul(x, w.unsqueeze(-1)),
+        _nbytes(x, w) + Q * N * 4, 2.0 * x.numel(), big=True))
+    thq = randn(N).expand(Q, N)
+    zeros = torch.zeros((Q, D // Q, 1), device=dev)
+    rows.append(_kernel_row(
+        torch, "full_dataset", ["vfl_backward_rows", "vfl_backward_reduce"],
+        x, lambda: ops.vfl_grad(x, None, thq, mode="backward", denom=N)[1],
+        lambda: ref.vfl_backward_ref(x, thq, None, 0.0, N),
+        lambda: torch.baddbmm(zeros, x.transpose(1, 2), thq.unsqueeze(-1),
+                              beta=0.0, alpha=1.0 / N),
+        _nbytes(x, thq) + Q * (D // Q) * 4, 2.0 * x.numel(), big=True))
+    # the reduce program alone, over the workspace of that pass
+    chunks = -(-N // vg.BWD_CHUNK_ROWS)
+    ws = randn(chunks, Q, D // Q, 1)
+    g = torch.empty((Q, D // Q, 1), device=dev)
+    rows.append(_kernel_row(
+        torch, "full_dataset_reduce", ["vfl_backward_reduce"], ws,
+        lambda: vg.KERNEL.reduce(ws, None, g, float(N), 0.0),
+        lambda: ws.sum(0) / N, None, _nbytes(ws) + g.numel() * 4,
+        float(ws.numel())))
+    del x, ws
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -419,6 +538,239 @@ def profile_window(torch, dev, x, layout, chunks=200):
 
 
 # ---------------------------------------------------------------------------
+# training phase
+# ---------------------------------------------------------------------------
+
+def implied(steps=0, full=0, objective=0):
+    """Launches per kernel program implied by ``steps`` minibatch steps
+    (one forward, one single-chunk backward each), ``full`` full-dataset
+    passes (``full_gradient``/``saga_init``: one forward, one backward
+    over 342 chunks and its reduce) and ``objective`` evaluations (one
+    forward)."""
+    return Counter(vfl_forward_narrow=steps + full + objective,
+                   vfl_backward_rows=steps + full, vfl_backward_reduce=full)
+
+
+@contextlib.contextmanager
+def no_host_sync(torch):
+    """Any synchronising CUDA call inside raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def d4_labels(torch, dev, x):
+    """The repo's D4 recipe (``data/synthetic.py:38-65``) on the card, in
+    place on ``x`` (n, d) of standard normals: columns standardised,
+    w* with 90% non-zeros, labels ±1 drawn from σ(x·w*/√d / 0.8)."""
+    n, d = x.shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    x.sub_(x.mean(0)).div_(x.std(0, correction=0) + 1e-6)
+    w_star = torch.randn(d, generator=gen, device=dev) \
+        * (torch.rand(d, generator=gen, device=dev) < 0.9)
+    p = torch.sigmoid(x @ w_star / math.sqrt(d) / 0.8)
+    return torch.where(torch.rand(n, generator=gen, device=dev) < p,
+                       1.0, -1.0)
+
+
+def _rel(a, b):
+    return float((a.double() - b).norm() / b.norm())
+
+
+def train_phase(torch, dev, x, y, layout, log_):
+    """The training checks of phase 7; returns (record, expected
+    launches).  ``x`` (n, d) f32 and ``y`` live on the card."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.engine import EngineConfig, FusedEngine
+    from repro_torch.core.losses import logistic_l2
+    n, d = x.shape
+    prob, lr, batch = logistic_l2(1e-4), TRAIN_LR, TRAIN_BATCH
+    steps = n // batch
+    x64, y64 = x.double(), y.double()
+    mask64 = torch.ones(d, dtype=torch.float64, device=dev)
+
+    def unpack(vq):
+        return torch.cat([vq[p, : hi - lo]
+                          for p, (lo, hi) in enumerate(layout.bounds)])
+
+    def objective64(w64):
+        return float(prob.loss(x64 @ w64, y64).mean()
+                     + prob.lam * prob.reg(w64).sum())
+
+    expected = Counter()
+    res = {"epochs": [], "train": {}, "secure_modes": {}}
+    eng = FusedEngine(prob, x, y, layout, EngineConfig(secure="two_tree"),
+                      device=dev)
+    first_sgd = None
+    for algo in ("sgd", "svrg", "saga"):
+        wq = eng.pack_w(torch.zeros(d, device=dev))
+        if algo == "saga":
+            with no_host_sync(torch):
+                tabq, avgq = eng.saga_init(wq, (SEED,))
+            expected += implied(full=1)
+            tab64, avg64 = alg.saga_init(prob, unpack(wq).double(), x64, y64)
+            check(_rel(tabq[0], tab64) <= 1e-4
+                  and _rel(unpack(avgq), avg64) <= 1e-4,
+                  "saga_init beyond 1e-4 of the float64 oracle")
+        hist = []
+        for ep in range(TRAIN_EPOCHS):
+            idx = alg.epoch_indices(SEED, ep, n, batch, steps, dev)
+            key = (SEED, ep)
+            w_in = wq
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with no_host_sync(torch):
+                if algo == "sgd":
+                    wq = eng.sgd_epoch(wq, lr, idx, key)
+                elif algo == "svrg":
+                    muq = eng.full_gradient(wq, key)
+                    wq = eng.svrg_epoch(wq, wq, muq, lr, idx, key)
+                else:
+                    tab_in, avg_in = tabq, avgq
+                    wq, tabq, avgq = eng.saga_epoch(wq, tabq, avgq, lr, idx,
+                                                    key)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            expected += implied(steps=steps, full=algo == "svrg",
+                                objective=1)
+            obj = eng.objective(wq)
+            w64 = unpack(w_in).double()
+            if algo == "sgd":
+                out64 = alg.sgd_epoch(prob, w64, x64, y64, lr, mask64, idx)
+            elif algo == "svrg":
+                mu64 = alg.full_gradient(prob, w64, x64, y64)
+                check(_rel(unpack(muq), mu64) <= 1e-4,
+                      f"svrg epoch {ep}: full gradient beyond 1e-4")
+                out64 = alg.svrg_epoch(prob, w64, w64, mu64, x64, y64, lr,
+                                       mask64, idx)
+            else:
+                out64, tab64, _ = alg.saga_epoch(
+                    prob, w64, tab_in[0].double(), unpack(avg_in).double(),
+                    x64, y64, lr, mask64, idx)
+                check(_rel(tabq[0], tab64) <= 1e-4,
+                      f"saga epoch {ep}: table beyond 1e-4")
+            rel = _rel(unpack(wq), out64)
+            obj64 = objective64(out64)
+            ep_rec = dict(algo=algo, epoch=ep + 1, seconds=seconds,
+                          samples_per_s=steps * batch / seconds,
+                          rel_err_vs_f64=rel, objective=obj,
+                          objective_f64=obj64,
+                          objective_rel_err=abs(obj - obj64) / abs(obj64))
+            res["epochs"].append(ep_rec)
+            log_(f"train {algo} epoch {ep + 1}: {ep_rec}")
+            check(rel <= 1e-4, f"{algo} epoch {ep + 1}: iterate {rel:.3e} "
+                  "beyond 1e-4 of the float64 oracle")
+            check(ep_rec["objective_rel_err"] <= 1e-5,
+                  f"{algo} epoch {ep + 1}: objective {obj} vs float64 "
+                  f"{obj64}")
+            hist.append(obj)
+            if first_sgd is None:
+                first_sgd = (idx, wq)
+        check(hist[-1] < math.log(2.0),
+              f"{algo}: objective {hist[-1]} not below ln 2 (w = 0)")
+
+        # the same epochs through the user's entry point
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = alg.train(prob, x, y, layout, algo=algo, epochs=TRAIN_EPOCHS,
+                        lr=lr, batch=batch, seed=SEED, engine="fused",
+                        engine_config=EngineConfig(secure="two_tree"),
+                        device=dev)
+        wall = time.perf_counter() - t0
+        expected += implied(steps=TRAIN_EPOCHS * steps,
+                            full=TRAIN_EPOCHS if algo == "svrg"
+                            else int(algo == "saga"),
+                            objective=TRAIN_EPOCHS)
+        same = np.array_equal(out.w, unpack(wq).cpu().numpy())
+        check(_rel(torch.as_tensor(out.w, device=dev), unpack(wq).double())
+              <= 1e-6, f"train({algo}) differs from its epochs")
+        check(all(abs(h["objective"] - o) <= 1e-6 * abs(o)
+                  for h, o in zip(out.history, hist)),
+              f"train({algo}) objectives {out.history} vs {hist}")
+        res["train"][algo] = dict(
+            seconds=wall, samples_per_s=TRAIN_EPOCHS * steps * batch / wall,
+            objectives=[h["objective"] for h in out.history],
+            bit_equal_to_epochs=same)
+        log_(f"train({algo}, engine='fused', 2 epochs): {res['train'][algo]}")
+    del eng
+
+    # off and ring: one SGD epoch on the first schedule, from w = 0
+    idx0, w_tt = first_sgd
+    for secure in ("off", "ring"):
+        e2 = FusedEngine(prob, x, y, layout, EngineConfig(secure=secure),
+                         device=dev)
+        with no_host_sync(torch):
+            w2 = e2.sgd_epoch(e2.pack_w(torch.zeros(d, device=dev)), lr,
+                              idx0, (SEED, 0))
+        expected += implied(steps=steps)
+        rel = _rel(unpack(w2), unpack(w_tt).double())
+        res["secure_modes"][secure] = dict(rel_vs_two_tree=rel)
+        check(rel <= 1e-4, f"sgd {secure} vs two_tree: {rel:.3e}")
+        del e2
+    log_(f"secure modes agree: {res['secure_modes']}")
+    return res, expected
+
+
+def train_measure(torch, dev, x, y, layout):
+    """After the counted run: the full-gradient pass time beside its bound
+    and a profiler window over one SGD epoch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.engine import EngineConfig, FusedEngine
+    from repro_torch.core.losses import logistic_l2
+    n, d = x.shape
+    eng = FusedEngine(logistic_l2(1e-4), x, y, layout,
+                      EngineConfig(secure="two_tree"), device=dev)
+    wq = eng.pack_w(torch.full((d,), 1e-3, device=dev))
+    eng.full_gradient(wq)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        eng.full_gradient(wq)
+    end.record()
+    end.synchronize()
+    full_ms = start.elapsed_time(end) / 20
+    xbytes = eng.xs.numel() * eng.xs.element_size()
+    out = dict(full_gradient_ms=full_ms,
+               full_gradient_bound_ms=2 * xbytes / HBM_BYTES_PER_S * 1e3)
+    log(f"full gradient pass: {out}")
+
+    steps = n // TRAIN_BATCH
+    idx = alg.epoch_indices(SEED, 99, n, TRAIN_BATCH, steps, dev)
+    eng.sgd_epoch(wq, TRAIN_LR, idx)                 # capture its graph
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.sgd_epoch(wq, TRAIN_LR, idx)
+    torch.cuda.synchronize()
+    plain_wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.sgd_epoch(wq, TRAIN_LR, idx)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) \
+                + ev.self_device_time_total
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    out["profile_sgd"] = dict(
+        steps=steps, wall_us=wall_us, unprofiled_wall_us=plain_wall_us,
+        device_busy_us=busy,
+        device_busy_share=(busy / wall_us) if busy > 0 else None,
+        top_device_us=[[k[:80], v] for k, v in top])
+    log(f"profile of one sgd epoch: {out['profile_sgd']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -450,13 +802,12 @@ def main() -> int:
               "cuda": torch.version.cuda}
     record["kernel_shapes"] = kernel_phase(torch, dev)
 
-    q, m_act, d, n = 8, 2, 4096, 350_000
-    layout = PartyLayout.even(d, q, m_act)
+    layout = PartyLayout.even(D, Q, M_ACT)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    x = torch.randn((n, d), generator=gen, device=dev)      # ~5.7 GB
+    x = torch.randn((N, D), generator=gen, device=dev)      # ~5.7 GB
     torch.cuda.reset_peak_memory_stats()
 
-    vg.KERNEL.reset_launches()                      # the main path starts
+    vg.KERNEL.reset_launches()                      # serving path starts
     expected = Counter()
     record["linear_two_tree"], e = linear_phase(
         torch, dev, x, layout, trace_len=100_000, hot_len=8192, log_=log)
@@ -470,35 +821,60 @@ def main() -> int:
                                             count=BATCH * 300)
     expected += e
     log(f"deep: {record['deep_two_tree']}")
-    launches = dict(vg.KERNEL.launches)             # the main path ends
-    check(launches == {p: expected[p] for p in vg.PROGRAMS},
-          f"kernel launches {launches} != {dict(expected)} implied by "
-          "dispatches")
-    check(all(launches.values()),
-          f"a kernel of the path was never launched: {launches}")
-    log(f"main path: kernel launches {launches}, as the dispatches imply")
-    record["main_path_launches"] = launches
-    record["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    serve_launches = dict(vg.KERNEL.launches)       # serving path ends
+    check(serve_launches == {p: expected[p] for p in vg.PROGRAMS},
+          f"serving launches {serve_launches} != {dict(expected)} implied "
+          "by dispatches")
+    serve_programs = ("vfl_forward_narrow", "vfl_forward_wide")
+    check(all(serve_launches[p] for p in serve_programs),
+          f"a kernel of the serving path was never launched: "
+          f"{serve_launches}")
+    log(f"serving path: kernel launches {serve_launches}, as the "
+        "dispatches imply")
+    record["serve_launches"] = serve_launches
+    record["serve_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
     record["profile"], _ = profile_window(torch, dev, x, layout)
+
+    y = d4_labels(torch, dev, x)
+    torch.cuda.reset_peak_memory_stats()
+    vg.KERNEL.reset_launches()                      # training path starts
+    record["train"], expected = train_phase(torch, dev, x, y, layout, log)
+    train_launches = dict(vg.KERNEL.launches)       # training path ends
+    check(train_launches == {p: expected[p] for p in vg.PROGRAMS},
+          f"training launches {train_launches} != {dict(expected)} implied "
+          "by the steps")
+    train_programs = ("vfl_forward_narrow", "vfl_backward_rows",
+                      "vfl_backward_reduce")
+    check(all(train_launches[p] for p in train_programs),
+          f"a kernel of the training path was never launched: "
+          f"{train_launches}")
+    log(f"training path: kernel launches {train_launches}, as the steps "
+        "imply")
+    record["train_launches"] = train_launches
+    record["train_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    record["train_measure"] = train_measure(torch, dev, x, y, layout)
     record["seconds"] = time.perf_counter() - t_start
 
-    # each program's line reports its own main-path shape: the linear full
-    # dispatch for the narrow program, deep layer 1 for the wide one
+    # each program's line reports its own main-path shape: serving's linear
+    # full dispatch and deep layer 1, training's SGD step and the
+    # full-dataset pass's reduce; launches are summed over both paths
     main_shape = {"vfl_forward_narrow": "linear_full",
-                  "vfl_forward_wide": "deep_layer1"}
+                  "vfl_forward_wide": "deep_layer1",
+                  "vfl_backward_rows": "train_sgd_step",
+                  "vfl_backward_reduce": "full_dataset_reduce"}
+    shapes = record["kernel_shapes"]
     entries = []
     for prog in vg.PROGRAMS:
-        row = next(r for r in record["kernel_shapes"]
-                   if r["name"] == main_shape[prog])
+        row = next(r for r in shapes if r["name"] == main_shape[prog]
+                   and prog in r["programs"])
         entries.append({
             "name": prog, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/vfl_grad.cu",
             "replaces": "src/repro/kernels/vfl_grad.py:343",
-            "launches": launches[prog],
-            "max_abs_err": max(r["max_abs_err"] for r in
-                               record["kernel_shapes"]
-                               if r["program"] == prog),
+            "launches": serve_launches[prog] + train_launches[prog],
+            "max_abs_err": max(r["max_abs_err"] for r in shapes
+                               if prog in r["programs"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
@@ -510,9 +886,10 @@ def main() -> int:
         "results/chip_smoke.json")
     print(smi)
     print(json.dumps(kernels))
+    # the run used one card, whatever else the host exposes
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -4,6 +4,10 @@ The JAX package's parameters arrive as numpy arrays (``np.asarray`` of its
 arrays, done by the caller, so this module never imports JAX):
 
 * a linear iterate, ``(d,)`` or party-stacked ``(q, dp)``;
+* SVRG's state beside the iterate: the snapshot and its full gradient;
+* SAGA's state beside the iterate: the ϑ̃ table, ``(n,)`` or every
+  party's copy ``(q, n)``, and its running average ``(d,)`` or
+  ``(q, dp)``;
 * deep parameters, as an object with the ``DeepVFLParams`` fields
   (``enc_w1``, ``enc_b1``, ``enc_w2``, ``head``) holding arrays, or the
   packed 4-tuple ``(w1q, b1q, w2q, headq)``.
@@ -31,6 +35,24 @@ def linear_iterate(w, *, device="cuda") -> torch.Tensor:
         raise ValueError(f"linear iterate must be (d,) or (q, dp), got "
                          f"{w.shape}")
     return _tensor(w, resolve_device(device))
+
+
+def svrg_state(w_snap, mu, *, device="cuda"):
+    """SVRG's snapshot and its full gradient, each ``(d,)`` or
+    ``(q, dp)``, as f32 tensors on ``device``."""
+    return (linear_iterate(w_snap, device=device),
+            linear_iterate(mu, device=device))
+
+
+def saga_state(tab, avg, *, device="cuda"):
+    """SAGA's ϑ̃ table, ``(n,)`` or ``(q, n)``, and its running average,
+    ``(d,)`` or ``(q, dp)``, as f32 tensors on ``device``."""
+    tab = np.asarray(tab, np.float32)
+    if tab.ndim not in (1, 2):
+        raise ValueError(f"SAGA table must be (n,) or (q, n), got "
+                         f"{tab.shape}")
+    dev = resolve_device(device)
+    return _tensor(tab, dev), linear_iterate(avg, device=dev)
 
 
 def deep_params(params, *, device="cuda"):

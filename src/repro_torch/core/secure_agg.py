@@ -26,7 +26,8 @@ tests: every transmitted value is mask-offset).
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import functools
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,15 +35,21 @@ import torch
 from repro_torch.core import trees as trees_lib
 
 
-def mask_generator(seed: int, *key, device) -> torch.Generator:
-    """A generator seeded from ``(seed, *key)`` — the counterpart of
+def seed_generator(gen: torch.Generator, seed: int, *key) -> torch.Generator:
+    """Seed ``gen`` from ``(seed, *key)`` — the counterpart of
     ``jax.random.fold_in``: distinct keys give unrelated streams, and the
-    same key gives the same stream on every run."""
+    same key gives the same stream on every run.  Returns ``gen``."""
     words = np.random.SeedSequence([int(seed), *map(int, key)]) \
         .generate_state(2, np.uint64)
-    gen = torch.Generator(device=torch.device(device))
     gen.manual_seed(int(words[0] >> np.uint64(1)))
     return gen
+
+
+def mask_generator(seed: int, *key, device) -> torch.Generator:
+    """A new generator on ``device`` seeded from ``(seed, *key)`` (see
+    :func:`seed_generator`)."""
+    return seed_generator(torch.Generator(device=torch.device(device)),
+                          seed, *key)
 
 
 def _party_normal(shape, gen: torch.Generator, device) -> torch.Tensor:
@@ -63,14 +70,30 @@ def tree_psum_collective_permute(x: torch.Tensor,
     if x.shape[0] != tree.q:
         raise ValueError(f"party dimension {x.shape[0]} != tree.q {tree.q}")
     acc = x.clone()
-    rounds = [(torch.tensor([d for d, _ in rnd], device=x.device),
-               torch.tensor([s for _, s in rnd], device=x.device))
-              for rnd in tree.rounds]
+    rounds = _round_index(tree, x.device)
     for dst, src in rounds:
         acc[dst] = acc[dst] + acc[src]
     for dst, src in reversed(rounds):
         acc[src] = acc[dst]
     return acc
+
+
+@functools.lru_cache(maxsize=None)
+def _round_index(tree: trees_lib.ReductionTree, device: torch.device
+                 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
+    """``tree``'s rounds as (dst, src) index tensors on ``device``, built
+    once per (tree, device): a per-call host-to-device copy could not be
+    captured in a CUDA graph and would stall the stream on every
+    aggregation.  The one copy goes from pinned memory without blocking,
+    so even the first call does not synchronise with the device."""
+    def index(vals):
+        t = torch.tensor(vals, dtype=torch.int64)
+        if device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
+
+    return tuple((index([d for d, _ in rnd]), index([s for _, s in rnd]))
+                 for rnd in tree.rounds)
 
 
 def secure_psum_ring(partial: torch.Tensor, gen: torch.Generator,

@@ -18,29 +18,49 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 def vfl_grad(xb, w, theta=None, lam=0.0, *, mode="forward", denom=None,
              split=None):
-    """Batched rank-k VFL kernel, forward mode: ``(z, None)`` with
-    z = xb @ w accumulated in f32.
+    """Batched rank-k VFL kernel, forward or backward mode.
 
-    Shapes: xb (B, D) with w (D,) or (D, M); or, with a leading party
-    axis so that one launch serves all parties, xb (P, B, D) with w
-    (P, D) or (P, D, M).  A rank-1 weight gives a rank-1 z per party, as
-    in the reference.  xb and w share a dtype, float32 or bfloat16; z is
-    float32.  ``theta``, ``lam`` and ``denom`` are accepted and unused in
-    forward mode, as in the reference.
+    ``mode="forward"``: ``(z, None)`` with z = xb @ w accumulated in f32.
+    ``theta``, ``lam`` and ``denom`` are accepted and unused, as in the
+    reference.
 
-    ``mode="backward"``, ``mode="fused"`` and ``split=`` are not ported
-    yet (ROADMAP queue B, item B1) and raise on every device.
+    ``mode="backward"``: ``(None, g)`` with g = xbᵀθ/denom + λw, the BUM
+    gradient; ``denom`` defaults to the number of rows B.  ``w=None`` is
+    allowed with ``lam=0`` (the pure XᵀΘ the engine's steps use); a
+    nonzero ``lam`` needs ``w`` with θ's column count.  θ may be bfloat16
+    or float32 and is read as float32, as the reference's kernel reads it.
+
+    Shapes: xb (B, D) with w (D,) or (D, M) and θ (B,) or (B, M); or,
+    with a leading party axis so that one launch serves all parties, xb
+    (P, B, D) with w (P, D) or (P, D, M) and θ (P, B) or (P, B, M).  A
+    θ shared by every party is passed as an ``expand`` view of one (B,)
+    or (B, M) θ: the kernel reads it with a party stride of 0, and nothing
+    is copied.  Rank-1 w or θ gives a rank-1 result per party, as in the
+    reference.  xb and w share a dtype, float32 or bfloat16; z and g are
+    float32.
+
+    ``mode="fused"`` and ``split=`` are not ported yet (ROADMAP queue B,
+    item B1 (b) and (c)) and raise on every device.
     """
     if mode not in ("forward", "backward", "fused"):
         raise ValueError(f"unknown mode {mode!r}")
-    if mode != "forward" or split is not None:
+    if mode == "fused" or split is not None:
         raise NotImplementedError(
-            "vfl_grad: only mode='forward' is ported; the backward and "
-            "fused modes and the split-batch form are ROADMAP item B1 (b)-(d)")
-    del theta, lam, denom                      # forward mode reads neither
+            "vfl_grad: the fused mode and the split-batch form are not "
+            "ported yet (ROADMAP B1 (b) and (c), with the pipelined epochs)")
+    if xb.dtype not in _DTYPES:
+        raise ValueError(f"xb must be one of {_DTYPES}; got {xb.dtype}")
+    if xb.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"vfl_grad runs on cpu or cuda, not {xb.device}")
+    if mode == "forward":
+        return _forward(xb, w), None
+    return None, _backward(xb, w, theta, lam, denom)
+
+
+def _forward(xb, w):
     if w is None:
         raise ValueError("mode='forward' needs w")
-    if xb.dtype not in _DTYPES or w.dtype != xb.dtype:
+    if w.dtype != xb.dtype:
         raise ValueError(f"xb and w must share a dtype in {_DTYPES}; got "
                          f"{xb.dtype}, {w.dtype}")
     if w.device != xb.device:
@@ -60,10 +80,55 @@ def vfl_grad(xb, w, theta=None, lam=0.0, *, mode="forward", denom=None,
         raise ValueError(f"contraction mismatch: xb {tuple(xb.shape)}, w "
                          f"{tuple(w.shape)}")
     if xb.device.type == "cpu":
-        return ref.vfl_forward_ref(xb, w), None
-    if xb.device.type != "cuda":
-        raise ValueError(f"vfl_grad runs on cpu or cuda, not {xb.device}")
+        return ref.vfl_forward_ref(xb, w)
     z = _vg.KERNEL.forward(x3, w3)
     if rank1:
         z = z.squeeze(-1)
-    return (z.squeeze(0) if xb.dim() == 2 else z), None
+    return z.squeeze(0) if xb.dim() == 2 else z
+
+
+def _backward(xb, w, theta, lam, denom):
+    if theta is None:
+        raise ValueError("mode='backward' needs theta")
+    lam = float(lam)
+    if w is None and lam != 0.0:
+        raise ValueError("the λw term needs w; pass lam=0 with w=None")
+    if not theta.is_floating_point():
+        raise ValueError(f"theta must be floating point; got {theta.dtype}")
+    for t, name in ((theta, "theta"), (w, "w")):
+        if t is not None and t.device != xb.device:
+            raise ValueError(f"xb on {xb.device}, {name} on {t.device}")
+    if w is not None and w.dtype != xb.dtype:
+        raise ValueError(f"xb and w must share a dtype in {_DTYPES}; got "
+                         f"{xb.dtype}, {w.dtype}")
+    lead = xb.dim() - 2                     # 0, or 1 with the party axis
+    rank1 = theta.dim() == xb.dim() - 1
+    if (xb.dim() not in (2, 3) or theta.dim() not in (xb.dim() - 1, xb.dim())
+            or theta.shape[:lead + 1] != xb.shape[:lead + 1]
+            or (w is not None
+                and (w.dim() != theta.dim()
+                     or w.shape[:lead] != xb.shape[:lead]
+                     or w.shape[lead] != xb.shape[-1]
+                     or w.shape[lead + 1:] != theta.shape[lead + 1:]))):
+        raise ValueError(
+            f"bad shapes xb {tuple(xb.shape)}, theta {tuple(theta.shape)}, "
+            f"w {None if w is None else tuple(w.shape)}: want (B, D) with "
+            "θ (B,)/(B, M) and w None/(D,)/(D, M), or (P, B, D) with θ "
+            "(P, B)/(P, B, M) and w None/(P, D)/(P, D, M)")
+    denom = xb.shape[-2] if denom is None else int(denom)
+    if xb.device.type == "cpu":
+        return ref.vfl_backward_ref(xb, theta, w, lam, denom)
+    th3 = theta.unsqueeze(-1) if rank1 else theta
+    th3 = th3.unsqueeze(0) if lead == 0 else th3
+    x3 = xb.unsqueeze(0) if lead == 0 else xb
+    w3 = None
+    if w is not None:
+        w3 = w.unsqueeze(-1) if rank1 else w
+        w3 = (w3.unsqueeze(0) if lead == 0 else w3).contiguous()
+    th3 = th3.float()
+    if not (th3.stride(0) == 0 and th3[0].is_contiguous()):
+        th3 = th3.contiguous()              # not a shared (expanded) θ
+    g = _vg.KERNEL.backward(x3.contiguous(), th3, w3, lam, float(denom))
+    if rank1:
+        g = g.squeeze(-1)
+    return g.squeeze(0) if lead == 0 else g

@@ -19,6 +19,21 @@ def vfl_forward_ref(xb: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, wf)
 
 
+def vfl_backward_ref(xb: torch.Tensor, theta: torch.Tensor, w=None,
+                     lam: float = 0.0, denom=None) -> torch.Tensor:
+    """g = xbᵀθ/denom (+ λw) in f32, with the shapes ``ops.vfl_grad``
+    takes in backward mode: xb (B, D) with θ (B,) or (B, M), or xb
+    (P, B, D) with θ (P, B) or (P, B, M) (an ``expand`` view for a shared
+    θ); w None or shaped as g.  ``denom`` defaults to B."""
+    denom = xb.shape[-2] if denom is None else denom
+    rank1 = theta.dim() == xb.dim() - 1
+    th = theta.float().unsqueeze(-1) if rank1 else theta.float()
+    g = torch.matmul(xb.float().transpose(-1, -2), th) / denom
+    if w is not None:
+        g = g + lam * (w.float().unsqueeze(-1) if rank1 else w.float())
+    return g.squeeze(-1) if rank1 else g
+
+
 def vfl_grad_ref(xb, w, theta, lam: float, denom=None):
     """Fused VFL forward partial + BUM backward (the paper's hot loop).
 

@@ -1,9 +1,10 @@
 """Build, binding and launch of the hand-written CUDA ``vfl_grad`` kernel.
 
-The port of the Pallas TPU kernel ``repro.kernels.vfl_grad`` (its forward
-mode; backward, fused and split-batch forms come with the training slice).
-The source is ``csrc/vfl_grad.cu``; its header note says what the kernel
-replaces, what bounds it on the H100 and how its design answers that.
+The port of the Pallas TPU kernel ``repro.kernels.vfl_grad``: its forward
+and backward modes (the fused and split-batch forms come with the
+pipelined epochs).  The source is ``csrc/vfl_grad.cu``; its header note
+says what the kernel replaces, what bounds it on the H100 and how its
+design answers that.
 
 Build: at first launch, ``nvcc -gencode arch=compute_90a,code=sm_90a``
 compiles the source into a shared library with a plain C interface under
@@ -12,13 +13,19 @@ of the source and flags, so an edited source is rebuilt and an unchanged
 one is reused.  The library is loaded with ``ctypes``.  Nothing is built or
 loaded when the module is imported.
 
-The source holds two ``__global__`` programs, each with its own entry
+The source holds four ``__global__`` programs, each with its own entry
 points: ``vfl_forward_narrow`` (M <= ``NARROW_MAX_M``, the linear path) and
-``vfl_forward_wide`` (wider M, the deep encoder layers).  ``forward`` picks
-one by M.  ``KERNEL.launches`` maps each program's name to its launch
-count: a count goes up by one exactly where that program is launched, so a
-run can show that its path went through it.  ``reset_launches`` zeroes
-them.
+``vfl_forward_wide`` (wider M, the deep encoder layers), which ``forward``
+picks by M; ``vfl_backward_rows`` and ``vfl_backward_reduce``, which
+``backward`` launches: the rows program alone when B fits one chunk of
+``BWD_CHUNK_ROWS`` rows (every minibatch step), else the rows program into
+a workspace of per-chunk partials and the reduce program over it (the
+full-dataset passes).  ``KERNEL.launches`` maps each program's name to its
+launch count: a count goes up by one exactly where that program is
+launched, so a run can show that its path went through it.
+``reset_launches`` zeroes them; ``add_launches`` records launches that a
+CUDA graph replays (a graph launches its kernels without calling back
+into Python).
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -40,7 +48,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 NARROW_MAX_M = 4                 # kNarrow in csrc/vfl_grad.cu
-PROGRAMS = ("vfl_forward_narrow", "vfl_forward_wide")
+BWD_CHUNK_ROWS = 1024            # kChunkRows in csrc/vfl_grad.cu
+PROGRAMS = ("vfl_forward_narrow", "vfl_forward_wide", "vfl_backward_rows",
+            "vfl_backward_reduce")
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -67,6 +77,13 @@ class CudaKernel:
     def reset_launches(self) -> None:
         with self._lock:
             self.launches = dict.fromkeys(PROGRAMS, 0)
+
+    def add_launches(self, per_call: dict, calls: int) -> None:
+        """Count ``calls`` replays of a captured sequence that launches
+        ``per_call[program]`` times each program."""
+        with self._lock:
+            for prog, k in per_call.items():
+                self.launches[prog] += k * calls
 
     def library(self):
         """Build (or reuse) and load the shared library; thread-safe."""
@@ -102,14 +119,36 @@ class CudaKernel:
 
     @staticmethod
     def _load(path: Path):
+        ptr, i64, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+        argtypes = {
+            "vfl_forward_narrow": [ptr] * 3 + [i64] * 4 + [ptr],
+            "vfl_forward_wide": [ptr] * 3 + [i64] * 4 + [ptr],
+            # x, theta, w, out; parties, rows, d, m, theta party stride;
+            # denom, lam; stream
+            "vfl_backward_rows": [ptr] * 4 + [i64] * 5 + [f32] * 2 + [ptr],
+            # workspace, w, g; parties, d, m, chunks; denom, lam; stream
+            "vfl_backward_reduce": [ptr] * 3 + [i64] * 4 + [f32] * 2 + [ptr],
+        }
         lib = ctypes.CDLL(str(path))
         for prog in PROGRAMS:
             for suffix in _SUFFIX.values():
                 fn = getattr(lib, f"{prog}_{suffix}")
-                fn.argtypes = [ctypes.c_void_p] * 3 \
-                    + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+                fn.argtypes = argtypes[prog]
                 fn.restype = ctypes.c_int
         return lib
+
+    def _launch(self, prog: str, dtype, *args, what: str) -> None:
+        """Call ``prog``'s entry point for ``dtype`` on the current stream
+        of the current device; raise if the launch was refused, else count
+        it."""
+        fn = getattr(self.library(), f"{prog}_{_SUFFIX[dtype]}")
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{prog} launch failed: CUDA error {err} at "
+                               f"{what}")
+        with self._lock:
+            self.launches[prog] += 1
 
     def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """z = x @ w per party on the card: x (P, B, D), w (P, D, M), both
@@ -132,18 +171,76 @@ class CudaKernel:
         if z.numel() == 0:
             return z
         prog = PROGRAMS[0] if m <= NARROW_MAX_M else PROGRAMS[1]
-        fn = getattr(self.library(), f"{prog}_{_SUFFIX[x.dtype]}")
         with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = fn(x.data_ptr(), w.data_ptr(), z.data_ptr(), p, b, d, m,
-                     stream)
-        if err != 0:
-            raise RuntimeError(f"{prog} launch failed: CUDA error {err} at "
-                               f"x {tuple(x.shape)}, w {tuple(w.shape)}, "
-                               f"{x.dtype}")
-        with self._lock:
-            self.launches[prog] += 1
+            self._launch(prog, x.dtype, x.data_ptr(), w.data_ptr(),
+                         z.data_ptr(), p, b, d, m,
+                         what=f"x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                              f"{x.dtype}")
         return z
+
+    def backward(self, x: torch.Tensor, theta: torch.Tensor,
+                 w: Optional[torch.Tensor], lam: float,
+                 denom: float) -> torch.Tensor:
+        """g = x^T theta / denom (+ lam * w) per party on the card: x
+        (P, B, D) contiguous f32 or bf16; theta (P, B, M) f32 whose
+        (B, M) slices are contiguous, with a party stride that may be 0
+        (one theta shared by every party, an ``expand`` view); w None or
+        (P, D, M) contiguous of x's dtype -> g (P, D, M) f32.  Launches
+        ``vfl_backward_rows`` and, when B spans more than one chunk of
+        ``BWD_CHUNK_ROWS`` rows, ``vfl_backward_reduce`` over the per-chunk
+        partials; raises if a launch is refused."""
+        p, b, d = x.shape
+        m = theta.shape[2]
+        pstride = theta.stride(0)
+        if (x.device.type != "cuda" or x.dtype not in _SUFFIX
+                or not x.is_contiguous() or theta.device != x.device
+                or theta.dtype != torch.float32
+                or tuple(theta.shape) != (p, b, m)
+                or not theta[0].is_contiguous()
+                or (p > 1 and pstride not in (0, b * m))
+                or (w is not None and (w.device != x.device
+                                       or w.dtype != x.dtype
+                                       or tuple(w.shape) != (p, d, m)
+                                       or not w.is_contiguous()))):
+            raise ValueError(
+                "vfl_grad backward takes contiguous CUDA x (P, B, D) in "
+                "{float32, bfloat16}, f32 theta (P, B, M) with contiguous "
+                "(B, M) slices and party stride 0 or B*M, and w None or "
+                "(P, D, M) of x's dtype, on one device; got x "
+                f"{tuple(x.shape)} {x.dtype} {x.device}, theta "
+                f"{tuple(theta.shape)} {theta.dtype} stride "
+                f"{theta.stride()}, w "
+                f"{None if w is None else (tuple(w.shape), w.dtype)}")
+        g = torch.empty((p, d, m), dtype=torch.float32, device=x.device)
+        if g.numel() == 0:
+            return g
+        chunks = -(-b // BWD_CHUNK_ROWS)
+        out = g if chunks == 1 else torch.empty(
+            (chunks, p, d, m), dtype=torch.float32, device=x.device)
+        wp = 0 if w is None else w.data_ptr()
+        what = (f"x {tuple(x.shape)}, theta {tuple(theta.shape)}, "
+                f"{x.dtype}")
+        with torch.cuda.device(x.device):
+            self._launch("vfl_backward_rows", x.dtype, x.data_ptr(),
+                         theta.data_ptr(), wp, out.data_ptr(), p, b, d, m,
+                         pstride if p > 1 else b * m, denom, lam, what=what)
+            if chunks > 1:
+                self.reduce(out, w, g, denom, lam)
+        return g
+
+    def reduce(self, ws: torch.Tensor, w: Optional[torch.Tensor],
+               g: torch.Tensor, denom: float, lam: float) -> torch.Tensor:
+        """g = sum over chunks of ws (chunks, P, D, M), in chunk order,
+        / denom (+ lam * w): the second pass of a multi-chunk ``backward``
+        (exposed so it can be timed alone).  Writes and returns g."""
+        chunks, p, d, m = ws.shape
+        with torch.cuda.device(ws.device):
+            self._launch("vfl_backward_reduce",
+                         torch.float32 if w is None else w.dtype,
+                         ws.data_ptr(), 0 if w is None else w.data_ptr(),
+                         g.data_ptr(), p, d, m, chunks, denom, lam,
+                         what=f"workspace {tuple(ws.shape)}")
+        return g
 
 
 KERNEL = CudaKernel()

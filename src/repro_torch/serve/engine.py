@@ -37,9 +37,10 @@ Where the port differs in mechanism (not in result)
 * Duplicate ids in one batch: the reference scatters and reads the
   stored winner back, so every copy emits one value.  ``index_put_``
   with duplicate indices picks a winner non-deterministically on CUDA, so
-  the port de-duplicates on the device first — the **last occurrence
-  wins**, every other copy is sent to the trash slot — and then reads the
-  stored value back, as the reference does.
+  every copy of an id writes the value of its **last occurrence**
+  (``core.algorithms.last_occurrence``): whichever write lands, the slot
+  holds that one value.  The port then reads the stored value back, as
+  the reference does.
 * Mask streams: each masked dispatch draws from a generator seeded by
   ``(seed, version, counter)``, the counterpart of the reference's
   ``fold_in(fold_in(key, version), counter)``.  A replayed dispatch
@@ -57,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.algorithms import last_occurrence
 from repro_torch.core.deep_vfl import DeepVFLParams
 from repro_torch.core.engine import FusedEngine, pack_features
 from repro_torch.core.secure_agg import mask_generator
@@ -215,14 +217,9 @@ class ServeEngine:
         h = torch.tanh(self.eng._fwd(rows, w1) + b1.unsqueeze(-2))
         return self.eng._fwd(h, w2)
 
-    def _winners(self, ids):
-        """``ids`` with every duplicate but the last occurrence replaced
-        by the trash slot n — a deterministic scatter target."""
-        later = torch.triu(ids[:, None] == ids[None, :], diagonal=1).any(1)
-        return torch.where(later, torch.full_like(ids, self.n), ids)
-
     def _store(self, ids, values):
-        self._csum[self._winners(ids)] = values
+        # the last occurrence of a duplicate id wins, on every device
+        self._csum[ids] = values[last_occurrence(ids)]
 
     # -- device programs -------------------------------------------------------
 

@@ -59,7 +59,7 @@ def _cpu_engine():
 
 @pytest.mark.parametrize("entry", [
     "resolve_device", "FusedEngine", "ServeEngine", "linear_iterate",
-    "deep_params"])
+    "deep_params", "svrg_state", "saga_state", "train", "train_fused"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
                                                                entry):
     x = np.ones((6, 4), np.float32)
@@ -71,6 +71,15 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
         "ServeEngine": lambda: ServeEngine(_cpu_engine()),
         "linear_iterate": lambda: convert.linear_iterate(np.ones(4)),
         "deep_params": lambda: convert.deep_params((x, x, x, x)),
+        "svrg_state": lambda: convert.svrg_state(np.ones(4), np.ones(4)),
+        "saga_state": lambda: convert.saga_state(np.ones(6), np.ones(4)),
+        "train": lambda: algorithms.train(
+            losses.ridge(), x, np.ones(6, np.float32),
+            algorithms.PartyLayout.even(4, 2, 1), epochs=1),
+        "train_fused": lambda: algorithms.train(
+            losses.ridge(), x, np.ones(6, np.float32),
+            algorithms.PartyLayout.even(4, 2, 1), epochs=1,
+            engine="fused"),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -1,10 +1,12 @@
-"""The port's ``vfl_grad`` (forward mode) against the JAX kernel.
+"""The port's ``vfl_grad`` (forward and backward modes) against the JAX
+kernel.
 
 On the CPU the port's wrapper runs its plain version; it is held against
 the Pallas kernel in interpret mode (``repro.kernels.ops.vfl_grad``) and
-against ``repro.kernels.ref.vfl_grad_ref`` at z atol = rtol = 1e-4, the
-bound of ``tests/test_kernels.py``.  The CUDA kernel itself runs only on
-a card: its test is marked ``cuda`` and skips here.  JAX is imported
+against ``repro.kernels.ref.vfl_grad_ref`` at the bounds of
+``tests/test_kernels.py``: z at atol = rtol = 1e-4, g at atol 1e-5 /
+rtol 1e-4.  The CUDA kernel itself runs only on a card: its tests are
+marked ``cuda`` and skip here.  JAX is imported
 inside fixtures, so the file also runs where only the port is installed:
 ``python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py``.
 """
@@ -16,6 +18,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import vfl_grad as vg
 
 TOL = dict(atol=1e-4, rtol=1e-4)
+GTOL = dict(atol=1e-5, rtol=1e-4)
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -110,12 +113,102 @@ def test_ref_matches_jax_ref(jnp, jref, m):
                                z.numpy())
 
 
-@pytest.mark.parametrize("kw", [dict(mode="backward"), dict(mode="fused"),
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,d,m,lam,denom", [
+    (32, 512, None, None, None),   # SGD step: ϑ against every feature
+    (32, 512, 2, None, None),      # SVRG step: iterate and snapshot, M = 2
+    (37, 7, 1, None, 1),           # SAGA step: XᵀΔϑ, denom 1, odd block
+    (100, 200, 3, 0.03, None),     # ragged B and D, with the λW epilogue
+    (2500, 130, None, 0.03, 1000),  # several row chunks on the card
+    (64, 33, 2, None, 1000),
+])
+def test_backward_matches_jax(jnp, jops, dtype, b, d, m, lam, denom):
+    x_np = _rand(11, (b, d))
+    th_np = _rand(12, (b,) if m is None else (b, m))
+    xt, xj = _pair(jnp, x_np, dtype)
+    wt = wj = None
+    if lam is not None:
+        wt, wj = _pair(jnp, _rand(13, (d,) if m is None else (d, m)), dtype)
+    lam = lam or 0.0
+    z, g = ops.vfl_grad(xt, wt, torch.from_numpy(th_np), lam,
+                        mode="backward", denom=denom)
+    zj, gj = jops.vfl_grad(xj, wj, jnp.asarray(th_np), lam, mode="backward",
+                           denom=denom, interpret=True)
+    assert z is None and zj is None
+    assert g.dtype == torch.float32
+    assert tuple(g.shape) == tuple(gj.shape) == \
+        ((d,) if m is None else (d, m))
+    np.testing.assert_allclose(g.numpy(), np.asarray(gj), **GTOL)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("m,lam", [(None, 0.0), (2, 0.0), (3, 0.03)])
+def test_backward_party_axis_matches_per_party_jax(jnp, jops, shared, m,
+                                                   lam):
+    """One call over a leading party axis equals the reference's kernel
+    run party by party; a shared ϑ is an ``expand`` view of one ϑ."""
+    p, b, d = 3, 37, 100
+    x_np = _rand(14, (p, b, d))
+    tail = () if m is None else (m,)
+    th_np = _rand(15, (b,) + tail if shared else (p, b) + tail)
+    w_np = _rand(16, (p, d) + tail) if lam else None
+    th = torch.from_numpy(th_np)
+    th = th.expand(p, *th.shape) if shared else th
+    _, g = ops.vfl_grad(torch.from_numpy(x_np),
+                        None if w_np is None else torch.from_numpy(w_np),
+                        th, lam, mode="backward")
+    assert tuple(g.shape) == (p, d) + tail
+    for i in range(p):
+        _, gj = jops.vfl_grad(
+            jnp.asarray(x_np[i]),
+            None if w_np is None else jnp.asarray(w_np[i]),
+            jnp.asarray(th_np if shared else th_np[i]), lam,
+            mode="backward", interpret=True)
+        np.testing.assert_allclose(g[i].numpy(), np.asarray(gj), **GTOL)
+
+
+@pytest.mark.parametrize("m", [None, 3])
+def test_backward_ref_matches_jax_ref(jnp, jref, m):
+    b, d = 40, 24
+    x = _rand(17, (b, d))
+    w = _rand(18, (d,) if m is None else (d, m))
+    th = _rand(19, (b,) if m is None else (b, m))
+    g = ref.vfl_backward_ref(torch.from_numpy(x), torch.from_numpy(th),
+                             torch.from_numpy(w), 0.01, denom=7)
+    _, gj = jref.vfl_grad_ref(jnp.asarray(x), jnp.asarray(w),
+                              jnp.asarray(th), 0.01, denom=7)
+    np.testing.assert_allclose(g.numpy(), np.asarray(gj), **GTOL)
+
+
+def test_backward_mode_is_ported():
+    """``mode="backward"`` returns ``(None, g)`` on every device (it
+    raised ``NotImplementedError`` before this mode was ported)."""
+    z, g = ops.vfl_grad(torch.ones((16, 8)), None, torch.ones(16),
+                        mode="backward")
+    assert z is None
+    torch.testing.assert_close(g, torch.ones(8))
+
+
+@pytest.mark.parametrize("kw", [dict(mode="fused"),
                                 dict(mode="fused", split=8)])
 def test_unported_modes_raise(kw):
     x = torch.ones((16, 8))
     with pytest.raises(NotImplementedError, match="B1"):
         ops.vfl_grad(x, torch.ones(8), torch.ones(16), **kw)
+
+
+@pytest.mark.parametrize("xs,ths,ws,lam", [
+    ((16, 8), (16,), None, 0.1),            # λW without w
+    ((16, 8), (15,), None, 0.0),            # θ rows != B
+    ((16, 8), (16, 2), (8, 3), 0.1),        # w and θ column counts differ
+    ((16, 8), (16, 2), (9, 2), 0.1),        # w rows != D
+    ((3, 16, 8), (2, 16), None, 0.0),       # party count mismatch
+    ((3, 16, 8), (3, 16), (3, 8, 1), 0.1),  # w rank != θ rank
+])
+def test_backward_bad_operands_raise(xs, ths, ws, lam):
+    with pytest.raises(ValueError):
+        ops.vfl_grad(torch.ones(xs), None if ws is None else torch.ones(ws),
+                     torch.ones(ths), lam, mode="backward")
 
 
 @pytest.mark.parametrize("xs,ws,wdt", [
@@ -133,6 +226,10 @@ def test_cpu_never_launches_the_kernel():
     before = dict(vg.KERNEL.launches)
     ops.vfl_grad(torch.ones((3, 4, 8)), torch.ones((3, 8)))
     ops.vfl_grad(torch.ones((3, 4, 8)), torch.ones((3, 8, 16)))
+    ops.vfl_grad(torch.ones((3, 4, 8)), None, torch.ones((3, 4)),
+                 mode="backward")
+    ops.vfl_grad(torch.ones((3, 4000, 8)), None,
+                 torch.ones(4000).expand(3, 4000), mode="backward")
     assert vg.KERNEL.launches == before
     assert set(before) == set(vg.PROGRAMS)
     assert vg.KERNEL._lib is None, "CPU tensors must not build the kernel"
@@ -163,3 +260,35 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, shape):
     prog = vg.PROGRAMS[0] if max(m, 1) <= vg.NARROW_MAX_M else vg.PROGRAMS[1]
     assert vg.KERNEL.launches == {**before, prog: before[prog] + 1}
     torch.testing.assert_close(z, ref.vfl_forward_ref(x, w), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (8, 32, 512, 0, True, False),    # SGD step, ϑ shared by the parties
+    (8, 32, 512, 2, True, False),    # SVRG step
+    (8, 32, 512, 0, False, False),   # SAGA step, per-party Δϑ
+    (5, 37, 333, 3, False, True),    # ragged, λW
+    (3, 2500, 130, 5, True, True),   # several chunks, wide M
+    (1, 3001, 77, 2, False, True)])
+def test_cuda_backward_matches_plain(cuda_device, dtype, shape):
+    p, b, d, m, shared, with_w = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    tail = () if m == 0 else (m,)
+    x = torch.randn((p, b, d), generator=gen, device=cuda_device).to(dtype)
+    th = torch.randn((b,) + tail if shared else (p, b) + tail,
+                     generator=gen, device=cuda_device)
+    th = th.expand(p, *th.shape) if shared else th
+    w = torch.randn((p, d) + tail, generator=gen,
+                    device=cuda_device).to(dtype) if with_w else None
+    lam = 0.03 if with_w else 0.0
+    before = dict(vg.KERNEL.launches)
+    _, g = ops.vfl_grad(x, w, th, lam, mode="backward")
+    torch.cuda.synchronize()
+    multi = b > vg.BWD_CHUNK_ROWS
+    assert vg.KERNEL.launches == {
+        **before,
+        "vfl_backward_rows": before["vfl_backward_rows"] + 1,
+        "vfl_backward_reduce": before["vfl_backward_reduce"] + multi}
+    torch.testing.assert_close(g, ref.vfl_backward_ref(x, th, w, lam),
+                               **TOL)
