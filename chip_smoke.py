@@ -11,11 +11,15 @@ JAX or of the JAX package.
 1. Set-up: the card's name and power limit, torch and CUDA versions; the
    hand-written CUDA kernel is built from ``src/repro_torch/kernels/csrc``
    into ``build/kernels/`` (git-ignored) and the build time printed.
-2. Kernel phase: ``vfl_grad`` forward and backward against their plain
-   PyTorch versions on the card at the serving and training shapes (the
-   minibatch steps and the full-dataset passes), a ragged shape and bf16
-   (atol = rtol = 1e-4); kernel, plain and ``torch.matmul`` times from
-   CUDA events over CUDA-graph replays, beside the byte/FLOP bound.
+2. Kernel phase: ``vfl_grad`` forward, backward and fused (split-batch)
+   against their plain PyTorch versions on the card at the serving and
+   training shapes (the minibatch steps, the multi-dominator
+   block-diagonal backward, the pipelined steps and the full-dataset
+   passes), ragged shapes, a wide side, a chunked backward side and bf16
+   (atol = rtol = 1e-4); kernel, plain and library times from CUDA
+   events over CUDA-graph replays, beside the byte/FLOP bound.  No single
+   PyTorch call computes the split-batch function: its rows time the
+   ``matmul`` + ``baddbmm`` pair as a note instead.
 3. Linear serving at q=8 parties, m=2, d=4096 (dp=512 per party),
    n=350,000 samples (webspam's sample count at the repo's widest split),
    ``secure="two_tree"``, ``max_batch=64``: a cold pass over the whole
@@ -42,23 +46,39 @@ JAX or of the JAX package.
    iterate; then one SGD epoch under ``off`` and ``ring`` on the first
    schedule, which must agree with ``two_tree`` (the masks are
    lossless).  Samples/s per algorithm and epoch, the full-gradient pass
-   time beside its bound, and the device busy share of one SGD epoch from
-   a profiler window.
+   time beside its bound, and the device busy share of one SGD and one
+   pipelined SGD epoch from profiler windows.
+8. Multi-dominator and pipelined training on phase 7's universe (m = 2
+   dominators): one epoch of each of the 9 kinds (``multi_``,
+   ``pipelined_`` and ``multi_pipelined_`` × SGD / SVRG / SAGA) from
+   w = 0 under ``two_tree``, run twice (the first run captures the
+   step's graph, the second is timed and must equal the first bit for
+   bit), each under no host sync and held against the port's float64
+   oracle on the same schedule at phase 7's bounds; pipelined SGD under
+   ``off`` and ``ring`` against ``two_tree``; pipelined SGD against
+   phase 7's sequential epoch on the same schedule (it must differ, and
+   lie far nearer its own oracle than the sequential one); and
+   ``train(multi_dominator=True, pipelined=True)`` for one SGD epoch,
+   which must give the engine-driven iterate bit for bit.  Samples/s per
+   kind.
 
-The source holds four kernel programs: ``vfl_forward_narrow`` (M <= 4,
+The source holds five kernel programs: ``vfl_forward_narrow`` (M <= 4,
 the linear path), ``vfl_forward_wide`` (the deep encoder layers),
 ``vfl_backward_rows`` and ``vfl_backward_reduce`` (the reduce pass runs
 only when a backward spans more than one chunk of rows: the full-dataset
-passes).  The launch counters are reset just before phase 3 and read
-after phase 5, and reset again just before phase 7's runs and read after
-them; each count must equal what the dispatch or step structure implies,
-and every program of each path must have run.  The ``kernels`` line has
-one entry per program, timed at its main-path shape (serving: the linear
-full dispatch and deep layer 1; training: the SGD step and the
-full-dataset reduce), with its launches summed over both paths.  Any
-failed check exits non-zero.  The last three lines are the card's name
-and power limit, the ``kernels`` JSON line and ``{"ok": true, "device":
-{...}}``.  Details go to ``results/chip_smoke.json`` (git-ignored).
+passes), and ``vfl_fused_split`` (the fused mode and its split-batch
+form: every interior step of a pipelined epoch).  The launch counters are
+reset just before phase 3 and read after phase 5, reset again just before
+phase 7's runs and read after them, and reset again just before phase 8
+and read after it; each count must equal what the dispatch or step
+structure implies, and every program of each path must have run.  The
+``kernels`` line has one entry per program, timed at its main-path shape
+(serving: the linear full dispatch and deep layer 1; training: the SGD
+step, the full-dataset reduce and the pipelined SGD step), with its
+launches summed over every path.  Any failed check exits non-zero.  The
+last three lines are the card's name and power limit, the ``kernels``
+JSON line and ``{"ok": true, "device": {...}}``.  Details go to
+``results/chip_smoke.json`` (git-ignored).
 """
 from __future__ import annotations
 
@@ -146,17 +166,22 @@ def _bound(nbytes, flops):
 
 
 def _kernel_row(torch, name, programs, x, kernel, plain, library, nbytes,
-                flops, big=False):
-    """Check ``kernel()`` against ``plain()`` at 1e-4 and time kernel,
-    plain and (where there is one) the library call."""
-    out, want = kernel(), plain()
+                flops, big=False, pair=None):
+    """Check ``kernel()`` against ``plain()`` at 1e-4 (each output of a
+    tuple) and time kernel, plain and (where there is one) the library
+    call; ``pair``, where given, is a two-call yardstick timed beside it
+    as a note (no single PyTorch call computes the function)."""
+    outs, wants = kernel(), plain()
     torch.cuda.synchronize()
-    err = float((out - want).abs().max())
-    check(tuple(out.shape) == tuple(want.shape)
-          and out.dtype == torch.float32,
-          f"kernel {name}: shape/dtype {tuple(out.shape)} {out.dtype}")
-    check(torch.allclose(out, want, atol=1e-4, rtol=1e-4),
-          f"kernel {name}: max abs err {err} beyond 1e-4")
+    if not isinstance(outs, tuple):
+        outs, wants = (outs,), (wants,)
+    err = max(float((o - w).abs().max()) for o, w in zip(outs, wants))
+    for out, want in zip(outs, wants):
+        check(tuple(out.shape) == tuple(want.shape)
+              and out.dtype == torch.float32,
+              f"kernel {name}: shape/dtype {tuple(out.shape)} {out.dtype}")
+        check(torch.allclose(out, want, atol=1e-4, rtol=1e-4),
+              f"kernel {name}: max abs err {err} beyond 1e-4")
     reps = dict(reps=10, replays=5) if big else {}
     kernel_ms = _graph_ms(torch, kernel, **reps)
     plain_ms = _graph_ms(torch, plain, **reps)
@@ -167,10 +192,13 @@ def _kernel_row(torch, name, programs, x, kernel, plain, library, nbytes,
                dtype=str(x.dtype).replace("torch.", ""), max_abs_err=err,
                ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+    if pair is not None:
+        row["pair_ms"] = _graph_ms(torch, pair, **reps)
     lib = "-" if library_ms is None else f"{library_ms*1e3:.2f} us"
+    note = "" if pair is None else f"  pair {row['pair_ms']*1e3:.2f} us"
     log(f"{'+'.join(programs)} {name:20s} x{list(x.shape)} {row['dtype']}: "
         f"err {err:.3e}  kernel {kernel_ms*1e3:.2f} us  plain "
-        f"{plain_ms*1e3:.2f} us  library {lib}  bound "
+        f"{plain_ms*1e3:.2f} us  library {lib}{note}  bound "
         f"{bound_ms*1e3:.3f} us ({bound_by})")
     return row
 
@@ -251,6 +279,23 @@ def kernel_phase(torch, dev):
             _nbytes(x, thq) + (0 if w is None else _nbytes(w))
             + p * d * (m or 1) * 4, 2.0 * x.numel() * (m or 1)))
 
+    # the multi-dominator step's backward: the m = 2 dominators' ϑ as the
+    # block-diagonal Θ (64, 2), shared by the parties, denom B = 32
+    from repro_torch.core.engine import dominator_onehot
+    x = randn(Q, 2 * TRAIN_BATCH, D // Q)
+    thq = (randn(2 * TRAIN_BATCH)[:, None]
+           * dominator_onehot(M_ACT, TRAIN_BATCH, dev)).expand(Q, -1, -1)
+    zeros = torch.zeros((Q, D // Q, M_ACT), device=dev)
+    rows.append(_kernel_row(
+        torch, "train_multi_step", ["vfl_backward_rows"], x,
+        lambda: ops.vfl_grad(x, None, thq, mode="backward",
+                             denom=TRAIN_BATCH)[1],
+        lambda: ref.vfl_backward_ref(x, thq, None, 0.0, TRAIN_BATCH),
+        lambda: torch.baddbmm(zeros, x.transpose(1, 2), thq, beta=0.0,
+                              alpha=1.0 / TRAIN_BATCH),
+        _nbytes(x, thq) + zeros.numel() * 4, 2.0 * x.numel() * M_ACT))
+    rows += fused_rows(torch, dev, randn)
+
     # the full-dataset passes: (8, 350000, 512) against one column
     x = randn(Q, N, D // Q)
     w = randn(Q, D // Q)
@@ -275,10 +320,62 @@ def kernel_phase(torch, dev):
     rows.append(_kernel_row(
         torch, "full_dataset_reduce", ["vfl_backward_reduce"], ws,
         lambda: vg.KERNEL.reduce(ws, None, g, float(N), 0.0),
-        lambda: ws.sum(0) / N, None, _nbytes(ws) + g.numel() * 4,
-        float(ws.numel())))
+        lambda: ws.sum(0) / N, lambda: torch.sum(ws, 0).div_(N),
+        _nbytes(ws) + g.numel() * 4, float(ws.numel())))
     del x, ws
     torch.cuda.empty_cache()
+    return rows
+
+
+def fused_rows(torch, dev, randn):
+    """``vfl_fused_split`` (the fused mode and its split-batch form) at the
+    pipelined steps' shapes, a ragged split, the non-split mode with λW, a
+    wide side and a chunked backward side.  No single PyTorch call
+    computes the split function, so there is no library time; the
+    ``matmul`` + ``baddbmm`` pair is timed beside it as a note."""
+    from repro_torch.kernels import ops, ref
+    rows = []
+    # (name, P, Bb, Bf or None (no split), D, Mw, Mθ, θ shared, λ, denom,
+    # Θ block-diagonal over Mθ dominators)
+    cases = [
+        ("pipe_sgd_step", Q, 32, 32, 512, 1, 1, True, 0.0, None, False),
+        ("pipe_svrg_step", Q, 32, 32, 512, 2, 2, True, 0.0, None, False),
+        ("multi_pipe_sgd_step", Q, 64, 64, 512, 1, 2, True, 0.0, 32, True),
+        ("pipe_saga_step", Q, 32, 32, 512, 1, 1, False, 0.0, 1, False),
+        ("ragged_split", 3, 60, 40, 70, 1, 3, True, 0.0, None, False),
+        ("fused_lam", Q, 32, None, 512, 2, 2, False, 0.03, None, False),
+        ("wide_split", Q, 32, 32, 512, 32, 32, False, 0.0, None, False),
+        ("chunked_split", 3, 2500, 100, 130, 2, 2, False, 0.03, None,
+         False),
+    ]
+    from repro_torch.core.engine import dominator_onehot
+    for name, p, bb, bf, d, mw, mth, shared, lam, denom, doms in cases:
+        b = bb + (bf or 0)
+        split = None if bf is None else bb
+        x = randn(p, b, d)
+        w = randn(p, d, mw)
+        if doms:
+            th = randn(bb)[:, None] * dominator_onehot(mth, bb // mth, dev)
+        else:
+            th = randn(*((bb, mth) if shared else (p, bb, mth)))
+        thq = th.expand(p, *th.shape) if shared else th
+        xf = x if split is None else x[:, split:]
+        xb = x if split is None else x[:, :split]
+        base = w if lam else torch.zeros((p, d, mth), device=dev)
+        dn = denom or bb
+        progs = ["vfl_fused_split"] + (["vfl_backward_reduce"]
+                                       if bb > 1024 else [])
+        nout = p * (b - (split or 0)) * mw + p * d * mth
+        rows.append(_kernel_row(
+            torch, name, progs, x,
+            lambda: ops.vfl_grad(x, w, thq, lam, mode="fused", split=split,
+                                 denom=denom),
+            lambda: ref.vfl_fused_ref(x, w, thq, lam, denom, split), None,
+            _nbytes(x, w, thq) + 4 * nout,
+            2.0 * p * d * ((b - (split or 0)) * mw + bb * mth),
+            pair=lambda: (torch.matmul(xf, w),
+                          torch.baddbmm(base, xb.transpose(1, 2), thq,
+                                        beta=lam, alpha=1.0 / dn))))
     return rows
 
 
@@ -541,14 +638,19 @@ def profile_window(torch, dev, x, layout, chunks=200):
 # training phase
 # ---------------------------------------------------------------------------
 
-def implied(steps=0, full=0, objective=0):
+def implied(steps=0, full=0, objective=0, pipe_steps=0):
     """Launches per kernel program implied by ``steps`` minibatch steps
     (one forward, one single-chunk backward each), ``full`` full-dataset
     passes (``full_gradient``/``saga_init``: one forward, one backward
-    over 342 chunks and its reduce) and ``objective`` evaluations (one
-    forward)."""
-    return Counter(vfl_forward_narrow=steps + full + objective,
-                   vfl_backward_rows=steps + full, vfl_backward_reduce=full)
+    over 342 chunks and its reduce), ``objective`` evaluations (one
+    forward) and one pipelined epoch of ``pipe_steps`` steps (a forward
+    prologue, one split-batch fused launch per interior step, a backward
+    epilogue)."""
+    pipe = int(pipe_steps > 0)
+    return Counter(vfl_forward_narrow=steps + full + objective + pipe,
+                   vfl_backward_rows=steps + full + pipe,
+                   vfl_backward_reduce=full,
+                   vfl_fused_split=max(pipe_steps - 1, 0))
 
 
 @contextlib.contextmanager
@@ -581,7 +683,8 @@ def _rel(a, b):
 
 def train_phase(torch, dev, x, y, layout, log_):
     """The training checks of phase 7; returns (record, expected
-    launches).  ``x`` (n, d) f32 and ``y`` live on the card."""
+    launches, (schedule, iterate) of the first SGD epoch).  ``x`` (n, d)
+    f32 and ``y`` live on the card."""
     from repro_torch.core import algorithms as alg
     from repro_torch.core.engine import EngineConfig, FusedEngine
     from repro_torch.core.losses import logistic_l2
@@ -710,6 +813,163 @@ def train_phase(torch, dev, x, y, layout, log_):
         check(rel <= 1e-4, f"sgd {secure} vs two_tree: {rel:.3e}")
         del e2
     log_(f"secure modes agree: {res['secure_modes']}")
+    return res, expected, first_sgd
+
+
+KINDS = ("multi", "pipelined", "multi_pipelined")
+
+
+def pipe_phase(torch, dev, x, y, layout, first_sgd, log_):
+    """Phase 8: one epoch of each of the 9 multi-dominator / pipelined
+    kinds from w = 0 under ``two_tree``, each under no host sync and held
+    against the port's float64 oracle on the same schedule (epoch 0's of
+    ``train``: m·B rows per step for the multi-dominator kinds); pipelined
+    SGD under ``off`` and ``ring`` against ``two_tree``; pipelined SGD
+    against phase 7's sequential epoch on the same schedule (it must
+    differ: the reads are one update old); and ``train(multi_dominator=True,
+    pipelined=True)`` for one SGD epoch against the engine-driven epoch.
+    Returns (record, expected launches)."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.engine import EngineConfig, FusedEngine
+    from repro_torch.core.losses import logistic_l2
+    n, d = x.shape
+    m = layout.m
+    prob, lr, batch = logistic_l2(1e-4), TRAIN_LR, TRAIN_BATCH
+    steps = n // batch
+    x64, y64 = x.double(), y.double()
+    mask64 = torch.ones(d, dtype=torch.float64, device=dev)
+    key = (SEED, 0)
+
+    def unpack(vq):
+        return torch.cat([vq[p, : hi - lo]
+                          for p, (lo, hi) in enumerate(layout.bounds)])
+
+    expected = Counter()
+    res = {"epochs": [], "secure_modes": {}}
+    eng = FusedEngine(prob, x, y, layout, EngineConfig(secure="two_tree"),
+                      device=dev)
+    zero = eng.pack_w(torch.zeros(d, device=dev))
+    w64 = torch.zeros(d, dtype=torch.float64, device=dev)
+    with no_host_sync(torch):
+        tab0, avg0 = eng.saga_init(zero, (SEED,))
+    expected += implied(full=1)
+    idx = {kind: alg.epoch_indices(SEED, 0, n,
+                                   (m if "multi" in kind else 1) * batch,
+                                   steps, dev) for kind in KINDS}
+    out, out64 = {}, {}
+    for kind in KINDS:
+        ix = idx[kind]
+        extra = (m,) if "multi" in kind else ()
+        for algo in ("sgd", "svrg", "saga"):
+            fn = getattr(eng, f"{kind}_{algo}_epoch")
+
+            def run():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with no_host_sync(torch):
+                    if algo == "sgd":
+                        got = (fn(zero, lr, ix, key),)
+                    elif algo == "svrg":
+                        muq = eng.full_gradient(zero, key)
+                        got = (fn(zero, zero, muq, lr, ix, key),)
+                    else:
+                        got = fn(zero, tab0, avg0, lr, ix, key)
+                torch.cuda.synchronize()
+                return got, time.perf_counter() - t0
+
+            # the first run captures the step's graph; the second is timed
+            # and must replay the first bit for bit
+            first, first_seconds = run()
+            got, seconds = run()
+            check(all(torch.equal(a, b) for a, b in zip(first, got)),
+                  f"{kind} {algo}: a second run differs from the first")
+            wq = got[0]
+            out[kind, algo] = wq
+            per_run = implied(full=algo == "svrg") + (
+                implied(pipe_steps=steps) if "pipelined" in kind
+                else implied(steps=steps))
+            expected += per_run + per_run + implied(objective=1)
+            obj = eng.objective(wq)
+            oracle = getattr(alg, f"{kind}_{algo}_epoch")
+            if algo == "sgd":
+                o64 = oracle(prob, w64, x64, y64, lr, mask64, ix, *extra)
+            elif algo == "svrg":
+                mu64 = alg.full_gradient(prob, w64, x64, y64)
+                o64 = oracle(prob, w64, w64, mu64, x64, y64, lr, mask64, ix,
+                             *extra)
+            else:
+                o64, tab64, _ = oracle(prob, w64, tab0[0].double(),
+                                       unpack(avg0).double(), x64, y64, lr,
+                                       mask64, ix, *extra)
+                check(_rel(got[1][0], tab64) <= 1e-4,
+                      f"{kind} saga: table beyond 1e-4")
+            out64[kind, algo] = o64
+            rel = _rel(unpack(wq), o64)
+            obj64 = float(prob.loss(x64 @ o64, y64).mean()
+                          + prob.lam * prob.reg(o64).sum())
+            rec = dict(kind=kind, algo=algo, seconds=seconds,
+                       samples_per_s=steps * ix.shape[1] / seconds,
+                       first_seconds=first_seconds,
+                       rel_err_vs_f64=rel, objective=obj,
+                       objective_f64=obj64,
+                       objective_rel_err=abs(obj - obj64) / abs(obj64))
+            res["epochs"].append(rec)
+            log_(f"phase 8 {kind} {algo}: {rec}")
+            check(rel <= 1e-4, f"{kind} {algo}: iterate {rel:.3e} beyond "
+                  "1e-4 of the float64 oracle")
+            check(rec["objective_rel_err"] <= 1e-5,
+                  f"{kind} {algo}: objective {obj} vs float64 {obj64}")
+            check(obj < math.log(2.0),
+                  f"{kind} {algo}: objective {obj} not below ln 2 (w = 0)")
+
+    # the pipelined iterate is genuinely stale: not phase 7's sequential
+    # epoch on the same schedule (epoch 0, w = 0, two_tree), and nearer
+    # the pipelined float64 oracle than the sequential one by far
+    idx0, w_seq = first_sgd
+    check(torch.equal(idx0, idx["pipelined"]),
+          "phase 7's first SGD schedule is not epoch 0's")
+    w_pipe = unpack(out["pipelined", "sgd"])
+    seq64 = alg.sgd_epoch(prob, w64, x64, y64, lr, mask64, idx0)
+    res["stale"] = dict(
+        vs_sequential_epoch=_rel(w_pipe, unpack(w_seq).double()),
+        vs_sequential_f64=_rel(w_pipe, seq64),
+        vs_pipelined_f64=_rel(w_pipe, out64["pipelined", "sgd"]))
+    log_(f"phase 8 pipelined vs sequential SGD: {res['stale']}")
+    check(not torch.equal(w_pipe, unpack(w_seq)),
+          "pipelined SGD equals the sequential epoch")
+    check(res["stale"]["vs_sequential_f64"]
+          > 10 * res["stale"]["vs_pipelined_f64"],
+          "pipelined SGD is not nearer its own oracle than the sequential "
+          "one")
+    del eng
+
+    for secure in ("off", "ring"):
+        e2 = FusedEngine(prob, x, y, layout, EngineConfig(secure=secure),
+                         device=dev)
+        with no_host_sync(torch):
+            w2 = e2.pipelined_sgd_epoch(zero, lr, idx["pipelined"], key)
+        expected += implied(pipe_steps=steps)
+        rel = _rel(unpack(w2), unpack(out["pipelined", "sgd"]).double())
+        res["secure_modes"][secure] = dict(rel_vs_two_tree=rel)
+        check(rel <= 1e-4, f"pipelined sgd {secure} vs two_tree: {rel:.3e}")
+        del e2
+    log_(f"phase 8 secure modes agree: {res['secure_modes']}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = alg.train(prob, x, y, layout, algo="sgd", epochs=1, lr=lr,
+                   batch=batch, seed=SEED, engine="fused",
+                   engine_config=EngineConfig(secure="two_tree"),
+                   multi_dominator=True, pipelined=True, device=dev)
+    wall = time.perf_counter() - t0
+    expected += implied(pipe_steps=steps, objective=1)
+    want = unpack(out["multi_pipelined", "sgd"]).cpu().numpy()
+    res["train"] = dict(seconds=wall,
+                        samples_per_s=steps * m * batch / wall,
+                        bit_equal_to_epoch=bool(np.array_equal(tr.w, want)))
+    check(res["train"]["bit_equal_to_epoch"],
+          "train(multi_dominator, pipelined) differs from its epoch")
+    log_(f"phase 8 train(sgd, multi_dominator, pipelined): {res['train']}")
     return res, expected
 
 
@@ -742,31 +1002,33 @@ def train_measure(torch, dev, x, y, layout):
 
     steps = n // TRAIN_BATCH
     idx = alg.epoch_indices(SEED, 99, n, TRAIN_BATCH, steps, dev)
-    eng.sgd_epoch(wq, TRAIN_LR, idx)                 # capture its graph
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.sgd_epoch(wq, TRAIN_LR, idx)
-    torch.cuda.synchronize()
-    plain_wall_us = (time.perf_counter() - t0) * 1e6
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.sgd_epoch(wq, TRAIN_LR, idx)
+    for name in ("sgd", "pipelined_sgd"):
+        epoch = getattr(eng, f"{name}_epoch")
+        epoch(wq, TRAIN_LR, idx)                     # capture its graph
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = {}
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            kernels[ev.key] = kernels.get(ev.key, 0.0) \
-                + ev.self_device_time_total
-    busy = sum(kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    out["profile_sgd"] = dict(
-        steps=steps, wall_us=wall_us, unprofiled_wall_us=plain_wall_us,
-        device_busy_us=busy,
-        device_busy_share=(busy / wall_us) if busy > 0 else None,
-        top_device_us=[[k[:80], v] for k, v in top])
-    log(f"profile of one sgd epoch: {out['profile_sgd']}")
+        t0 = time.perf_counter()
+        epoch(wq, TRAIN_LR, idx)
+        torch.cuda.synchronize()
+        plain_wall_us = (time.perf_counter() - t0) * 1e6
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            epoch(wq, TRAIN_LR, idx)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = {}
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                kernels[ev.key] = kernels.get(ev.key, 0.0) \
+                    + ev.self_device_time_total
+        busy = sum(kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
+        out[f"profile_{name}"] = dict(
+            steps=steps, wall_us=wall_us, unprofiled_wall_us=plain_wall_us,
+            device_busy_us=busy,
+            device_busy_share=(busy / wall_us) if busy > 0 else None,
+            top_device_us=[[k[:80], v] for k, v in top])
+        log(f"profile of one {name} epoch: {out[f'profile_{name}']}")
     return out
 
 
@@ -839,7 +1101,8 @@ def main() -> int:
     y = d4_labels(torch, dev, x)
     torch.cuda.reset_peak_memory_stats()
     vg.KERNEL.reset_launches()                      # training path starts
-    record["train"], expected = train_phase(torch, dev, x, y, layout, log)
+    record["train"], expected, first_sgd = train_phase(torch, dev, x, y,
+                                                       layout, log)
     train_launches = dict(vg.KERNEL.launches)       # training path ends
     check(train_launches == {p: expected[p] for p in vg.PROGRAMS},
           f"training launches {train_launches} != {dict(expected)} implied "
@@ -854,15 +1117,33 @@ def main() -> int:
     record["train_launches"] = train_launches
     record["train_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     record["train_measure"] = train_measure(torch, dev, x, y, layout)
+
+    torch.cuda.reset_peak_memory_stats()
+    vg.KERNEL.reset_launches()                      # phase 8 path starts
+    record["pipe"], expected = pipe_phase(torch, dev, x, y, layout,
+                                          first_sgd, log)
+    pipe_launches = dict(vg.KERNEL.launches)        # phase 8 path ends
+    check(pipe_launches == {p: expected[p] for p in vg.PROGRAMS},
+          f"phase 8 launches {pipe_launches} != {dict(expected)} implied "
+          "by the steps")
+    check(all(pipe_launches[p] for p in train_programs + ("vfl_fused_split",)),
+          f"a kernel of the phase 8 path was never launched: "
+          f"{pipe_launches}")
+    log(f"phase 8 path: kernel launches {pipe_launches}, as the steps "
+        "imply")
+    record["pipe_launches"] = pipe_launches
+    record["pipe_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     record["seconds"] = time.perf_counter() - t_start
 
     # each program's line reports its own main-path shape: serving's linear
-    # full dispatch and deep layer 1, training's SGD step and the
-    # full-dataset pass's reduce; launches are summed over both paths
+    # full dispatch and deep layer 1, training's SGD step, the
+    # full-dataset pass's reduce and the pipelined SGD step; launches are
+    # summed over every path
     main_shape = {"vfl_forward_narrow": "linear_full",
                   "vfl_forward_wide": "deep_layer1",
                   "vfl_backward_rows": "train_sgd_step",
-                  "vfl_backward_reduce": "full_dataset_reduce"}
+                  "vfl_backward_reduce": "full_dataset_reduce",
+                  "vfl_fused_split": "pipe_sgd_step"}
     shapes = record["kernel_shapes"]
     entries = []
     for prog in vg.PROGRAMS:
@@ -872,7 +1153,8 @@ def main() -> int:
             "name": prog, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/vfl_grad.cu",
             "replaces": "src/repro/kernels/vfl_grad.py:343",
-            "launches": serve_launches[prog] + train_launches[prog],
+            "launches": serve_launches[prog] + train_launches[prog]
+            + pipe_launches[prog],
             "max_abs_err": max(r["max_abs_err"] for r in shapes
                                if prog in r["programs"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

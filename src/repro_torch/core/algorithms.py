@@ -1,9 +1,10 @@
 """VFB²-SGD / -SVRG / -SAGA (paper Algorithms 2–7): the plain oracles and
 the trainer.
 
-The port of ``repro.core.algorithms`` (the linear, single-dominator,
-non-pipelined part).  ``PartyLayout`` is a numpy-only copy, kept here so
-the port imports nothing of the JAX package.
+The port of ``repro.core.algorithms``, its linear part: the
+single-dominator, multi-dominator and pipelined epochs.  ``PartyLayout``
+is a numpy-only copy, kept here so the port imports nothing of the JAX
+package.
 
 The epoch oracles are plain torch on the pooled (n, d) data: the
 aggregation Σ_ℓ X_{G_ℓ} w_{G_ℓ} is block-separable, so ``x[ib] @ w`` is
@@ -162,6 +163,161 @@ def saga_epoch(problem: Problem, w, theta_tab, avg, x, y, lr, mask, idx):
 
 
 # ---------------------------------------------------------------------------
+# multi-dominator and pipelined oracles
+# ---------------------------------------------------------------------------
+#
+# Multi-dominator: every active party is a dominator.  In each round the m
+# dominators draw their own minibatches (one (m·B) row of the schedule,
+# dominator j's rows at [j·B, (j+1)·B)), compute their ϑ_j from the same
+# read of the iterate, and every party applies all m BUM updates:
+#
+#     w_{t+1} = w_t − η Σ_{j<m} [ X_{b_j}ᵀ ϑ_j / B + λ∇g(w_t) ],
+#
+# so the regulariser enters m times.  Pipelined (the τ = 1 bounded-delay
+# schedule of Theorems 1–6): round t's ϑ comes from the forward read of
+# its rows taken at w_{t−1}, before round t−1's update, which is what the
+# engine's split-batch step computes beside round t−1's backward; the
+# first round's read is fresh.  The single-dominator pipelined epochs are
+# the m = 1 case.
+
+def _rounds(step, state, read, idx, pipelined: bool):
+    """Run ``state = step(state, z, ib)`` over the schedule's rows, where
+    ``z = read(state, ib)`` is the forward read of the round's rows: at
+    the current state, or (``pipelined``) at the state before the
+    previous round's update."""
+    z = read(state, idx[0]) if pipelined else None
+    for t in range(idx.shape[0]):
+        ib = idx[t]
+        z_next = read(state, idx[t + 1]) \
+            if pipelined and t + 1 < idx.shape[0] else None
+        state = step(state, z if pipelined else read(state, ib), ib)
+        z = z_next
+    return state
+
+
+def _dom_sum(xb, theta, m: int, denom):
+    """Σ_j X_{b_j}ᵀϑ_j / denom over the m dominators' row blocks of the
+    concatenated (m·B) block, each dominator's term formed first."""
+    b = xb.shape[0] // m
+    return (xb.view(m, b, -1).transpose(1, 2) @ theta.view(m, b, 1)) \
+        .squeeze(-1).div(denom).sum(0)
+
+
+def _sgd_round(problem, x, y, lr, mask, m):
+    def step(w, z, ib):
+        theta = problem.theta(z, y[ib])
+        g = _dom_sum(x[ib], theta, m, ib.shape[0] // m) \
+            + m * problem.lam * problem.reg_grad(w)
+        return w - lr * mask * g
+    return step
+
+
+def _svrg_round(problem, w_snap, mu, x, y, lr, mask, m):
+    def step(w, z, ib):
+        th1 = problem.theta(z, y[ib])            # on the (stale) read
+        th0 = problem.theta(x[ib] @ w_snap, y[ib])   # snapshot: fresh
+        b = ib.shape[0] // m
+        v = x[ib].T @ th1 / b - x[ib].T @ th0 / b + m * (
+            problem.lam * (problem.reg_grad(w) - problem.reg_grad(w_snap))
+            + mu)
+        return w - lr * mask * v
+    return step
+
+
+def _saga_round(problem, x, y, lr, mask, m):
+    n = x.shape[0]
+
+    def step(state, z, ib):
+        w, tab, avg = state
+        th_new = problem.theta(z, y[ib])
+        raw = _dom_sum(x[ib], th_new - tab[ib], m, 1)
+        v = raw / (ib.shape[0] // m) + m * avg \
+            + m * problem.lam * problem.reg_grad(w)
+        tab[ib] = th_new[last_occurrence(ib)]
+        return w - lr * mask * v, tab, avg + raw / n
+    return step
+
+
+def _read(x):
+    return lambda w, ib: x[ib] @ w
+
+
+def _saga_read(x):
+    return lambda state, ib: x[ib] @ state[0]
+
+
+def pipelined_sgd_epoch(problem: Problem, w, x, y, lr, mask, idx):
+    """Pipelined VFB²-SGD over the (steps, B) schedule ``idx``."""
+    return _rounds(_sgd_round(problem, x, y, lr, mask, 1), w, _read(x), idx,
+                   True)
+
+
+def pipelined_svrg_epoch(problem: Problem, w, w_snap, mu, x, y, lr, mask,
+                         idx):
+    """Pipelined VFB²-SVRG inner loop: ϑ₁ rides the stale read; the
+    snapshot is constant, so ϑ₀ is delay-free."""
+    return _rounds(_svrg_round(problem, w_snap, mu, x, y, lr, mask, 1), w,
+                   _read(x), idx, True)
+
+
+def pipelined_saga_epoch(problem: Problem, w, theta_tab, avg, x, y, lr,
+                         mask, idx):
+    """Pipelined VFB²-SAGA: the table's reads and writes stay at
+    application time; only the forward read of the iterate is one step
+    stale.  Returns (w, theta_tab, avg); the input table is not
+    modified."""
+    return _rounds(_saga_round(problem, x, y, lr, mask, 1),
+                   (w, theta_tab.clone(), avg), _saga_read(x), idx, True)
+
+
+def multi_sgd_epoch(problem: Problem, w, x, y, lr, mask, idx, m: int):
+    """VFB²-SGD with m concurrent dominators per round over the
+    (steps, m·B) schedule ``idx``."""
+    return _rounds(_sgd_round(problem, x, y, lr, mask, m), w, _read(x), idx,
+                   False)
+
+
+def multi_svrg_epoch(problem: Problem, w, w_snap, mu, x, y, lr, mask, idx,
+                     m: int):
+    """Multi-dominator VFB²-SVRG inner loop: each dominator evaluates the
+    iterate and the snapshot on its own minibatch."""
+    return _rounds(_svrg_round(problem, w_snap, mu, x, y, lr, mask, m), w,
+                   _read(x), idx, False)
+
+
+def multi_saga_epoch(problem: Problem, w, theta_tab, avg, x, y, lr, mask,
+                     idx, m: int):
+    """Multi-dominator VFB²-SAGA: all m dominators read (w, table, avg) of
+    the round; the table takes all m·B writes, the last occurrence of a
+    duplicate id winning."""
+    return _rounds(_saga_round(problem, x, y, lr, mask, m),
+                   (w, theta_tab.clone(), avg), _saga_read(x), idx, False)
+
+
+def multi_pipelined_sgd_epoch(problem: Problem, w, x, y, lr, mask, idx,
+                              m: int):
+    """Pipelined multi-dominator VFB²-SGD: all m dominators' ϑ of round t
+    come from the same stale read."""
+    return _rounds(_sgd_round(problem, x, y, lr, mask, m), w, _read(x), idx,
+                   True)
+
+
+def multi_pipelined_svrg_epoch(problem: Problem, w, w_snap, mu, x, y, lr,
+                               mask, idx, m: int):
+    """Pipelined multi-dominator VFB²-SVRG inner loop."""
+    return _rounds(_svrg_round(problem, w_snap, mu, x, y, lr, mask, m), w,
+                   _read(x), idx, True)
+
+
+def multi_pipelined_saga_epoch(problem: Problem, w, theta_tab, avg, x, y,
+                               lr, mask, idx, m: int):
+    """Pipelined multi-dominator VFB²-SAGA (all m·B table writes at
+    application time; the last occurrence of a duplicate id wins)."""
+    return _rounds(_saga_round(problem, x, y, lr, mask, m),
+                   (w, theta_tab.clone(), avg), _saga_read(x), idx, True)
+
+
+# ---------------------------------------------------------------------------
 # trainer
 # ---------------------------------------------------------------------------
 
@@ -176,8 +332,23 @@ def _eval(problem, w, x, y):
                  + problem.lam * torch.sum(problem.reg(w)))
 
 
-_UNPORTED = (("multi_dominator", "A6"), ("pipelined", "A6"),
-             ("deep", "A8"), ("checkpoint_dir", "A9"),
+# (algo, multi_dominator, pipelined) -> the epoch oracle
+_ORACLES = {
+    ("sgd", False, False): sgd_epoch,
+    ("svrg", False, False): svrg_epoch,
+    ("saga", False, False): saga_epoch,
+    ("sgd", False, True): pipelined_sgd_epoch,
+    ("svrg", False, True): pipelined_svrg_epoch,
+    ("saga", False, True): pipelined_saga_epoch,
+    ("sgd", True, False): multi_sgd_epoch,
+    ("svrg", True, False): multi_svrg_epoch,
+    ("saga", True, False): multi_saga_epoch,
+    ("sgd", True, True): multi_pipelined_sgd_epoch,
+    ("svrg", True, True): multi_pipelined_svrg_epoch,
+    ("saga", True, True): multi_pipelined_saga_epoch,
+}
+
+_UNPORTED = (("deep", "A8"), ("checkpoint_dir", "A9"),
              ("resume_from", "A9"), ("supervise", "A10"))
 
 
@@ -195,8 +366,8 @@ def train(
     w0=None,
     engine: str = "reference",  # "fused" => core.engine.FusedEngine epochs
     engine_config=None,         # core.engine.EngineConfig when engine="fused"
-    multi_dominator: bool = False,
-    pipelined: bool = False,
+    multi_dominator: bool = False,  # all m active parties update per round
+    pipelined: bool = False,    # τ = 1 backward(t) ∥ forward(t+1) schedule
     deep: bool = False,
     checkpoint_dir: Optional[str] = None,
     resume_from: Optional[str] = None,
@@ -209,17 +380,18 @@ def train(
 
     ``x`` (n, d) and ``y`` (n,) are numpy arrays or tensors.  Epoch ``ep``
     runs the schedule ``epoch_indices(seed, ep, n, batch, n // batch)``
-    on either engine, so ``engine="fused"`` and ``engine="reference"``
-    agree to float tolerance.  The fused engine's masks are seeded from
-    ``(seed, ep)``.  ``history`` holds each epoch's full objective.
+    on either engine (``multi_dominator=True``: ``m·batch`` ids per step
+    for the layout's m dominators, ``epoch_indices(seed, ep, n, m*batch,
+    n // batch)``), so ``engine="fused"`` and ``engine="reference"``
+    agree to float tolerance.  ``pipelined=True`` runs the τ = 1
+    schedule.  The fused engine's masks are seeded from ``(seed, ep)``.
+    ``history`` holds each epoch's full objective.
 
-    ``multi_dominator``, ``pipelined``, ``deep``, ``checkpoint_dir``,
-    ``resume_from`` and ``supervise`` are not ported yet and raise
-    ``NotImplementedError`` naming the ROADMAP queue-A item that ports
-    them.
+    ``deep``, ``checkpoint_dir``, ``resume_from`` and ``supervise`` are
+    not ported yet and raise ``NotImplementedError`` naming the ROADMAP
+    queue-A item that ports them.
     """
-    given = dict(multi_dominator=multi_dominator, pipelined=pipelined,
-                 deep=deep, checkpoint_dir=checkpoint_dir,
+    given = dict(deep=deep, checkpoint_dir=checkpoint_dir,
                  resume_from=resume_from, supervise=supervise)
     for name, item in _UNPORTED:
         if given[name] not in (False, None):
@@ -229,10 +401,13 @@ def train(
         raise ValueError(f"unknown algo {algo}")
     dev = resolve_device(device)
     n, d = x.shape
+    m = layout.m
     steps = max(1, n // batch)
+    rows = m * batch if multi_dominator else batch
     if engine == "fused":
         return _train_fused(problem, x, y, layout, algo, epochs, lr, batch,
-                            seed, active_only, w0, engine_config, dev)
+                            seed, active_only, w0, engine_config,
+                            multi_dominator, pipelined, dev)
     if engine != "reference":
         raise ValueError(f"unknown engine {engine}")
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -243,23 +418,26 @@ def train(
     if algo == "saga":
         theta_tab, avg = saga_init(problem, w, x, y)
     hist = []
+    fn = _ORACLES[algo, multi_dominator, pipelined]
+    extra = (m,) if multi_dominator else ()
     for ep in range(epochs):
-        idx = epoch_indices(seed, ep, n, batch, steps, dev)
+        idx = epoch_indices(seed, ep, n, rows, steps, dev)
         if algo == "sgd":
-            w = sgd_epoch(problem, w, x, y, lr, mask, idx)
+            w = fn(problem, w, x, y, lr, mask, idx, *extra)
         elif algo == "svrg":
             mu = full_gradient(problem, w, x, y)
-            w = svrg_epoch(problem, w, w, mu, x, y, lr, mask, idx)
+            w = fn(problem, w, w, mu, x, y, lr, mask, idx, *extra)
         else:
-            w, theta_tab, avg = saga_epoch(problem, w, theta_tab, avg, x, y,
-                                           lr, mask, idx)
+            w, theta_tab, avg = fn(problem, w, theta_tab, avg, x, y, lr,
+                                   mask, idx, *extra)
         hist.append({"epoch": ep + 1, "objective": _eval(problem, w, x, y),
                      "algo": algo})
     return TrainResult(w=w.cpu().numpy(), history=hist)
 
 
 def _train_fused(problem, x, y, layout, algo, epochs, lr, batch, seed,
-                 active_only, w0, engine_config, dev) -> TrainResult:
+                 active_only, w0, engine_config, multi_dominator, pipelined,
+                 dev) -> TrainResult:
     """Hot-path trainer: the engine's epochs, each a CUDA-graph replay of
     its step on the card with no host sync inside, and one objective
     evaluation (one sync) after each."""
@@ -271,19 +449,22 @@ def _train_fused(problem, x, y, layout, algo, epochs, lr, batch, seed,
                       device=dev)
     wq = eng.pack_w(np.zeros(d, np.float32) if w0 is None else w0)
     steps = max(1, n // batch)
+    rows = layout.m * batch if multi_dominator else batch
+    fn = getattr(eng, ("multi_" if multi_dominator else "")
+                 + ("pipelined_" if pipelined else "") + f"{algo}_epoch")
     if algo == "saga":
         tabq, avgq = eng.saga_init(wq, (seed,))
     hist = []
     for ep in range(epochs):
-        idx = epoch_indices(seed, ep, n, batch, steps, dev)
+        idx = epoch_indices(seed, ep, n, rows, steps, dev)
         key = (seed, ep)
         if algo == "sgd":
-            wq = eng.sgd_epoch(wq, lr, idx, key)
+            wq = fn(wq, lr, idx, key)
         elif algo == "svrg":
             muq = eng.full_gradient(wq, key)
-            wq = eng.svrg_epoch(wq, wq, muq, lr, idx, key)
+            wq = fn(wq, wq, muq, lr, idx, key)
         else:
-            wq, tabq, avgq = eng.saga_epoch(wq, tabq, avgq, lr, idx, key)
+            wq, tabq, avgq = fn(wq, tabq, avgq, lr, idx, key)
         hist.append({"epoch": ep + 1, "objective": eng.objective(wq),
                      "algo": algo, "engine": "fused"})
     return TrainResult(w=eng.unpack_w(wq), history=hist)

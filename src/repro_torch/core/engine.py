@@ -2,11 +2,14 @@
 the linear training epochs.
 
 The port of ``repro.core.engine``: the configuration, the vertical packing
-helpers and the linear, single-dominator parts of ``FusedEngine`` — the
-X-block contractions (``_fwd`` and ``_bwd``, the vfl_grad kernel's
-forward and backward modes), the masked secure aggregation over the party
+helpers and the linear parts of ``FusedEngine`` — the X-block
+contractions (``_fwd``, ``_bwd``, ``_bwd_doms`` and the pipelined step's
+``_pipe`` / ``_pipe_doms``: the vfl_grad kernel's forward, backward and
+split-batch fused modes), the masked secure aggregation over the party
 axis (``_agg``, Algorithm 1), the SGD / SVRG / SAGA epochs with their
-full-dataset passes (``full_gradient``, ``saga_init``) and the objective.
+full-dataset passes (``full_gradient``, ``saga_init``), their
+multi-dominator, pipelined and multi-dominator pipelined forms, and the
+objective.
 
 Party axis: the q parties are the leading dimension of every
 party-stacked tensor on one device (``xs`` is (q, n, dp), an iterate
@@ -29,12 +32,20 @@ inside the epoch.  A graph launches its kernels without calling back into
 Python, so the engine adds each replay's launches to the kernel's
 counters itself.  On the CPU the same step runs eagerly ``steps`` times.
 
+Pipelined epochs (the τ = 1 schedule: backward(t) ∥ forward(t+1)) run a
+forward prologue eagerly, ``steps − 1`` interior steps through the same
+loop (each one split-batch fused kernel launch over the gathered rows of
+schedule rows t and t+1), and a backward epilogue eagerly.  The
+aggregate of the next round's forward is carried in a static buffer of
+the loop.
+
 Device rule: ``FusedEngine`` defaults to ``device="cuda"`` and raises
 without a card; tests pass ``device="cpu"``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -104,6 +115,16 @@ def pack_vec(v, layout: PartyLayout, device) -> torch.Tensor:
     return out
 
 
+def dominator_onehot(m: int, batch: int, device="cpu") -> torch.Tensor:
+    """(m·B, m) selector: row r of the concatenated minibatch block belongs
+    to dominator r // B.  ``ϑ[:, None] * dominator_onehot(m, B)`` is the
+    block-diagonal Θ whose columns are the m dominators' ϑ vectors — the
+    kernel's M axis.  Built with device arithmetic only (no host copy), so
+    a captured step can build it."""
+    seg = torch.arange(m * batch, device=device) // batch
+    return (seg[:, None] == torch.arange(m, device=device)[None, :]).float()
+
+
 def pack_mask(layout: PartyLayout, active_only: bool = False,
               device="cpu") -> torch.Tensor:
     """(q, dp) update mask: layout's trainable blocks minus the padding."""
@@ -153,6 +174,16 @@ def unpack_deep_params(pq, layout: PartyLayout) -> DeepVFLParams:
 # the engine
 # ---------------------------------------------------------------------------
 
+class _Parts(NamedTuple):
+    """One algorithm's step in the pieces that its fresh steps, its
+    pipelined steps and its pipelined epilogue share."""
+
+    cols: Callable        # cols(b) -> the forward columns W
+    theta: Callable       # theta(b, agg, ib, yb) -> (ϑ, denom, aux)
+    apply: Callable       # apply(b, g, aux): the update, in place on b
+    doms: bool            # ϑ is the m dominators' (block-diagonal Θ)
+
+
 class _StepLoop:
     """The static buffers of one epoch kind at one schedule shape — the
     carried state, the schedule ``idx``, the step counter ``t`` and the
@@ -196,6 +227,7 @@ class FusedEngine:
         # party p's sample i is row p*n + i of xs viewed as (q*n, dp)
         self._row0 = torch.arange(self.q, device=self.device)[:, None] \
             * self.n
+        self._pair_rows = torch.arange(2, device=self.device)
         # every epoch's masks: one generator, re-seeded per call, which the
         # step graphs register so that each replay draws fresh masks
         self._gen = torch.Generator(device=self.device)
@@ -216,6 +248,41 @@ class FusedEngine:
         or (q, dp, M).  A Θ shared by every party comes as
         :meth:`_share`'s view, which the kernel reads without copies."""
         return ops.vfl_grad(xb, None, thq, mode="backward", denom=denom)[1]
+
+    def _dom_theta(self, theta, m: int):
+        """The block-diagonal Θ of m dominators from the concatenated
+        (m·B) ϑ: shared by every party for a (m·B,) ϑ (a party-stride-0
+        view of one (m·B, m) Θ), per party for a (q, m·B) one."""
+        oh = dominator_onehot(m, theta.shape[-1] // m, theta.device)
+        if theta.dim() == 1:
+            return self._share(theta[:, None] * oh)
+        return theta[..., None] * oh
+
+    def _bwd_doms(self, xb, theta, m: int, denom: int):
+        """(q, dp, m) per-dominator BUM data gradients from the
+        concatenated (q, m·B, dp) minibatch block: column j is
+        X_{b_j}ᵀϑ_j/denom.  Always the block-diagonal Θ through one
+        backward launch (the X block is read once for all m dominators);
+        the port has no size route to a segment contraction."""
+        return self._bwd(xb, self._dom_theta(theta, m), denom)
+
+    def _pipe(self, xcat, split: int, wcols, thcols, denom: int):
+        """The pipelined step's one contraction: rows [0, split) of the
+        party-stacked block ``xcat`` (q, split + Bf, dp) against Θ (the BUM
+        application of round t) and rows [split, ...) against W (the
+        forward of round t+1), in one split-batch fused launch.  Returns
+        ``(z_next (q, Bf[, Mw]), g (q, dp[, Mθ]))``; rank-1 sides
+        squeeze."""
+        return ops.vfl_grad(xcat, wcols, thcols, mode="fused", split=split,
+                            denom=denom)
+
+    def _pipe_doms(self, xcat, split: int, wq, theta, m: int, denom: int):
+        """Pipelined multi-dominator contraction: backward(t)'s m
+        per-dominator columns (block-diagonal Θ, as in :meth:`_bwd_doms`)
+        beside forward(t+1)'s single iterate column in one launch — the
+        sides' column counts differ (Mw = 1, Mθ = m).  Returns
+        ``(z_next (q, m·B), gg (q, dp, m))``."""
+        return self._pipe(xcat, split, wq, self._dom_theta(theta, m), denom)
 
     def _share(self, theta):
         """The dominator's ϑ (B,) or (B, M), broadcast to every party: a
@@ -265,13 +332,14 @@ class FusedEngine:
         seed_generator(self._gen, *mask_key, _TAG_STEPS)
         return loop
 
-    def _run(self, loop: _StepLoop, step) -> None:
-        """Run ``step(loop.bufs)`` once per row of the schedule: eagerly on
-        the CPU; on the card the first step eagerly (it also builds what
-        is made at first use: the kernel library, the trees' round
-        indices), then replays of the step's CUDA graph, captured at the
-        first epoch of this kind and shape."""
-        steps = loop.bufs["idx"].shape[0]
+    def _run(self, loop: _StepLoop, step, steps=None) -> None:
+        """Run ``step(loop.bufs)`` ``steps`` times (default once per row of
+        the schedule): eagerly on the CPU; on the card the first step
+        eagerly (it also builds what is made at first use: the kernel
+        library, the trees' round indices), then replays of the step's
+        CUDA graph, captured at the first epoch of this kind and shape."""
+        if steps is None:
+            steps = loop.bufs["idx"].shape[0]
         if self.device.type != "cuda":
             for _ in range(steps):
                 step(loop.bufs)
@@ -307,9 +375,18 @@ class FusedEngine:
                 graph.capture_end()
         main.wait_stream(side)
         per_step = {k: v - before[k]
-                    for k, v in _vg.KERNEL.launches.items()}
+                    for k, v in _vg.KERNEL.launches.items() if v != before[k]}
         _vg.KERNEL.add_launches(per_step, -1)
         return graph, per_step
+
+    def _gather(self, ib):
+        """The party-stacked feature block (q, R, dp) of the R ids ``ib``:
+        one gather of q·R whole rows (``xs.index_select(1, ib)`` would run
+        as an elementwise gather, several times slower on the card;
+        PERF.md)."""
+        rows = (self._row0 + ib).view(-1)
+        return self.xs.view(-1, self.dp).index_select(0, rows) \
+            .view(self.q, -1, self.dp)
 
     def _batch(self, b):
         """This step's minibatch: the row of the schedule at the device
@@ -317,32 +394,19 @@ class FusedEngine:
         (q, B, dp) and its labels."""
         ib = b["idx"].index_select(0, b["t"]).squeeze(0)
         b["t"].add_(1)
-        # one gather of q*B whole rows: xs.index_select(1, ib) would run as
-        # an elementwise gather, several times slower on the card (PERF.md)
-        rows = (self._row0 + ib).view(-1)
-        xb = self.xs.view(-1, self.dp).index_select(0, rows) \
-            .view(self.q, -1, self.dp)
-        return ib, xb, self.y.index_select(0, ib)
+        return ib, self._gather(ib), self.y.index_select(0, ib)
 
-    # -- SGD (Algorithms 2/3) ------------------------------------------------
+    def _pair(self, b):
+        """A pipelined step's rows: the schedule rows t (at the device
+        counter, which moves on) and t+1 gathered together as one
+        (q, 2R, dp) block — round t's backward rows, then round t+1's
+        forward rows — with round t's ids and labels."""
+        ii = b["idx"].index_select(0, b["t"] + self._pair_rows).view(-1)
+        b["t"].add_(1)
+        ib = ii[: ii.shape[0] // 2]
+        return ib, self._gather(ii), self.y.index_select(0, ib)
 
-    def _sgd_step(self, b):
-        prob, wq = self.problem, b["wq"]
-        ib, xb, yb = self._batch(b)
-        z = self._fwd(xb, wq)                                     # (q, B)
-        theta = prob.theta(self._agg(z, self._gen), yb)
-        g = self._bwd(xb, self._share(theta), ib.shape[0]) \
-            + prob.lam * prob.reg_grad(wq)
-        wq.sub_(b["lr"] * self.maskq * g)
-
-    def sgd_epoch(self, wq, lr, idx, mask_key=(0,)):
-        """One VFB²-SGD epoch over the schedule ``idx`` (steps, batch);
-        returns the new (q, dp) iterate."""
-        loop = self._loop("sgd", idx, lr, mask_key, wq=wq)
-        self._run(loop, self._sgd_step)
-        return loop.bufs["wq"].clone()
-
-    # -- SVRG (Algorithms 4/5): rank-2 steps ----------------------------------
+    # -- full-dataset passes (SVRG's snapshot gradient, SAGA's table) --------
 
     def full_gradient(self, wq, mask_key=(0,)):
         """∇f(w) of every party's block, (q, dp): one masked aggregation
@@ -354,26 +418,6 @@ class FusedEngine:
         return self._bwd(self.xs, self._share(theta), self.n) \
             + prob.lam * prob.reg_grad(wq)
 
-    def _svrg_step(self, b):
-        prob, wq, wsq = self.problem, b["wq"], b["wsq"]
-        ib, xb, yb = self._batch(b)
-        z = self._fwd(xb, torch.stack([wq, wsq], dim=2))       # (q, B, 2)
-        th = prob.theta(self._agg(z, self._gen), yb[:, None])    # (B, 2)
-        gg = self._bwd(xb, self._share(th), ib.shape[0])        # (q, dp, 2)
-        g1 = gg[..., 0] + prob.lam * prob.reg_grad(wq)
-        g0 = gg[..., 1] + prob.lam * prob.reg_grad(wsq)
-        wq.sub_(b["lr"] * self.maskq * (g1 - g0 + b["muq"]))
-
-    def svrg_epoch(self, wq, wq_snap, muq, lr, idx, mask_key=(0,)):
-        """Inner loop of VFB²-SVRG; the current iterate and the snapshot
-        ride the same kernel launches (M = 2)."""
-        loop = self._loop("svrg", idx, lr, mask_key, wq=wq, wsq=wq_snap,
-                          muq=muq)
-        self._run(loop, self._svrg_step)
-        return loop.bufs["wq"].clone()
-
-    # -- SAGA (Algorithms 6/7) -----------------------------------------------
-
     def saga_init(self, wq, mask_key=(0,)):
         """ϑ̃ table (q, n) + per-party running average (q, dp): Alg. 6
         step 2's pass over all n samples."""
@@ -384,26 +428,230 @@ class FusedEngine:
         avgq = self._bwd(self.xs, self._share(theta), self.n)
         return theta.repeat(self.q, 1), avgq
 
-    def _saga_step(self, b):
-        prob, wq, tab, avg = self.problem, b["wq"], b["tabq"], b["avgq"]
+    # -- the epochs (Algorithms 2–7) ------------------------------------------
+    #
+    # Every epoch runs its steps through _run_epoch.  Single-dominator: a
+    # step takes one (B) row of the schedule.  Multi-dominator (m =
+    # layout.m active parties per round): one (m·B) row, the m dominators'
+    # concatenated minibatches, through one forward, one masked aggregation
+    # of all m partial sets and one backward whose Θ is block-diagonal (its
+    # M = m columns are the m BUM gradients) or, for SVRG, the M = 2 pair
+    # summed over all m·B rows.  Pipelined (τ = 1): round t's BUM
+    # application uses the forward read taken before round t−1's update,
+    # so backward(t) and forward(t+1) share one split-batch launch.  An
+    # algorithm's _Parts are shared by its fresh steps, its interior
+    # pipelined steps and its pipelined epilogue.
+
+    def _sgd_parts(self, multi: bool) -> _Parts:
+        prob, m = self.problem, self.layout.m
+
+        def theta(b, agg, ib, yb):
+            th = prob.theta(agg, yb)
+            if multi:
+                return th, ib.shape[0] // m, None
+            return self._share(th), ib.shape[0], None
+
+        def apply(b, g, _):
+            wq = b["wq"]
+            if multi:
+                g = g.sum(-1) + m * prob.lam * prob.reg_grad(wq)
+            else:
+                g = g + prob.lam * prob.reg_grad(wq)
+            wq.sub_(b["lr"] * self.maskq * g)
+
+        return _Parts(lambda b: b["wq"], theta, apply, multi)
+
+    def _svrg_parts(self, multi: bool) -> _Parts:
+        prob, m = self.problem, self.layout.m
+
+        def theta(b, agg, ib, yb):                 # ϑ₁, ϑ₀ as (R, 2)
+            th = prob.theta(agg, yb[:, None])
+            return self._share(th), ib.shape[0] // (m if multi else 1), None
+
+        def apply(b, gg, _):
+            wq, wsq = b["wq"], b["wsq"]
+            if multi:
+                th_reg = prob.lam * (prob.reg_grad(wq) - prob.reg_grad(wsq))
+                v = gg[..., 0] - gg[..., 1] + m * (th_reg + b["muq"])
+            else:
+                v = (gg[..., 0] + prob.lam * prob.reg_grad(wq)) \
+                    - (gg[..., 1] + prob.lam * prob.reg_grad(wsq)) + b["muq"]
+            wq.sub_(b["lr"] * self.maskq * v)
+
+        return _Parts(lambda b: torch.stack([b["wq"], b["wsq"]], dim=2),
+                      theta, apply, False)
+
+    def _saga_parts(self, multi: bool) -> _Parts:
+        prob, m = self.problem, self.layout.m
+
+        def theta(b, agg, ib, yb):
+            th_new = prob.theta(agg, yb)
+            # each party reads its own copy of the table: a per-party Θ
+            dth = th_new - b["tabq"].index_select(1, ib)          # (q, R)
+            return dth, 1, (th_new, ib)
+
+        def apply(b, raw, aux):
+            th_new, ib = aux
+            wq, tab, avg = b["wq"], b["tabq"], b["avgq"]
+            if multi:
+                raw = raw.sum(-1)
+                v = raw / (ib.shape[0] // m) + m * avg \
+                    + m * prob.lam * prob.reg_grad(wq)
+            else:
+                v = raw / ib.shape[0] + avg + prob.lam * prob.reg_grad(wq)
+            wq.sub_(b["lr"] * self.maskq * v)
+            avg.add_(raw / self.n)
+            tab[:, ib] = th_new[last_occurrence(ib)]
+
+        return _Parts(lambda b: b["wq"], theta, apply, multi)
+
+    def _step_bwd(self, parts: _Parts, xb, th, denom: int):
+        """The backward of a fresh step or of a pipelined epilogue."""
+        if parts.doms:
+            return self._bwd_doms(xb, th, self.layout.m, denom)
+        return self._bwd(xb, th, denom)
+
+    def _fresh_step(self, b, parts: _Parts):
+        """A step of a fresh (not pipelined) epoch: forward, aggregation
+        and backward of one schedule row, all at the current iterate."""
         ib, xb, yb = self._batch(b)
-        z = self._fwd(xb, wq)
-        th_new = prob.theta(self._agg(z, self._gen), yb)          # (B,)
-        # each party reads its own copy of the table: a per-party Θ
-        raw = self._bwd(xb, th_new - tab.index_select(1, ib), 1)  # (q, dp)
-        v = raw / ib.shape[0] + avg + prob.lam * prob.reg_grad(wq)
-        wq.sub_(b["lr"] * self.maskq * v)
-        avg.add_(raw / self.n)
-        tab[:, ib] = th_new[last_occurrence(ib)]
+        agg = self._agg(self._fwd(xb, parts.cols(b)), self._gen)
+        th, denom, aux = parts.theta(b, agg, ib, yb)
+        parts.apply(b, self._step_bwd(parts, xb, th, denom), aux)
+
+    def _pipe_step(self, b, parts: _Parts):
+        """An interior pipelined step: round t's ϑ from the carried
+        aggregate (read before this step overwrites it), then exactly one
+        split-batch launch — round t's backward and round t+1's forward at
+        the pre-update iterate — then round t+1's aggregation and round
+        t's update."""
+        ib, xcat, yb = self._pair(b)
+        th, denom, aux = parts.theta(b, b["agg"], ib, yb)
+        if parts.doms:
+            z, g = self._pipe_doms(xcat, ib.shape[0], parts.cols(b), th,
+                                   self.layout.m, denom)
+        else:
+            z, g = self._pipe(xcat, ib.shape[0], parts.cols(b), th, denom)
+        b["agg"].copy_(self._agg(z, self._gen))
+        parts.apply(b, g, aux)
+
+    def _pipelined(self, loop: _StepLoop, parts: _Parts) -> None:
+        """A pipelined epoch: the forward prologue of schedule row 0 (its
+        aggregate into the loop's carried buffer), ``steps − 1`` interior
+        steps, and the backward epilogue of the last row, which uses the
+        forward read taken before the previous update."""
+        b = loop.bufs
+        agg0 = self._agg(self._fwd(self._gather(b["idx"][0]), parts.cols(b)),
+                         self._gen)
+        if "agg" not in b:
+            b["agg"] = torch.empty_like(agg0)
+        b["agg"].copy_(agg0)
+        self._run(loop, lambda bufs: self._pipe_step(bufs, parts),
+                  b["idx"].shape[0] - 1)
+        ib = b["idx"][-1]
+        th, denom, aux = parts.theta(b, b["agg"], ib,
+                                     self.y.index_select(0, ib))
+        parts.apply(b, self._step_bwd(parts, self._gather(ib), th, denom),
+                    aux)
+
+    def _run_epoch(self, algo: str, multi: bool, pipelined: bool, idx, lr,
+                   mask_key, **carries):
+        """Run one epoch of ``algo`` in the given form from ``carries``;
+        returns the loop's buffers."""
+        name = ("multi_" if multi else "") \
+            + ("pipelined_" if pipelined else "") + algo
+        parts = getattr(self, f"_{algo}_parts")(multi)
+        loop = self._loop(name, idx, lr, mask_key, **carries)
+        if pipelined:
+            self._pipelined(loop, parts)
+        else:
+            self._run(loop, lambda b: self._fresh_step(b, parts))
+        return loop.bufs
+
+    def _sgd(self, multi, pipelined, wq, lr, idx, mask_key):
+        return self._run_epoch("sgd", multi, pipelined, idx, lr, mask_key,
+                               wq=wq)["wq"].clone()
+
+    def _svrg(self, multi, pipelined, wq, wq_snap, muq, lr, idx, mask_key):
+        return self._run_epoch("svrg", multi, pipelined, idx, lr, mask_key,
+                               wq=wq, wsq=wq_snap, muq=muq)["wq"].clone()
+
+    def _saga(self, multi, pipelined, wq, tabq, avgq, lr, idx, mask_key):
+        b = self._run_epoch("saga", multi, pipelined, idx, lr, mask_key,
+                            wq=wq, tabq=tabq, avgq=avgq)
+        return b["wq"].clone(), b["tabq"].clone(), b["avgq"].clone()
+
+    def sgd_epoch(self, wq, lr, idx, mask_key=(0,)):
+        """One VFB²-SGD epoch over the schedule ``idx`` (steps, batch);
+        returns the new (q, dp) iterate."""
+        return self._sgd(False, False, wq, lr, idx, mask_key)
+
+    def svrg_epoch(self, wq, wq_snap, muq, lr, idx, mask_key=(0,)):
+        """Inner loop of VFB²-SVRG; the current iterate and the snapshot
+        ride the same kernel launches (M = 2)."""
+        return self._svrg(False, False, wq, wq_snap, muq, lr, idx, mask_key)
 
     def saga_epoch(self, wq, tabq, avgq, lr, idx, mask_key=(0,)):
         """One VFB²-SAGA epoch; returns (wq, tabq, avgq).  On duplicate
         indices in a minibatch the last write to the table wins."""
-        loop = self._loop("saga", idx, lr, mask_key, wq=wq, tabq=tabq,
-                          avgq=avgq)
-        self._run(loop, self._saga_step)
-        b = loop.bufs
-        return b["wq"].clone(), b["tabq"].clone(), b["avgq"].clone()
+        return self._saga(False, False, wq, tabq, avgq, lr, idx, mask_key)
+
+    def multi_sgd_epoch(self, wq, lr, idx, mask_key=(0,)):
+        """VFB²-SGD with all m = layout.m dominators updating at once, over
+        the (steps, m·B) schedule ``idx``: one forward over the
+        concatenated (m·B) block, one aggregation of all m partial sets,
+        one M = m block-diagonal backward.  Returns the new (q, dp)
+        iterate."""
+        return self._sgd(True, False, wq, lr, idx, mask_key)
+
+    def multi_svrg_epoch(self, wq, wq_snap, muq, lr, idx, mask_key=(0,)):
+        """Multi-dominator VFB²-SVRG inner loop: the m dominators' rows
+        ride one M = 2 forward and backward (iterate and snapshot)."""
+        return self._svrg(True, False, wq, wq_snap, muq, lr, idx, mask_key)
+
+    def multi_saga_epoch(self, wq, tabq, avgq, lr, idx, mask_key=(0,)):
+        """Multi-dominator VFB²-SAGA: the m dominators' Δϑ are the M = m
+        columns of one backward; the table takes all m·B writes of a step
+        (the last occurrence of a duplicate id wins).  Returns (wq, tabq,
+        avgq)."""
+        return self._saga(True, False, wq, tabq, avgq, lr, idx, mask_key)
+
+    def pipelined_sgd_epoch(self, wq, lr, idx, mask_key=(0,)):
+        """Pipelined VFB²-SGD over the (steps, B) schedule ``idx``: a
+        forward prologue, ``steps − 1`` split-batch steps, a backward
+        epilogue.  Returns the new (q, dp) iterate."""
+        return self._sgd(False, True, wq, lr, idx, mask_key)
+
+    def pipelined_svrg_epoch(self, wq, wq_snap, muq, lr, idx,
+                             mask_key=(0,)):
+        """Pipelined VFB²-SVRG inner loop: iterate and snapshot ride one
+        M = 2 split-batch launch (ϑ₁ on the stale read; the snapshot is
+        constant, so ϑ₀ is delay-free)."""
+        return self._svrg(False, True, wq, wq_snap, muq, lr, idx, mask_key)
+
+    def pipelined_saga_epoch(self, wq, tabq, avgq, lr, idx, mask_key=(0,)):
+        """Pipelined VFB²-SAGA: each party's Δϑ enters the split-batch
+        launch at application time (per-party Θ, denom 1); only the
+        forward read of the iterate is one step stale."""
+        return self._saga(False, True, wq, tabq, avgq, lr, idx, mask_key)
+
+    def multi_pipelined_sgd_epoch(self, wq, lr, idx, mask_key=(0,)):
+        """Pipelined multi-dominator VFB²-SGD over the (steps, m·B)
+        schedule: the m dominators' block-diagonal Θ and the next round's
+        forward ride one split-batch launch with Mw = 1, Mθ = m."""
+        return self._sgd(True, True, wq, lr, idx, mask_key)
+
+    def multi_pipelined_svrg_epoch(self, wq, wq_snap, muq, lr, idx,
+                                   mask_key=(0,)):
+        """Pipelined multi-dominator VFB²-SVRG: the m·B rows share the
+        M = 2 columns of one split-batch launch per step."""
+        return self._svrg(True, True, wq, wq_snap, muq, lr, idx, mask_key)
+
+    def multi_pipelined_saga_epoch(self, wq, tabq, avgq, lr, idx,
+                                   mask_key=(0,)):
+        """Pipelined multi-dominator VFB²-SAGA: per-party, per-dominator Δϑ
+        columns beside the single forward column, one launch per step."""
+        return self._saga(True, True, wq, tabq, avgq, lr, idx, mask_key)
 
     def objective(self, wq) -> float:
         """Full objective (one device sync; for per-epoch telemetry).

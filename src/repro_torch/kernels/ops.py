@@ -18,7 +18,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 def vfl_grad(xb, w, theta=None, lam=0.0, *, mode="forward", denom=None,
              split=None):
-    """Batched rank-k VFL kernel, forward or backward mode.
+    """Batched rank-k VFL kernel: forward, backward or fused mode.
 
     ``mode="forward"``: ``(z, None)`` with z = xb @ w accumulated in f32.
     ``theta``, ``lam`` and ``denom`` are accepted and unused, as in the
@@ -39,21 +39,29 @@ def vfl_grad(xb, w, theta=None, lam=0.0, *, mode="forward", denom=None,
     reference.  xb and w share a dtype, float32 or bfloat16; z and g are
     float32.
 
-    ``mode="fused"`` and ``split=`` are not ported yet (ROADMAP queue B,
-    item B1 (b) and (c)) and raise on every device.
+    ``mode="fused"``: ``(z, g)`` from one launch.  Without ``split`` both
+    come from the same B rows, θ has B rows and w and θ one column count.
+    With ``split`` (0 < split < B; the pipelined step) rows [0, split) are
+    the backward block, against θ of ``split`` rows, and rows [split, B)
+    the forward block, whose z is returned; the two sides' column counts
+    Mw and Mθ may differ (Mw = 1 beside a block-diagonal Θ of Mθ = m).
+    ``denom`` defaults to the backward rows; a nonzero ``lam`` needs w
+    and θ with one column count.  Each side squeezes to rank 1 with its
+    own operand.  ``split`` outside the fused mode is an error.
     """
     if mode not in ("forward", "backward", "fused"):
         raise ValueError(f"unknown mode {mode!r}")
-    if mode == "fused" or split is not None:
-        raise NotImplementedError(
-            "vfl_grad: the fused mode and the split-batch form are not "
-            "ported yet (ROADMAP B1 (b) and (c), with the pipelined epochs)")
+    if split is not None and mode != "fused":
+        raise ValueError("split= is the fused mode's split-batch form; "
+                         f"got mode={mode!r}")
     if xb.dtype not in _DTYPES:
         raise ValueError(f"xb must be one of {_DTYPES}; got {xb.dtype}")
     if xb.device.type not in ("cpu", "cuda"):
         raise ValueError(f"vfl_grad runs on cpu or cuda, not {xb.device}")
     if mode == "forward":
         return _forward(xb, w), None
+    if mode == "fused":
+        return _fused(xb, w, theta, lam, denom, split)
     return None, _backward(xb, w, theta, lam, denom)
 
 
@@ -132,3 +140,59 @@ def _backward(xb, w, theta, lam, denom):
     if rank1:
         g = g.squeeze(-1)
     return g.squeeze(0) if lead == 0 else g
+
+
+def _fused(xb, w, theta, lam, denom, split):
+    if w is None or theta is None:
+        raise ValueError("mode='fused' needs w and theta")
+    lam = float(lam)
+    if w.dtype != xb.dtype:
+        raise ValueError(f"xb and w must share a dtype in {_DTYPES}; got "
+                         f"{xb.dtype}, {w.dtype}")
+    if not theta.is_floating_point():
+        raise ValueError(f"theta must be floating point; got {theta.dtype}")
+    for t, name in ((theta, "theta"), (w, "w")):
+        if t.device != xb.device:
+            raise ValueError(f"xb on {xb.device}, {name} on {t.device}")
+    lead = xb.dim() - 2                     # 0, or 1 with the party axis
+    b, d = xb.shape[-2], xb.shape[-1]
+    if split is not None and not 0 < int(split) < b:
+        raise ValueError(f"split must lie in (0, {b}); got {split}")
+    nb = b if split is None else int(split)
+    w_rank1 = w.dim() == xb.dim() - 1
+    th_rank1 = theta.dim() == xb.dim() - 1
+    if (xb.dim() not in (2, 3) or w.dim() not in (lead + 1, lead + 2)
+            or theta.dim() not in (lead + 1, lead + 2)
+            or w.shape[:lead] != xb.shape[:lead] or w.shape[lead] != d
+            or theta.shape[:lead] != xb.shape[:lead]
+            or theta.shape[lead] != nb):
+        raise ValueError(
+            f"bad shapes xb {tuple(xb.shape)}, w {tuple(w.shape)}, theta "
+            f"{tuple(theta.shape)}, split {split}: want (B, D) with w "
+            "(D,)/(D, Mw) and θ (Bb,)/(Bb, Mθ), or (P, B, D) with w "
+            "(P, D)/(P, D, Mw) and θ (P, Bb)/(P, Bb, Mθ); Bb = split or B")
+    mw = 1 if w_rank1 else w.shape[-1]
+    mth = 1 if th_rank1 else theta.shape[-1]
+    if split is None and mw != mth:
+        raise ValueError(f"the fused mode without split needs one column "
+                         f"count; got Mw={mw}, Mθ={mth}")
+    if lam != 0.0 and mw != mth:
+        raise ValueError(f"nonzero lam needs w with θ's column count "
+                         f"(Mw={mw}, Mθ={mth}); pass lam=0 and add the "
+                         "regularizer outside the kernel")
+    denom = nb if denom is None else int(denom)
+    if xb.device.type == "cpu":
+        return ref.vfl_fused_ref(xb, w, theta, lam, denom, split)
+    x3 = xb.unsqueeze(0) if lead == 0 else xb
+    w3 = w.reshape(x3.shape[0], d, mw)
+    th3 = theta.unsqueeze(-1) if th_rank1 else theta
+    th3 = (th3.unsqueeze(0) if lead == 0 else th3).float()
+    if not (th3.stride(0) == 0 and th3[0].is_contiguous()):
+        th3 = th3.contiguous()              # not a shared (expanded) θ
+    z, g = _vg.KERNEL.fused(x3.contiguous(), w3.contiguous(), th3, lam,
+                            float(denom), split)
+    if w_rank1:
+        z = z.squeeze(-1)
+    if th_rank1:
+        g = g.squeeze(-1)
+    return (z.squeeze(0), g.squeeze(0)) if lead == 0 else (z, g)

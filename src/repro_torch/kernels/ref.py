@@ -34,6 +34,32 @@ def vfl_backward_ref(xb: torch.Tensor, theta: torch.Tensor, w=None,
     return g.squeeze(-1) if rank1 else g
 
 
+def vfl_fused_ref(xb: torch.Tensor, w: torch.Tensor, theta: torch.Tensor,
+                  lam: float = 0.0, denom=None, split=None):
+    """The fused mode in f32: ``(z, g)`` from one row block, with the
+    shapes ``ops.vfl_grad`` takes.
+
+    Without ``split``: z = xb·w and g = xbᵀθ/denom + λw over the same B
+    rows.  With ``split``: z over rows [split, B) only and g = xb[:split]ᵀθ
+    /denom over rows [0, split) only (θ has ``split`` rows); the λw term
+    needs w and θ with one column count.  xb is (B, D) or (P, B, D) with
+    a leading party axis; w is (D,)/(D, Mw), or (P, D)/(P, D, Mw); θ is
+    (nb,)/(nb, Mθ), or (P, nb)/(P, nb, Mθ), an ``expand`` view where one θ
+    is shared.  Each side squeezes to rank 1 with its own operand.
+    ``denom`` defaults to the backward rows."""
+    rows = xb.shape[-2] if split is None else split
+    fwd = xb if split is None else xb[..., split:, :]
+    bwd = xb if split is None else xb[..., :split, :]
+    wl = None
+    if lam != 0.0:
+        gshape = bwd.shape[:-2] + (bwd.shape[-1],) + \
+            theta.shape[xb.dim() - 1:]
+        wl = w.reshape(gshape)
+    return (vfl_forward_ref(fwd, w),
+            vfl_backward_ref(bwd, theta, wl, lam,
+                             rows if denom is None else denom))
+
+
 def vfl_grad_ref(xb, w, theta, lam: float, denom=None):
     """Fused VFL forward partial + BUM backward (the paper's hot loop).
 

@@ -1,10 +1,9 @@
 """Build, binding and launch of the hand-written CUDA ``vfl_grad`` kernel.
 
-The port of the Pallas TPU kernel ``repro.kernels.vfl_grad``: its forward
-and backward modes (the fused and split-batch forms come with the
-pipelined epochs).  The source is ``csrc/vfl_grad.cu``; its header note
-says what the kernel replaces, what bounds it on the H100 and how its
-design answers that.
+The port of the Pallas TPU kernel ``repro.kernels.vfl_grad``: its forward,
+backward and fused modes, the last with its split-batch form.  The source
+is ``csrc/vfl_grad.cu``; its header note says what the kernel replaces,
+what bounds it on the H100 and how its design answers that.
 
 Build: at first launch, ``nvcc -gencode arch=compute_90a,code=sm_90a``
 compiles the source into a shared library with a plain C interface under
@@ -13,14 +12,18 @@ of the source and flags, so an edited source is rebuilt and an unchanged
 one is reused.  The library is loaded with ``ctypes``.  Nothing is built or
 loaded when the module is imported.
 
-The source holds four ``__global__`` programs, each with its own entry
+The source holds five ``__global__`` programs, each with its own entry
 points: ``vfl_forward_narrow`` (M <= ``NARROW_MAX_M``, the linear path) and
 ``vfl_forward_wide`` (wider M, the deep encoder layers), which ``forward``
 picks by M; ``vfl_backward_rows`` and ``vfl_backward_reduce``, which
 ``backward`` launches: the rows program alone when B fits one chunk of
 ``BWD_CHUNK_ROWS`` rows (every minibatch step), else the rows program into
 a workspace of per-chunk partials and the reduce program over it (the
-full-dataset passes).  ``KERNEL.launches`` maps each program's name to its
+full-dataset passes); and ``vfl_fused_split``, which ``fused`` launches
+for the fused mode and its split-batch form (the pipelined step): the
+forward side and the backward side in one launch, followed by the reduce
+program only when the backward side spans more than one chunk.
+``KERNEL.launches`` maps each program's name to its
 launch count: a count goes up by one exactly where that program is
 launched, so a run can show that its path went through it.
 ``reset_launches`` zeroes them; ``add_launches`` records launches that a
@@ -51,6 +54,7 @@ NARROW_MAX_M = 4                 # kNarrow in csrc/vfl_grad.cu
 BWD_CHUNK_ROWS = 1024            # kChunkRows in csrc/vfl_grad.cu
 PROGRAMS = ("vfl_forward_narrow", "vfl_forward_wide", "vfl_backward_rows",
             "vfl_backward_reduce")
+PROGRAMS += ("vfl_fused_split",)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -128,6 +132,11 @@ class CudaKernel:
             "vfl_backward_rows": [ptr] * 4 + [i64] * 5 + [f32] * 2 + [ptr],
             # workspace, w, g; parties, d, m, chunks; denom, lam; stream
             "vfl_backward_reduce": [ptr] * 3 + [i64] * 4 + [f32] * 2 + [ptr],
+            # x, w, theta, z, out; parties, rows, first forward row,
+            # forward rows, backward rows, d, mw, mth, theta party stride;
+            # denom, lam; lam*w on; stream
+            "vfl_fused_split": [ptr] * 5 + [i64] * 9 + [f32] * 2
+            + [ctypes.c_int, ptr],
         }
         lib = ctypes.CDLL(str(path))
         for prog in PROGRAMS:
@@ -242,5 +251,61 @@ class CudaKernel:
                          what=f"workspace {tuple(ws.shape)}")
         return g
 
+
+    def fused(self, x: torch.Tensor, w: torch.Tensor, theta: torch.Tensor,
+              lam: float, denom: float, split: Optional[int]):
+        """The fused mode on the card, one launch for every party: x
+        (P, B, D) and w (P, D, Mw) contiguous of one dtype (f32 or bf16);
+        theta (P, Bb, Mθ) f32 with contiguous (Bb, Mθ) slices and a party
+        stride of 0 or Bb·Mθ.  Without ``split`` both sides run over all
+        B rows (Bb = B, Mw = Mθ) and g carries λ·w; with ``split`` the
+        backward side is rows [0, split) (Bb = split) and the forward side
+        rows [split, B), and λ·w needs Mw = Mθ (else pass λ = 0).  Returns
+        (z (P, B − split or B, Mw), g (P, D, Mθ)), both f32.  Launches
+        ``vfl_fused_split`` and, when the backward side spans more than
+        one chunk of ``BWD_CHUNK_ROWS`` rows, ``vfl_backward_reduce`` over
+        its per-chunk partials; raises if a launch is refused."""
+        p, b, d = x.shape
+        mw, nb, mth = w.shape[2], theta.shape[1], theta.shape[2]
+        f0 = 0 if split is None else split
+        pstride = theta.stride(0)
+        lamw = lam != 0.0
+        if (x.device.type != "cuda" or x.dtype not in _SUFFIX
+                or not (x.is_contiguous() and w.is_contiguous())
+                or w.device != x.device or w.dtype != x.dtype
+                or tuple(w.shape) != (p, d, mw)
+                or theta.device != x.device
+                or theta.dtype != torch.float32 or theta.shape[0] != p
+                or nb != (b if split is None else split)
+                or not 0 <= f0 < b or not theta[0].is_contiguous()
+                or (p > 1 and pstride not in (0, nb * mth))
+                or (lamw and mw != mth)):
+            raise ValueError(
+                "vfl_grad fused takes contiguous CUDA x (P, B, D) and w "
+                "(P, D, Mw) of one dtype in {float32, bfloat16}, f32 theta "
+                "(P, Bb, Mθ) with Bb = split (or B) rows, contiguous "
+                "(Bb, Mθ) slices and party stride 0 or Bb*Mθ, and Mw = Mθ "
+                f"for λw, on one device; got x {tuple(x.shape)} {x.dtype} "
+                f"{x.device}, w {tuple(w.shape)} {w.dtype}, theta "
+                f"{tuple(theta.shape)} {theta.dtype} stride "
+                f"{theta.stride()}, split {split}, lam {lam}")
+        z = torch.empty((p, b - f0, mw), dtype=torch.float32,
+                        device=x.device)
+        g = torch.empty((p, d, mth), dtype=torch.float32, device=x.device)
+        chunks = -(-nb // BWD_CHUNK_ROWS)
+        out = g if chunks == 1 else torch.empty(
+            (chunks, p, d, mth), dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            self._launch("vfl_fused_split", x.dtype, x.data_ptr(),
+                         w.data_ptr(), theta.data_ptr(), z.data_ptr(),
+                         out.data_ptr(), p, b, f0, b - f0, nb, d, mw, mth,
+                         pstride if p > 1 else nb * mth, denom, lam,
+                         int(lamw),
+                         what=f"x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                              f"theta {tuple(theta.shape)}, split {split}, "
+                              f"{x.dtype}")
+            if chunks > 1:
+                self.reduce(out, w if lamw else None, g, denom, lam)
+        return z, g
 
 KERNEL = CudaKernel()

@@ -59,7 +59,8 @@ def _cpu_engine():
 
 @pytest.mark.parametrize("entry", [
     "resolve_device", "FusedEngine", "ServeEngine", "linear_iterate",
-    "deep_params", "svrg_state", "saga_state", "train", "train_fused"])
+    "deep_params", "svrg_state", "saga_state", "train", "train_fused",
+    "train_multi_pipelined"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
                                                                entry):
     x = np.ones((6, 4), np.float32)
@@ -80,6 +81,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
             losses.ridge(), x, np.ones(6, np.float32),
             algorithms.PartyLayout.even(4, 2, 1), epochs=1,
             engine="fused"),
+        "train_multi_pipelined": lambda: algorithms.train(
+            losses.ridge(), x, np.ones(6, np.float32),
+            algorithms.PartyLayout.even(4, 2, 1), epochs=1,
+            engine="fused", multi_dominator=True, pipelined=True),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -1,5 +1,5 @@
-"""The port's ``vfl_grad`` (forward and backward modes) against the JAX
-kernel.
+"""The port's ``vfl_grad`` (forward, backward and fused modes, the last
+with its split-batch form) against the JAX kernel.
 
 On the CPU the port's wrapper runs its plain version; it is held against
 the Pallas kernel in interpret mode (``repro.kernels.ops.vfl_grad``) and
@@ -189,12 +189,129 @@ def test_backward_mode_is_ported():
     torch.testing.assert_close(g, torch.ones(8))
 
 
-@pytest.mark.parametrize("kw", [dict(mode="fused"),
-                                dict(mode="fused", split=8)])
-def test_unported_modes_raise(kw):
-    x = torch.ones((16, 8))
-    with pytest.raises(NotImplementedError, match="B1"):
-        ops.vfl_grad(x, torch.ones(8), torch.ones(16), **kw)
+@pytest.mark.parametrize("split", [None, 8], ids=["fused", "fused-split"])
+def test_fused_mode_is_ported(split):
+    """``mode="fused"`` returns ``(z, g)`` on every device, with and
+    without ``split`` (both raised ``NotImplementedError`` before this
+    mode was ported)."""
+    nb = 16 if split is None else split
+    z, g = ops.vfl_grad(torch.ones((16, 8)), torch.ones(8), torch.ones(nb),
+                        mode="fused", split=split)
+    torch.testing.assert_close(z, torch.full((16 - (split or 0),), 8.0))
+    torch.testing.assert_close(g, torch.ones(8))
+
+
+@pytest.mark.parametrize("b,d,m", [
+    (128, 256, 1),      # tile-divisible
+    (100, 130, 1),      # ragged on both axes
+    (96, 384, 3),       # multi-dominator rank
+    (100, 70, 3),       # ragged + M = 3
+])
+def test_fused_equals_separate_calls(jnp, jops, b, d, m):
+    """The fused mode gives the forward-only z and the backward-only g of
+    two separate calls (1e-6, as ``tests/test_kernels.py``), and matches
+    the JAX kernel's fused mode."""
+    x = torch.from_numpy(_rand(21, (b, d)))
+    w = torch.from_numpy(_rand(22, (d, m)))
+    th = torch.from_numpy(_rand(23, (b, m)))
+    zf, gf = ops.vfl_grad(x, w, th, 0.03, mode="fused")
+    z1, _ = ops.vfl_grad(x, w, mode="forward")
+    _, g1 = ops.vfl_grad(x, w, th, 0.03, mode="backward")
+    np.testing.assert_allclose(zf.numpy(), z1.numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(gf.numpy(), g1.numpy(), atol=1e-6, rtol=0)
+    zj, gj = jops.vfl_grad(jnp.asarray(x.numpy()), jnp.asarray(w.numpy()),
+                           jnp.asarray(th.numpy()), 0.03, mode="fused",
+                           interpret=True)
+    np.testing.assert_allclose(zf.numpy(), np.asarray(zj), **TOL)
+    np.testing.assert_allclose(gf.numpy(), np.asarray(gj), **GTOL)
+
+
+SPLITS = [
+    (64, 64, 128, 1, 1),     # symmetric sides
+    (60, 40, 70, 1, 3),      # ragged rows, distinct side column counts
+    (32, 96, 130, 2, 2),     # asymmetric row blocks, SVRG rank
+    (100, 100, 96, 1, 4),
+]
+
+
+@pytest.mark.parametrize("bb,bf,d,mw,mth", SPLITS)
+def test_split_matches_jax(jnp, jops, bb, bf, d, mw, mth):
+    """The split-batch form (the pipelined step): rows [0, bb) against θ,
+    rows [bb, bb+bf) against w, as the JAX kernel computes it."""
+    x = _rand(24, (bb + bf, d))
+    w = _rand(25, (d, mw))
+    th = _rand(26, (bb, mth))
+    z, g = ops.vfl_grad(torch.from_numpy(x), torch.from_numpy(w),
+                        torch.from_numpy(th), mode="fused", split=bb,
+                        denom=bb)
+    zj, gj = jops.vfl_grad(jnp.asarray(x), jnp.asarray(w), jnp.asarray(th),
+                           0.0, mode="fused", split=bb, denom=bb,
+                           interpret=True)
+    assert tuple(z.shape) == tuple(zj.shape) == (bf, mw)
+    assert tuple(g.shape) == tuple(gj.shape) == (d, mth)
+    np.testing.assert_allclose(z.numpy(), np.asarray(zj), **TOL)
+    np.testing.assert_allclose(g.numpy(), np.asarray(gj), **GTOL)
+
+
+def test_split_rank1_matches_jax(jnp, jops):
+    """Rank-1 sides squeeze independently; denom defaults to the
+    backward rows."""
+    x, w, th = _rand(27, (96, 50)), _rand(28, (50,)), _rand(29, (64,))
+    z, g = ops.vfl_grad(torch.from_numpy(x), torch.from_numpy(w),
+                        torch.from_numpy(th), mode="fused", split=64)
+    zj, gj = jops.vfl_grad(jnp.asarray(x), jnp.asarray(w), jnp.asarray(th),
+                           mode="fused", split=64, interpret=True)
+    assert tuple(z.shape) == (32,) and tuple(g.shape) == (50,)
+    np.testing.assert_allclose(z.numpy(), np.asarray(zj), **TOL)
+    np.testing.assert_allclose(g.numpy(), np.asarray(gj), **GTOL)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("mw,mth,lam,denom", [(None, None, 0.0, None),
+                                              (1, 2, 0.0, None),
+                                              (2, 2, 0.03, 1)])
+def test_split_party_axis_matches_per_party_jax(jnp, jops, shared, mw, mth,
+                                                lam, denom):
+    """One call over a leading party axis equals the JAX kernel run party
+    by party: θ shared (an ``expand`` view, party stride 0) or per party
+    (pipelined SAGA's per-party Δϑ with denom 1)."""
+    p, bb, bf, d = 3, 37, 29, 100
+    x_np = _rand(30, (p, bb + bf, d))
+    w_np = _rand(31, (p, d) if mw is None else (p, d, mw))
+    tail = () if mth is None else (mth,)
+    th_np = _rand(32, (bb,) + tail if shared else (p, bb) + tail)
+    th = torch.from_numpy(th_np)
+    th = th.expand(p, *th.shape) if shared else th
+    z, g = ops.vfl_grad(torch.from_numpy(x_np), torch.from_numpy(w_np), th,
+                        lam, mode="fused", split=bb, denom=denom)
+    assert tuple(z.shape) == (p, bf) + (() if mw is None else (mw,))
+    assert tuple(g.shape) == (p, d) + tail
+    for i in range(p):
+        zj, gj = jops.vfl_grad(
+            jnp.asarray(x_np[i]), jnp.asarray(w_np[i]),
+            jnp.asarray(th_np if shared else th_np[i]), lam, mode="fused",
+            split=bb, denom=denom, interpret=True)
+        np.testing.assert_allclose(z[i].numpy(), np.asarray(zj), **TOL)
+        np.testing.assert_allclose(g[i].numpy(), np.asarray(gj), **GTOL)
+
+
+@pytest.mark.parametrize("xs,ws,ths,lam,kw", [
+    ((16, 8), (8,), (16,), 0.0, dict(mode="forward", split=8)),
+    ((16, 8), (8,), (16,), 0.0, dict(mode="backward", split=8)),
+    ((16, 8), (8,), (16,), 0.0, dict(split=0)),       # split outside (0, B)
+    ((16, 8), (8,), (16,), 0.0, dict(split=16)),
+    ((16, 8), (8,), (16,), 0.0, dict(split=8)),       # θ rows != split
+    ((16, 8), (8, 2), (16, 3), 0.0, {}),              # no split: Mw != Mθ
+    ((16, 8), (8, 1), (8, 3), 0.1, dict(split=8)),    # λw with Mw != Mθ
+    ((16, 8), (9,), (8,), 0.0, dict(split=8)),        # w rows != D
+    ((3, 16, 8), (2, 8), (3, 8), 0.0, dict(split=8)),  # party counts
+    ((3, 16, 8), (8,), (3, 8), 0.0, dict(split=8)),   # w needs the party axis
+])
+def test_fused_bad_operands_raise(xs, ws, ths, lam, kw):
+    kw = {"mode": "fused", **kw}
+    with pytest.raises(ValueError):
+        ops.vfl_grad(torch.ones(xs), torch.ones(ws), torch.ones(ths), lam,
+                     **kw)
 
 
 @pytest.mark.parametrize("xs,ths,ws,lam", [
@@ -230,6 +347,8 @@ def test_cpu_never_launches_the_kernel():
                  mode="backward")
     ops.vfl_grad(torch.ones((3, 4000, 8)), None,
                  torch.ones(4000).expand(3, 4000), mode="backward")
+    ops.vfl_grad(torch.ones((3, 8, 8)), torch.ones((3, 8)),
+                 torch.ones((3, 4, 2)), mode="fused", split=4)
     assert vg.KERNEL.launches == before
     assert set(before) == set(vg.PROGRAMS)
     assert vg.KERNEL._lib is None, "CPU tensors must not build the kernel"
@@ -292,3 +411,56 @@ def test_cuda_backward_matches_plain(cuda_device, dtype, shape):
         "vfl_backward_reduce": before["vfl_backward_reduce"] + multi}
     torch.testing.assert_close(g, ref.vfl_backward_ref(x, th, w, lam),
                                **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    # P, Bb, Bf, D, Mw, Mθ, θ shared, λ, denom
+    (8, 32, 32, 512, 1, 1, True, 0.0, None),    # pipelined SGD step
+    (8, 32, 32, 512, 2, 2, True, 0.0, None),    # pipelined SVRG step
+    (8, 64, 64, 512, 1, 2, True, 0.0, 32),      # multi-pipelined, block-diag
+    (8, 32, 32, 512, 1, 1, False, 0.0, 1),      # pipelined SAGA, per party
+    (3, 60, 40, 70, 1, 3, True, 0.0, None),     # ragged split
+    (2, 32, 96, 130, 2, 2, False, 0.03, None),  # λw beside the split
+    (2, 13, 11, 40, 32, 32, True, 0.0, None),   # wide forward side
+    (2, 13, 11, 40, 37, 6, False, 0.0, None),
+    (2, 2500, 7, 33, 1, 3, True, 0.0, None),    # chunked backward side
+    (1, 1500, 40, 130, 2, 2, False, 0.03, None)])
+def test_cuda_fused_split_matches_plain(cuda_device, dtype, shape):
+    p, bb, bf, d, mw, mth, shared, lam, denom = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn((p, bb + bf, d), generator=gen,
+                    device=cuda_device).to(dtype)
+    w = torch.randn((p, d, mw), generator=gen, device=cuda_device).to(dtype)
+    th = torch.randn((bb, mth) if shared else (p, bb, mth), generator=gen,
+                     device=cuda_device)
+    th = th.expand(p, *th.shape) if shared else th
+    before = dict(vg.KERNEL.launches)
+    z, g = ops.vfl_grad(x, w, th, lam, mode="fused", split=bb, denom=denom)
+    torch.cuda.synchronize()
+    assert vg.KERNEL.launches == {
+        **before, "vfl_fused_split": before["vfl_fused_split"] + 1,
+        "vfl_backward_reduce": before["vfl_backward_reduce"]
+        + (bb > vg.BWD_CHUNK_ROWS)}
+    zr, gr = ref.vfl_fused_ref(x, w, th, lam, denom, bb)
+    torch.testing.assert_close(z, zr, **TOL)
+    torch.testing.assert_close(g, gr, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 32, 512, 1), (3, 100, 70, 3),
+                                   (2, 37, 40, 33), (1, 1100, 20, 2)])
+def test_cuda_fused_equals_separate_programs(cuda_device, shape):
+    """Without ``split`` the fused program sums every output in the order
+    of the single-mode programs: bit for bit the same z and g."""
+    p, b, d, m = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((p, b, d), generator=gen, device=cuda_device)
+    w = torch.randn((p, d, m), generator=gen, device=cuda_device)
+    th = torch.randn((p, b, m), generator=gen, device=cuda_device)
+    z, g = ops.vfl_grad(x, w, th, 0.03, mode="fused")
+    z1, _ = ops.vfl_grad(x, w, mode="forward")
+    _, g1 = ops.vfl_grad(x, w, th, 0.03, mode="backward")
+    torch.cuda.synchronize()
+    assert torch.equal(z, z1) and torch.equal(g, g1)

@@ -210,7 +210,6 @@ def test_train_secure_fused_matches_off(ds, layout, prob):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (dict(multi_dominator=True), "A6"), (dict(pipelined=True), "A6"),
     (dict(deep=True), "A8"), (dict(checkpoint_dir="ckpt"), "A9"),
     (dict(resume_from="ckpt"), "A9"), (dict(supervise=True), "A10")])
 def test_unported_train_options_raise(ds, layout, prob, flag, item):
@@ -280,7 +279,8 @@ def test_cuda_epochs_match_cpu_without_a_sync(cuda_device, ds, layout, prob,
         torch.cuda.synchronize()
         assert vg.KERNEL.launches == {
             "vfl_forward_narrow": 3 * STEPS + 2, "vfl_forward_wide": 0,
-            "vfl_backward_rows": 3 * STEPS + 2, "vfl_backward_reduce": 0}
+            "vfl_backward_rows": 3 * STEPS + 2, "vfl_backward_reduce": 0,
+            "vfl_fused_split": 0}
     again = run(eg, w0g, idg)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     for g, c in zip(got, run(ec, w0, idx)):
