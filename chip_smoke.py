@@ -9,15 +9,17 @@ CUDA toolkit; it needs no arguments and no network.  It imports nothing of
 JAX or of the JAX package.
 
 1. Set-up: the card's name and power limit, torch and CUDA versions; the
-   hand-written CUDA kernel is built from ``src/repro_torch/kernels/csrc``
-   into ``build/kernels/`` (git-ignored) and the build time printed.
+   hand-written CUDA kernels are built from ``src/repro_torch/kernels/csrc``
+   (one library per source, the two ``nvcc`` runs started together) into
+   ``build/kernels/`` (git-ignored) and the build times printed.
 2. Kernel phase: ``vfl_grad`` forward, backward and fused (split-batch)
    against their plain PyTorch versions on the card at the serving and
    training shapes (the minibatch steps, the multi-dominator
    block-diagonal backward, the pipelined steps and the full-dataset
    passes), ragged shapes, a wide side, a chunked backward side and bf16
-   (atol = rtol = 1e-4); kernel, plain and library times from CUDA
-   events over CUDA-graph replays, beside the byte/FLOP bound.  No single
+   (atol = rtol = 1e-4), and ``selective_scan`` (below); kernel, plain
+   and library times from CUDA events over CUDA-graph replays, beside the
+   byte/FLOP bound.  No single
    PyTorch call computes the split-batch function: its rows time the
    ``matmul`` + ``baddbmm`` pair as a note instead.
 3. Linear serving at q=8 parties, m=2, d=4096 (dp=512 per party),
@@ -61,21 +63,53 @@ JAX or of the JAX package.
    ``train(multi_dominator=True, pipelined=True)`` for one SGD epoch,
    which must give the engine-driven iterate bit for bit.  Samples/s per
    kind.
+9. LM serving, falcon-mamba-7b at full width (d_model 4096, d_inner 8192,
+   N = 16, 64 layers, vocabulary 65,024, random weights from a seed) across
+   q = 8 parties under ``two_tree``: ``launch.serve.serve`` with batch 4,
+   a 2,048-token prompt and 32 generated tokens.  ``selective_scan`` must
+   launch exactly 64 times in that call (once per layer of the prefill,
+   never in a decode step, which is checked on its own as well).  The
+   prefill's stack is then walked layer by layer: at every layer the
+   kernel-path block and the oracle-scan block (the sequential plain scan)
+   run on the same input and must agree within atol = rtol = 5e-2 (the
+   reference's bf16 scan tolerance: the two scans differ by f32 rounding,
+   which tips an occasional bf16 rounding).  End to end, a 64-layer stack
+   of random weights amplifies such rounding-level differences, so the
+   kernel path's final hidden states must lie no farther from the
+   oracle-scan path's (relative L2) than twice as far as a redraw of the
+   embedding's masks moves the kernel path itself; the next tokens must
+   be equal wherever the oracle's top-two logit margin exceeds 5e-2 of
+   its largest logit, and a ``ring_masks`` prefill must give
+   ``two_tree``'s next tokens by the same rule.  Every token must lie in
+   [0, padded vocabulary) and every decode-state leaf be finite; a second
+   ``serve`` with the same seed must give the same tokens, and its (warm)
+   times are the ones reported: time to first token, decode step latency
+   p50/p99, generated tokens/s and peak memory.  Profiler windows over
+   one prefill and one decode step.
 
-The source holds five kernel programs: ``vfl_forward_narrow`` (M <= 4,
-the linear path), ``vfl_forward_wide`` (the deep encoder layers),
+The ``vfl_grad`` source holds five kernel programs:
+``vfl_forward_narrow`` (M <= 4, the linear path), ``vfl_forward_wide``
+(the deep encoder layers),
 ``vfl_backward_rows`` and ``vfl_backward_reduce`` (the reduce pass runs
 only when a backward spans more than one chunk of rows: the full-dataset
 passes), and ``vfl_fused_split`` (the fused mode and its split-batch
-form: every interior step of a pipelined epoch).  The launch counters are
-reset just before phase 3 and read after phase 5, reset again just before
-phase 7's runs and read after them, and reset again just before phase 8
-and read after it; each count must equal what the dispatch or step
-structure implies, and every program of each path must have run.  The
+form: every interior step of a pipelined epoch).  Every program's launch
+count (both sources) is reset just before phase 3 and read after phase 5,
+reset again just before phase 7's runs and read after them, just before
+phase 8 and after it, and just before phase 9's serve call and after it;
+each count must equal what the dispatch or step structure implies, every
+program of each path must have run, and no other program.  The
 ``kernels`` line has one entry per program, timed at its main-path shape
 (serving: the linear full dispatch and deep layer 1; training: the SGD
 step, the full-dataset reduce and the pipelined SGD step), with its
-launches summed over every path.  Any failed check exits non-zero.  The
+launches summed over every path.  The ``selective_scan`` source holds one
+program, held against its plain version at the reference's sweep shapes,
+a ragged shape and phase 9's prefill shape (4, 2048, 8192), N = 16, bf16
+(1e-4 for f32 xa, 5e-2 for bf16), and timed at the last; its bound is the
+larger of its bytes over the HBM rate and its exponentials over the
+special-function units' rate (16 per clock per SM at the card's maximum
+SM clock); its launches are phase 9's serve call's.  The two sources
+build in parallel.  Any failed check exits non-zero.  The
 last three lines are the card's name and power limit, the ``kernels``
 JSON line and ``{"ok": true, "device": {...}}``.  Details go to
 ``results/chip_smoke.json`` (git-ignored).
@@ -101,6 +135,10 @@ SEED = 0
 BATCH = 64                       # max_batch: requests per dispatch
 Q, M_ACT, D, N = 8, 2, 4096, 350_000
 TRAIN_BATCH, TRAIN_LR, TRAIN_EPOCHS = 32, 1e-3, 2
+SFU_EXP_PER_CLOCK_PER_SM = 16    # Hopper's special-function units (ex2)
+LM_ARCH, LM_Q, LM_BATCH, LM_PROMPT, LM_GEN = "falcon_mamba_7b", 8, 4, 2048, 32
+LM_TOL = 5e-2                    # the reference's bf16 scan tolerance
+SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
 class SmokeFailure(RuntimeError):
@@ -376,6 +414,86 @@ def fused_rows(torch, dev, randn):
             pair=lambda: (torch.matmul(xf, w),
                           torch.baddbmm(base, xb.transpose(1, 2), thq,
                                         beta=lam, alpha=1.0 / dn))))
+    return rows
+
+
+def _card_clock_and_sms(torch):
+    """The card's maximum SM clock (Hz, from nvidia-smi) and SM count."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.split()[0]
+    return float(mhz) * 1e6, torch.cuda.get_device_properties(
+        0).multi_processor_count
+
+
+def scan_rows(torch, dev):
+    """``selective_scan`` against its plain version on the card at the
+    reference's sweep shapes (``tests/test_kernels.py:62-77``), a ragged
+    shape and phase 9's prefill shape; kernel and plain timed at the
+    last.  Its bound: bytes over HBM, f32 FLOPs over the f32 peak and the
+    exponentials over the special-function units' rate, the largest."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    clock, sms = _card_clock_and_sms(torch)
+    exp_per_s = SFU_EXP_PER_CLOCK_PER_SM * sms * clock
+    log(f"selective_scan bound: {sms} SMs at {clock / 1e9:.3f} GHz max "
+        f"SM clock, {exp_per_s / 1e12:.3f}e12 exp/s")
+    rows = []
+    shapes = [("sweep_1", 1, 64, 128, 8), ("sweep_2", 2, 128, 256, 16),
+              ("sweep_3", 1, 32, 512, 4), ("ragged", 3, 517, 1000, 16)]
+    cases = [(n, sh, dt) for n, *sh in shapes
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append(("prefill", (LM_BATCH, LM_PROMPT, 8192, 16),
+                  torch.bfloat16))
+    for name, (b, s, c, n), dtype in cases:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        xa = randn(b, s, c).to(dtype)
+        dt = torch.nn.functional.softplus(randn(b, s, c))
+        bm, cm = randn(b, s, n), randn(b, s, n)
+        a_log = torch.log(torch.arange(1, n + 1, device=dev,
+                                       dtype=torch.float32)).repeat(c, 1)
+        d_skip = randn(c)
+        args = (xa, dt, bm, cm, a_log, d_skip)
+        y = ops.selective_scan(*args)
+        want = ref.selective_scan(*args)
+        torch.cuda.synchronize()
+        err = float((y.float() - want.float()).abs().max())
+        tol = SCAN_TOL[str(dtype).replace("torch.", "")]
+        check(y.dtype == dtype and y.shape == xa.shape,
+              f"selective_scan {name}: {y.dtype} {tuple(y.shape)}")
+        check(torch.allclose(y.float(), want.float(), atol=tol, rtol=tol),
+              f"selective_scan {name} {dtype}: max abs err {err} beyond "
+              f"{tol}")
+        row = dict(name=name, programs=["selective_scan"], x=[b, s, c, n],
+                   dtype=str(dtype).replace("torch.", ""), max_abs_err=err)
+        if name == "prefill":
+            nbytes = _nbytes(*args) + y.numel() * y.element_size()
+            elems = b * s * c * n
+            flops = 5.0 * elems + 3.0 * b * s * c
+            by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            by_ops = max(flops / F32_FLOP_PER_S, elems / exp_per_s) * 1e3
+            row.update(
+                ms=_graph_ms(torch, lambda: ops.selective_scan(*args),
+                             reps=10, replays=5),
+                plain_ms=_graph_ms(torch, lambda: ref.selective_scan(*args),
+                                   reps=1, replays=3),
+                library_ms=None, bytes=nbytes, exps=elems, flops=flops,
+                bound_bytes_ms=by_bytes, bound_ops_ms=by_ops,
+                bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+            log(f"selective_scan {name} x{row['x']} {row['dtype']}: err "
+                f"{err:.3e}  kernel {row['ms']*1e3:.2f} us  plain "
+                f"{row['plain_ms']*1e3:.2f} us  library -  bound "
+                f"{row['bound_ms']*1e3:.3f} us ({row['bound_by']}; bytes "
+                f"{by_bytes*1e3:.3f}, operations {by_ops*1e3:.3f})")
+        else:
+            log(f"selective_scan {name} x{row['x']} {row['dtype']}: err "
+                f"{err:.3e} (tol {tol})")
+        rows.append(row)
+        del args, xa, dt, bm, cm, y, want
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1033,6 +1151,238 @@ def train_measure(torch, dev, x, y, layout):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: LM serving
+# ---------------------------------------------------------------------------
+
+def reset_counts():
+    """Every kernel program's launch count to 0 (a path starts)."""
+    from repro_torch.kernels import selective_scan as ssk
+    from repro_torch.kernels import vfl_grad as vg
+    vg.KERNEL.reset_launches()
+    ssk.KERNEL.reset_launches()
+
+
+def _device_profile(torch, fn):
+    """Run ``fn()`` under torch.profiler: wall time, device busy time and
+    the device kernels by total time (None where no device time shows)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) \
+                + ev.self_device_time_total
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return dict(wall_us=wall_us, device_busy_us=busy,
+                device_busy_share=(busy / wall_us) if busy > 0 else None,
+                top_device_us=[[k[:80], v] for k, v in top])
+
+
+def _decided_tokens_equal(torch, got, want, logits, what):
+    """Greedy tokens equal wherever the reference logits' top-two margin
+    exceeds LM_TOL of their largest logit; returns the share decided."""
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    decided = (top[..., 0] - top[..., 1]) > LM_TOL * logits.abs().max()
+    check(bool(torch.equal(got[decided], want[decided])),
+          f"{what}: tokens differ where the margin decides them")
+    return float(decided.float().mean())
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _layer_walk(torch, rt, cfg, params, x, x2):
+    """The prefill's stack layer by layer in three streams: the kernel
+    path from ``x``, the oracle-scan path from ``x`` and the kernel path
+    from ``x2`` (the same prompt embedded under another mask draw).  At
+    every layer the kernel block and the oracle block run on the kernel
+    stream's same input and must agree within LM_TOL; the streams' relative
+    L2 distances are recorded after each layer."""
+    from repro_torch.models import model as lm
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models.layers import rms_norm
+    worst, bad, ref_s = 0.0, 0, 0.0
+    vs_oracle, vs_masks = [], []
+    xk, xr, xk2 = x, x, x2
+    for i in range(cfg.n_layers):
+        p = lm._layer(params["stack"], i)
+        hn = rms_norm(xk, p["norm1"])
+        ok = ssm_lib.apply_ssm(p["ssm"], hn, scan_impl="kernel")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orr = ssm_lib.apply_ssm(p["ssm"], hn, scan_impl="reference")
+        xr = xr + ssm_lib.apply_ssm(p["ssm"], rms_norm(xr, p["norm1"]),
+                                    scan_impl="reference")
+        torch.cuda.synchronize()
+        ref_s += time.perf_counter() - t0
+        err = (ok.float() - orr.float()).abs()
+        worst = max(worst, float(err.max()))
+        bad += int((err > LM_TOL + LM_TOL * orr.float().abs()).sum())
+        xk = xk + ok
+        xk2 = xk2 + ssm_lib.apply_ssm(p["ssm"], rms_norm(xk2, p["norm1"]),
+                                      scan_impl="kernel")
+        vs_oracle.append(_rel_l2(xk, xr))
+        vs_masks.append(_rel_l2(xk2, xk))
+    fin = params["final_norm"]
+    hidden = tuple(rms_norm(v, fin) for v in (xk, xr, xk2))
+    at = [1, 2, 4, 8, 16, 32, 64]
+    return dict(
+        block_max_abs_err=worst, block_beyond_tol=bad, oracle_scan_s=ref_s,
+        depth=cfg.n_layers,
+        rel_l2_vs_oracle=_rel_l2(hidden[0], hidden[1]),
+        rel_l2_vs_mask_redraw=_rel_l2(hidden[2], hidden[0]),
+        max_abs_err_vs_oracle=float((hidden[0].float()
+                                     - hidden[1].float()).abs().max()),
+        stream_rel_l2_vs_oracle={n: vs_oracle[n - 1] for n in at
+                                 if n <= cfg.n_layers},
+        stream_rel_l2_vs_mask_redraw={n: vs_masks[n - 1] for n in at
+                                      if n <= cfg.n_layers},
+        hidden=hidden)
+
+
+def lm_phase(torch, dev, log_):
+    """Phase 9; returns (record, selective_scan launches of the serve
+    call)."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.configs.inputs import make_batch
+    from repro_torch.core.secure_agg import mask_generator
+    from repro_torch.kernels import selective_scan as ssk
+    from repro_torch.kernels import vfl_grad as vg
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as lm
+    from repro_torch.sharding.api import Runtime
+    from repro_torch.vfl.embed import party_blocks
+    from repro_torch.vfl.heads import vocab_parallel_greedy
+    cfg = get_arch(LM_ARCH)
+    vpad, layers = cfg.padded_vocab, cfg.n_layers
+    kw = dict(batch=LM_BATCH, prompt_len=LM_PROMPT, gen_tokens=LM_GEN,
+              reduced=False, model_parallel=LM_Q, seed=SEED)
+    res = {"config": dict(arch=LM_ARCH, q=LM_Q, batch=LM_BATCH,
+                          prompt=LM_PROMPT, generated=LM_GEN,
+                          layers=layers, d_model=cfg.d_model,
+                          vocab=cfg.vocab, padded_vocab=vpad)}
+
+    def serve_metrics(out, wall):
+        steps_ms = [1e3 * t for t in out.step_seconds]
+        return dict(
+            seconds=wall, ttft_ms=1e3 * out.prefill_seconds,
+            decode_p50_ms=pct(steps_ms, 50), decode_p99_ms=pct(steps_ms, 99),
+            decode_tokens_per_s=LM_BATCH * len(steps_ms)
+            / sum(out.step_seconds),
+            tokens_per_s=LM_BATCH * LM_GEN / (out.prefill_seconds
+                                              + sum(out.step_seconds)),
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                  # main path starts
+    t0 = time.perf_counter()
+    out = serve(LM_ARCH, **kw)
+    wall = time.perf_counter() - t0
+    launches = ssk.KERNEL.launches["selective_scan"]  # main path ends
+    check(not any(vg.KERNEL.launches.values()),
+          f"LM serving launched vfl_grad: {vg.KERNEL.launches}")
+    res["serve_first"] = dict(serve_metrics(out, wall),
+                              selective_scan_launches=launches,
+                              tokens_row0=out.tokens[0].tolist())
+    log_(f"phase 9 serve (first call, counted): {res['serve_first']}")
+    check(launches == layers, f"serve launched selective_scan {launches} "
+          f"times, not once per layer of the prefill ({layers})")
+    check(out.tokens.shape == (LM_BATCH, LM_GEN)
+          and ((out.tokens >= 0) & (out.tokens < vpad)).all(),
+          f"generated ids outside [0, {vpad}): {out.tokens}")
+    check(all(bool(torch.isfinite(v.float()).all())
+              for v in out.cache.values()), "a decode-state leaf is not "
+          "finite")
+    # the second call, warm, gives the reported numbers and must repeat
+    # the first call's tokens
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = serve(LM_ARCH, **kw)
+    res["serve"] = serve_metrics(again, time.perf_counter() - t0)
+    log_(f"phase 9 serve (second call, warm): {res['serve']}")
+    check(np.array_equal(again.tokens, out.tokens),
+          "a second serve with the same seed gave other tokens")
+    del out, again
+
+    rt = Runtime(model_size=LM_Q)
+    with torch.no_grad():
+        params = lm.init_params(cfg, SEED, device=dev)
+        batch = make_batch(cfg, ShapeConfig("lm", LM_PROMPT, LM_BATCH,
+                                            "prefill"), rt, seed=SEED,
+                           device=dev)
+        gen = mask_generator(SEED, 9, device=dev)
+        ssk.KERNEL.reset_launches()
+        tok, cache = lm.prefill(rt, cfg, params, batch, gen)
+        torch.cuda.synchronize()
+        per_prefill = ssk.KERNEL.launches["selective_scan"]
+        dcache = lm.init_cache(rt, cfg, LM_BATCH, LM_PROMPT + 1, device=dev)
+        step = {"token": tok, "pos": LM_PROMPT, "cache": dcache}
+        lm.decode_step(rt, cfg, params, step, gen)
+        torch.cuda.synchronize()
+        per_step = ssk.KERNEL.launches["selective_scan"] - per_prefill
+        check(cache is None, "the SSM prefill returned a cache (C.R3)")
+        check(per_prefill == layers and per_step == 0,
+              f"selective_scan launches: {per_prefill} per prefill (want "
+              f"{layers}), {per_step} per decode step (want 0)")
+
+        ring = Runtime(model_size=LM_Q, secure_mode="ring_masks")
+        tok_ring, _ = lm.prefill(ring, cfg, params, batch, gen)
+
+        x = lm._embed_tokens(rt, cfg, params, batch["tokens"], gen)
+        x2 = lm._embed_tokens(rt, cfg, params, batch["tokens"], gen)
+        walk = _layer_walk(torch, rt, cfg, params, x, x2)
+        h, h_ref, h2 = walk.pop("hidden")
+        table = party_blocks(params["embed"], LM_Q).to(torch.bfloat16)
+        logits = torch.matmul(h_ref[:, -1].to(torch.bfloat16),
+                              table.reshape(vpad, -1).T).float()
+        kt = vocab_parallel_greedy(rt, params["embed"], h[:, -1])
+        rt_tok = vocab_parallel_greedy(rt, params["embed"], h_ref[:, -1])
+        walk.update(
+            embed_elements_differing=int((x != x2).sum()),
+            decided=_decided_tokens_equal(torch, kt, rt_tok, logits,
+                                          "kernel vs reference prefill"),
+            ring_decided=_decided_tokens_equal(
+                torch, tok_ring, tok, logits, "ring_masks vs two_tree"),
+            prefill_tokens=tok.tolist(), kernel_tokens=kt.tolist(),
+            oracle_tokens=rt_tok.tolist())
+        res["kernel_vs_reference"] = walk
+        log_(f"phase 9 kernel-path vs oracle-scan prefill: {walk}")
+        check(walk["block_beyond_tol"] == 0,
+              f"kernel-path blocks: {walk['block_beyond_tol']} elements "
+              f"beyond atol = rtol = {LM_TOL} of the oracle scan's block "
+              f"on the same input (max abs err {walk['block_max_abs_err']})")
+        check(walk["rel_l2_vs_oracle"]
+              <= 2 * walk["rel_l2_vs_mask_redraw"],
+              f"kernel-path prefill {walk['rel_l2_vs_oracle']} from the "
+              "oracle-scan prefill, more than twice the "
+              f"{walk['rel_l2_vs_mask_redraw']} a mask redraw moves it")
+        del x, x2, h, h_ref, h2, table
+
+        windows = {
+            "prefill": lambda: lm.prefill(rt, cfg, params, batch, gen),
+            "decode_step": lambda: lm.decode_step(rt, cfg, params, step,
+                                                  gen)}
+        res["profile"] = {}
+        for name, fn in windows.items():
+            fn()                                      # warm
+            res["profile"][name] = _device_profile(torch, fn)
+            log_(f"phase 9 profile of one {name}: {res['profile'][name]}")
+        del params
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1042,6 +1392,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.algorithms import PartyLayout
+    from repro_torch.kernels import selective_scan as ssk
     from repro_torch.kernels import vfl_grad as vg
 
     t_start = time.perf_counter()
@@ -1055,21 +1406,37 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    vg.KERNEL.library()
-    log(f"kernel build+load: {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {vg.KERNEL.build_seconds} s)")
-    log(vg.KERNEL.build_log.strip())
+    libs, failed = (vg.KERNEL, ssk.KERNEL), []
+
+    def build(lib):
+        try:
+            lib.library()
+        except Exception as e:                  # relayed to the main thread
+            failed.append(e)
+
+    builders = [threading.Thread(target=build, args=(lib,)) for lib in libs]
+    for t in builders:
+        t.start()
+    for t in builders:
+        t.join()
+    if failed:
+        raise failed[0]
+    log(f"kernel builds+loads: {time.perf_counter() - t0:.1f} s "
+        f"(nvcc, in parallel: {[lib.build_seconds for lib in libs]} s)")
+    for lib in libs:
+        log(lib.build_log.strip())
 
     record = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     record["kernel_shapes"] = kernel_phase(torch, dev)
+    record["scan_shapes"] = scan_rows(torch, dev)
 
     layout = PartyLayout.even(D, Q, M_ACT)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     x = torch.randn((N, D), generator=gen, device=dev)      # ~5.7 GB
     torch.cuda.reset_peak_memory_stats()
 
-    vg.KERNEL.reset_launches()                      # serving path starts
+    reset_counts()                                  # serving path starts
     expected = Counter()
     record["linear_two_tree"], e = linear_phase(
         torch, dev, x, layout, trace_len=100_000, hot_len=8192, log_=log)
@@ -1084,6 +1451,8 @@ def main() -> int:
     expected += e
     log(f"deep: {record['deep_two_tree']}")
     serve_launches = dict(vg.KERNEL.launches)       # serving path ends
+    check(ssk.KERNEL.launches["selective_scan"] == 0,
+          "the serving path launched selective_scan")
     check(serve_launches == {p: expected[p] for p in vg.PROGRAMS},
           f"serving launches {serve_launches} != {dict(expected)} implied "
           "by dispatches")
@@ -1100,10 +1469,12 @@ def main() -> int:
 
     y = d4_labels(torch, dev, x)
     torch.cuda.reset_peak_memory_stats()
-    vg.KERNEL.reset_launches()                      # training path starts
+    reset_counts()                                  # training path starts
     record["train"], expected, first_sgd = train_phase(torch, dev, x, y,
                                                        layout, log)
     train_launches = dict(vg.KERNEL.launches)       # training path ends
+    check(ssk.KERNEL.launches["selective_scan"] == 0,
+          "the training path launched selective_scan")
     check(train_launches == {p: expected[p] for p in vg.PROGRAMS},
           f"training launches {train_launches} != {dict(expected)} implied "
           "by the steps")
@@ -1119,10 +1490,12 @@ def main() -> int:
     record["train_measure"] = train_measure(torch, dev, x, y, layout)
 
     torch.cuda.reset_peak_memory_stats()
-    vg.KERNEL.reset_launches()                      # phase 8 path starts
+    reset_counts()                                  # phase 8 path starts
     record["pipe"], expected = pipe_phase(torch, dev, x, y, layout,
                                           first_sgd, log)
     pipe_launches = dict(vg.KERNEL.launches)        # phase 8 path ends
+    check(ssk.KERNEL.launches["selective_scan"] == 0,
+          "the phase 8 path launched selective_scan")
     check(pipe_launches == {p: expected[p] for p in vg.PROGRAMS},
           f"phase 8 launches {pipe_launches} != {dict(expected)} implied "
           "by the steps")
@@ -1133,6 +1506,13 @@ def main() -> int:
         "imply")
     record["pipe_launches"] = pipe_launches
     record["pipe_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del x, y, first_sgd                             # free phases 7-8's data
+    torch.cuda.empty_cache()
+
+    t9 = time.perf_counter()
+    record["lm"], scan_launches = lm_phase(torch, dev, log)
+    record["lm"]["seconds"] = time.perf_counter() - t9
+    log(f"phase 9: {record['lm']['seconds']:.1f} s")
     record["seconds"] = time.perf_counter() - t_start
 
     # each program's line reports its own main-path shape: serving's linear
@@ -1160,6 +1540,17 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    scan = record["scan_shapes"]
+    row = next(r for r in scan if r["name"] == "prefill")
+    entries.append({
+        "name": "selective_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "src/repro/kernels/selective_scan.py:62",
+        "launches": scan_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in scan),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None})
     kernels = {"kernels": entries}
     out_dir = ROOT / "results"
     out_dir.mkdir(exist_ok=True)

@@ -1,18 +1,20 @@
 """VFB² on PyTorch and CUDA: the port of ``repro`` to one NVIDIA H100.
 
 The package mirrors the JAX package's layout (``core/``, ``kernels/``,
-``serve/``) so each module's counterpart is found under the same name.  It
+``serve/``, and for the LM stack ``configs/``, ``models/``, ``vfl/``,
+``sharding/``, ``launch/``) so each module's counterpart is found under
+the same name.  It
 imports ``torch`` and numpy, never ``jax`` and nothing of ``repro``.
 
 Party axis: the q parties are a leading tensor dimension on one device —
 ``vmap`` over the party axis becomes that dimension, ``psum`` a sum over
 it, a ``ppermute`` round index arithmetic on it.
 
-Device rule: every entry point (``FusedEngine``, ``ServeEngine``) defaults
-to ``device="cuda"`` and raises without a card; the CPU runs only when the
-caller passes ``device="cpu"``.  ``kernels.ops.vfl_grad`` follows the
-tensors it is given: its plain version on CPU tensors, the CUDA kernel on
-CUDA tensors.
+Device rule: every entry point (``FusedEngine``, ``ServeEngine``,
+``launch.serve.serve``, ...) defaults to ``device="cuda"`` and raises
+without a card; the CPU runs only when the caller passes ``device="cpu"``.
+The wrappers in ``kernels.ops`` follow the tensors they are given: their
+plain versions on CPU tensors, the CUDA kernels on CUDA tensors.
 """
 from __future__ import annotations
 

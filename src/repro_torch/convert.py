@@ -10,7 +10,10 @@ arrays, done by the caller, so this module never imports JAX):
   ``(q, dp)``;
 * deep parameters, as an object with the ``DeepVFLParams`` fields
   (``enc_w1``, ``enc_b1``, ``enc_w2``, ``head``) holding arrays, or the
-  packed 4-tuple ``(w1q, b1q, w2q, headq)``.
+  packed 4-tuple ``(w1q, b1q, w2q, headq)``;
+* the LM stack's parameter tree of the SSM family: ``embed``,
+  ``final_norm`` and ``stack`` = {``norm1``, ``ssm``: {...}}, every stack
+  leaf with its leading layer axis.
 
 Both keep their layout: the port packs and stacks exactly as the
 reference does.
@@ -69,3 +72,30 @@ def deep_params(params, *, device="cuda"):
                          [_tensor(a, dev) for a in params.enc_b1],
                          [_tensor(a, dev) for a in params.enc_w2],
                          _tensor(params.head, dev))
+
+
+_LM_SSM_LEAVES = ("w_in", "conv_w", "conv_b", "w_x_dbc", "w_dt", "dt_bias",
+                  "a_log", "d_skip", "w_out")
+
+
+def lm_params(params, *, q: int, device="cuda"):
+    """The reference's LM parameter tree (SSM family; numpy leaves) as the
+    port's: the same tree of f32 tensors on ``device``.  The embedding
+    table must split into ``q`` party vocabulary blocks."""
+    dev = resolve_device(device)
+    stack = params.get("stack", {})
+    if (set(params) != {"embed", "final_norm", "stack"}
+            or set(stack) != {"norm1", "ssm"}
+            or set(stack["ssm"]) != set(_LM_SSM_LEAVES)):
+        raise NotImplementedError(
+            "only the SSM family's parameter tree (embed, final_norm, "
+            "stack/{norm1, ssm}) is ported; the rest of the LM stack is "
+            "ROADMAP A15")
+    if np.shape(params["embed"])[0] % q:
+        raise ValueError(f"vocabulary {np.shape(params['embed'])[0]} does "
+                         f"not split into {q} party blocks")
+    return {"embed": _tensor(params["embed"], dev),
+            "final_norm": _tensor(params["final_norm"], dev),
+            "stack": {"norm1": _tensor(stack["norm1"], dev),
+                      "ssm": {k: _tensor(stack["ssm"][k], dev)
+                              for k in _LM_SSM_LEAVES}}}

@@ -1,16 +1,19 @@
 """Public wrappers for the port's kernels.
 
-``vfl_grad`` keeps the signature of ``repro.kernels.ops.vfl_grad``.  The
-tensors it is given decide where it runs: on CUDA tensors it launches the
-hand-written CUDA kernel (``kernels.vfl_grad``) or raises; on CPU tensors
-it runs the plain version (``kernels.ref``).  Nothing falls back from one
-to the other.
+``vfl_grad`` and ``selective_scan`` keep the signatures of their
+counterparts in ``repro.kernels.ops`` (without Pallas's tiling and
+interpret arguments).  The tensors they are given decide where they run:
+on CUDA tensors they launch the hand-written CUDA kernel
+(``kernels.vfl_grad``, ``kernels.selective_scan``) or raise; on CPU
+tensors they run the plain version (``kernels.ref``).  Nothing falls back
+from one to the other.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels import selective_scan as _ss
 from repro_torch.kernels import vfl_grad as _vg
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -196,3 +199,34 @@ def _fused(xb, w, theta, lam, denom, split):
     if th_rank1:
         g = g.squeeze(-1)
     return (z.squeeze(0), g.squeeze(0)) if lead == 0 else (z, g)
+
+
+def selective_scan(xa, dt, b_ssm, c_ssm, a_log, d_skip):
+    """The mamba-1 selective scan from a zero state; returns y only.
+
+    xa (B, S, C) f32 or bf16; dt (B, S, C), b_ssm and c_ssm (B, S, N),
+    a_log (C, N) and d_skip (C,), each read as f32; y (B, S, C) in xa's
+    dtype.  On the card N must be one of ``selective_scan.STATE_SIZES``;
+    any B, S and C are taken."""
+    if xa.dtype not in _DTYPES:
+        raise ValueError(f"xa must be one of {_DTYPES}; got {xa.dtype}")
+    if xa.dim() != 3 or a_log.dim() != 2:
+        raise ValueError(f"want xa (B, S, C) and a_log (C, N); got xa "
+                         f"{tuple(xa.shape)}, a_log {tuple(a_log.shape)}")
+    bsz, s, c = xa.shape
+    n = a_log.shape[1]
+    for t, name, shape in ((dt, "dt", (bsz, s, c)),
+                           (b_ssm, "b_ssm", (bsz, s, n)),
+                           (c_ssm, "c_ssm", (bsz, s, n)),
+                           (a_log, "a_log", (c, n)), (d_skip, "d_skip", (c,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}; got {tuple(t.shape)}")
+        if t.device != xa.device:
+            raise ValueError(f"xa on {xa.device}, {name} on {t.device}")
+    if xa.device.type == "cpu":
+        return ref.selective_scan(xa, dt, b_ssm, c_ssm, a_log, d_skip)
+    if xa.device.type != "cuda":
+        raise ValueError(f"selective_scan runs on cpu or cuda, not "
+                         f"{xa.device}")
+    return _ss.KERNEL.scan(xa.contiguous(), *(
+        t.float().contiguous() for t in (dt, b_ssm, c_ssm, a_log, d_skip)))

@@ -71,3 +71,37 @@ def vfl_grad_ref(xb, w, theta, lam: float, denom=None):
     z = x @ w.float()
     g = x.T @ theta.float() / denom + lam * w.float()
     return z, g
+
+
+def selective_scan_state(xa: torch.Tensor, dt: torch.Tensor,
+                         b_ssm: torch.Tensor, c_ssm: torch.Tensor,
+                         a_log: torch.Tensor, d_skip: torch.Tensor, h0=None):
+    """The mamba-1 recurrence as a sequential loop over S in f32:
+
+        h_t = exp(Δ_t A) ⊙ h_{t−1} + (Δ_t x_t) ⊗ B_t,  y_t = h_t·C_t + D ⊙ x_t
+
+    with A = −exp(a_log).  xa and dt (B, S, C), b_ssm and c_ssm (B, S, N),
+    a_log (C, N), d_skip (C,); h0 (B, C, N) or None (zeros).  Returns
+    (y (B, S, C) in xa's dtype, h_final (B, C, N) f32)."""
+    a = -torch.exp(a_log.float())
+    bsz, s, c = xa.shape
+    x, dtf = xa.float(), dt.float()
+    b, cm = b_ssm.float(), c_ssm.float()
+    h = torch.zeros((bsz, c, a.shape[1]), dtype=torch.float32,
+                    device=xa.device) if h0 is None else h0.float()
+    ys = []
+    for t in range(s):
+        dt_t = dtf[:, t]
+        h = torch.exp(dt_t[..., None] * a) * h \
+            + (dt_t * x[:, t])[..., None] * b[:, t, None, :]
+        ys.append(torch.einsum("bcn,bn->bc", h, cm[:, t]))
+    y = torch.stack(ys, 1) if ys else x.new_zeros((bsz, 0, c))
+    return (y + d_skip.float() * x).to(xa.dtype), h
+
+
+def selective_scan(xa: torch.Tensor, dt: torch.Tensor, b_ssm: torch.Tensor,
+                   c_ssm: torch.Tensor, a_log: torch.Tensor,
+                   d_skip: torch.Tensor) -> torch.Tensor:
+    """y of :func:`selective_scan_state` from a zero state: what the
+    selective-scan kernel computes, with its shapes."""
+    return selective_scan_state(xa, dt, b_ssm, c_ssm, a_log, d_skip)[0]

@@ -5,12 +5,9 @@ backward and fused modes, the last with its split-batch form.  The source
 is ``csrc/vfl_grad.cu``; its header note says what the kernel replaces,
 what bounds it on the H100 and how its design answers that.
 
-Build: at first launch, ``nvcc -gencode arch=compute_90a,code=sm_90a``
-compiles the source into a shared library with a plain C interface under
-``build/kernels/`` at the repository root (git-ignored), named by a hash
-of the source and flags, so an edited source is rebuilt and an unchanged
-one is reused.  The library is loaded with ``ctypes``.  Nothing is built or
-loaded when the module is imported.
+Build: ``kernels.build`` compiles the source at first launch into its own
+library under ``build/kernels/`` and loads it with ``ctypes``; nothing
+is built or loaded when the module is imported.
 
 The source holds five ``__global__`` programs, each with its own entry
 points: ``vfl_forward_narrow`` (M <= ``NARROW_MAX_M``, the linear path) and
@@ -33,131 +30,42 @@ into Python).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "vfl_grad.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from repro_torch.kernels.build import SUFFIX as _SUFFIX
+from repro_torch.kernels.build import CudaLibrary
 
 NARROW_MAX_M = 4                 # kNarrow in csrc/vfl_grad.cu
 BWD_CHUNK_ROWS = 1024            # kChunkRows in csrc/vfl_grad.cu
 PROGRAMS = ("vfl_forward_narrow", "vfl_forward_wide", "vfl_backward_rows",
             "vfl_backward_reduce")
 PROGRAMS += ("vfl_fused_split",)
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+_PTR, _I64, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+ARGTYPES = {
+    "vfl_forward_narrow": [_PTR] * 3 + [_I64] * 4 + [_PTR],
+    "vfl_forward_wide": [_PTR] * 3 + [_I64] * 4 + [_PTR],
+    # x, theta, w, out; parties, rows, d, m, theta party stride; denom, lam;
+    # stream
+    "vfl_backward_rows": [_PTR] * 4 + [_I64] * 5 + [_F32] * 2 + [_PTR],
+    # workspace, w, g; parties, d, m, chunks; denom, lam; stream
+    "vfl_backward_reduce": [_PTR] * 3 + [_I64] * 4 + [_F32] * 2 + [_PTR],
+    # x, w, theta, z, out; parties, rows, first forward row, forward rows,
+    # backward rows, d, mw, mth, theta party stride; denom, lam; lam*w on;
+    # stream
+    "vfl_fused_split": [_PTR] * 5 + [_I64] * 9 + [_F32] * 2
+    + [ctypes.c_int, _PTR],
+}
 
 
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, PATH and "
-                       "/usr/local/cuda/bin): the vfl_grad CUDA kernel "
-                       "cannot be built")
-
-
-class CudaKernel:
-    """The built library, its launch counters and the build report."""
+class CudaKernel(CudaLibrary):
+    """The ``vfl_grad`` library, its launch counters and the build
+    report."""
 
     def __init__(self):
-        self.launches = dict.fromkeys(PROGRAMS, 0)
-        self.build_seconds = None     # wall time of the nvcc run, if any
-        self.build_log = ""           # nvcc's -Xptxas -v report
-        self._lib = None
-        self._lock = threading.Lock()
-
-    def reset_launches(self) -> None:
-        with self._lock:
-            self.launches = dict.fromkeys(PROGRAMS, 0)
-
-    def add_launches(self, per_call: dict, calls: int) -> None:
-        """Count ``calls`` replays of a captured sequence that launches
-        ``per_call[program]`` times each program."""
-        with self._lock:
-            for prog, k in per_call.items():
-                self.launches[prog] += k * calls
-
-    def library(self):
-        """Build (or reuse) and load the shared library; thread-safe."""
-        with self._lock:
-            if self._lib is None:
-                self._lib = self._load(self._build())
-            return self._lib
-
-    def _build(self) -> Path:
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        out = BUILD_DIR / f"libvfl_grad_{tag[:16]}.so"
-        if out.exists():
-            return out
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                                   str(SOURCE)],
-                                  capture_output=True, text=True, timeout=600)
-            if proc.returncode != 0:
-                raise RuntimeError("nvcc failed on "
-                                   f"{SOURCE.name}:\n{proc.stderr}")
-            os.replace(tmp, out)      # atomic: a reader never sees half
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        self.build_seconds = time.perf_counter() - t0
-        self.build_log = proc.stderr
-        return out
-
-    @staticmethod
-    def _load(path: Path):
-        ptr, i64, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
-        argtypes = {
-            "vfl_forward_narrow": [ptr] * 3 + [i64] * 4 + [ptr],
-            "vfl_forward_wide": [ptr] * 3 + [i64] * 4 + [ptr],
-            # x, theta, w, out; parties, rows, d, m, theta party stride;
-            # denom, lam; stream
-            "vfl_backward_rows": [ptr] * 4 + [i64] * 5 + [f32] * 2 + [ptr],
-            # workspace, w, g; parties, d, m, chunks; denom, lam; stream
-            "vfl_backward_reduce": [ptr] * 3 + [i64] * 4 + [f32] * 2 + [ptr],
-            # x, w, theta, z, out; parties, rows, first forward row,
-            # forward rows, backward rows, d, mw, mth, theta party stride;
-            # denom, lam; lam*w on; stream
-            "vfl_fused_split": [ptr] * 5 + [i64] * 9 + [f32] * 2
-            + [ctypes.c_int, ptr],
-        }
-        lib = ctypes.CDLL(str(path))
-        for prog in PROGRAMS:
-            for suffix in _SUFFIX.values():
-                fn = getattr(lib, f"{prog}_{suffix}")
-                fn.argtypes = argtypes[prog]
-                fn.restype = ctypes.c_int
-        return lib
-
-    def _launch(self, prog: str, dtype, *args, what: str) -> None:
-        """Call ``prog``'s entry point for ``dtype`` on the current stream
-        of the current device; raise if the launch was refused, else count
-        it."""
-        fn = getattr(self.library(), f"{prog}_{_SUFFIX[dtype]}")
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, stream)
-        if err != 0:
-            raise RuntimeError(f"{prog} launch failed: CUDA error {err} at "
-                               f"{what}")
-        with self._lock:
-            self.launches[prog] += 1
+        super().__init__("vfl_grad.cu", PROGRAMS, ARGTYPES)
 
     def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """z = x @ w per party on the card: x (P, B, D), w (P, D, M), both

@@ -1,0 +1,110 @@
+"""LM serving: batched prefill and greedy decode on the model stack (the
+port of ``repro.launch.serve``; the SSM family).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
+        --device cpu                          # reduced config, on the CPU
+
+The prompt enters through the parties' secure vocabulary embedding and
+each token leaves through the party-sharded greedy head, with fresh masks
+at every step (one mask generator, seeded from ``seed``, runs on through
+the whole call).  As in the reference, the SSM prefill hands no state to
+the decode loop, which starts from ``init_cache``'s zeros (ROADMAP C.R3).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import List, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ShapeConfig, get_arch
+from repro_torch.configs.inputs import make_batch
+from repro_torch.core.secure_agg import mask_generator
+from repro_torch.models import model as model_lib
+from repro_torch.sharding.api import Runtime
+
+
+class ServeResult(NamedTuple):
+    tokens: np.ndarray          # (batch, gen_tokens) int64
+    prefill_seconds: float      # prefill and the decode cache's set-up
+    step_seconds: List[float]   # each of the gen_tokens - 1 decode steps
+    cache: dict                 # the decode state after the last step
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(arch: str, batch: int = 4, prompt_len: int = 32,
+          gen_tokens: int = 16, reduced: bool = True,
+          model_parallel: int = 1, seed: int = 0, *, device="cuda",
+          secure_mode: str = "two_tree",
+          schedule_faithful: bool = False) -> ServeResult:
+    """Prefill a random (batch, prompt_len) prompt and decode
+    ``gen_tokens`` greedy tokens (the first from the prefill) with
+    random parameters from ``seed``, across ``model_parallel`` parties
+    (q, each owning a vocabulary block).  Times end at a device
+    synchronisation."""
+    cfg = get_arch(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if cfg.arch_type != "ssm":
+        raise NotImplementedError(f"serving {cfg.name} ({cfg.arch_type}) is "
+                                  "not ported yet (ROADMAP A15)")
+    dev = resolve_device(device)
+    rt = Runtime(model_size=model_parallel, secure_mode=secure_mode,
+                 schedule_faithful=schedule_faithful)
+    max_len = prompt_len + gen_tokens
+    with torch.no_grad():
+        params = model_lib.init_params(cfg, seed, device=dev)
+        shape = ShapeConfig("serve", prompt_len, batch, "prefill")
+        pre_batch = make_batch(cfg, shape, rt, seed=seed, device=dev)
+        gen = mask_generator(seed, device=dev)
+
+        _sync(dev)
+        t0 = time.perf_counter()
+        tok, _ = model_lib.prefill(rt, cfg, params, pre_batch, gen)
+        # the reference re-homes only attention caches; SSM decoding
+        # starts from zeros (C.R3)
+        cache = model_lib.init_cache(rt, cfg, batch, max_len, device=dev)
+        _sync(dev)
+        t_pre = time.perf_counter() - t0
+        out, steps = [tok], []
+        for i in range(gen_tokens - 1):
+            t1 = time.perf_counter()
+            tok, cache = model_lib.decode_step(
+                rt, cfg, params,
+                {"token": tok, "pos": prompt_len + i, "cache": cache}, gen)
+            _sync(dev)
+            steps.append(time.perf_counter() - t1)
+            out.append(tok)
+        tokens = torch.stack(out, 1).cpu().numpy()
+    return ServeResult(tokens, t_pre, steps, cache)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-tokens", type=int, default=16)
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--device", default="cuda")
+    a = ap.parse_args()
+    res = serve(a.arch, a.batch, a.prompt_len, a.gen_tokens,
+                reduced=not a.full, model_parallel=a.model_parallel,
+                device=a.device)
+    steps = res.step_seconds
+    print(f"prefill {a.batch}x{a.prompt_len} in {res.prefill_seconds:.2f}s; "
+          f"decode {len(steps)} steps in {sum(steps):.2f}s "
+          f"({sum(steps) / max(len(steps), 1) * 1e3:.1f} ms/tok)")
+    print("generated token ids (first 2 rows):\n", res.tokens[:2])
+
+
+if __name__ == "__main__":
+    main()

@@ -20,7 +20,10 @@ import pytest
 import torch
 
 from repro_torch import convert, resolve_device
+from repro_torch.configs.base import get_arch
 from repro_torch.core import algorithms, engine, losses
+from repro_torch.launch.serve import serve
+from repro_torch.models import model as lm_model
 from repro_torch.serve import ServeEngine
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -60,7 +63,7 @@ def _cpu_engine():
 @pytest.mark.parametrize("entry", [
     "resolve_device", "FusedEngine", "ServeEngine", "linear_iterate",
     "deep_params", "svrg_state", "saga_state", "train", "train_fused",
-    "train_multi_pipelined"])
+    "train_multi_pipelined", "serve", "lm_params", "lm_init_params"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
                                                                entry):
     x = np.ones((6, 4), np.float32)
@@ -85,6 +88,13 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
             losses.ridge(), x, np.ones(6, np.float32),
             algorithms.PartyLayout.even(4, 2, 1), epochs=1,
             engine="fused", multi_dominator=True, pipelined=True),
+        "serve": lambda: serve("falcon_mamba_7b", batch=1, prompt_len=2,
+                               gen_tokens=1),
+        "lm_params": lambda: convert.lm_params(
+            lm_model.init_params(get_arch("falcon_mamba_7b").reduced(),
+                                 device="cpu"), q=1),
+        "lm_init_params": lambda: lm_model.init_params(
+            get_arch("falcon_mamba_7b").reduced()),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
