@@ -125,7 +125,8 @@ ARCH_IDS = [
     "pixtral_12b",
     "falcon_mamba_7b",
 ]
-PORTED = ("falcon_mamba_7b",)
+PORTED = ("falcon_mamba_7b", "gemma3_4b", "stablelm_1_6b", "granite_8b",
+          "internlm2_20b")
 
 
 def get_arch(arch_id: str) -> ArchConfig:
@@ -135,7 +136,7 @@ def get_arch(arch_id: str) -> ArchConfig:
                          f"{ARCH_IDS}")
     if arch_id not in PORTED:
         raise NotImplementedError(
-            f"{arch_id} is not ported yet: the port has the SSM family "
-            f"({', '.join(PORTED)}); the rest of the LM stack is ROADMAP "
-            "A15")
+            f"{arch_id} is not ported yet: the port has the SSM and dense "
+            f"families ({', '.join(PORTED)}); the rest of the LM stack is "
+            "ROADMAP A15")
     return importlib.import_module(f"repro_torch.configs.{arch_id}").CONFIG

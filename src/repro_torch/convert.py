@@ -11,9 +11,11 @@ arrays, done by the caller, so this module never imports JAX):
 * deep parameters, as an object with the ``DeepVFLParams`` fields
   (``enc_w1``, ``enc_b1``, ``enc_w2``, ``head``) holding arrays, or the
   packed 4-tuple ``(w1q, b1q, w2q, headq)``;
-* the LM stack's parameter tree of the SSM family: ``embed``,
-  ``final_norm`` and ``stack`` = {``norm1``, ``ssm``: {...}}, every stack
-  leaf with its leading layer axis.
+* the LM stack's parameter tree of the SSM family (``embed``,
+  ``final_norm`` and ``stack`` = {``norm1``, ``ssm``: {...}}) or of the
+  dense family (``stack`` = {``norm1``, ``attn``: {``wq``, ``wk``,
+  ``wv``, ``wo``}, ``norm2``, ``mlp``: {``w_gate``, ``w_up``,
+  ``w_down``}}), every stack leaf with its leading layer axis.
 
 Both keep their layout: the port packs and stacks exactly as the
 reference does.
@@ -74,28 +76,43 @@ def deep_params(params, *, device="cuda"):
                          _tensor(params.head, dev))
 
 
-_LM_SSM_LEAVES = ("w_in", "conv_w", "conv_b", "w_x_dbc", "w_dt", "dt_bias",
-                  "a_log", "d_skip", "w_out")
+# the ported families' stack trees: each subtree's leaf names
+_LM_STACKS = (
+    {"norm1": None,
+     "ssm": ("w_in", "conv_w", "conv_b", "w_x_dbc", "w_dt", "dt_bias",
+             "a_log", "d_skip", "w_out")},
+    {"norm1": None, "attn": ("wq", "wk", "wv", "wo"), "norm2": None,
+     "mlp": ("w_gate", "w_up", "w_down")},
+)
+
+
+def _matches(stack, layout) -> bool:
+    return (isinstance(stack, dict) and set(stack) == set(layout)
+            and all(leaves is None or (isinstance(stack[k], dict)
+                                       and set(stack[k]) == set(leaves))
+                    for k, leaves in layout.items()))
 
 
 def lm_params(params, *, q: int, device="cuda"):
-    """The reference's LM parameter tree (SSM family; numpy leaves) as the
-    port's: the same tree of f32 tensors on ``device``.  The embedding
-    table must split into ``q`` party vocabulary blocks."""
+    """The reference's LM parameter tree (SSM or dense family; numpy
+    leaves) as the port's: the same tree of f32 tensors on ``device``.
+    The embedding table must split into ``q`` party vocabulary blocks."""
     dev = resolve_device(device)
     stack = params.get("stack", {})
-    if (set(params) != {"embed", "final_norm", "stack"}
-            or set(stack) != {"norm1", "ssm"}
-            or set(stack["ssm"]) != set(_LM_SSM_LEAVES)):
+    if set(params) != {"embed", "final_norm", "stack"} or not any(
+            _matches(stack, layout) for layout in _LM_STACKS):
         raise NotImplementedError(
             "only the SSM family's parameter tree (embed, final_norm, "
-            "stack/{norm1, ssm}) is ported; the rest of the LM stack is "
+            "stack/{norm1, ssm}) and the dense family's (stack/{norm1, "
+            "attn, norm2, mlp}) are ported; the rest of the LM stack is "
             "ROADMAP A15")
     if np.shape(params["embed"])[0] % q:
         raise ValueError(f"vocabulary {np.shape(params['embed'])[0]} does "
                          f"not split into {q} party blocks")
-    return {"embed": _tensor(params["embed"], dev),
-            "final_norm": _tensor(params["final_norm"], dev),
-            "stack": {"norm1": _tensor(stack["norm1"], dev),
-                      "ssm": {k: _tensor(stack["ssm"][k], dev)
-                              for k in _LM_SSM_LEAVES}}}
+
+    def convert(tree):
+        if isinstance(tree, dict):
+            return {k: convert(v) for k, v in tree.items()}
+        return _tensor(tree, dev)
+
+    return convert(params)

@@ -1,17 +1,20 @@
 """Public wrappers for the port's kernels.
 
-``vfl_grad`` and ``selective_scan`` keep the signatures of their
-counterparts in ``repro.kernels.ops`` (without Pallas's tiling and
-interpret arguments).  The tensors they are given decide where they run:
-on CUDA tensors they launch the hand-written CUDA kernel
-(``kernels.vfl_grad``, ``kernels.selective_scan``) or raise; on CPU
-tensors they run the plain version (``kernels.ref``).  Nothing falls back
-from one to the other.
+``vfl_grad``, ``selective_scan``, ``flash_attention`` and
+``decode_attention`` keep the signatures of their counterparts in
+``repro.kernels.ops`` (without Pallas's tiling and interpret arguments).
+The tensors they are given decide where they run: on CUDA tensors they
+launch the hand-written CUDA kernel (``kernels.vfl_grad``,
+``kernels.selective_scan``, ``kernels.flash_attention``,
+``kernels.decode_attention``) or raise; on CPU tensors they run the plain
+version (``kernels.ref``).  Nothing falls back from one to the other.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as _ss
 from repro_torch.kernels import vfl_grad as _vg
@@ -230,3 +233,92 @@ def selective_scan(xa, dt, b_ssm, c_ssm, a_log, d_skip):
                          f"{xa.device}")
     return _ss.KERNEL.scan(xa.contiguous(), *(
         t.float().contiguous() for t in (dt, b_ssm, c_ssm, a_log, d_skip)))
+
+
+def _device_kind(t: torch.Tensor, name: str) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
+    return t.device.type
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself where the kernels' vector loads can read it, else a
+    contiguous copy."""
+    return t if _fa.strided_ok(t) else t.contiguous()
+
+
+def flash_attention(q, k, v, *, causal=True, window=None):
+    """Causal / sliding-window / GQA attention: q (B, H, Sq, dh), k and v
+    (B, Hkv, Skv, dh) of one dtype (f32 or bf16) → o (B, H, Sq, dh) in q's
+    dtype.  Query head h reads KV head h // (H / Hkv); query t attends to
+    keys ≤ t (``causal``) and > t − ``window``; a query with no such key
+    gives 0.  Any strides with dh contiguous are taken (a transposed
+    (B, S, H, dh) view is read in place, and o keeps q's stride order).
+    On the card dh must be one of ``flash_attention.HEAD_DIMS``."""
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k and v must share a dtype in {_DTYPES}; got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if (q.dim() != 4 or k.dim() != 4 or tuple(v.shape) != tuple(k.shape)
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]
+            or q.shape[1] % k.shape[1]):
+        raise ValueError(f"want q (B, H, Sq, dh) and k/v (B, Hkv, Skv, dh) "
+                         f"with Hkv | H; got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if window is not None and int(window) < 1:
+        raise ValueError(f"window must be >= 1; got {window}")
+    for t, name in ((k, "k"), (v, "v")):
+        if t.device != q.device:
+            raise ValueError(f"q on {q.device}, {name} on {t.device}")
+    if _device_kind(q, "flash_attention") == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
+    return _fa.KERNEL.attend(_aligned(q), _aligned(k), _aligned(v), causal,
+                             window)
+
+
+def decode_attention(q, k_cache, v_cache, pos, shard_offset=0, window=None,
+                     *, shards=None):
+    """Flash-decoding partials, ready for a log-sum-exp merge across
+    shards: q (B, H, dh); caches (B, S, Hkv, dh) of q's dtype holding
+    absolute positions [shard_offset, shard_offset + S); the token at
+    ``pos`` (an int or a 0-d integer tensor) attends to positions ≤ pos
+    and > pos − ``window``.  Returns (o (B, H, dh), m (B, H), l (B, H)),
+    all f32: the unnormalised output, the max and the sum-exp; a cache
+    with no valid position gives o = 0, l = 0, m = −1e30.
+
+    With ``shards`` the caches are that many blocks of S/shards positions
+    (the q parties' shards) and every result gains a leading shard axis,
+    from one launch on the card.  There dh must be one of
+    ``flash_attention.HEAD_DIMS`` and H/Hkv at most
+    ``decode_attention.MAX_REP``; any S/shards is taken."""
+    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise ValueError(f"q and the caches must share a dtype in "
+                         f"{_DTYPES}; got {q.dtype}, {k_cache.dtype}, "
+                         f"{v_cache.dtype}")
+    n = 1 if shards is None else int(shards)
+    if (q.dim() != 3 or k_cache.dim() != 4
+            or tuple(v_cache.shape) != tuple(k_cache.shape)
+            or k_cache.shape[0] != q.shape[0]
+            or k_cache.shape[3] != q.shape[2]
+            or q.shape[1] % k_cache.shape[2] or n < 1
+            or k_cache.shape[1] % n):
+        raise ValueError(f"want q (B, H, dh) and caches (B, S, Hkv, dh) "
+                         f"with Hkv | H and shards | S; got q "
+                         f"{tuple(q.shape)}, caches {tuple(k_cache.shape)}, "
+                         f"shards {shards}")
+    if window is not None and int(window) < 1:
+        raise ValueError(f"window must be >= 1; got {window}")
+    for t, name in ((k_cache, "k_cache"), (v_cache, "v_cache")):
+        if t.device != q.device:
+            raise ValueError(f"q on {q.device}, {name} on {t.device}")
+    if _device_kind(q, "decode_attention") == "cpu":
+        return ref.decode_attention_ref(q, k_cache, v_cache, pos,
+                                        shard_offset, window, shards)
+    if isinstance(pos, torch.Tensor):
+        pos_t = pos.to(device=q.device, dtype=torch.int32).reshape(())
+    else:
+        pos_t = torch.full((), int(pos), dtype=torch.int32, device=q.device)
+    o, m, l = _da.KERNEL.partials(_aligned(q), _aligned(k_cache),
+                                  _aligned(v_cache), pos_t, n,
+                                  int(shard_offset), window)
+    return (o, m, l) if shards is not None else (o[0], m[0], l[0])

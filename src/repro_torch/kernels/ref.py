@@ -7,6 +7,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.attention import (local_decode_attention,
+                                          shard_partials)
+
 
 def vfl_forward_ref(xb: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """z = xb @ w in f32, with the shapes ``ops.vfl_grad`` takes:
@@ -105,3 +108,42 @@ def selective_scan(xa: torch.Tensor, dt: torch.Tensor, b_ssm: torch.Tensor,
     """y of :func:`selective_scan_state` from a zero state: what the
     selective-scan kernel computes, with its shapes."""
     return selective_scan_state(xa, dt, b_ssm, c_ssm, a_log, d_skip)[0]
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window=None) -> torch.Tensor:
+    """What the flash-attention kernel computes: q (B, H, Sq, dh), k/v
+    (B, Hkv, Skv, dh) → (B, H, Sq, dh) in q's dtype; query head h reads KV
+    head h // rep; query t attends to keys ≤ t (``causal``) and > t −
+    ``window``.  Scores, softmax and the product with v in f32.  A query
+    with no valid key gives 0, as the kernels do (the Pallas kernel's
+    max(l, 1e-30)); elsewhere this is ``repro/kernels/ref.py:8``."""
+    h, hkv = q.shape[1], k.shape[1]
+    sq, skv, dh = q.shape[2], k.shape[2], q.shape[3]
+    kk = k.repeat_interleave(h // hkv, dim=1)
+    vv = v.repeat_interleave(h // hkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * dh ** -0.5, kk.float())
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1) * mask
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv.float()).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, pos, shard_offset=0,
+                         window=None, shards=None):
+    """What the decode-attention kernel computes: the port's
+    ``local_decode_attention`` on q (B, H, dh) over caches (B, S, Hkv, dh)
+    whose first position is ``shard_offset``.  With ``shards`` the caches
+    are that many blocks of S/shards positions and the partials gain a
+    leading shard axis: o (shards, B, H, dh), m and l (shards, B, H)."""
+    if shards is None:
+        return local_decode_attention(q, k_cache, v_cache, pos,
+                                      shard_offset, window)
+    return shard_partials(q, k_cache, v_cache, pos, shards, shard_offset,
+                          window)

@@ -1,14 +1,19 @@
 """LM serving: batched prefill and greedy decode on the model stack (the
-port of ``repro.launch.serve``; the SSM family).
+port of ``repro.launch.serve``; the SSM and dense families).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_4b \\
         --device cpu                          # reduced config, on the CPU
 
 The prompt enters through the parties' secure vocabulary embedding and
 each token leaves through the party-sharded greedy head, with fresh masks
 at every step (one mask generator, seeded from ``seed``, runs on through
-the whole call).  As in the reference, the SSM prefill hands no state to
-the decode loop, which starts from ``init_cache``'s zeros (ROADMAP C.R3).
+the whole call).  A dense prefill's KV cache is put at positions
+[0, prompt_len) of a decode cache of ``prompt_len + gen_tokens``
+positions (rounded up to a multiple of the party count, so the parties'
+cache shards are equal; the positions past the last token are never
+attended), and decode step i runs at position ``prompt_len + i``.  As in
+the reference, the SSM prefill hands no state to the decode loop, which
+starts from ``init_cache``'s zeros (ROADMAP C.R3).
 """
 from __future__ import annotations
 
@@ -52,13 +57,13 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32,
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
-    if cfg.arch_type != "ssm":
-        raise NotImplementedError(f"serving {cfg.name} ({cfg.arch_type}) is "
-                                  "not ported yet (ROADMAP A15)")
+    model_lib.layer_kinds(cfg)
     dev = resolve_device(device)
     rt = Runtime(model_size=model_parallel, secure_mode=secure_mode,
-                 schedule_faithful=schedule_faithful)
-    max_len = prompt_len + gen_tokens
+                 schedule_faithful=schedule_faithful,
+                 attn_chunk=max(16, prompt_len // 2))
+    max_len = -(-(prompt_len + gen_tokens) // model_parallel) \
+        * model_parallel
     with torch.no_grad():
         params = model_lib.init_params(cfg, seed, device=dev)
         shape = ShapeConfig("serve", prompt_len, batch, "prefill")
@@ -67,10 +72,14 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32,
 
         _sync(dev)
         t0 = time.perf_counter()
-        tok, _ = model_lib.prefill(rt, cfg, params, pre_batch, gen)
+        tok, kv = model_lib.prefill(rt, cfg, params, pre_batch, gen)
         # the reference re-homes only attention caches; SSM decoding
         # starts from zeros (C.R3)
         cache = model_lib.init_cache(rt, cfg, batch, max_len, device=dev)
+        if kv is not None:
+            for name, val in kv.items():
+                cache[name][:, :, :prompt_len].copy_(val)
+            del kv
         _sync(dev)
         t_pre = time.perf_counter() - t0
         out, steps = [tok], []

@@ -25,6 +25,7 @@ from repro_torch.core import algorithms, engine, losses
 from repro_torch.launch.serve import serve
 from repro_torch.models import model as lm_model
 from repro_torch.serve import ServeEngine
+from repro_torch.sharding.api import Runtime
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
@@ -63,7 +64,8 @@ def _cpu_engine():
 @pytest.mark.parametrize("entry", [
     "resolve_device", "FusedEngine", "ServeEngine", "linear_iterate",
     "deep_params", "svrg_state", "saga_state", "train", "train_fused",
-    "train_multi_pipelined", "serve", "lm_params", "lm_init_params"])
+    "train_multi_pipelined", "serve", "lm_params", "lm_init_params",
+    "serve_dense", "lm_init_params_dense", "lm_init_cache_dense"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
                                                                entry):
     x = np.ones((6, 4), np.float32)
@@ -95,6 +97,12 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
                                  device="cpu"), q=1),
         "lm_init_params": lambda: lm_model.init_params(
             get_arch("falcon_mamba_7b").reduced()),
+        "serve_dense": lambda: serve("gemma3_4b", batch=1, prompt_len=2,
+                                     gen_tokens=1),
+        "lm_init_params_dense": lambda: lm_model.init_params(
+            get_arch("gemma3_4b").reduced()),
+        "lm_init_cache_dense": lambda: lm_model.init_cache(
+            Runtime(), get_arch("gemma3_4b").reduced(), 1, 4),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
