@@ -5,18 +5,29 @@ The port of the Pallas TPU kernel ``repro.kernels.decode_attention``: one
 token's attention over KV cache shards, giving each shard's unnormalised
 output and its running max and sum-exp for a log-sum-exp merge.  One
 launch covers every shard of a cache (B, S, Hkv, dh) seen as ``shards``
-blocks of S/shards positions.  The source is ``csrc/decode_attention.cu``;
-its header note says what the kernel replaces, what bounds it on the H100
-and how its design answers that.
+blocks of S/shards positions, each cut into chunks (``chunk_plan``) that
+separate blocks stream; a shard's chunk partials are merged in the kernel,
+in chunk order.  The source is ``csrc/decode_attention.cu``; its header
+note says what the kernel replaces, what bounds it on the H100 and how its
+design answers that.
 
 Build: ``kernels.build`` compiles the source at first launch into its own
 library under ``build/kernels/`` and loads it with ``ctypes``; nothing is
 built or loaded when the module is imported.
 
-The source holds one program with one entry point per cache dtype,
-templated on dh (``HEAD_DIMS``) and on the largest query-group size (at
-most ``MAX_REP`` query heads per KV head).  ``KERNEL.launches
+The source holds one program with one entry point per cache dtype (bf16:
+tensor cores through ``mma.sync``; f32: CUDA cores), templated on dh
+(``HEAD_DIMS``); the query-group size (at most ``MAX_REP`` query heads
+per KV head) is read at run time.  ``KERNEL.launches
 ["decode_attention"]`` goes up by one exactly where it is launched.
+
+The wrapper hands the kernel an f32 workspace for the chunk partials,
+allocated per call, and the merge's ticket counters, one int32 per
+(shard, KV head, batch row), which it keeps per device: they hold zeros
+between launches (the merging block resets its own), so a captured decode
+step replays with no reset of its own.  No counter buffer is ever freed,
+so a graph captured with one stays valid.  Launches on one device share
+the counters, so they must not run concurrently on two streams.
 """
 from __future__ import annotations
 
@@ -30,11 +41,23 @@ from repro_torch.kernels.flash_attention import (HEAD_DIMS, NO_WINDOW,
 
 PROGRAMS = ("decode_attention",)
 MAX_REP = 8
+CHUNK = 64                       # most positions a block owns (4 warps x 16)
+MIN_COUNTERS = 1 << 14           # ticket counters kept per device, at least
 _PTR, _I64 = ctypes.c_void_p, ctypes.c_longlong
-# q, k, v, o, m, l, pos; b, h, hkv, shards, s_loc, dh, offset, window;
-# strides of q (batch, head) and of k and v (batch, position, head);
-# stream
-ARGTYPES = {"decode_attention": [_PTR] * 7 + [_I64] * 16 + [_PTR]}
+# q, k, v, o, m, l, workspace, counters, pos; b, h, hkv, shards, s_loc,
+# dh, offset, window, chunks, chunk_len; strides of q (batch, head) and of
+# k and v (batch, position, head); stream
+ARGTYPES = {"decode_attention": [_PTR] * 9 + [_I64] * 18 + [_PTR]}
+
+
+def chunk_plan(s_loc: int, target: int = CHUNK):
+    """(chunks, chunk_len): a shard of ``s_loc`` positions cut into
+    ``chunks`` runs of ``chunk_len`` positions, at most ``target`` each and
+    as even as whole positions allow; the last run holds the rest and is
+    never empty.  It depends on the shapes only, so a captured step can
+    advance pos."""
+    chunks = -(-s_loc // target)
+    return chunks, -(-s_loc // chunks)
 
 
 class DecodeKernel(CudaLibrary):
@@ -43,6 +66,20 @@ class DecodeKernel(CudaLibrary):
 
     def __init__(self):
         super().__init__("decode_attention.cu", PROGRAMS, ARGTYPES)
+        self._counters = {}   # device index -> int32 zeros, oldest first
+
+    def counters(self, device: torch.device, n: int) -> torch.Tensor:
+        """At least ``n`` ticket counters on ``device``, all 0: the
+        device's newest buffer, or a larger one made now.  Every buffer is
+        kept for the life of the process, since a graph captured with it
+        holds its address (one made during a capture is also zeroed inside
+        that graph)."""
+        kept = self._counters.setdefault(device.index, [])
+        if kept and kept[-1].numel() >= n:
+            return kept[-1]
+        kept.append(torch.zeros(max(n, MIN_COUNTERS), dtype=torch.int32,
+                                device=device))
+        return kept[-1]
 
     def partials(self, q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, pos: torch.Tensor, shards: int,
@@ -82,13 +119,19 @@ class DecodeKernel(CudaLibrary):
         l = torch.empty_like(m)
         if o.numel() == 0:
             return o, m, l
+        s_loc = s // shards
+        chunks, chunk_len = chunk_plan(s_loc)
         with torch.cuda.device(q.device):
+            ws = torch.empty((shards, chunks, b, h, dh + 2),
+                             dtype=torch.float32, device=q.device)
+            count = self.counters(q.device, shards * hkv * b)
             self._launch("decode_attention", q.dtype, q.data_ptr(),
                          k_cache.data_ptr(), v_cache.data_ptr(),
                          o.data_ptr(), m.data_ptr(), l.data_ptr(),
-                         pos.data_ptr(), b, h, hkv, shards, s // shards, dh,
-                         int(offset),
+                         ws.data_ptr(), count.data_ptr(), pos.data_ptr(), b,
+                         h, hkv, shards, s_loc, dh, int(offset),
                          NO_WINDOW if window is None else int(window),
+                         chunks, chunk_len,
                          *q.stride()[:2], *k_cache.stride()[:3],
                          *v_cache.stride()[:3],
                          what=f"q {tuple(q.shape)} {q.dtype}, cache "

@@ -11,10 +11,14 @@ Build: ``kernels.build`` compiles the source at first launch into its own
 library under ``build/kernels/`` and loads it with ``ctypes``; nothing is
 built or loaded when the module is imported.
 
-The source holds one program with one entry point per dtype (bf16: tensor
-cores through ``mma.sync``; f32: full f32 on the CUDA cores), templated on
-dh (``HEAD_DIMS``).  Operands are passed by their strides, so transposed
-views reach the kernel without a copy.  ``KERNEL.launches
+The source holds one program with one entry point per dtype, templated
+on dh (``HEAD_DIMS``).  bf16 at dh in ``WGMMA_HEAD_DIMS`` runs on the
+tensor cores through ``wgmma`` on K/V tiles that TMA streams in, bf16 at
+dh 32 through ``mma.sync``, f32 in full f32 on the CUDA cores.  Operands
+are passed by their strides, so transposed views reach the kernel without
+a copy; for the TMA path the kernel builds its tensor maps from those
+strides on every call, and the wrapper raises ``ValueError`` on strides
+that TMA cannot take (``tma_ok``) rather than copy.  ``KERNEL.launches
 ["flash_attention"]`` goes up by one exactly where it is launched.
 """
 from __future__ import annotations
@@ -27,6 +31,7 @@ from repro_torch.kernels.build import SUFFIX, CudaLibrary
 
 PROGRAMS = ("flash_attention",)
 HEAD_DIMS = (32, 64, 128, 256)   # the template instances in the source
+WGMMA_HEAD_DIMS = (64, 128, 256)  # bf16 instances on wgmma and TMA
 NO_WINDOW = 1 << 40              # the window the kernel reads as "none"
 _PTR, _I64 = ctypes.c_void_p, ctypes.c_longlong
 # q, k, v, o; b, h, hkv, sq, skv, dh; (batch, head, position) strides of
@@ -41,6 +46,16 @@ def strided_ok(t: torch.Tensor) -> bool:
             and t.data_ptr() % 16 == 0)
 
 
+def tma_ok(t: torch.Tensor) -> bool:
+    """What the TMA tensor maps of the wgmma program take: ``strided_ok``
+    (for bf16: every stride but dh's a multiple of 16 bytes, the base
+    16-byte aligned), and every dimension of more than one element a
+    positive stride below 2**40 bytes."""
+    return strided_ok(t) and all(
+        0 < st * t.element_size() < 1 << 40
+        for n, st in zip(t.shape[:-1], t.stride()[:-1]) if n > 1)
+
+
 class FlashKernel(CudaLibrary):
     """The ``flash_attention`` library, its launch counter and the build
     report."""
@@ -53,8 +68,10 @@ class FlashKernel(CudaLibrary):
         """o (B, H, Sq, dh) in q's dtype (and q's stride order) on the
         card: q (B, H, Sq, dh), k and v (B, Hkv, Skv, dh), one dtype in
         {float32, bfloat16} on one CUDA device, dh in ``HEAD_DIMS``, Hkv
-        dividing H, each ``strided_ok``.  ``window`` None or >= 1.
-        Launches on the current stream; raises if the launch is
+        dividing H, each ``strided_ok`` (``tma_ok`` for bf16 at dh in
+        ``WGMMA_HEAD_DIMS``).  ``window`` None or >= 1.  Launches on the
+        current stream; raises ``ValueError`` on operands it does not
+        take (it never copies them) and ``RuntimeError`` if the launch is
         refused."""
         b, h, sq, dh = q.shape
         hkv, skv = k.shape[1], k.shape[2]
@@ -73,6 +90,13 @@ class FlashKernel(CudaLibrary):
                 + ", ".join(f"{tuple(t.shape)} {t.stride()} {t.dtype} "
                             f"{t.device}" for t in (q, k, v))
                 + f", window {window}")
+        if q.dtype == torch.bfloat16 and dh in WGMMA_HEAD_DIMS and not all(
+                tma_ok(t) for t in (q, k, v)):
+            raise ValueError(
+                "flash_attention's TMA tensor maps take bf16 operands whose "
+                "strides (but dh's) are positive multiples of 16 bytes "
+                "below 2**40 bytes; got strides "
+                + ", ".join(str(t.stride()) for t in (q, k, v)))
         o = torch.empty_like(q)
         if o.numel() == 0:
             return o

@@ -243,7 +243,7 @@ def _device_kind(t: torch.Tensor, name: str) -> str:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """t itself where the kernels' vector loads can read it, else a
-    contiguous copy."""
+    contiguous copy (never for the TMA program: ``flash_attention``)."""
     return t if _fa.strided_ok(t) else t.contiguous()
 
 
@@ -254,7 +254,12 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     keys ≤ t (``causal``) and > t − ``window``; a query with no such key
     gives 0.  Any strides with dh contiguous are taken (a transposed
     (B, S, H, dh) view is read in place, and o keeps q's stride order).
-    On the card dh must be one of ``flash_attention.HEAD_DIMS``."""
+    On the card dh must be one of ``flash_attention.HEAD_DIMS``.  The TMA
+    program (bf16 at dh in ``flash_attention.WGMMA_HEAD_DIMS``) copies
+    nothing and raises ``ValueError`` on strides its tensor maps cannot
+    take (``flash_attention.tma_ok``); the others, as ``decode_attention``,
+    read operands whose strides their vector loads cannot take from a
+    contiguous copy."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k and v must share a dtype in {_DTYPES}; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -271,8 +276,9 @@ def flash_attention(q, k, v, *, causal=True, window=None):
             raise ValueError(f"q on {q.device}, {name} on {t.device}")
     if _device_kind(q, "flash_attention") == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
-    return _fa.KERNEL.attend(_aligned(q), _aligned(k), _aligned(v), causal,
-                             window)
+    if q.dtype != torch.bfloat16 or q.shape[3] not in _fa.WGMMA_HEAD_DIMS:
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    return _fa.KERNEL.attend(q, k, v, causal, window)
 
 
 def decode_attention(q, k_cache, v_cache, pos, shard_offset=0, window=None,

@@ -39,6 +39,10 @@ FN_TOL = {"f32": dict(atol=2e-5, rtol=1e-4), "bf16": dict(atol=2e-2,
                                                           rtol=2e-2)}
 FLASH_TOL = {"f32": 2e-6, "bf16": 2e-2}
 DECODE_TOL = {"f32": 1e-5, "bf16": 3e-2}
+# the decode kernel keeps P at f32 accuracy in P V, as the TPU kernel does:
+# its normalised output stays this close to the plain version's at bf16
+# too (P rounded to bf16 misses it by about 20x)
+DECODE_P_TOL = 1e-4
 # tests/test_kernels.py:16-39: (b, h, hkv, sq, skv, dh) and the masks
 FLASH_SHAPES = [(1, 2, 2, 128, 128, 64), (2, 4, 2, 256, 256, 64),
                 (1, 8, 1, 128, 256, 128), (2, 2, 2, 64, 64, 256)]
@@ -359,6 +363,78 @@ def test_cpu_never_launches_the_attention_kernels():
 
 
 # ---------------------------------------------------------------------------
+# host-side pieces of the kernels' designs
+# ---------------------------------------------------------------------------
+
+def _valid_chunk_rows(s_loc, pos, offset, window, chunks, chunk_len):
+    """The rows each block of a shard streams, as the decode kernel's
+    ``block_span`` picks them: (chunk, first row, end row) for every chunk
+    that holds a valid position."""
+    lo = max(0, pos - window + 1 - offset)
+    hi = min(s_loc, pos - offset + 1)
+    if hi <= lo:
+        return []
+    return [(c, max(lo, c * chunk_len), min(hi, (c + 1) * chunk_len))
+            for c in range(lo // chunk_len, (hi - 1) // chunk_len + 1)]
+
+
+@pytest.mark.parametrize("s_loc", [1, 16, 63, 64, 65, 129, 516, 4096])
+def test_decode_chunk_plan_covers_each_valid_position_once(s_loc):
+    """``chunk_plan`` cuts a shard into non-empty chunks of at most
+    ``CHUNK`` positions that cover it once, and the chunks a block takes
+    for any pos and window cover exactly the valid positions, each once
+    (so every partial the merge reads was written)."""
+    chunks, chunk_len = da.chunk_plan(s_loc)
+    assert 1 <= chunk_len <= da.CHUNK
+    assert (chunks - 1) * chunk_len < s_loc <= chunks * chunk_len
+    rng = np.random.default_rng(s_loc)
+    for _ in range(40):
+        offset = int(rng.integers(0, 3)) * s_loc
+        pos = int(rng.integers(-2, offset + s_loc + 3))
+        window = int(rng.choice([1, 3, 64, 100, 1 << 40]))
+        spans = _valid_chunk_rows(s_loc, pos, offset, window, chunks,
+                                  chunk_len)
+        covered = [t for _, a, b in spans for t in range(a, b)]
+        want = [t for t in range(s_loc)
+                if pos - window < offset + t <= pos]
+        assert covered == want
+        assert all(a < b and 0 <= c < chunks for c, a, b in spans)
+
+
+def _strided(shape, strides, dtype=torch.bfloat16):
+    return torch.empty_strided(shape, strides, dtype=dtype)
+
+
+@pytest.mark.parametrize("t,ok", [
+    (_strided((2, 4, 8, 64), (2048, 512, 64, 1)), True),      # contiguous
+    (_strided((2, 4, 8, 64), (2048, 64, 256, 1)), True),      # (B, S, H, dh)
+    (_strided((1, 4, 8, 64), (8, 512, 64, 1)), True),         # a lone batch
+    (_strided((2, 4, 8, 64), (2176, 544, 68, 1)), False),     # 136-byte rows
+    (_strided((2, 4, 8, 64), (512, 0, 64, 1)), False),        # expanded heads
+])
+def test_flash_tma_ok_takes_what_tma_takes(t, ok):
+    """The wgmma program's tensor maps take 16-byte multiples as strides,
+    positive wherever a dimension has more than one element."""
+    assert fa.tma_ok(t) is ok
+
+
+def test_decode_counters_are_kept_for_good():
+    """The merge's ticket counters: the newest buffer while it is large
+    enough, else a larger one; none is dropped, since a captured graph
+    may hold any of them."""
+    kernel = da.DecodeKernel()
+    cpu = torch.device("cpu")
+    small = kernel.counters(cpu, 8)
+    assert small.numel() >= 8 and not small.any()
+    assert kernel.counters(cpu, small.numel()) is small
+    big = kernel.counters(cpu, small.numel() + 1)
+    assert big.numel() > small.numel() and not big.any()
+    assert kernel.counters(cpu, 8) is big
+    assert [t is u for t, u in zip(kernel._counters[None], (small, big))] \
+        == [True, True]
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -433,9 +509,9 @@ def test_cuda_decode_attention_matches_plain(cuda_device, dtype, shape, pos,
     tol = DECODE_TOL[dtype]
     torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got[2], want[2], atol=2e-4, rtol=2e-4)
-    torch.testing.assert_close(
-        got[0] / got[2].clamp(min=1e-30)[..., None],
-        want[0] / want[2].clamp(min=1e-30)[..., None], atol=tol, rtol=tol)
+    norm = [t[0] / t[2].clamp(min=1e-30)[..., None] for t in (got, want)]
+    torch.testing.assert_close(norm[0], norm[1], atol=tol, rtol=tol)
+    assert float((norm[0] - norm[1]).abs().max()) <= DECODE_P_TOL
     masked = want[2] == 0
     assert torch.equal(got[2] == 0, masked)
     assert not got[0][masked].any()
@@ -451,3 +527,146 @@ def test_cuda_decode_attention_reads_pos_from_the_device(cuda_device):
     b = ops.decode_attention(q, kc, vc, 50, 0, 20, shards=4)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, atol=0, rtol=0)
+
+
+# (b, h, hkv, s, dh), pos, window, shards: what each case covers
+SPLIT_KV_CASES = {
+    "window_start_inside_a_chunk": ((2, 4, 2, 512, 64), 300, 40, 2),
+    "pos_on_a_shards_first_position": ((2, 4, 2, 512, 64), 256, None, 2),
+    "pos_on_a_shards_last_position": ((2, 4, 2, 512, 64), 255, None, 2),
+    "s_loc_not_a_multiple_of_the_chunk": ((2, 4, 2, 387, 128), 380, None,
+                                          3),
+    "window_shorter_than_a_chunk": ((2, 4, 2, 512, 64), 300, 3, 2),
+    "window_of_one": ((1, 2, 1, 256, 256), 200, 1, 4),
+    "many_chunks_per_shard": ((1, 2, 1, 4160, 32), 4100, None, 1),
+}
+
+
+def _decode_vs_plain(dev, dtype, shape, pos, win, shards, seed):
+    b, h, hkv, s, dh = shape
+    q, kc, vc = _on(dev, dtype, *_normal(seed, (b, h, dh), (b, s, hkv, dh),
+                                         (b, s, hkv, dh)))
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    got = ops.decode_attention(q, kc, vc, pos_t, 0, win, shards=shards)
+    again = ops.decode_attention(q, kc, vc, pos_t, 0, win, shards=shards)
+    torch.cuda.synchronize()
+    want = ref.decode_attention_ref(q, kc, vc, pos, 0, win, shards)
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got[2], want[2], atol=2e-4, rtol=2e-4)
+    norm = [t[0] / t[2].clamp(min=1e-30)[..., None] for t in (got, want)]
+    torch.testing.assert_close(norm[0], norm[1], atol=tol, rtol=tol)
+    assert float((norm[0] - norm[1]).abs().max()) <= DECODE_P_TOL
+    masked = want[2] == 0
+    assert torch.equal(got[2] == 0, masked)
+    assert not got[0][masked].any()
+    assert bool((got[1][masked] == -1e30).all())
+    for x, y in zip(got, again):              # the merge order is fixed
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(SPLIT_KV_CASES))
+def test_cuda_decode_attention_split_kv_edges(cuda_device, dtype, case):
+    shape, pos, win, shards = SPLIT_KV_CASES[case]
+    _decode_vs_plain(cuda_device, dtype, shape, pos, win, shards, 15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("rep", [1, 2, 4, 6, 8])
+def test_cuda_decode_attention_group_sizes(cuda_device, dtype, rep):
+    _decode_vs_plain(cuda_device, dtype, (2, 2 * rep, 2, 520, 128), 500, 300,
+                     4, 16)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_graph_replays_follow_the_device_pos(
+        cuda_device):
+    """One captured launch, replayed after pos moves on the device, gives
+    what an eager call at that pos gives, bit for bit: the merge's ticket
+    counters are back at 0 after every launch."""
+    q, kc, vc = _on(cuda_device, "bf16", *_normal(
+        17, (2, 4, 128), (2, 520, 2, 128), (2, 520, 2, 128)))
+    pos = torch.tensor(300, dtype=torch.int32, device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.decode_attention(q, kc, vc, pos, 0, 200, shards=4)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ops.decode_attention(q, kc, vc, pos, 0, 200, shards=4)
+    for p in (300, 301, 129, 130, 519, 5, 390, 300):
+        pos.fill_(p)
+        graph.replay()
+        want = ops.decode_attention(q, kc, vc, p, 0, 200, shards=4)
+        torch.cuda.synchronize()
+        for x, y in zip(captured, want):
+            assert torch.equal(x, y), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 5, 1000])
+@pytest.mark.parametrize("rep", [1, 2, 4, 6])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_cuda_flash_attention_wgmma_program(cuda_device, dh, rep, window):
+    """The wgmma program at every dh it serves, every group size (an odd
+    rep takes 128 rows of one head a block, an even one pairs two heads)
+    and 300 query rows: not a multiple of either query tile."""
+    hkv = 2
+    q, k, v = _on(cuda_device, "bf16", *_normal(
+        18, (1, hkv * rep, 300, dh), (1, hkv, 300, dh), (1, hkv, 300, dh)))
+    before = fa.KERNEL.launches["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches["flash_attention"] == before + 1
+    want = ref.attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_TOL["bf16"], rtol=FLASH_TOL["bf16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+def test_cuda_flash_attention_tma_reads_transposed_views(cuda_device, dh):
+    q, k, v = _on(cuda_device, "bf16", *_normal(
+        19, (2, 200, 6, dh), (2, 200, 2, dh), (2, 200, 2, dh)))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    got = ops.flash_attention(qt, kt, vt, window=64)
+    assert got.stride() == qt.stride()
+    want = ops.flash_attention(qt.contiguous(), kt.contiguous(),
+                               vt.contiguous(), window=64)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_strides_tma_cannot_take(cuda_device):
+    """Rows 136 bytes apart: the wrapper raises, launches nothing and
+    copies nothing."""
+    (wide,) = _on(cuda_device, "bf16", *_normal(20, (1, 4, 64, 68)))
+    q = wide[..., :64]
+    k, v = _on(cuda_device, "bf16", *_normal(21, (1, 2, 64, 64),
+                                             (1, 2, 64, 64)))
+    before = fa.KERNEL.launches["flash_attention"]
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v)
+    assert fa.KERNEL.launches["flash_attention"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dh", [("f32", 64), ("bf16", 32)])
+def test_cuda_flash_attention_vector_load_programs_copy_odd_strides(
+        cuda_device, dtype, dh):
+    """The programs without TMA read operands whose strides are not
+    multiples of 8 elements from a contiguous copy, as
+    ``decode_attention`` does."""
+    (wide,) = _on(cuda_device, dtype, *_normal(22, (1, 4, 64, dh + 4)))
+    q = wide[..., :dh]
+    k, v = _on(cuda_device, dtype, *_normal(23, (1, 2, 64, dh),
+                                            (1, 2, 64, dh)))
+    before = fa.KERNEL.launches["flash_attention"]
+    got = ops.flash_attention(q, k, v)
+    assert fa.KERNEL.launches["flash_attention"] == before + 1
+    want = ops.flash_attention(q.contiguous(), k, v)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
