@@ -16,12 +16,13 @@ JAX or of the JAX package.
    against their plain PyTorch versions on the card at the serving and
    training shapes (the minibatch steps, the multi-dominator
    block-diagonal backward, the pipelined steps and the full-dataset
-   passes), ragged shapes, a wide side, a chunked backward side and bf16
-   (atol = rtol = 1e-4), and ``selective_scan`` (below); kernel, plain
-   and library times from CUDA events over CUDA-graph replays, beside the
-   byte/FLOP bound.  No single
-   PyTorch call computes the split-batch function: its rows time the
-   ``matmul`` + ``baddbmm`` pair as a note instead.
+   passes), ragged shapes, fewer rows than a backward block has warps (B =
+   7), a one-row second chunk (B = 1,025), a wide side, a chunked backward
+   side and bf16 (atol = rtol = 1e-4), and ``selective_scan`` (below);
+   kernel, plain and library times from CUDA events over CUDA-graph
+   replays, beside the byte/FLOP bound.  No single PyTorch call computes
+   the split-batch function: its rows time the ``matmul`` + ``baddbmm``
+   pair as a note instead.
 3. Linear serving at q=8 parties, m=2, d=4096 (dp=512 per party),
    n=350,000 samples (webspam's sample count at the repo's widest split),
    ``secure="two_tree"``, ``max_batch=64``: a cold pass over the whole
@@ -115,8 +116,14 @@ The ``vfl_grad`` source holds five kernel programs:
 ``vfl_backward_rows`` and ``vfl_backward_reduce`` (the reduce pass runs
 only when a backward spans more than one chunk of rows: the full-dataset
 passes), and ``vfl_fused_split`` (the fused mode and its split-batch
-form: every interior step of a pipelined epoch).  Every program's launch
-count (all four sources) is reset just before phase 3 and read after
+form: every interior step of a pipelined epoch).  The backward programs
+spread each output's sum over the 8 warps of a block: a rows block owns
+one chunk of up to 1,024 rows, one party and 64 columns, each warp a
+fixed eighth of the rows; a reduce block owns 32 outputs, each warp a
+fixed range of the chunks; the warps' partials are added in warp order,
+so the sums do not depend on scheduling.  ``vfl_fused_split``'s backward
+blocks are rows blocks.  Every program's launch count (all four sources)
+is reset just before phase 3 and read after
 phase 5, reset again just before phase 7's runs and read after them,
 just before phase 8 and after it, just before phase 9's serve call and
 after it, and just before phase 10's serve call and after it;
@@ -359,6 +366,8 @@ def kernel_phase(torch, dev):
          torch.float32),
         ("ragged", 5, 37, 333, 3, False, True, None, torch.float32),
         ("ragged_chunks", 3, 2500, 130, 5, True, True, None, torch.float32),
+        ("few_rows", 3, 7, 333, None, True, False, None, torch.float32),
+        ("chunk_edge", 2, 1025, 512, 2, False, True, None, torch.float32),
         ("train_sgd_step_bf16", 8, 32, 512, None, True, False, None,
          torch.bfloat16),
     ]

@@ -50,32 +50,46 @@
 //     rows, and on Hopper blocks run in no order, so nothing can carry a
 //     sum across blocks the way the TPU kernel carries g_acc across its
 //     sequential row grid (vfl_grad.py:165-196).
-//     - vfl_backward_rows: a block owns kBwdThreads consecutive columns d
-//       of one party and one chunk of kChunkRows rows; thread d walks the
-//       chunk's rows in order, its X loads coalesced across d and its
-//       theta loads one broadcast per warp, keeping kBwdCols accumulators
-//       (grid.z covers wider M).  When B fits one chunk (every minibatch
-//       step) it applies the epilogue (/denom, + lam*W) and writes g
-//       directly: one launch per step.  Otherwise it writes its chunk's
-//       partial sums to a workspace the wrapper allocates, and
-//     - vfl_backward_reduce adds the chunks' partials in chunk order, one
-//       thread per output, and applies the epilogue.
-//     Full-dataset passes: 342 chunks x 8 parties x 4 column tiles =
-//     10,944 blocks of 128 threads, each thread with 1024 independent row
-//     loads, so the card has many loads in flight.  No float atomics: the
-//     summation order of every output depends only on B (the chunking),
-//     never on scheduling, so an epoch replays bit for bit.
+//     - vfl_backward_rows: a block of 8 warps owns one chunk of kChunkRows
+//       rows, one party, one tile of kBwdTile = 64 columns d (lane j owns
+//       columns j and j + 32 of the tile) and one group of up to kBwdCols
+//       theta columns.  Warp v sums a fixed contiguous eighth of the
+//       chunk's rows, issuing each batch of kBwdBatch rows' X loads (one
+//       128-byte line per column half in f32) and theta loads (one
+//       broadcast) before their FMAs; the eight partial sums are added in
+//       warp order through shared memory.  When B fits one chunk (every
+//       minibatch step) the block applies the epilogue (/denom, + lam*W)
+//       and writes g directly: one launch per step.  Otherwise it writes
+//       its chunk's partial sums to a workspace the wrapper allocates, and
+//     - vfl_backward_reduce adds the chunks' partials: a block of 8 warps
+//       owns 32 consecutive outputs (lane = output), warp v adds a fixed
+//       contiguous range of the chunks in chunk order, its loads batched,
+//       and the eight partials are added in warp order before the epilogue.
+//     The minibatch steps are latency-bound: at (8, 32, 512) the rows
+//     program runs 8 parties x 8 tiles = 64 blocks of 8 warps, each warp's
+//     4 rows loaded in one round trip (a block per 128 columns, one thread
+//     walking all 32 rows, took 3.10 us; this form 1.87, on an NVIDIA H100
+//     80GB HBM3 at 700 W, tools/vfl_grad_ab.py).  Tiles of 32 columns (128
+//     blocks) or 128 (32 blocks) and batches of 8 or 16 rows were slower
+//     there, and so were a chunk-fastest 3-D grid and 64-bit block-index
+//     arithmetic.  The full-dataset passes are bound by the bytes: 342
+//     chunks x 8 parties x 8 tiles = 21,888 blocks, the 8 tiles of one
+//     chunk adjacent in the grid so that each row's 2 KB are read
+//     together.  The reduce of their (342, 8, 512, 1) workspace runs 128
+//     blocks, each warp's 43 chunks in one batch of loads.
+//     No float atomics: the summation order of every output depends only
+//     on B (the chunking), never on scheduling or the grid, so an epoch
+//     replays bit for bit.
 //   * fused (one program, vfl_fused_split): a Hopper block cannot wait for
 //     another, so the program's grid is the union of the two sides' grids:
 //     its first blocks run the narrow (Mw <= kNarrow) or wide forward body
 //     over the forward rows, the rest the rows program's body over the
-//     backward rows (two backward halves of kBwdThreads threads per
-//     block).  The bodies are the __device__ functions the single-mode
-//     programs call, so each output sums in the same order as there; the
-//     split form needs no padding copy (each side masks its own edges),
-//     and a backward side over more than one chunk writes the workspace
-//     that vfl_backward_reduce adds.  One launch per pipelined step; the
-//     backward body batches its row loads here (see bwd_chunk).
+//     backward rows, one backward block each.  The bodies are the
+//     __device__ functions the single-mode programs call, so each output
+//     sums in the same order as there; the split form needs no padding copy
+//     (each side masks its own edges), and a backward side over more than
+//     one chunk writes the workspace that vfl_backward_reduce adds.  One
+//     launch per pipelined step.
 // The ragged edges (rows past B, columns past D or M, the tail of D) are
 // masked inside the kernels; the wrapper pads nothing.  In the forward
 // programs an output's summation order depends only on D, M and its column,
@@ -95,13 +109,13 @@ constexpr int kNarrow = 4;  // widest M taken by the lanes-over-D program
 constexpr int kNarrowBatch = 4;  // row strides whose loads a lane batches
 constexpr int kWideRows = 4;  // rows per block of the lanes-over-M program
 static_assert(kWideRows <= kWarpsPerBlock, "one finishing warp per row");
-constexpr int kBwdThreads = 128;   // columns d per backward block
-constexpr int kBwdCols = 4;        // theta columns per thread (grid.z: more)
+constexpr int kBwdThreads = kWarpsPerBlock * 32;  // a backward block
+constexpr int kBwdCols = 4;        // theta columns a block takes at M > 2
 constexpr int kChunkRows = 1024;   // rows per backward block (one partial)
-constexpr int kBwdBatch = 8;       // rows whose loads a backward thread batches
-constexpr int kReduceThreads = 256;
-static_assert(2 * kBwdThreads == kWarpsPerBlock * 32,
-              "a fused backward block holds two backward halves");
+constexpr int kBwdLaneCols = 2;    // columns a lane owns, 32 apart
+constexpr int kBwdTile = 32 * kBwdLaneCols;  // columns d per backward block
+constexpr int kBwdBatch = 4;       // rows whose loads a warp issues at once
+constexpr int kReduceBatch = 48;   // chunks whose loads a warp issues at once
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -209,80 +223,135 @@ __device__ __forceinline__ void wide_tile(const T* __restrict__ xp,
   }
 }
 
-// Backward over one chunk: thread `col` sums x[p, r, col] * th[p, r, m0+j]
-// over the chunk's rows r in [r0, r1) in order.  xc points at column col
-// of the party's row 0, tp at column m0 of the party's theta (row stride
-// m).  direct != 0 (the rows fit one chunk): out is g (P, D, M) and the
+// Backward over one chunk, one block: lane j of warp v sums
+// x[p, r, c0 + 32 k] * th[p, r, m0 + c] (c0 = tile * kBwdTile + j, k <
+// kBwdLaneCols) over warp v's fixed slice of the chunk's rows [r0, r1), in
+// row order, for the KC theta columns c < mc of the group; the slices'
+// partial sums are added in warp order through shared memory.  xp points
+// at the party's x, tp at column m0 of the party's theta (row stride m).
+// direct != 0 (the rows fit one chunk): out is g (P, D, M) and the
 // epilogue (/denom, + lam * w when w is given) is applied here; else out
-// is the workspace (chunks, P, D, M).  The caller has checked col < d.
-// kBatch loads kBwdBatch rows before their FMAs.  The compiler
-// keeps many loads in flight in vfl_backward_rows by itself, but not in
-// vfl_fused_split, whose loop it left at one row's loads per round trip:
-// about 166 ns a row there against 46 ns in vfl_backward_rows, over 1024
-// rows on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py).  Batched,
-// vfl_backward_rows ran slower, so only vfl_fused_split batches.  The
-// FMAs run row by row either way, so both forms give the same numbers.
-template <bool kBatch, typename T>
-__device__ __forceinline__ void bwd_chunk(const T* __restrict__ xc,
-                                          const float* __restrict__ tp,
-                                          const T* __restrict__ w,
-                                          float* __restrict__ out,
-                                          long long r0, long long r1,
-                                          long long party, long long parties,
-                                          long long chunk, int col, int d,
-                                          int m, int m0, float denom,
-                                          float lam, int direct) {
-  const int mc = min(kBwdCols, m - m0);
-  float acc[kBwdCols];
+// is the workspace (chunks, P, D, M).  A warp takes its rows kBwdBatch at a
+// time (a minibatch step's 4 rows a warp in one batch), every load of a
+// batch issued before its FMAs, which run row by row, so the order of every
+// sum depends only on the chunk's row count.  Rows past r1, columns past D
+// and theta columns past mc are masked, never returned: every thread of
+// the block calls this (it holds a barrier).  Clamping the loads' indices
+// instead of masking them cost this body 8% at the SGD step and 25% at the
+// multi-dominator step on an NVIDIA H100 80GB HBM3 at 700 W
+// (tools/vfl_grad_ab.py); the reduce, below, clamps.
+template <int KC, typename T>
+__device__ __forceinline__ void bwd_tile(const T* __restrict__ xp,
+                                         const float* __restrict__ tp,
+                                         const T* __restrict__ w,
+                                         float* __restrict__ out,
+                                         long long r0, long long r1,
+                                         long long party, long long parties,
+                                         long long chunk, int tile, int d,
+                                         int m, int m0, float denom,
+                                         float lam, int direct) {
+  constexpr int kL = kBwdLaneCols;
+  __shared__ float part[kWarpsPerBlock][kL * KC][32];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int c0 = tile * kBwdTile + lane;
+  const int mc = min(KC, m - m0);
+  const int n = static_cast<int>(r1 - r0);
+  const int per = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int re = min(n, (warp + 1) * per);
+  const T* xc = xp + r0 * d;
+  const float* tc = tp + r0 * m;
+  float acc[kL][KC];
 #pragma unroll
-  for (int j = 0; j < kBwdCols; ++j) acc[j] = 0.0f;
-  long long r = r0;
-  if constexpr (kBatch) {
-    for (; r + kBwdBatch <= r1; r += kBwdBatch) {
-      float xv[kBwdBatch], tv[kBwdBatch][kBwdCols];
+  for (int k = 0; k < kL; ++k) {
 #pragma unroll
-      for (int u = 0; u < kBwdBatch; ++u) {
-        xv[u] = to_f32(xc[(r + u) * d]);
+    for (int c = 0; c < KC; ++c) acc[k][c] = 0.0f;
+  }
+  for (int r = min(n, warp * per); r < re; r += kBwdBatch) {
+    const T* xr = xc + static_cast<long long>(r) * d;
+    const float* tr = tc + static_cast<long long>(r) * m;
+    float xv[kBwdBatch][kL], tv[kBwdBatch][KC];
 #pragma unroll
-        for (int j = 0; j < kBwdCols; ++j) {
-          tv[u][j] = j < mc ? tp[(r + u) * m + j] : 0.0f;
+    for (int u = 0; u < kBwdBatch; ++u) {
+      const bool in = r + u < re;
+#pragma unroll
+      for (int k = 0; k < kL; ++k) {
+        xv[u][k] = in && c0 + 32 * k < d
+                       ? to_f32(xr[static_cast<long long>(u) * d + c0 +
+                                   32 * k])
+                       : 0.0f;
+      }
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        tv[u][c] = in && c < mc ? tr[static_cast<long long>(u) * m + c]
+                                : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBwdBatch; ++u) {
+      if (r + u < re) {  // warp-uniform
+#pragma unroll
+        for (int k = 0; k < kL; ++k) {
+#pragma unroll
+          for (int c = 0; c < KC; ++c) {
+            acc[k][c] = fmaf(xv[u][k], tv[u][c], acc[k][c]);
+          }
         }
       }
+    }
+  }
 #pragma unroll
-      for (int u = 0; u < kBwdBatch; ++u) {
+  for (int k = 0; k < kL; ++k) {
 #pragma unroll
-        for (int j = 0; j < kBwdCols; ++j) {
-          if (j < mc) acc[j] = fmaf(xv[u], tv[u][j], acc[j]);
-        }
+    for (int c = 0; c < KC; ++c) part[warp][k * KC + c][lane] = acc[k][c];
+  }
+  __syncthreads();
+  // warp v finishes the block's outputs k * KC + c = v, v + 8, ...
+  for (int o = warp; o < kL * KC; o += kWarpsPerBlock) {
+    const int col = c0 + 32 * (o / KC);
+    const int c = o % KC;
+    if (c < mc && col < d) {
+      float s = part[0][o][lane];
+#pragma unroll
+      for (int v = 1; v < kWarpsPerBlock; ++v) s += part[v][o][lane];
+      const long long i = (party * d + col) * m + m0 + c;
+      if (direct) {
+        float g = s / denom;
+        if (w != nullptr) g = g + lam * to_f32(w[i]);
+        out[i] = g;
+      } else {
+        out[chunk * parties * d * m + i] = s;
       }
     }
   }
-#pragma unroll 8
-  for (; r < r1; ++r) {
-    const float xv = to_f32(xc[r * d]);
-    const float* tr = tp + r * m;
-#pragma unroll
-    for (int j = 0; j < kBwdCols; ++j) {
-      if (j < mc) acc[j] = fmaf(xv, tr[j], acc[j]);
-    }
-  }
-  const long long o = (party * d + col) * m + m0;
-  if (direct) {
-#pragma unroll
-    for (int j = 0; j < kBwdCols; ++j) {
-      if (j < mc) {
-        float v = acc[j] / denom;
-        if (w != nullptr) v = v + lam * to_f32(w[o + j]);
-        out[o + j] = v;
-      }
-    }
-  } else {
-    float* ws = out + chunk * parties * d * m + o;
-#pragma unroll
-    for (int j = 0; j < kBwdCols; ++j) {
-      if (j < mc) ws[j] = acc[j];
-    }
-  }
+}
+
+// Backward block b of the grid over (column tile, theta-column group,
+// party, chunk), the tile fastest, so the blocks that read one chunk's rows
+// run side by side: rows [0, nb) of each party's block of x (rows rows a
+// party) against theta (party stride th_pstride) into g or, for nb >
+// kChunkRows, the workspace.  The rows program and the fused program's
+// backward blocks both come here; the launcher keeps the grid under 2^31
+// blocks, so b splits in 32-bit arithmetic.
+template <int KC, typename T>
+__device__ __forceinline__ void bwd_block(unsigned b, const T* x,
+                                          const float* th, const T* w,
+                                          float* out, long long parties,
+                                          long long rows, long long nb, int d,
+                                          int m, long long th_pstride,
+                                          float denom, float lam) {
+  const unsigned ntiles = (d + kBwdTile - 1) / kBwdTile;
+  const unsigned groups = (m + KC - 1) / KC;
+  const int tile = static_cast<int>(b % ntiles);
+  b /= ntiles;
+  const int m0 = static_cast<int>(b % groups) * KC;
+  b /= groups;
+  const long long party = b % static_cast<unsigned>(parties);
+  const long long chunk = b / static_cast<unsigned>(parties);
+  const long long r0 = chunk * kChunkRows;
+  bwd_tile<KC>(x + party * rows * d, th + party * th_pstride + m0, w, out,
+               r0, min(nb, r0 + kChunkRows), party, parties, chunk, tile, d,
+               m, m0, denom, lam, nb <= kChunkRows ? 1 : 0);
 }
 
 // Lanes over D, one warp per row of the flattened (P * rows) x.
@@ -314,43 +383,61 @@ vfl_forward_wide(const T* __restrict__ x, const T* __restrict__ w,
             static_cast<int>(blockIdx.z));
 }
 
-// Backward, rows: block (chunk, party, column tile x theta-column group).
-template <typename T>
+// Backward, rows: backward block blockIdx.x of bwd_block's grid.
+template <int KC, typename T>
 __global__ void __launch_bounds__(kBwdThreads)
 vfl_backward_rows(const T* __restrict__ x, const float* __restrict__ th,
                   const T* __restrict__ w, float* __restrict__ out,
-                  long long rows, int d, int m, long long th_pstride,
-                  float denom, float lam, int direct) {
-  const long long chunk = blockIdx.x;
-  const long long party = blockIdx.y;
-  const int ntiles = (d + kBwdThreads - 1) / kBwdThreads;
-  const int tile = static_cast<int>(blockIdx.z) % ntiles;
-  const int m0 = (static_cast<int>(blockIdx.z) / ntiles) * kBwdCols;
-  const int col = tile * kBwdThreads + static_cast<int>(threadIdx.x);
-  if (col >= d) return;  // no barrier in this kernel
-  const long long r0 = chunk * kChunkRows;
-  bwd_chunk<false>(x + party * rows * d + col, th + party * th_pstride + m0,
-                   w, out, r0, min(rows, r0 + kChunkRows), party,
-                   static_cast<long long>(gridDim.y), chunk, col, d, m, m0,
-                   denom, lam, direct);
+                  long long parties, long long rows, int d, int m,
+                  long long th_pstride, float denom, float lam) {
+  bwd_block<KC>(blockIdx.x, x, th, w, out, parties, rows, rows, d, m,
+                th_pstride, denom, lam);
 }
 
-// Backward, reduce: one thread per output i of the (P, D, M) g; adds the
-// chunks' partials in chunk order, then the epilogue.
+// Backward, reduce: a block owns 32 consecutive outputs i of the (P, D, M)
+// g, lane j output i0 + j; warp v adds the partials of a fixed contiguous
+// range of the chunks in chunk order, each batch of kReduceBatch chunks'
+// loads issued before their adds, then the eight ranges' sums are added in
+// warp order and the epilogue applied.
 template <typename T>
-__global__ void __launch_bounds__(kReduceThreads)
+__global__ void __launch_bounds__(kBwdThreads)
 vfl_backward_reduce(const float* __restrict__ ws, const T* __restrict__ w,
                     float* __restrict__ g, long long chunks, long long outs,
                     float denom, float lam) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * kReduceThreads + threadIdx.x;
-  if (i >= outs) return;
+  __shared__ float part[kWarpsPerBlock][32];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long i = static_cast<long long>(blockIdx.x) * 32 + lane;
+  const bool live = i < outs;
+  const long long per = (chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const long long ce = min(chunks, (warp + 1) * per);
+  const float* wi = ws + (live ? i : 0);
   float s = 0.0f;
-#pragma unroll 8
-  for (long long c = 0; c < chunks; ++c) s += ws[c * outs + i];
-  float v = s / denom;
-  if (w != nullptr) v = v + lam * to_f32(w[i]);
-  g[i] = v;
+  for (long long c = min(chunks, warp * per); c < ce; c += kReduceBatch) {
+    // unconditional loads at clamped indices: masked, nvcc left a batch of
+    // 32 at one load per round trip (9.74 us over the (342, 8, 512, 1)
+    // workspace, 3.52 clamped, 3.11 clamped at 48; same card and script
+    // as in bwd_tile's note)
+    float v[kReduceBatch];
+#pragma unroll
+    for (int u = 0; u < kReduceBatch; ++u) {
+      v[u] = wi[min(c + u, ce - 1) * outs];
+    }
+#pragma unroll
+    for (int u = 0; u < kReduceBatch; ++u) {
+      if (c + u < ce) s += v[u];  // warp-uniform
+    }
+  }
+  part[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && live) {
+    float t = part[0][lane];
+#pragma unroll
+    for (int v = 1; v < kWarpsPerBlock; ++v) t += part[v][lane];
+    float o = t / denom;
+    if (w != nullptr) o = o + lam * to_f32(w[i]);
+    g[i] = o;
+  }
 }
 
 // The fused mode and its split-batch form, one launch for every party.
@@ -360,11 +447,11 @@ vfl_backward_reduce(const float* __restrict__ ws, const T* __restrict__ w,
 // (P, D, mth) or, for nb > kChunkRows, the per-chunk workspace.  The grid
 // is the union of both programs' grids in one dimension: the first fblocks
 // blocks are forward blocks (narrow: kWarpsPerBlock rows each; wide: a
-// (row tile, party, column tile) each), the rest backward blocks, each
-// holding two kBwdThreads-thread halves that run vfl_backward_rows' body
-// for (chunk, party, column tile x theta-column group) in that order.
-// No block waits for another: the two sides share no output.
-template <typename T>
+// (row tile, party, column tile) each), the rest backward blocks, each one
+// block of vfl_backward_rows' grid (bwd_block) over the backward rows, KC
+// chosen as there.  No block waits for another: the two sides share no
+// output.
+template <int KC, typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 vfl_fused_split(const T* __restrict__ x, const T* __restrict__ w,
                 const float* __restrict__ th, float* __restrict__ z,
@@ -396,23 +483,9 @@ vfl_fused_split(const T* __restrict__ x, const T* __restrict__ w,
     }
     return;
   }
-  const long long chunks = (nb + kChunkRows - 1) / kChunkRows;
-  const int ntiles = (d + kBwdThreads - 1) / kBwdThreads;
-  const long long sub = (blk - fblocks) * 2 + (threadIdx.x >= kBwdThreads);
-  const long long chunk = sub % chunks;
-  const long long party = (sub / chunks) % parties;
-  const long long tg = sub / (chunks * parties);
-  const int groups = (mth + kBwdCols - 1) / kBwdCols;
-  if (tg >= static_cast<long long>(ntiles) * groups) return;  // odd half
-  const int tile = static_cast<int>(tg % ntiles);
-  const int m0 = static_cast<int>(tg / ntiles) * kBwdCols;
-  const int col = tile * kBwdThreads + (threadIdx.x & (kBwdThreads - 1));
-  if (col >= d) return;
-  const long long r0 = chunk * kChunkRows;
-  bwd_chunk<true>(x + party * rows * d + col, th + party * th_pstride + m0,
-                  lamw ? w : static_cast<const T*>(nullptr), out, r0,
-                  min(nb, r0 + kChunkRows), party, parties, chunk, col, d,
-                  mth, m0, denom, lam, chunks == 1 ? 1 : 0);
+  bwd_block<KC>(static_cast<unsigned>(blk - fblocks), x, th,
+                lamw ? w : static_cast<const T*>(nullptr), out, parties, rows,
+                nb, d, mth, th_pstride, denom, lam);
 }
 
 // Each program has its own entry point, so the caller knows which kernel a
@@ -460,28 +533,37 @@ long long bwd_chunks(long long rows) {
   return (rows + kChunkRows - 1) / kChunkRows;
 }
 
+// Theta columns a backward block covers (its template KC): M itself for
+// the linear path's M of 1 and 2, else groups of kBwdCols.  The summation
+// order of an output does not depend on it.
+int bwd_cols(long long m) { return m <= 2 ? static_cast<int>(m) : kBwdCols; }
+
+// Blocks of bwd_block's grid over nb rows (m >= 1).
+long long bwd_blocks(long long parties, long long nb, long long d,
+                     long long m) {
+  const long long kc = bwd_cols(m);
+  return bwd_chunks(nb) * parties * ((d + kBwdTile - 1) / kBwdTile) *
+         ((m + kc - 1) / kc);
+}
+
 // g (or, for more than one chunk, the workspace) from x and theta; the
 // wrapper sizes `out` from the same chunk count (BWD_CHUNK_ROWS).
 template <typename T>
 int launch_rows(const void* x, const void* th, const void* w, void* out,
                 long long parties, long long rows, long long d, long long m,
                 long long th_pstride, float denom, float lam, void* stream) {
-  const long long chunks = rows < 1 ? 0 : bwd_chunks(rows);
-  const long long ntiles = (d + kBwdThreads - 1) / kBwdThreads;
-  const long long groups = (m + kBwdCols - 1) / kBwdCols;
   if (bad_sizes(parties, rows, d, m) || d < 1 || th_pstride < 0 ||
-      chunks > 0x7fffffffLL || ntiles * groups > 65535) {
+      bwd_blocks(parties, rows, d, m) > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(static_cast<unsigned>(chunks),
-                  static_cast<unsigned>(parties),
-                  static_cast<unsigned>(ntiles * groups));
-  vfl_backward_rows<T><<<grid, dim3(kBwdThreads), 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = &vfl_backward_rows<kBwdCols, T>;
+  if (bwd_cols(m) == 1) kernel = &vfl_backward_rows<1, T>;
+  if (bwd_cols(m) == 2) kernel = &vfl_backward_rows<2, T>;
+  kernel<<<dim3(static_cast<unsigned>(bwd_blocks(parties, rows, d, m))),
+           dim3(kBwdThreads), 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const float*>(th),
-      static_cast<const T*>(w), static_cast<float*>(out), rows,
-      static_cast<int>(d), static_cast<int>(m), th_pstride, denom, lam,
-      chunks == 1 ? 1 : 0);
+      static_cast<const T*>(w), static_cast<float*>(out), parties, rows,
+      static_cast<int>(d), static_cast<int>(m), th_pstride, denom, lam);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -490,12 +572,12 @@ int launch_reduce(const void* ws, const void* w, void* g, long long parties,
                   long long d, long long m, long long chunks, float denom,
                   float lam, void* stream) {
   const long long outs = parties * d * m;
-  const long long blocks = (outs + kReduceThreads - 1) / kReduceThreads;
+  const long long blocks = (outs + 31) / 32;
   if (parties < 1 || d < 1 || m < 1 || chunks < 1 || blocks > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   vfl_backward_reduce<T><<<dim3(static_cast<unsigned>(blocks)),
-                           dim3(kReduceThreads), 0,
+                           dim3(kBwdThreads), 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ws), static_cast<const T*>(w),
       static_cast<float*>(g), chunks, outs, denom, lam);
@@ -521,14 +603,13 @@ int launch_fused(const void* x, const void* w, const void* th, void* z,
       mw <= kNarrow
           ? (parties * nf + kWarpsPerBlock - 1) / kWarpsPerBlock
           : (nf + kWideRows - 1) / kWideRows * parties * ((mw + 31) / 32);
-  const long long subs = bwd_chunks(nb) * parties *
-                         ((d + kBwdThreads - 1) / kBwdThreads) *
-                         ((mth + kBwdCols - 1) / kBwdCols);
-  const long long blocks = fblocks + (subs + 1) / 2;
+  const long long blocks = fblocks + bwd_blocks(parties, nb, d, mth);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  vfl_fused_split<T><<<dim3(static_cast<unsigned>(blocks)),
-                       dim3(kWarpsPerBlock * 32), 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = &vfl_fused_split<kBwdCols, T>;
+  if (bwd_cols(mth) == 1) kernel = &vfl_fused_split<1, T>;
+  if (bwd_cols(mth) == 2) kernel = &vfl_fused_split<2, T>;
+  kernel<<<dim3(static_cast<unsigned>(blocks)), dim3(kWarpsPerBlock * 32), 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(th), static_cast<float*>(z),
       static_cast<float*>(out), parties, rows, f0, nf, nb,

@@ -10,6 +10,8 @@ marked ``cuda`` and skip here.  JAX is imported
 inside fixtures, so the file also runs where only the port is installed:
 ``python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py``.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -389,7 +391,13 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, shape):
     (8, 32, 512, 0, False, False),   # SAGA step, per-party Δϑ
     (5, 37, 333, 3, False, True),    # ragged, λW
     (3, 2500, 130, 5, True, True),   # several chunks, wide M
-    (1, 3001, 77, 2, False, True)])
+    (1, 3001, 77, 2, False, True),
+    (2, 7, 40, 0, True, False),      # fewer rows than a block's 8 warps
+    (3, 13, 33, 1, False, True),     # B and D off the warp and tile sizes
+    (2, 1024, 64, 0, True, False),   # exactly one chunk
+    (2, 1025, 70, 2, False, True),   # a one-row second chunk
+    (2, 50, 45, 5, True, True),      # M = 5: two theta-column groups
+    (1, 40, 20, 33, False, False)])  # M = 33: nine groups
 def test_cuda_backward_matches_plain(cuda_device, dtype, shape):
     p, b, d, m, shared, with_w = shape
     gen = torch.Generator(device=cuda_device).manual_seed(1)
@@ -426,7 +434,10 @@ def test_cuda_backward_matches_plain(cuda_device, dtype, shape):
     (2, 13, 11, 40, 32, 32, True, 0.0, None),   # wide forward side
     (2, 13, 11, 40, 37, 6, False, 0.0, None),
     (2, 2500, 7, 33, 1, 3, True, 0.0, None),    # chunked backward side
-    (1, 1500, 40, 130, 2, 2, False, 0.03, None)])
+    (1, 1500, 40, 130, 2, 2, False, 0.03, None),
+    (2, 5, 3, 40, 1, 1, True, 0.0, None),       # fewer rows than warps
+    (1, 1025, 9, 70, 2, 5, False, 0.0, None),   # a one-row second chunk
+    (2, 20, 10, 50, 1, 33, False, 0.0, None)])  # nine theta-column groups
 def test_cuda_fused_split_matches_plain(cuda_device, dtype, shape):
     p, bb, bf, d, mw, mth, shared, lam, denom = shape
     gen = torch.Generator(device=cuda_device).manual_seed(2)
@@ -450,7 +461,8 @@ def test_cuda_fused_split_matches_plain(cuda_device, dtype, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 32, 512, 1), (3, 100, 70, 3),
-                                   (2, 37, 40, 33), (1, 1100, 20, 2)])
+                                   (2, 37, 40, 33), (1, 1100, 20, 2),
+                                   (2, 7, 33, 1), (1, 1025, 40, 5)])
 def test_cuda_fused_equals_separate_programs(cuda_device, shape):
     """Without ``split`` the fused program sums every output in the order
     of the single-mode programs: bit for bit the same z and g."""
@@ -464,3 +476,40 @@ def test_cuda_fused_equals_separate_programs(cuda_device, shape):
     _, g1 = ops.vfl_grad(x, w, th, 0.03, mode="backward")
     torch.cuda.synchronize()
     assert torch.equal(z, z1) and torch.equal(g, g1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    # P, Bb, Bf (None: the backward mode), D, Mθ
+    (8, 32, None, 512, 1),      # the SGD step
+    (3, 2500, None, 130, 2),    # several chunks and the reduce
+    (2, 2500, 7, 33, 3),        # split form, chunked backward side
+    (1, 1025, 40, 70, 5)])
+def test_cuda_backward_repeats_bit_for_bit(cuda_device, dtype, shape):
+    """No float atomics: two calls sum every output in the same order."""
+    p, bb, bf, d, m = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn((p, bb + (bf or 0), d), generator=gen,
+                    device=cuda_device).to(dtype)
+    w = torch.randn((p, d, m), generator=gen, device=cuda_device).to(dtype)
+    th = torch.randn((p, bb, m), generator=gen, device=cuda_device)
+    if bf is None:
+        first, again = (ops.vfl_grad(x, w, th, 0.03, mode="backward")[1]
+                        for _ in range(2))
+    else:
+        first, again = (torch.cat([t.flatten() for t in ops.vfl_grad(
+            x, w, th, 0.03, mode="fused", split=bb)]) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("wrapper,source", [("NARROW_MAX_M", "kNarrow"),
+                                            ("BWD_CHUNK_ROWS", "kChunkRows")])
+def test_wrapper_constants_match_source(wrapper, source):
+    """The wrapper sizes the backward workspace and picks the forward
+    program from constants that the CUDA source defines for itself; a
+    mismatch would index the workspace out of bounds."""
+    text = vg.CudaKernel().source.read_text()
+    found = re.findall(rf"constexpr int {source} = (\d+);", text)
+    assert found == [str(getattr(vg, wrapper))]

@@ -1,0 +1,278 @@
+#!/usr/bin/env python3
+"""Time two builds of the ``vfl_grad`` CUDA source side by side on one card.
+
+    git show REV:src/repro_torch/kernels/csrc/vfl_grad.cu > build/ab/base.cu
+    python3 tools/vfl_grad_ab.py --baseline build/ab/base.cu [--also X.cu ...]
+
+Builds ``src/repro_torch/kernels/csrc/vfl_grad.cu`` ("new"), the
+baseline source ("base") and any further variants (named by their file
+stem) into libraries under ``build/kernels/`` (the ``nvcc`` runs started
+together) and prints each build's ``-Xptxas -v`` summary.  Then, at the backward programs' main-path shapes of
+``chip_smoke.py`` (the SGD, SVRG, SAGA and multi-dominator steps, the
+full-dataset backward and its reduce, the pipelined steps) and one forward
+shape whose program neither build changes as a yardstick of the noise, it
+holds each build against the plain version (atol = rtol = 1e-4), checks
+that two calls of each build agree bit for bit, and times both builds in
+turns (base, new, the variants, then the same in reverse) with
+``chip_smoke.py``'s CUDA-graph timer, beside the one PyTorch call that
+computes the same function where there is one and, once, a one-element
+fill as the timer's floor for a launch.  All builds run in one process on
+one card, so their times compare.  Last, end to end: one SGD and one pipelined SGD epoch of
+``chip_smoke.py``'s phase 7 (q = 8, d = 4096, n = 350,000, batch 32,
+``two_tree``) through the port's engine with ``vfl_grad.KERNEL`` set to
+each build in the same turns, timed per step on the host clock (the step
+graph captured first, the timed run synchronised at both ends).  Needs a
+card; prints the card's name and power limit first and a JSON summary
+last; writes the same to ``--out``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke as cs  # noqa: E402  (the timer and bound of the smoke run)
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def cases(torch, dev):
+    """(name, kind, operands, plain, library, bytes, flops, big): kind is
+    ``forward``, ``backward``, ``reduce`` or ``fused`` and says which
+    ``CudaKernel`` method runs the operands."""
+    from repro_torch.core.engine import dominator_onehot
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    q, dp, b, n = cs.Q, cs.D // cs.Q, cs.TRAIN_BATCH, cs.N
+    out = []
+    x = randn(q, b, dp)
+    w = randn(q, dp, 1)
+    out.append(("train_step_forward", "forward", (x, w),
+                lambda x=x, w=w: ref.vfl_forward_ref(x, w),
+                lambda x=x, w=w: torch.matmul(x, w),
+                cs._nbytes(x, w) + q * b * 4, 2.0 * x.numel(), False))
+    # backward steps: (name, rows, M, ϑ shared, denom)
+    for name, rows, m, shared, denom in (
+            ("train_sgd_step", b, 1, True, b),
+            ("train_svrg_step", b, 2, True, b),
+            ("train_saga_step", b, 1, False, 1),
+            ("train_multi_step", 2 * b, 2, True, b)):
+        x = randn(q, rows, dp)
+        if name == "train_multi_step":
+            th = randn(rows)[:, None] * dominator_onehot(m, b, dev)
+        else:
+            th = randn(rows, m) if shared else randn(q, rows, m)
+        thq = th.expand(q, rows, m) if shared else th
+        zeros = torch.zeros((q, dp, m), device=dev)
+        out.append((name, "backward", (x, thq, None, 0.0, float(denom)),
+                    lambda x=x, thq=thq, d=denom: ref.vfl_backward_ref(
+                        x, thq, None, 0.0, d),
+                    lambda x=x, thq=thq, z=zeros, d=denom: torch.baddbmm(
+                        z, x.transpose(1, 2), thq, beta=0.0, alpha=1.0 / d),
+                    cs._nbytes(x, thq) + zeros.numel() * 4,
+                    2.0 * x.numel() * m, False))
+    # pipelined steps: (name, Bb = Bf, Mw, Mθ, ϑ shared, denom, block-diag)
+    for name, bb, mw, mth, shared, denom, doms in (
+            ("pipe_sgd_step", b, 1, 1, True, b, False),
+            ("pipe_svrg_step", b, 2, 2, True, b, False),
+            ("multi_pipe_sgd_step", 2 * b, 1, 2, True, b, True)):
+        x = randn(q, 2 * bb, dp)
+        w = randn(q, dp, mw)
+        th = randn(bb)[:, None] * dominator_onehot(mth, bb // mth, dev) \
+            if doms else randn(bb, mth)
+        thq = th.expand(q, bb, mth)
+        out.append((name, "fused", (x, w, thq, 0.0, float(denom), bb),
+                    lambda x=x, w=w, thq=thq, d=denom, s=bb:
+                    ref.vfl_fused_ref(x, w, thq, 0.0, d, s), None,
+                    cs._nbytes(x, w, thq) + 4 * q * (bb * mw + dp * mth),
+                    2.0 * q * dp * bb * (mw + mth), False))
+    # the full-dataset backward and the reduce over its workspace
+    x = randn(q, n, dp)
+    thq = randn(n, 1).expand(q, n, 1)
+    zeros = torch.zeros((q, dp, 1), device=dev)
+    out.append(("full_dataset", "backward", (x, thq, None, 0.0, float(n)),
+                lambda x=x, thq=thq: ref.vfl_backward_ref(x, thq, None, 0.0,
+                                                          n),
+                lambda x=x, thq=thq, z=zeros: torch.baddbmm(
+                    z, x.transpose(1, 2), thq, beta=0.0, alpha=1.0 / n),
+                cs._nbytes(x, thq) + zeros.numel() * 4, 2.0 * x.numel(),
+                True))
+    ws = randn(math.ceil(n / 1024), q, dp, 1)
+    g = torch.empty((q, dp, 1), device=dev)
+    out.append(("full_dataset_reduce", "reduce", (ws, None, g, float(n), 0.0),
+                lambda: ws.sum(0) / n, lambda: torch.sum(ws, 0).div_(n),
+                cs._nbytes(ws) + q * dp * 4, float(ws.numel()), False))
+    return out
+
+
+def epoch_steps(torch, dev, builds, order):
+    """Host microseconds per step of an SGD and a pipelined SGD epoch at
+    phase 7's universe, each build in the given turns."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.engine import EngineConfig, FusedEngine
+    from repro_torch.core.losses import logistic_l2
+    from repro_torch.kernels import vfl_grad as vg
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    x = torch.randn((cs.N, cs.D), generator=gen, device=dev)
+    y = cs.d4_labels(torch, dev, x)
+    layout = alg.PartyLayout.even(cs.D, cs.Q, cs.M_ACT)
+    steps = cs.N // cs.TRAIN_BATCH
+    idx = alg.epoch_indices(cs.SEED, 99, cs.N, cs.TRAIN_BATCH, steps, dev)
+    kept, out = vg.KERNEL, {}
+    try:
+        for name in ("sgd", "pipelined_sgd"):
+            out[name] = {tag: [] for tag in builds}
+            for tag in order:
+                vg.KERNEL = builds[tag]
+                eng = FusedEngine(logistic_l2(1e-4), x, y, layout,
+                                  EngineConfig(secure="two_tree"),
+                                  device=dev)
+                wq = eng.pack_w(torch.full((cs.D,), 1e-3, device=dev))
+                epoch = getattr(eng, f"{name}_epoch")
+                epoch(wq, cs.TRAIN_LR, idx)          # captures the step
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                epoch(wq, cs.TRAIN_LR, idx)
+                torch.cuda.synchronize()
+                out[name][tag].append((time.perf_counter() - t0) * 1e6
+                                      / steps)
+                del eng, epoch
+            cs.log(f"{name} epoch, host us per step: " + "  ".join(
+                f"{tag} {[round(t, 2) for t in ts]}"
+                for tag, ts in out[name].items()))
+    finally:
+        vg.KERNEL = kept
+    return out
+
+
+def call(kern, kind, ops):
+    """One call of ``kern``'s method for ``kind``; the outputs as a tuple."""
+    if kind == "forward":
+        return (kern.forward(*ops),)
+    if kind == "backward":
+        return (kern.backward(*ops),)
+    if kind == "reduce":
+        return (kern.reduce(*ops),)
+    return kern.fused(*ops)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--baseline", required=True, type=Path,
+                    help="the other vfl_grad.cu to build and time")
+    ap.add_argument("--also", type=Path, nargs="*", default=[],
+                    help="further variants of vfl_grad.cu to build and time")
+    ap.add_argument("--out", type=Path,
+                    default=ROOT / "results" / "vfl_grad_ab.json")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("vfl_grad_ab: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import vfl_grad as vg
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    cs.log(f"card: {smi}; torch {torch.__version__}, CUDA "
+           f"{torch.version.cuda}")
+    builds = {"base": vg.CudaKernel(), "new": vg.CudaKernel()}
+    builds["base"].source = args.baseline.resolve()
+    for path in args.also:
+        builds[path.stem] = vg.CudaKernel()
+        builds[path.stem].source = path.resolve()
+    failed = []
+
+    def build(kern):
+        try:
+            kern.library()
+        except Exception as e:                  # relayed to the main thread
+            failed.append(e)
+
+    threads = [threading.Thread(target=build, args=(k,))
+               for k in builds.values()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if failed:
+        raise failed[0]
+    record = {"card": smi, "torch": torch.__version__,
+              "baseline": str(args.baseline), "ptxas": {}, "rows": []}
+    for tag, kern in builds.items():
+        if kern.build_seconds is None:      # an earlier run's library
+            cs.log(f"{tag}: reused, no build report")
+            continue
+        record["ptxas"][tag] = cs._ptxas_summary(kern.build_log)
+        record[f"{tag}_build_log"] = kern.build_log
+        cs.log(f"{tag}: built in {kern.build_seconds:.1f} s; "
+               f"{record['ptxas'][tag]}")
+    tiny = torch.zeros(1, device=dev)
+    record["floor_ms"] = cs._graph_ms(torch, tiny.zero_)
+    cs.log(f"launch floor (a one-element fill): "
+           f"{record['floor_ms'] * 1e3:.2f} us")
+    ok = True
+    order = list(builds) + list(builds)[::-1]
+    for name, kind, ops, plain, library, nbytes, flops, big in cases(
+            torch, dev):
+        want = plain()
+        want = want if isinstance(want, tuple) else (want,)
+        row = {"name": name, "kind": kind}
+        reps = dict(reps=10, replays=5) if big else {}
+        fns = {}
+        for tag, kern in builds.items():
+            # copies: the reduce writes the same g on every call
+            got = tuple(t.clone() for t in call(kern, kind, ops))
+            again = call(kern, kind, ops)
+            torch.cuda.synchronize()
+            err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
+            close = all(torch.allclose(g, w_, **TOL)
+                        for g, w_ in zip(got, want))
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            row[f"{tag}_err"], row[f"{tag}_repeat_equal"] = err, same
+            ok &= close and same
+            fns[tag] = (lambda k=kern: call(k, kind, ops))
+        times = {tag: [] for tag in builds}
+        for tag in order:
+            times[tag].append(cs._graph_ms(torch, fns[tag], **reps))
+        row.update({f"{tag}_ms": ts for tag, ts in times.items()})
+        row["library_ms"] = None if library is None \
+            else cs._graph_ms(torch, library, **reps)
+        row["bound_ms"], row["bound_by"] = cs._bound(nbytes, flops)
+        record["rows"].append(row)
+        lib = "-" if row["library_ms"] is None \
+            else f"{row['library_ms'] * 1e3:.2f}"
+        cs.log(f"{name}: library {lib} us, bound "
+               f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+        for tag, ts in times.items():
+            cs.log(f"    {tag:14s} {sum(ts) / len(ts) * 1e3:9.2f} us "
+                   f"{[round(t * 1e3, 2) for t in ts]}  err "
+                   f"{row[f'{tag}_err']:.2e}  repeat-equal "
+                   f"{row[f'{tag}_repeat_equal']}")
+    record["epoch_step_us"] = epoch_steps(torch, dev, builds, order)
+    record["ok"] = ok
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(record, indent=1))
+    print(smi)
+    print(json.dumps({"ok": ok, "floor_ms": record["floor_ms"], "rows": [
+        {k: v for k, v in r.items() if k.endswith("ms") or k == "name"}
+        for r in record["rows"]], "epoch_step_us": record["epoch_step_us"]}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
