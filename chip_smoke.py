@@ -116,7 +116,12 @@ The ``vfl_grad`` source holds five kernel programs:
 ``vfl_backward_rows`` and ``vfl_backward_reduce`` (the reduce pass runs
 only when a backward spans more than one chunk of rows: the full-dataset
 passes), and ``vfl_fused_split`` (the fused mode and its split-batch
-form: every interior step of a pipelined epoch).  The backward programs
+form: every interior step of a pipelined epoch).  The narrow forward
+gives each lane fixed 16-byte groups of a row, one row a warp at the
+minibatch steps and 4 rows a warp over the full dataset; a row's z does
+not depend on the launch, and the kernel phase checks the full-dataset
+pass's first and last 64 rows against one-row-a-warp launches of them,
+aligned and off the 16-byte vector width.  The backward programs
 spread each output's sum over the 8 warps of a block: a rows block owns
 one chunk of up to 1,024 rows, one party and 64 columns, each warp a
 fixed eighth of the rows; a reduce block owns 32 outputs, each warp a
@@ -421,6 +426,7 @@ def kernel_phase(torch, dev):
         lambda: ops.vfl_grad(x, w)[0], lambda: ref.vfl_forward_ref(x, w),
         lambda: torch.matmul(x, w.unsqueeze(-1)),
         _nbytes(x, w) + Q * N * 4, 2.0 * x.numel(), big=True))
+    forward_rows_identical(torch, ops, x, w)
     thq = randn(N).expand(Q, N)
     zeros = torch.zeros((Q, D // Q, 1), device=dev)
     rows.append(_kernel_row(
@@ -442,6 +448,26 @@ def kernel_phase(torch, dev):
     del x, ws
     torch.cuda.empty_cache()
     return rows
+
+
+def forward_rows_identical(torch, ops, x, w):
+    """A row's z is the same bits in every launch of the narrow forward:
+    the full-dataset pass (several rows a warp, streaming loads) against a
+    one-row-a-warp launch of its first and last 64 rows, and against the
+    same rows in a view whose pointer is off the 16-byte vector width
+    (element loads)."""
+    full = ops.vfl_grad(x, w)[0]
+    for rows in (slice(0, BATCH), slice(N - BATCH, N)):
+        part = x[:, rows].contiguous()
+        buf = torch.empty(part.numel() + 1, device=x.device)
+        off = buf[1:].view(part.shape)
+        off.copy_(part)
+        for what, xs in (("aligned", part), ("misaligned", off)):
+            check(torch.equal(ops.vfl_grad(xs, w)[0], full[:, rows]),
+                  f"forward rows {rows} ({what}) differ from the "
+                  "full-dataset launch's")
+    log("forward: full-dataset rows bit-identical to one-row-a-warp "
+        "launches, aligned and misaligned")
 
 
 def fused_rows(torch, dev, randn):

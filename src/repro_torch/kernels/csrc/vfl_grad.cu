@@ -36,10 +36,22 @@
 // Design.  The TPU kernel's sequential grid axes become loops inside a
 // block and its VMEM accumulators become registers.
 //   * forward (two programs, chosen by the caller by M alone):
-//     - narrow M (M <= kNarrow, the linear path): one warp per row of X (one
-//       sample of one party); the 32 lanes stride over D with coalesced
-//       loads of the row and of W, keep one accumulator per column, and a
-//       butterfly of warp shuffles completes each column;
+//     - narrow M (M <= kNarrow, the linear path; narrow_rows): lanes over
+//       D, each lane owning fixed 16-byte groups of a row, one accumulator
+//       per column, and a butterfly of warp shuffles completing each
+//       column.  A lane issues all its loads of a row (16 values at d =
+//       512: four float4, or two vectors of 8 bf16) and of its share of W
+//       in one batch before its first FMA, so a minibatch step, one row a
+//       warp, is one round trip (the earlier body, four dependent rounds
+//       of scalar loads, took 2.89 us at (8, 64, 512); this one 1.79, on
+//       an NVIDIA H100 80GB HBM3 at 700 W, tools/vfl_grad_ab.py).  Over the
+//       full dataset each warp takes kStreamRows rows of one party, W kept
+//       in registers, the next row's loads issued before the current
+//       row's FMAs and butterfly, the rows read through the streaming
+//       cache path, on a grid of 87,500 blocks that the card hands out
+//       as SMs free: a persistent grid of one wave ran 3% slower (its
+//       slowest SM sets its end), one row a warp 4% slower, plain loads
+//       2% slower (this form 1,770 us, cuBLAS 1,807 in the same call);
 //     - wide M (the deep encoder layers): a block covers kWideRows rows x
 //       32 columns of one party, lane j owning column j; each of the 8
 //       warps walks a fixed eighth of D, so every W load (coalesced across
@@ -92,9 +104,12 @@
 //     launch per pipelined step.
 // The ragged edges (rows past B, columns past D or M, the tail of D) are
 // masked inside the kernels; the wrapper pads nothing.  In the forward
-// programs an output's summation order depends only on D, M and its column,
-// never on B or on the row's place in the batch, so a request gives
-// bit-identical partials in any batch -- the serving cache relies on that.
+// programs an output's summation order depends only on D, M, its column
+// and the dtype: never on B, the row's place in the batch, the load width,
+// the operands' alignment or the geometry the launcher picks, so a row
+// gives bit-identical z in any launch -- the serving cache (a hit against
+// its cold dispatch), the fused mode (whose forward blocks run the same
+// body) and an epoch's replay rely on that.
 //
 // Plain C interface, loaded with ctypes: each entry point launches on the
 // given stream, allocates nothing, does not synchronise, and returns
@@ -102,11 +117,19 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <type_traits>
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kNarrow = 4;  // widest M taken by the lanes-over-D program
-constexpr int kNarrowBatch = 4;  // row strides whose loads a lane batches
+constexpr int kVecBytes = 16;  // one vector load: a lane's group of a row
+constexpr int kLaneVals = 16;  // values of a row a lane holds at once
+constexpr int kPass = 32 * kLaneVals;  // a row's elements per pass (512)
+constexpr int kOneRowBlocks = 2048;  // the narrow forward's one-row grid
+constexpr int kStreamRows = 4;  // rows a warp takes past that grid
+constexpr int kVec = 1, kVecOnce = 2;  // the narrow forward's vector loads
 constexpr int kWideRows = 4;  // rows per block of the lanes-over-M program
 static_assert(kWideRows <= kWarpsPerBlock, "one finishing warp per row");
 constexpr int kBwdThreads = kWarpsPerBlock * 32;  // a backward block
@@ -122,63 +145,246 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// A 16-byte vector of the dtype: G = 4 f32 or 8 bf16 elements, widened to
+// f32 exactly as to_f32 widens each (bf16 is the high half of an f32).
+// Lanes<T>: a lane's share of a pass of a row, S such groups.
+template <typename T>
+struct Lanes {
+  using Vec = std::conditional_t<sizeof(T) == 4, float4, uint4>;
+  static constexpr int G = kVecBytes / static_cast<int>(sizeof(T));
+  static constexpr int S = kLaneVals / G;
+};
+
+__device__ __forceinline__ void widen(float4 t, float (&v)[4]) {
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+__device__ __forceinline__ void widen(uint4 t, float (&v)[8]) {
+  const unsigned u[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(u[i] << 16);
+    v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// One vector load at p (16-byte aligned); load16_once takes the streaming
+// (evict-first) cache path, for rows that nothing reads again.
+template <typename T>
+__device__ __forceinline__ void load16(const T* p,
+                                       float (&v)[Lanes<T>::G]) {
+  widen(*reinterpret_cast<const typename Lanes<T>::Vec*>(p), v);
+}
+template <typename T>
+__device__ __forceinline__ void load16_once(const T* p,
+                                            float (&v)[Lanes<T>::G]) {
+  widen(__ldcs(reinterpret_cast<const typename Lanes<T>::Vec*>(p)), v);
+}
+
 // The bodies below are __device__ functions that the per-mode programs and
 // vfl_fused_split call alike, so a row or a column sums in the same order
 // in every program that computes it.
 
-// Lanes over D, one accumulator per column (m <= kNarrow): warp `lane`'s
-// row xr against the party's w, written to zr (m values).  The loads of
-// kNarrowBatch strides of the row are all loaded before their FMAs, so
-// many are in flight whichever program inlines this body: left to itself
-// nvcc scheduled this loop with one row load in flight once it became a
-// shared function, 18% slower over the full dataset on an NVIDIA H100
-// 80GB HBM3 at 700 W (chip_smoke.py).  The FMAs still run stride by
-// stride, so every column sums in the same order.
+// The narrow forward (m <= kNarrow), lanes over D.  A lane owns the
+// 16-byte groups g = lane + 32 j (j = 0, 1, ...) of a row: kVecBytes of the
+// dtype each (4 f32 or 8 bf16 elements, group g = elements [g G, g G + G)),
+// and adds x[k] * w[k, c] into one accumulator per column c, j by j and
+// element by element, for the elements k < d; a butterfly of warp shuffles
+// (xor 16, 8, 4, 2, 1) then completes each column.  Which elements a lane
+// owns, their order and the butterfly depend on d, the column and the
+// dtype alone: never on the row's place, the batch, the load width, the
+// pointers' alignment or the geometry the launcher picked (below), so a
+// row gives bit-identical z in any launch -- the serving cache, the fused
+// mode's z and an epoch's replay rely on that.
+//
+// A pass of a row is the kLaneVals values a lane holds at once (all of a
+// row at d <= kPass = 512); its loads are issued in one batch before its
+// FMAs.  `vec` is the launch's load mode (narrow_vec): vector loads
+// (kVec, kVecOnce) where d is a whole number of groups and x and w are
+// 16-byte aligned, else every element loaded alone (0), into the same
+// registers.  Out-of-range groups and elements are loaded at a clamped
+// index (masked loads let nvcc serialise a batch, see vfl_backward_reduce)
+// and skipped by the FMAs.
+
+// x of the lane's groups in pass p of row xr (ngroups = ceil(d / G) > 0).
 template <typename T>
-__device__ __forceinline__ void narrow_row(const T* __restrict__ xr,
-                                           const T* __restrict__ wp,
-                                           float* __restrict__ zr, int d,
-                                           int m, int lane) {
-  float acc[kNarrow];
+__device__ __forceinline__ void narrow_load_x(
+    float (&xv)[Lanes<T>::S][Lanes<T>::G], const T* __restrict__ xr, int p,
+    int d, int ngroups, int vec, int lane) {
+  constexpr int S = Lanes<T>::S, G = Lanes<T>::G;
+  if (vec == kVecOnce) {
 #pragma unroll
-  for (int j = 0; j < kNarrow; ++j) acc[j] = 0.0f;
-  int k = lane;
-  for (; k + 32 * (kNarrowBatch - 1) < d; k += 32 * kNarrowBatch) {
-    float xv[kNarrowBatch], wv[kNarrowBatch][kNarrow];
-#pragma unroll
-    for (int u = 0; u < kNarrowBatch; ++u) {
-      xv[u] = to_f32(xr[k + 32 * u]);
-#pragma unroll
-      for (int j = 0; j < kNarrow; ++j) {
-        wv[u][j] = j < m ? to_f32(wp[(k + 32 * u) * m + j]) : 0.0f;
-      }
+    for (int s = 0; s < S; ++s) {
+      const int g = min(lane + 32 * (p * S + s), ngroups - 1);
+      load16_once(xr + g * G, xv[s]);
     }
+  } else if (vec) {
 #pragma unroll
-    for (int u = 0; u < kNarrowBatch; ++u) {
+    for (int s = 0; s < S; ++s) {
+      const int g = min(lane + 32 * (p * S + s), ngroups - 1);
+      load16(xr + g * G, xv[s]);
+    }
+  } else {
 #pragma unroll
-      for (int j = 0; j < kNarrow; ++j) {
-        if (j < m) acc[j] = fmaf(xv[u], wv[u][j], acc[j]);
+    for (int s = 0; s < S; ++s) {
+#pragma unroll
+      for (int e = 0; e < G; ++e) {
+        xv[s][e] = to_f32(xr[min((lane + 32 * (p * S + s)) * G + e, d - 1)]);
       }
     }
   }
-  for (; k < d; k += 32) {
-    const float xv = to_f32(xr[k]);
+}
+
+// w (d, MW) of the same elements: group g's MW columns are G * MW
+// consecutive values, element e's column c at wv[s][e * MW + c].
+template <int MW, typename T>
+__device__ __forceinline__ void narrow_load_w(
+    float (&wv)[Lanes<T>::S][Lanes<T>::G * MW], const T* __restrict__ wp,
+    int p, int d, int ngroups, int vec, int lane) {
+  constexpr int S = Lanes<T>::S, G = Lanes<T>::G;
+  if (vec) {
 #pragma unroll
-    for (int j = 0; j < kNarrow; ++j) {
-      if (j < m) acc[j] = fmaf(xv, to_f32(wp[k * m + j]), acc[j]);
-    }
-  }
+    for (int s = 0; s < S; ++s) {
+      const int g = min(lane + 32 * (p * S + s), ngroups - 1);
 #pragma unroll
-  for (int j = 0; j < kNarrow; ++j) {
-    if (j < m) {  // warp-uniform: every lane takes the same branch
-      float v = acc[j];
+      for (int u = 0; u < MW; ++u) {
+        float v[G];
+        load16(wp + (g * MW + u) * G, v);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        v += __shfl_xor_sync(0xffffffffu, v, off);
+        for (int i = 0; i < G; ++i) wv[s][u * G + i] = v[i];
       }
-      if (lane == 0) zr[j] = v;
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+#pragma unroll
+      for (int e = 0; e < G; ++e) {
+        const int k = min((lane + 32 * (p * S + s)) * G + e, d - 1);
+#pragma unroll
+        for (int c = 0; c < MW; ++c) {
+          wv[s][e * MW + c] = to_f32(wp[k * MW + c]);
+        }
+      }
     }
   }
+}
+
+// acc[c] += x[k] * w[k, c] over pass p's elements k < d, in element order.
+template <int MW, int S, int G>
+__device__ __forceinline__ void narrow_fma(float (&acc)[MW],
+                                           const float (&xv)[S][G],
+                                           const float (&wv)[S][G * MW],
+                                           int p, int d, int lane) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+#pragma unroll
+    for (int e = 0; e < G; ++e) {
+      if ((lane + 32 * (p * S + s)) * G + e < d) {
+#pragma unroll
+        for (int c = 0; c < MW; ++c) {
+          acc[c] = fmaf(xv[s][e], wv[s][e * MW + c], acc[c]);
+        }
+      }
+    }
+  }
+}
+
+// The butterfly of each column; lane c < MW writes column c of the row.
+template <int MW>
+__device__ __forceinline__ void narrow_store(const float (&acc)[MW],
+                                             float* __restrict__ zr,
+                                             int lane) {
+  float out = 0.0f;
+#pragma unroll
+  for (int c = 0; c < MW; ++c) {
+    float v = acc[c];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+    }
+    if (lane == c) out = v;
+  }
+  if (lane < MW) zr[lane] = out;
+}
+
+// One warp's rows r, r + step, r + 2 step, ... < nrows of one party's x
+// (xp, row stride d) against its w (wp), into zp (row stride MW).  At d <=
+// kPass the warp loads its share of w once and keeps it in registers, and
+// issues the next row's loads before the current row's FMAs and
+// butterfly; a wider row takes its passes one after another, w reloaded
+// with x.  r, step and nrows fit 32 bits (the launcher checks); pointers
+// advance by a 64-bit stride, so no 64-bit multiply runs per row.
+template <int MW, typename T>
+__device__ __forceinline__ void narrow_rows(const T* __restrict__ xp,
+                                            const T* __restrict__ wp,
+                                            float* __restrict__ zp, int r,
+                                            int step, int nrows, int d,
+                                            int vec, int lane) {
+  constexpr int S = Lanes<T>::S, G = Lanes<T>::G;
+  if (r >= nrows) return;  // whole warp
+  const T* xr = xp + static_cast<long long>(r) * d;
+  float* zr = zp + static_cast<long long>(r) * MW;
+  const long long xstep = static_cast<long long>(step) * d;
+  const long long zstep = static_cast<long long>(step) * MW;
+  if (d == 0) {  // an empty contraction: z = 0, nothing to load
+    for (; r < nrows; r += step, zr += zstep) {
+      if (lane < MW) zr[lane] = 0.0f;
+    }
+    return;
+  }
+  const int ngroups = (d + G - 1) / G;
+  float wv[S][G * MW];
+  float xa[S][G];
+  if (d <= kPass) {
+    narrow_load_w<MW>(wv, wp, 0, d, ngroups, vec, lane);
+    narrow_load_x(xa, xr, 0, d, ngroups, vec, lane);
+    for (;;) {
+      const bool more = r + step < nrows;  // warp-uniform
+      float xb[S][G];
+      if (more) narrow_load_x(xb, xr + xstep, 0, d, ngroups, vec, lane);
+      float acc[MW];
+#pragma unroll
+      for (int c = 0; c < MW; ++c) acc[c] = 0.0f;
+      narrow_fma(acc, xa, wv, 0, d, lane);
+      narrow_store(acc, zr, lane);
+      if (!more) return;
+      r += step;
+      xr += xstep;
+      zr += zstep;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+#pragma unroll
+        for (int e = 0; e < G; ++e) xa[s][e] = xb[s][e];
+      }
+    }
+  }
+  const int passes = (d + kPass - 1) / kPass;
+  for (; r < nrows; r += step, xr += xstep, zr += zstep) {
+    float acc[MW];
+#pragma unroll
+    for (int c = 0; c < MW; ++c) acc[c] = 0.0f;
+    for (int p = 0; p < passes; ++p) {
+      narrow_load_w<MW>(wv, wp, p, d, ngroups, vec, lane);
+      narrow_load_x(xa, xr, p, d, ngroups, vec, lane);
+      narrow_fma(acc, xa, wv, p, d, lane);
+    }
+    narrow_store(acc, zr, lane);
+  }
+}
+
+// Block bx of one party's forward blocks covers rows [bx * 8 * rpw,
+// (bx + 1) * 8 * rpw): warp v of its 8 takes rows bx * 8 * rpw + v + 8 k
+// (k < rpw), so the block's warps read consecutive rows side by side.
+template <int MW, typename T>
+__device__ __forceinline__ void narrow_block(const T* xp, const T* wp,
+                                             float* zp, int bx, int rpw,
+                                             int nrows, int d, int vec) {
+  const int r0 = bx * kWarpsPerBlock * rpw;
+  narrow_rows<MW>(xp, wp, zp, r0 + (threadIdx.x >> 5), kWarpsPerBlock,
+                  min(nrows, r0 + kWarpsPerBlock * rpw), d, vec,
+                  threadIdx.x & 31);
 }
 
 // Lanes over columns (m > kNarrow): the block's nrow (<= kWideRows)
@@ -354,17 +560,16 @@ __device__ __forceinline__ void bwd_block(unsigned b, const T* x,
                m, m0, denom, lam, nb <= kChunkRows ? 1 : 0);
 }
 
-// Lanes over D, one warp per row of the flattened (P * rows) x.
-template <typename T>
+// Lanes over D: block (bx, party), 8 warps of rpw rows each
+// (narrow_block).
+template <int MW, typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 vfl_forward_narrow(const T* __restrict__ x, const T* __restrict__ w,
-                   float* __restrict__ z, long long total, long long rows,
-                   int d, int m) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= total) return;  // whole warp: row is warp-uniform
-  narrow_row(x + row * d, w + (row / rows) * static_cast<long long>(d) * m,
-             z + row * m, d, m, threadIdx.x & 31);
+                   float* __restrict__ z, int rows, int d, int rpw,
+                   int vec) {
+  const long long party = blockIdx.y;
+  narrow_block<MW>(x + party * rows * d, w + party * d * MW,
+                   z + party * rows * MW, blockIdx.x, rpw, rows, d, vec);
 }
 
 // Lanes over columns: block (row tile, party, column tile) covers
@@ -446,28 +651,34 @@ vfl_backward_reduce(const float* __restrict__ ws, const T* __restrict__ w,
 // rows [0, nb) against theta (P, nb, mth) (party stride th_pstride) into g
 // (P, D, mth) or, for nb > kChunkRows, the per-chunk workspace.  The grid
 // is the union of both programs' grids in one dimension: the first fblocks
-// blocks are forward blocks (narrow: kWarpsPerBlock rows each; wide: a
-// (row tile, party, column tile) each), the rest backward blocks, each one
-// block of vfl_backward_rows' grid (bwd_block) over the backward rows, KC
-// chosen as there.  No block waits for another: the two sides share no
-// output.
-template <int KC, typename T>
+// blocks are forward blocks (narrow: fbpp a party, the narrow program's
+// blocks; wide: a (row tile, party, column tile) each), the rest backward
+// blocks, each one block of vfl_backward_rows' grid (bwd_block) over the
+// backward rows, KC chosen as there.  No block waits for another: the two
+// sides share no output.  An instance holds one forward body, FW = mw's
+// narrow body (1..kNarrow) or the wide one (0): with all five in one
+// instance a pipelined SGD step's launch took 2.6 us of device time inside
+// the epoch, with one 1.85, though both took 2.0 in a loop of launches
+// (NVIDIA H100 80GB HBM3, 700 W, tools/vfl_grad_ab.py's epoch profile).
+template <int KC, int FW, typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 vfl_fused_split(const T* __restrict__ x, const T* __restrict__ w,
                 const float* __restrict__ th, float* __restrict__ z,
                 float* __restrict__ out, long long parties, long long rows,
                 long long f0, long long nf, long long nb, int d, int mw,
                 int mth, long long th_pstride, float denom, float lam,
-                int lamw, long long fblocks) {
+                int lamw, long long fblocks, int fbpp, int frpw,
+                int vec) {
   const long long blk = blockIdx.x;
   if (blk < fblocks) {  // forward: block-uniform branch
-    if (mw <= kNarrow) {
-      const long long row = blk * kWarpsPerBlock + (threadIdx.x >> 5);
-      if (row >= parties * nf) return;  // whole warp; no barrier here
-      const long long party = row / nf;
-      narrow_row(x + (party * rows + f0 + row % nf) * d,
-                 w + party * static_cast<long long>(d) * mw, z + row * mw,
-                 d, mw, threadIdx.x & 31);
+    if constexpr (FW > 0) {
+      // fblocks = parties * fbpp < 2^31: the block splits in 32 bits
+      const unsigned party = static_cast<unsigned>(blk) / fbpp;
+      const int bx = static_cast<int>(blk) - party * fbpp;
+      narrow_block<FW>(x + (party * rows + f0) * d,
+                       w + static_cast<long long>(party) * d * FW,
+                       z + static_cast<long long>(party) * nf * FW, bx,
+                       frpw, static_cast<int>(nf), d, vec);
     } else {
       const long long rtiles = (nf + kWideRows - 1) / kWideRows;
       const long long rtile = blk % rtiles;
@@ -488,6 +699,19 @@ vfl_fused_split(const T* __restrict__ x, const T* __restrict__ w,
                 nb, d, mth, th_pstride, denom, lam);
 }
 
+// The fused program's instance for mw's forward body (KC given).
+template <int KC, typename T>
+auto fused_kernel(long long mw) {
+  switch (mw) {
+    case 1: return &vfl_fused_split<KC, 1, T>;
+    case 2: return &vfl_fused_split<KC, 2, T>;
+    case 3: return &vfl_fused_split<KC, 3, T>;
+    case 4: return &vfl_fused_split<KC, 4, T>;
+    default: return &vfl_fused_split<KC, 0, T>;
+  }
+}
+static_assert(kNarrow == 4, "fused_kernel has one case per narrow M");
+
 // Each program has its own entry point, so the caller knows which kernel a
 // call launches: narrow takes 1 <= m <= kNarrow, wide takes m > kNarrow, and
 // either refuses the other's m with cudaErrorInvalidValue.
@@ -496,20 +720,51 @@ bool bad_sizes(long long parties, long long rows, long long d, long long m) {
          d * m > 0x7fffffffLL || parties > 65535;  // int W offsets, grid.y
 }
 
+// Rows a warp of the narrow forward takes: one while the grid of one-row
+// warps stays within kOneRowBlocks blocks (every minibatch step), else
+// kStreamRows (the full-dataset passes: tens of thousands of blocks that
+// the card schedules as SMs free, each warp streaming its rows with w in
+// registers).
+int narrow_rpw(long long parties, long long rows) {
+  return parties * ((rows + kWarpsPerBlock - 1) / kWarpsPerBlock) <=
+                 kOneRowBlocks
+             ? 1
+             : kStreamRows;
+}
+
+// How the narrow forward loads (every choice sums in the same order):
+// element by element (0), vectors (kVec: whole groups and 16-byte aligned
+// x and w), or vectors of x through the streaming cache path (kVecOnce:
+// warps of more than one row, which read rows that nothing reads again).
+template <typename T>
+int narrow_vec(const void* x, const void* w, long long d, int rpw) {
+  if (d % Lanes<T>::G != 0 ||
+      reinterpret_cast<uintptr_t>(x) % kVecBytes != 0 ||
+      reinterpret_cast<uintptr_t>(w) % kVecBytes != 0) {
+    return 0;
+  }
+  return rpw > 1 ? kVecOnce : kVec;
+}
+
 template <typename T>
 int launch_narrow(const void* x, const void* w, void* z, long long parties,
                   long long rows, long long d, long long m, void* stream) {
-  const long long blocks =
-      (parties * rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (bad_sizes(parties, rows, d, m) || m > kNarrow || blocks > 0x7fffffffLL) {
+  // rows < 2^30: a warp's row index plus its step stays in 32 bits
+  if (bad_sizes(parties, rows, d, m) || m > kNarrow || rows >= (1LL << 30)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  vfl_forward_narrow<T>
-      <<<dim3(static_cast<unsigned>(blocks)), dim3(kWarpsPerBlock * 32), 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(x), static_cast<const T*>(w),
-          static_cast<float*>(z), parties * rows, rows, static_cast<int>(d),
-          static_cast<int>(m));
+  auto kernel = &vfl_forward_narrow<kNarrow, T>;
+  if (m == 1) kernel = &vfl_forward_narrow<1, T>;
+  if (m == 2) kernel = &vfl_forward_narrow<2, T>;
+  if (m == 3) kernel = &vfl_forward_narrow<3, T>;
+  const int rpw = narrow_rpw(parties, rows);
+  const long long bpp = (rows + kWarpsPerBlock * rpw - 1) /
+                        (kWarpsPerBlock * rpw);
+  kernel<<<dim3(static_cast<unsigned>(bpp), static_cast<unsigned>(parties)),
+           dim3(kWarpsPerBlock * 32), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<float*>(z), static_cast<int>(rows), static_cast<int>(d),
+      rpw, narrow_vec<T>(x, w, d, rpw));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -596,25 +851,30 @@ int launch_fused(const void* x, const void* w, const void* th, void* z,
                  int lamw, void* stream) {
   if (bad_sizes(parties, rows, d, mw) || bad_sizes(parties, rows, d, mth) ||
       d < 1 || nf < 1 || nb < 1 || f0 < 0 || f0 + nf > rows || nb > rows ||
-      th_pstride < 0 || (lamw && mw != mth) || (mw + 31) / 32 > 65535) {
+      nf >= (1LL << 30) || th_pstride < 0 || (lamw && mw != mth) ||
+      (mw + 31) / 32 > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  auto kernel = fused_kernel<kBwdCols, T>(mw);
+  if (bwd_cols(mth) == 1) kernel = fused_kernel<1, T>(mw);
+  if (bwd_cols(mth) == 2) kernel = fused_kernel<2, T>(mw);
+  const int frpw = narrow_rpw(parties, nf);
+  const long long fbpp = (nf + kWarpsPerBlock * frpw - 1) /
+                         (kWarpsPerBlock * frpw);
   const long long fblocks =
       mw <= kNarrow
-          ? (parties * nf + kWarpsPerBlock - 1) / kWarpsPerBlock
+          ? parties * fbpp
           : (nf + kWideRows - 1) / kWideRows * parties * ((mw + 31) / 32);
   const long long blocks = fblocks + bwd_blocks(parties, nb, d, mth);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = &vfl_fused_split<kBwdCols, T>;
-  if (bwd_cols(mth) == 1) kernel = &vfl_fused_split<1, T>;
-  if (bwd_cols(mth) == 2) kernel = &vfl_fused_split<2, T>;
   kernel<<<dim3(static_cast<unsigned>(blocks)), dim3(kWarpsPerBlock * 32), 0,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(th), static_cast<float*>(z),
       static_cast<float*>(out), parties, rows, f0, nf, nb,
       static_cast<int>(d), static_cast<int>(mw), static_cast<int>(mth),
-      th_pstride, denom, lam, lamw, fblocks);
+      th_pstride, denom, lam, lamw, fblocks, static_cast<int>(fbpp), frpw,
+      narrow_vec<T>(static_cast<const T*>(x) + f0 * d, w, d, frpw));
   return static_cast<int>(cudaGetLastError());
 }
 

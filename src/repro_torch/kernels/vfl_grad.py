@@ -20,6 +20,17 @@ full-dataset passes); and ``vfl_fused_split``, which ``fused`` launches
 for the fused mode and its split-batch form (the pipelined step): the
 forward side and the backward side in one launch, followed by the reduce
 program only when the backward side spans more than one chunk.
+
+The narrow forward (``vfl_forward_narrow`` and the fused program's
+forward blocks at Mw <= ``NARROW_MAX_M``) sums each row in an order set
+by D, M, the column and the dtype alone: each lane owns fixed 16-byte
+groups of the row.  So a row gives the same bits in any launch: a
+serving dispatch and its cache hit, the fused mode's z and the forward
+mode's, an epoch and its replay.  The source's launcher picks one row a
+warp at the minibatch steps and several rows a warp, read through the
+streaming cache path, over the full dataset; a contiguous x or w whose
+pointer is off the 16-byte vector width is read element by element.
+
 ``KERNEL.launches`` maps each program's name to its
 launch count: a count goes up by one exactly where that program is
 launched, so a run can show that its path went through it.

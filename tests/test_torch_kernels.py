@@ -368,7 +368,16 @@ def cuda_device():
 @pytest.mark.parametrize("shape", [(8, 64, 512, 0), (1, 64, 512, 0),
                                    (8, 64, 512, 32), (8, 64, 32, 16),
                                    (5, 19, 70, 4), (5, 19, 70, 5),
-                                   (3, 37, 333, 21)])
+                                   (3, 37, 333, 21),
+                                   # the narrow body: M = 1..4, D off the
+                                   # vector width and below a warp, more
+                                   # than one pass, the streaming geometry
+                                   (8, 32, 512, 2), (8, 64, 512, 3),
+                                   (8, 64, 512, 4), (3, 37, 333, 1),
+                                   (3, 37, 333, 3), (2, 19, 33, 2),
+                                   (2, 19, 70, 1), (2, 9, 20, 4),
+                                   (2, 9, 7, 1), (1, 5, 1030, 2),
+                                   (8, 4096, 512, 0), (2, 3000, 40, 3)])
 def test_cuda_kernel_matches_plain(cuda_device, dtype, shape):
     p, b, d, m = shape
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -500,6 +509,92 @@ def test_cuda_backward_repeats_bit_for_bit(cuda_device, dtype, shape):
     else:
         first, again = (torch.cat([t.flatten() for t in ops.vfl_grad(
             x, w, th, 0.03, mode="fused", split=bb)]) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+def _forward_operands(device, dtype, p, b, d, m, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((p, b, d), generator=gen, device=device).to(dtype)
+    w = torch.randn((p, d, m), generator=gen, device=device).to(dtype)
+    return x, w
+
+
+def _misaligned(t):
+    """A contiguous copy of t at a storage offset of one element, so its
+    data pointer is off the 16-byte vector width."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,m", [(512, 1), (512, 2), (333, 3), (40, 4)])
+def test_cuda_forward_rows_bit_identical_across_launches(cuda_device, dtype,
+                                                         d, m):
+    """A row's z depends on D, M and its column alone: the same bits in a
+    batch of 1, 32, 64 or 4,096 rows (the last in the streaming geometry),
+    in a (1, B, D) launch and in a (8, B, D) launch, at any row offset."""
+    x, w = _forward_operands(cuda_device, dtype, 8, 4096, d, m, 5)
+    full = vg.KERNEL.forward(x, w)
+    for rows in (slice(0, 1), slice(0, 32), slice(0, 64),
+                 slice(1000, 1064), slice(4095, 4096)):
+        part = vg.KERNEL.forward(x[:, rows].contiguous(), w)
+        assert torch.equal(part, full[:, rows]), rows
+    one = vg.KERNEL.forward(x[3:4].contiguous(), w[3:4].contiguous())
+    assert torch.equal(one, full[3:4])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 64, 512, 1), (8, 32, 512, 2),
+                                   (3, 37, 333, 3), (2, 3000, 64, 1)])
+def test_cuda_forward_misaligned_view_bit_identical(cuda_device, dtype,
+                                                    shape):
+    """Vector loads (aligned) and element loads (a view whose pointer is
+    off 16 bytes) sum every row in one order: the same bits."""
+    x, w = _forward_operands(cuda_device, dtype, *shape, 6)
+    want = vg.KERNEL.forward(x, w)
+    assert torch.equal(vg.KERNEL.forward(_misaligned(x), w), want)
+    assert torch.equal(vg.KERNEL.forward(x, _misaligned(w)), want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    # P, Bb, Bf, D, Mw, Mθ
+    (8, 32, 32, 512, 1, 1),      # the pipelined SGD step
+    (8, 32, 32, 512, 2, 2),      # the pipelined SVRG step
+    (8, 64, 64, 512, 1, 2),      # multi-pipelined
+    (3, 60, 40, 70, 3, 3),
+    (2, 13, 3000, 512, 4, 1)])   # a streaming forward side
+def test_cuda_fused_forward_side_equals_forward(cuda_device, dtype, shape):
+    """``vfl_fused_split``'s forward blocks run the narrow program's body:
+    its z equals the forward mode's over the same rows bit for bit, also
+    from a misaligned x."""
+    p, bb, bf, d, mw, mth = shape
+    x, w = _forward_operands(cuda_device, dtype, p, bb + bf, d, mw, 7)
+    th = torch.randn((p, bb, mth), device=cuda_device)
+    z, _ = vg.KERNEL.fused(x, w, th, 0.0, float(bb), bb)
+    want = vg.KERNEL.forward(x[:, bb:].contiguous(), w)
+    assert torch.equal(z, want)
+    zm, _ = vg.KERNEL.fused(_misaligned(x), w, th, 0.0, float(bb), bb)
+    assert torch.equal(zm, want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 64, 512, 1), (8, 4096, 512, 2),
+                                   (3, 37, 333, 3)])
+def test_cuda_forward_repeats_bit_for_bit(cuda_device, dtype, shape):
+    x, w = _forward_operands(cuda_device, dtype, *shape, 8)
+    first, again = (vg.KERNEL.forward(x, w) for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(first, again)
 

@@ -7,29 +7,41 @@
 Builds ``src/repro_torch/kernels/csrc/vfl_grad.cu`` ("new"), the
 baseline source ("base") and any further variants (named by their file
 stem) into libraries under ``build/kernels/`` (the ``nvcc`` runs started
-together) and prints each build's ``-Xptxas -v`` summary.  Then, at the backward programs' main-path shapes of
-``chip_smoke.py`` (the SGD, SVRG, SAGA and multi-dominator steps, the
-full-dataset backward and its reduce, the pipelined steps) and one forward
-shape whose program neither build changes as a yardstick of the noise, it
-holds each build against the plain version (atol = rtol = 1e-4), checks
-that two calls of each build agree bit for bit, and times both builds in
-turns (base, new, the variants, then the same in reverse) with
+together) and prints each build's ``-Xptxas -v`` summary (``--sass DIR``
+also writes each library's ``cuobjdump -sass`` there).  Then, at the
+main-path shapes of ``chip_smoke.py``, it holds each build against the
+plain version (atol = rtol = 1e-4), checks that two calls of each build
+agree bit for bit and that every build gives the same g bit for bit at
+every backward, reduce and fused shape, and times the builds in turns
+(base, new, the variants, then the same in reverse) with
 ``chip_smoke.py``'s CUDA-graph timer, beside the one PyTorch call that
 computes the same function where there is one and, once, a one-element
-fill as the timer's floor for a launch.  All builds run in one process on
-one card, so their times compare.  Last, end to end: one SGD and one pipelined SGD epoch of
-``chip_smoke.py``'s phase 7 (q = 8, d = 4096, n = 350,000, batch 32,
-``two_tree``) through the port's engine with ``vfl_grad.KERNEL`` set to
-each build in the same turns, timed per step on the host clock (the step
-graph captured first, the timed run synchronised at both ends).  Needs a
-card; prints the card's name and power limit first and a JSON summary
-last; writes the same to ``--out``.
+fill as the timer's floor for a launch.  The shapes: the narrow
+forward's (serving's full dispatch (8, 64, 512)·1 in f32 and bf16 and
+its cache-hit dispatch (64, 512), the SGD step's (8, 32, 512)·1,
+SVRG's ·2, the multi-dominator step's (8, 64, 512)·1, the full-dataset
+pass (8, 350000, 512)·1 beside cuBLAS ``matmul``), the backward
+programs' (the SGD step's rows, which is the noise yardstick when a
+change leaves the backward alone, then the SVRG, SAGA and
+multi-dominator steps, the full-dataset backward and its reduce) and
+the four pipelined steps' ``vfl_fused_split``.  All builds run in one
+process on one card, so their times compare.  Last, end to end, with
+``vfl_grad.KERNEL`` set to each build in the same turns: one SGD and one
+pipelined SGD epoch of ``chip_smoke.py``'s phase 7 (q = 8, d = 4096, n =
+350,000, batch 32, ``two_tree``) through the port's engine, timed per
+step on the host clock (the step graph captured first, the timed run
+synchronised at both ends) and, in a profiler window over one more run,
+each ``vfl_grad`` program's device time per step; and the full-gradient
+pass (CUDA events over 20 passes). Needs a card; prints the card's name
+and power limit first and a JSON summary last; writes the same to
+``--out``.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -53,18 +65,31 @@ def cases(torch, dev):
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     q, dp, b, n = cs.Q, cs.D // cs.Q, cs.TRAIN_BATCH, cs.N
     out = []
-    x = randn(q, b, dp)
-    w = randn(q, dp, 1)
-    out.append(("train_step_forward", "forward", (x, w),
-                lambda x=x, w=w: ref.vfl_forward_ref(x, w),
-                lambda x=x, w=w: torch.matmul(x, w),
-                cs._nbytes(x, w) + q * b * 4, 2.0 * x.numel(), False))
-    # backward steps: (name, rows, M, ϑ shared, denom)
+
+    def forward(name, p, rows, m, dtype=torch.float32, big=False):
+        x = randn(p, rows, dp, dtype=dtype)
+        w = randn(p, dp, m, dtype=dtype)
+        out.append((name, "forward", (x, w),
+                    lambda x=x, w=w: ref.vfl_forward_ref(x, w),
+                    lambda x=x, w=w: torch.matmul(x, w),
+                    cs._nbytes(x, w) + p * rows * m * 4,
+                    2.0 * x.numel() * m, big))
+
+    # the narrow forward at its step shapes: (name, P, rows, M, dtype)
+    for args in (("linear_full", q, 2 * b, 1),
+                 ("linear_full_bf16", q, 2 * b, 1, torch.bfloat16),
+                 ("linear_hit", 1, 2 * b, 1),
+                 ("train_step_forward", q, b, 1),
+                 ("train_svrg_forward", q, b, 2),
+                 ("train_multi_forward", q, cs.M_ACT * b, 1)):
+        forward(*args)
+    # backward steps: (name, rows, M, ϑ shared, denom); the first is the
+    # yardstick of a change to the forward
     for name, rows, m, shared, denom in (
             ("train_sgd_step", b, 1, True, b),
             ("train_svrg_step", b, 2, True, b),
@@ -88,26 +113,33 @@ def cases(torch, dev):
     for name, bb, mw, mth, shared, denom, doms in (
             ("pipe_sgd_step", b, 1, 1, True, b, False),
             ("pipe_svrg_step", b, 2, 2, True, b, False),
+            ("pipe_saga_step", b, 1, 1, False, 1, False),
             ("multi_pipe_sgd_step", 2 * b, 1, 2, True, b, True)):
         x = randn(q, 2 * bb, dp)
         w = randn(q, dp, mw)
-        th = randn(bb)[:, None] * dominator_onehot(mth, bb // mth, dev) \
-            if doms else randn(bb, mth)
-        thq = th.expand(q, bb, mth)
+        if doms:
+            th = randn(bb)[:, None] * dominator_onehot(mth, bb // mth, dev)
+        else:
+            th = randn(bb, mth) if shared else randn(q, bb, mth)
+        thq = th.expand(q, bb, mth) if shared else th
         out.append((name, "fused", (x, w, thq, 0.0, float(denom), bb),
                     lambda x=x, w=w, thq=thq, d=denom, s=bb:
                     ref.vfl_fused_ref(x, w, thq, 0.0, d, s), None,
                     cs._nbytes(x, w, thq) + 4 * q * (bb * mw + dp * mth),
                     2.0 * q * dp * bb * (mw + mth), False))
-    # the full-dataset backward and the reduce over its workspace
+    # the full-dataset passes over one X: forward (beside cuBLAS), backward
+    # and the reduce over its workspace
     x = randn(q, n, dp)
+    w = randn(q, dp, 1)
+    out.append(("full_dataset_forward", "forward", (x, w),
+                lambda: ref.vfl_forward_ref(x, w), lambda: torch.matmul(x, w),
+                cs._nbytes(x, w) + q * n * 4, 2.0 * x.numel(), True))
     thq = randn(n, 1).expand(q, n, 1)
     zeros = torch.zeros((q, dp, 1), device=dev)
     out.append(("full_dataset", "backward", (x, thq, None, 0.0, float(n)),
-                lambda x=x, thq=thq: ref.vfl_backward_ref(x, thq, None, 0.0,
-                                                          n),
-                lambda x=x, thq=thq, z=zeros: torch.baddbmm(
-                    z, x.transpose(1, 2), thq, beta=0.0, alpha=1.0 / n),
+                lambda: ref.vfl_backward_ref(x, thq, None, 0.0, n),
+                lambda: torch.baddbmm(zeros, x.transpose(1, 2), thq,
+                                      beta=0.0, alpha=1.0 / n),
                 cs._nbytes(x, thq) + zeros.numel() * 4, 2.0 * x.numel(),
                 True))
     ws = randn(math.ceil(n / 1024), q, dp, 1)
@@ -120,7 +152,8 @@ def cases(torch, dev):
 
 def epoch_steps(torch, dev, builds, order):
     """Host microseconds per step of an SGD and a pipelined SGD epoch at
-    phase 7's universe, each build in the given turns."""
+    phase 7's universe, and the full-gradient pass's device milliseconds,
+    each build in the given turns."""
     from repro_torch.core import algorithms as alg
     from repro_torch.core.engine import EngineConfig, FusedEngine
     from repro_torch.core.losses import logistic_l2
@@ -132,6 +165,8 @@ def epoch_steps(torch, dev, builds, order):
     steps = cs.N // cs.TRAIN_BATCH
     idx = alg.epoch_indices(cs.SEED, 99, cs.N, cs.TRAIN_BATCH, steps, dev)
     kept, out = vg.KERNEL, {}
+    prof = {name: {tag: [] for tag in builds}
+            for name in ("sgd", "pipelined_sgd")}
     try:
         for name in ("sgd", "pipelined_sgd"):
             out[name] = {tag: [] for tag in builds}
@@ -149,12 +184,70 @@ def epoch_steps(torch, dev, builds, order):
                 torch.cuda.synchronize()
                 out[name][tag].append((time.perf_counter() - t0) * 1e6
                                       / steps)
+                prof[name][tag].append(program_us(torch, epoch, wq, idx,
+                                                  steps))
                 del eng, epoch
             cs.log(f"{name} epoch, host us per step: " + "  ".join(
                 f"{tag} {[round(t, 2) for t in ts]}"
                 for tag, ts in out[name].items()))
+            cs.log(f"{name} epoch, device us per step by program: "
+                   + "  ".join(f"{tag} {ts}"
+                               for tag, ts in prof[name].items()))
+        out["profile_us_per_step"] = prof
+        out["full_gradient_ms"] = {tag: [] for tag in builds}
+        for tag in order:
+            vg.KERNEL = builds[tag]
+            eng = FusedEngine(logistic_l2(1e-4), x, y, layout,
+                              EngineConfig(secure="two_tree"), device=dev)
+            wq = eng.pack_w(torch.full((cs.D,), 1e-3, device=dev))
+            eng.full_gradient(wq)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                eng.full_gradient(wq)
+            end.record()
+            end.synchronize()
+            out["full_gradient_ms"][tag].append(start.elapsed_time(end) / 20)
+            del eng
+        cs.log("full-gradient pass, ms: " + "  ".join(
+            f"{tag} {[round(t, 4) for t in ts]}"
+            for tag, ts in out["full_gradient_ms"].items()))
     finally:
         vg.KERNEL = kept
+    return out
+
+
+def narrow_ptxas(build_log):
+    """Registers and spill stores of each instance of the programs that
+    run the narrow forward, from a build's ``-Xptxas -v`` report."""
+    out = []
+    for sym, stores, regs in re.findall(
+            r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
+            r"(\d+) bytes spill stores.*?\n.*?Used (\d+) registers",
+            build_log):
+        name = cs._kernel_name(sym)
+        if name.startswith(("vfl_forward_narrow", "vfl_fused_split")):
+            dtype = "bf16" if "bfloat16" in sym else "f32"
+            out.append(f"{name} {dtype}: {regs} registers, {stores} B "
+                       "spilled")
+    return out
+
+
+def program_us(torch, epoch, wq, idx, steps):
+    """Device microseconds per step of each ``vfl_grad`` program over one
+    more run of a captured epoch, from a ``torch.profiler`` window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as pr:
+        epoch(wq, cs.TRAIN_LR, idx)
+        torch.cuda.synchronize()
+    out = {}
+    for ev in pr.key_averages():
+        m = re.search(r"(vfl_\w+)<", ev.key)
+        if ev.device_type == DeviceType.CUDA and m:
+            out[m.group(1)] = round(out.get(m.group(1), 0.0)
+                                    + ev.self_device_time_total / steps, 3)
     return out
 
 
@@ -177,11 +270,15 @@ def main() -> int:
                     help="further variants of vfl_grad.cu to build and time")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "results" / "vfl_grad_ab.json")
+    ap.add_argument("--sass", type=Path,
+                    help="write the SASS of each build's vfl_forward_narrow "
+                         "instances here (cuobjdump -sass)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("vfl_grad_ab: needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    from repro_torch.kernels import build as vb
     from repro_torch.kernels import vfl_grad as vg
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -221,6 +318,19 @@ def main() -> int:
         record[f"{tag}_build_log"] = kern.build_log
         cs.log(f"{tag}: built in {kern.build_seconds:.1f} s; "
                f"{record['ptxas'][tag]}")
+        for line in narrow_ptxas(kern.build_log):
+            cs.log(f"    {line}")
+    if args.sass is not None:
+        args.sass.mkdir(parents=True, exist_ok=True)
+        for tag, kern in builds.items():
+            sass = subprocess.run(
+                [str(Path(vb._nvcc()).with_name("cuobjdump")), "-sass",
+                 kern.library()._name], capture_output=True, text=True,
+                timeout=300, check=True).stdout
+            (args.sass / f"{tag}.sass").write_text("".join(
+                "\tFunction : " + f for f in sass.split("\tFunction : ")
+                if f.startswith(("_ZN", "vfl")) and "vfl_forward_narrow"
+                in f.split("\n", 1)[0]))
     tiny = torch.zeros(1, device=dev)
     record["floor_ms"] = cs._graph_ms(torch, tiny.zero_)
     cs.log(f"launch floor (a one-element fill): "
@@ -233,10 +343,11 @@ def main() -> int:
         want = want if isinstance(want, tuple) else (want,)
         row = {"name": name, "kind": kind}
         reps = dict(reps=10, replays=5) if big else {}
-        fns = {}
+        fns, gs = {}, []
         for tag, kern in builds.items():
             # copies: the reduce writes the same g on every call
             got = tuple(t.clone() for t in call(kern, kind, ops))
+            gs.append(got[-1])
             again = call(kern, kind, ops)
             torch.cuda.synchronize()
             err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
@@ -246,6 +357,10 @@ def main() -> int:
             row[f"{tag}_err"], row[f"{tag}_repeat_equal"] = err, same
             ok &= close and same
             fns[tag] = (lambda k=kern: call(k, kind, ops))
+        if kind != "forward":   # g: the backward sides are unchanged
+            row["g_equal_across_builds"] = all(torch.equal(gs[0], g)
+                                               for g in gs[1:])
+            ok &= row["g_equal_across_builds"]
         times = {tag: [] for tag in builds}
         for tag in order:
             times[tag].append(cs._graph_ms(torch, fns[tag], **reps))
@@ -256,8 +371,10 @@ def main() -> int:
         record["rows"].append(row)
         lib = "-" if row["library_ms"] is None \
             else f"{row['library_ms'] * 1e3:.2f}"
+        same = row.get("g_equal_across_builds")
         cs.log(f"{name}: library {lib} us, bound "
-               f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+               f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})"
+               + ("" if same is None else f", g equal across builds {same}"))
         for tag, ts in times.items():
             cs.log(f"    {tag:14s} {sum(ts) / len(ts) * 1e3:9.2f} us "
                    f"{[round(t * 1e3, 2) for t in ts]}  err "
