@@ -11,7 +11,9 @@ JAX or of the JAX package.
 1. Set-up: the card's name and power limit, torch and CUDA versions; the
    hand-written CUDA kernels are built from ``src/repro_torch/kernels/csrc``
    (one library per source, the four ``nvcc`` runs started together) into
-   ``build/kernels/`` (git-ignored) and the build times printed.
+   ``build/kernels/`` (git-ignored) and the build times printed, with the
+   registers and spills of each library and of the redesigned programs'
+   instances (``selective_scan``, ``vfl_forward_wide``).
 2. Kernel phase: ``vfl_grad`` forward, backward and fused (split-batch)
    against their plain PyTorch versions on the card at the serving and
    training shapes (the minibatch steps, the multi-dominator
@@ -121,7 +123,11 @@ gives each lane fixed 16-byte groups of a row, one row a warp at the
 minibatch steps and 4 rows a warp over the full dataset; a row's z does
 not depend on the launch, and the kernel phase checks the full-dataset
 pass's first and last 64 rows against one-row-a-warp launches of them,
-aligned and off the 16-byte vector width.  The backward programs
+aligned and off the 16-byte vector width.  The wide forward splits D over
+a block's 8 warps and over 8 lanes of each, and adds the partials in a
+fixed order (a shuffle tree, then the warps in order), so its z too is
+the same bits in any launch; its rows include deep serving's cache hit
+(64, 512)·32 and a ragged M (37).  The backward programs
 spread each output's sum over the 8 warps of a block: a rows block owns
 one chunk of up to 1,024 rows, one party and 64 columns, each warp a
 fixed eighth of the rows; a reduce block owns 32 outputs, each warp a
@@ -140,7 +146,10 @@ step, the full-dataset reduce and the pipelined SGD step), with its
 launches summed over every path.  The ``selective_scan`` source holds one
 program, held against its plain version at the reference's sweep shapes,
 a ragged shape and phase 9's prefill shape (4, 2048, 8192), N = 16, bf16
-(1e-4 for f32 xa, 5e-2 for bf16), and timed at the last; its bound is the
+(1e-4 for f32 xa, 5e-2 for bf16), the last two also with a_log drawn per
+(channel, state) (log of uniform [0.5, 16], as trained weights have), two
+calls of each equal bit for bit, and timed at the prefill shape with
+mamba's a_log; its bound is the
 larger of its bytes over the HBM rate and its exponentials over the
 special-function units' rate (16 per clock per SM at the card's maximum
 SM clock); its launches are phase 9's serve call's.  The
@@ -339,6 +348,8 @@ def kernel_phase(torch, dev):
         ("linear_hit", None, 64, 512, None, torch.float32),
         ("deep_layer1", 8, 64, 512, 32, torch.float32),
         ("deep_layer2", 8, 64, 32, 16, torch.float32),
+        ("deep_hit", None, 64, 512, 32, torch.float32),
+        ("ragged_wide_m", 8, 64, 512, 37, torch.float32),
         ("ragged_narrow", 3, 37, 333, 3, torch.float32),
         ("ragged_wide", 3, 37, 333, 21, torch.float32),
         ("linear_full_bf16", 8, 64, 512, None, torch.bfloat16),
@@ -560,6 +571,22 @@ def _ptxas_summary(build_log):
             f"stores" + (f" (in {'; '.join(spills)})" if spills else ""))
 
 
+def _instances(build_log, prefixes):
+    """Registers and spill stores of each kernel instance whose name starts
+    with one of ``prefixes``, from nvcc's ``-Xptxas -v`` report."""
+    out = []
+    for sym, stores, regs in re.findall(
+            r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
+            r"(\d+) bytes spill stores.*?\n.*?Used (\d+) registers",
+            build_log):
+        name = _kernel_name(sym)
+        if name.startswith(tuple(prefixes)):
+            dtype = "bf16" if "bfloat16" in sym else "f32"
+            out.append(f"{name} {dtype}: {regs} registers, {stores} B "
+                       "spilled")
+    return out
+
+
 def scan_rows(torch, dev):
     """``selective_scan`` against its plain version on the card at the
     reference's sweep shapes (``tests/test_kernels.py:62-77``), a ragged
@@ -575,21 +602,30 @@ def scan_rows(torch, dev):
     rows = []
     shapes = [("sweep_1", 1, 64, 128, 8), ("sweep_2", 2, 128, 256, 16),
               ("sweep_3", 1, 32, 512, 4), ("ragged", 3, 517, 1000, 16)]
-    cases = [(n, sh, dt) for n, *sh in shapes
+    cases = [(n, sh, dt, False) for n, *sh in shapes
              for dt in (torch.float32, torch.bfloat16)]
-    cases.append(("prefill", (LM_BATCH, LM_PROMPT, 8192, 16),
-                  torch.bfloat16))
-    for name, (b, s, c, n), dtype in cases:
+    prefill = (LM_BATCH, LM_PROMPT, 8192, 16)
+    # a_log drawn per (channel, state), as trained weights have, beside
+    # mamba's log(1..N) in every channel
+    cases += [("ragged_random_a", (3, 517, 1000, 16), torch.float32, True),
+              ("prefill_random_a", prefill, torch.bfloat16, True),
+              ("prefill", prefill, torch.bfloat16, False)]
+    for name, (b, s, c, n), dtype, random_a in cases:
         def randn(*shape):
             return torch.randn(shape, generator=gen, device=dev)
         xa = randn(b, s, c).to(dtype)
         dt = torch.nn.functional.softplus(randn(b, s, c))
         bm, cm = randn(b, s, n), randn(b, s, n)
-        a_log = torch.log(torch.arange(1, n + 1, device=dev,
-                                       dtype=torch.float32)).repeat(c, 1)
+        if random_a:
+            a_log = torch.log(torch.rand((c, n), generator=gen, device=dev)
+                              * 15.5 + 0.5)
+        else:
+            a_log = torch.log(torch.arange(1, n + 1, device=dev,
+                                           dtype=torch.float32)).repeat(c, 1)
         d_skip = randn(c)
         args = (xa, dt, bm, cm, a_log, d_skip)
         y = ops.selective_scan(*args)
+        again = ops.selective_scan(*args)
         want = ref.selective_scan(*args)
         torch.cuda.synchronize()
         err = float((y.float() - want.float()).abs().max())
@@ -599,8 +635,11 @@ def scan_rows(torch, dev):
         check(torch.allclose(y.float(), want.float(), atol=tol, rtol=tol),
               f"selective_scan {name} {dtype}: max abs err {err} beyond "
               f"{tol}")
+        check(torch.equal(y, again),
+              f"selective_scan {name} {dtype}: two calls differ")
         row = dict(name=name, programs=["selective_scan"], x=[b, s, c, n],
-                   dtype=str(dtype).replace("torch.", ""), max_abs_err=err)
+                   dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+                   random_a=random_a, repeat_equal=True)
         if name == "prefill":
             nbytes = _nbytes(*args) + y.numel() * y.element_size()
             elems = b * s * c * n
@@ -623,9 +662,9 @@ def scan_rows(torch, dev):
                 f"{by_bytes*1e3:.3f}, operations {by_ops*1e3:.3f})")
         else:
             log(f"selective_scan {name} x{row['x']} {row['dtype']}: err "
-                f"{err:.3e} (tol {tol})")
+                f"{err:.3e} (tol {tol}), two calls equal")
         rows.append(row)
-        del args, xa, dt, bm, cm, y, want
+        del args, xa, dt, bm, cm, y, again, want
     torch.cuda.empty_cache()
     return rows
 
@@ -2037,6 +2076,12 @@ def main() -> int:
               "build_logs": {lib.source.name: lib.build_log for lib in libs}}
     for lib in libs:
         log(f"{lib.source.name}: {_ptxas_summary(lib.build_log)}")
+    # the redesigned programs' instances on the main paths
+    record["instances"] = _instances(
+        "".join(lib.build_log for lib in libs),
+        ("selective_scan", "vfl_forward_wide", "vfl_fused_split<1,0>"))
+    for line in record["instances"]:
+        log(f"    {line}")
     record["kernel_shapes"] = kernel_phase(torch, dev)
     record["scan_shapes"] = scan_rows(torch, dev)
     record["flash_shapes"] = flash_rows(torch, dev)

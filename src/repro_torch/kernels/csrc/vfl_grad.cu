@@ -52,12 +52,30 @@
 //       as SMs free: a persistent grid of one wave ran 3% slower (its
 //       slowest SM sets its end), one row a warp 4% slower, plain loads
 //       2% slower (this form 1,770 us, cuBLAS 1,807 in the same call);
-//     - wide M (the deep encoder layers): a block covers kWideRows rows x
-//       32 columns of one party, lane j owning column j; each of the 8
-//       warps walks a fixed eighth of D, so every W load (coalesced across
-//       lanes) serves kWideRows rows and 8 independent chains run per
-//       block; the eight partial sums are added in warp order through
-//       shared memory.
+//     - wide M (vfl_forward_wide: the deep encoder layers, (8, 64, 512)
+//       against 32 columns and (8, 64, 32) against 16 in deep serving).
+//       Every row needs all of its party's W (64 KB at layer 1), so a
+//       tile of rows x columns re-reads W once per row tile and X once per
+//       column tile: at these sizes latency and that L2-to-SM traffic
+//       bound it, not HBM (1.6 MB, 0.49 us) nor the FMAs.  A block covers
+//       kWideRows = 2 rows x kWideTileCols = 16 columns (4 KB of X, 32 KB
+//       of W at layer 1); its 8 warps split D into fixed slices, and each
+//       warp's lanes into 8 slots along D x 4 chunks of 4 columns, so the
+//       lanes of a slot read 64 contiguous bytes of a W row (4 columns a
+//       lane as one vector) and x as 16-byte vectors, a batch's loads all
+//       issued before its FMAs.  The slots' sums are reduce-scattered over
+//       lanes xor 16, 8, 4 and the warps' added in warp order through
+//       shared memory.  Over D <= 64 (layer 2) the first slice is all of
+//       D, so warps take rows instead, with the same bits.  The first form
+//       (4 rows x 32 columns a block, each warp walking an eighth of D one
+//       element at a time) took 7.24 us at deep layer 1, 6.87 at the
+//       cache hit (64, 512) and 1.78 at layer 2; this form 4.35, 2.17 and
+//       1.73.  Blocks of 4 rows were faster at layer 1 (3.94) but slower
+//       at the hit (2.95) and layer 2 (1.85 with 2 rows a warp there, 2.59
+//       with 4), 8 rows slower at all three (5.12, 3.74, 1.82); deep
+//       serving launches each hit shape twice as often as layer 1, so 2
+//       rows take least over its launches (NVIDIA H100 80GB HBM3, 700 W,
+//       tools/vfl_grad_ab.py, one call).
 //   * backward (two programs): every output g[p, d, m] is a sum over the B
 //     rows, and on Hopper blocks run in no order, so nothing can carry a
 //     sum across blocks the way the TPU kernel carries g_acc across its
@@ -130,8 +148,22 @@ constexpr int kPass = 32 * kLaneVals;  // a row's elements per pass (512)
 constexpr int kOneRowBlocks = 2048;  // the narrow forward's one-row grid
 constexpr int kStreamRows = 4;  // rows a warp takes past that grid
 constexpr int kVec = 1, kVecOnce = 2;  // the narrow forward's vector loads
-constexpr int kWideRows = 4;  // rows per block of the lanes-over-M program
-static_assert(kWideRows <= kWarpsPerBlock, "one finishing warp per row");
+constexpr int kWideCols = 4;    // columns a lane of the wide forward owns
+constexpr int kWideChunks = 4;  // lanes of a warp across columns
+constexpr int kWideSlots = 32 / kWideChunks;  // lanes of a warp across D
+constexpr int kWideLaneK = 8;   // elements of D a lane takes a batch
+constexpr int kWideRows = 2;    // rows a wide forward block (d > 64) or
+                                // warp (d <= 64) takes
+constexpr int kWideTileCols = kWideChunks * kWideCols;  // columns a block
+constexpr int kWideBatch = kWideSlots * kWideLaneK;  // D a warp takes a batch
+static_assert(kWideSlots == 8, "the slots' sums reduce over lanes 4, 8, 16");
+static_assert(kWideRows * kWideCols % kWideSlots == 0,
+              "the slots' sums reduce-scatter evenly");
+// Rows of a wide forward block (wide_block): kWideRows over d >
+// kWideBatch, kWideRows a warp over d <= kWideBatch.
+__host__ __device__ constexpr long long wide_rows(long long d) {
+  return d > kWideBatch ? kWideRows : kWideRows * kWarpsPerBlock;
+}
 constexpr int kBwdThreads = kWarpsPerBlock * 32;  // a backward block
 constexpr int kBwdCols = 4;        // theta columns a block takes at M > 2
 constexpr int kChunkRows = 1024;   // rows per backward block (one partial)
@@ -182,6 +214,21 @@ __device__ __forceinline__ void load16_once(const T* p,
                                             float (&v)[Lanes<T>::G]) {
   widen(__ldcs(reinterpret_cast<const typename Lanes<T>::Vec*>(p)), v);
 }
+
+// kWideCols = 4 consecutive values at p (aligned to their size) as one
+// vector load: 16 bytes of f32 or 8 of bf16, widened as to_f32 widens each.
+__device__ __forceinline__ void load_cols(const float* p, float (&v)[4]) {
+  widen(*reinterpret_cast<const float4*>(p), v);
+}
+__device__ __forceinline__ void load_cols(const __nv_bfloat16* p,
+                                          float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(t.x << 16);
+  v[1] = __uint_as_float(t.x & 0xffff0000u);
+  v[2] = __uint_as_float(t.y << 16);
+  v[3] = __uint_as_float(t.y & 0xffff0000u);
+}
+static_assert(kWideCols == 4, "load_cols reads four columns");
 
 // The bodies below are __device__ functions that the per-mode programs and
 // vfl_fused_split call alike, so a row or a column sums in the same order
@@ -387,45 +434,147 @@ __device__ __forceinline__ void narrow_block(const T* xp, const T* wp,
                   threadIdx.x & 31);
 }
 
-// Lanes over columns (m > kNarrow): the block's nrow (<= kWideRows)
-// consecutive rows from xp against column c = ctile * 32 + lane of the
-// party's w, written to zp (row stride m).  Warp v walks its fixed slice
-// of D in order, each W load serving all the rows, and the slices' partial
-// sums are added in warp order through shared memory.  Every thread of the
+// The wide forward (m > kNarrow).  A block covers wide_rows(d) rows x
+// kWideTileCols columns of one party: rows from r0 (< nrows) of xp (row
+// stride d) against columns [c0, c0 + kWideTileCols) (< m) of wp (row
+// stride m), into zp (row stride m).  Over d > kWideBatch, warp v takes a
+// fixed slice of D, `per` = ceil(d / 8) rounded up to kWideBatch
+// elements, in batches of kWideBatch, for the block's kWideRows rows;
+// over d <= kWideBatch the first slice is all of D, so warp v takes all of
+// it for kWideRows rows of its own from r0 + v * kWideRows, and its sums
+// are final (the other slices would add zeros: the same bits).  Lane
+// (slot, chunk) = (lane / kWideChunks, lane % kWideChunks) owns columns
+// c0 + chunk * kWideCols + [0, kWideCols) and, in a batch starting at kb,
+// the kWideLaneK elements kb + i * kWideSlots * G + slot * G + e (i <
+// kWideLaneK / G, e < G; G elements of the dtype to a 16-byte vector).
+// A batch's loads are issued together before its FMAs: each row's x as
+// kWideLaneK / G vectors, and w's kWideCols columns of each element as one
+// vector, so the lanes of a slot read 64 contiguous bytes of a w row and
+// the warp's w loads touch 8 rows.  A lane adds x[r, k] * w[k,
+// c] over its elements in that order; the 8 slots' sums are reduce-
+// scattered over lanes xor 16, 8, 4; the 8 warps' sums are added in warp
+// order through shared memory.  So a z sums in an order set by d and the
+// dtype alone: never by m, the row count, the row's place, the column's
+// place in the tile, the load width or the grid.  Out-of-range rows,
+// columns and elements are loaded at a clamped index and never stored
+// (rows, columns) or skipped by the FMAs (elements).  Every thread of the
 // block calls it (it holds a barrier).
 template <typename T>
-__device__ __forceinline__ void wide_tile(const T* __restrict__ xp,
-                                          const T* __restrict__ wp,
-                                          float* __restrict__ zp, int nrow,
-                                          int d, int m, int ctile) {
-  __shared__ float part[kWarpsPerBlock][kWideRows][32];
+__device__ __forceinline__ void wide_block(const T* __restrict__ xp,
+                                           const T* __restrict__ wp,
+                                           float* __restrict__ zp, int r0,
+                                           int nrows, int c0, int d, int m,
+                                           int vec) {
+  constexpr int G = Lanes<T>::G, NV = kWideLaneK / G;
+  constexpr int R = kWideRows, MW = kWideCols, V = R * MW;
+  constexpr int VL = V / kWideSlots;  // sums a lane keeps after the scatter
+  static_assert(kWideLaneK % G == 0, "a lane's elements are whole vectors");
+  __shared__ float part[kWarpsPerBlock][R][kWideTileCols];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int c = ctile * 32 + lane;
-  const int per = (d + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const int k0 = warp * per;
-  const int k1 = min(d, k0 + per);
-  float acc[kWideRows];
+  const int slot = lane / kWideChunks;
+  const int col = c0 + lane % kWideChunks * MW;  // the lane's first column
+  const bool split = d > kWideBatch;  // block-uniform
+  const int per = ((d + kWarpsPerBlock - 1) / kWarpsPerBlock +
+                   kWideBatch - 1) / kWideBatch * kWideBatch;
+  const int k0 = split ? warp * per : 0;
+  const int k1 = split ? min(d, (warp + 1) * per) : d;
+  if (!split) r0 += warp * R;
+  const bool xvec = vec & 1, wvec = vec & 2;
+  float acc[R][MW];
 #pragma unroll
-  for (int r = 0; r < kWideRows; ++r) acc[r] = 0.0f;
-  if (c < m) {
-#pragma unroll 4
-    for (int k = k0; k < k1; ++k) {
-      const float wv = to_f32(wp[k * m + c]);
+  for (int r = 0; r < R; ++r) {
 #pragma unroll
-      for (int r = 0; r < kWideRows; ++r) {
-        if (r < nrow) acc[r] = fmaf(to_f32(xp[r * d + k]), wv, acc[r]);
+    for (int c = 0; c < MW; ++c) acc[r][c] = 0.0f;
+  }
+  for (int kb = k0; kb < k1; kb += kWideBatch) {
+    float wv[kWideLaneK][MW];
+    float xv[R][kWideLaneK];
+#pragma unroll
+    for (int i = 0; i < kWideLaneK; ++i) {
+      const int k = kb + i / G * kWideSlots * G + slot * G + i % G;
+      const T* wk = wp + static_cast<long long>(min(k, d - 1)) * m;
+      if (wvec) {
+        load_cols(wk + col, wv[i]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < MW; ++c) {
+          wv[i][c] = to_f32(wk[min(col + c, m - 1)]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const T* xr = xp + static_cast<long long>(min(r0 + r, nrows - 1)) * d;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int k = kb + v * kWideSlots * G + slot * G;
+        if (xvec) {
+          float t[G];
+          load16(xr + min(k, d - G), t);
+#pragma unroll
+          for (int e = 0; e < G; ++e) xv[r][v * G + e] = t[e];
+        } else {
+#pragma unroll
+          for (int e = 0; e < G; ++e) {
+            xv[r][v * G + e] = to_f32(xr[min(k + e, d - 1)]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kWideLaneK; ++i) {
+      if (kb + i / G * kWideSlots * G + slot * G + i % G < d) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+#pragma unroll
+          for (int c = 0; c < MW; ++c) {
+            acc[r][c] = fmaf(xv[r][i], wv[i][c], acc[r][c]);
+          }
+        }
       }
     }
   }
+  // the slots' sums: reduce-scatter over lane bits 4, 3, 2; the lane keeps
+  // VL consecutive sums (row r, column c at index r * MW + c) from `base`
+  float v[V];
 #pragma unroll
-  for (int r = 0; r < kWideRows; ++r) part[warp][r][lane] = acc[r];
+  for (int i = 0; i < V; ++i) v[i] = acc[i / MW][i % MW];
+  int base = 0;
+#pragma unroll
+  for (int lvl = 0; lvl < 3; ++lvl) {
+    const int o = 16 >> lvl, half = V >> (lvl + 1);  // compile-time
+    const bool up = (lane & o) != 0;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float keep = up ? v[i + half] : v[i];
+      const float send = up ? v[i] : v[i + half];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+    if (up) base += half;
+  }
+  if (!split) {
+#pragma unroll
+    for (int i = 0; i < VL; ++i) {
+      const int r = r0 + (base + i) / MW, c = col + (base + i) % MW;
+      if (r < nrows && c < m) zp[static_cast<long long>(r) * m + c] = v[i];
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < VL; ++i) {
+    const int idx = base + i;
+    part[warp][idx / MW][lane % kWideChunks * MW + idx % MW] = v[i];
+  }
   __syncthreads();
-  if (warp < nrow && c < m) {  // warp r finishes row r
-    float s = part[0][warp][lane];
+  for (int o = threadIdx.x; o < R * kWideTileCols; o += kWarpsPerBlock * 32) {
+    const int r = o / kWideTileCols, c = o % kWideTileCols;
+    if (r0 + r < nrows && c0 + c < m) {
+      float t = part[0][r][c];
 #pragma unroll
-    for (int v = 1; v < kWarpsPerBlock; ++v) s += part[v][warp][lane];
-    zp[static_cast<long long>(warp) * m + c] = s;
+      for (int w = 1; w < kWarpsPerBlock; ++w) t += part[w][r][c];
+      zp[static_cast<long long>(r0 + r) * m + c0 + c] = t;
+    }
   }
 }
 
@@ -572,20 +721,16 @@ vfl_forward_narrow(const T* __restrict__ x, const T* __restrict__ w,
                    z + party * rows * MW, blockIdx.x, rpw, rows, d, vec);
 }
 
-// Lanes over columns: block (row tile, party, column tile) covers
-// kWideRows rows x 32 columns of one party.
+// Block (row tile, party, column tile) covers wide_rows(d) rows x
+// kWideTileCols columns of one party (wide_block); vec from wide_vec.
 template <typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 vfl_forward_wide(const T* __restrict__ x, const T* __restrict__ w,
-                 float* __restrict__ z, long long rows, int d, int m) {
+                 float* __restrict__ z, int rows, int d, int m, int vec) {
   const long long party = blockIdx.y;
-  const long long r0 = static_cast<long long>(blockIdx.x) * kWideRows;
-  const long long left = rows - r0;
-  wide_tile(x + (party * rows + r0) * d,
-            w + party * static_cast<long long>(d) * m,
-            z + (party * rows + r0) * m,
-            left < kWideRows ? static_cast<int>(left) : kWideRows, d, m,
-            static_cast<int>(blockIdx.z));
+  wide_block(x + party * rows * d, w + party * d * m, z + party * rows * m,
+             blockIdx.x * static_cast<int>(wide_rows(d)), rows,
+             blockIdx.z * kWideTileCols, d, m, vec);
 }
 
 // Backward, rows: backward block blockIdx.x of bwd_block's grid.
@@ -680,17 +825,16 @@ vfl_fused_split(const T* __restrict__ x, const T* __restrict__ w,
                        z + static_cast<long long>(party) * nf * FW, bx,
                        frpw, static_cast<int>(nf), d, vec);
     } else {
-      const long long rtiles = (nf + kWideRows - 1) / kWideRows;
-      const long long rtile = blk % rtiles;
+      const long long tile = wide_rows(d);
+      const long long rtiles = (nf + tile - 1) / tile;
       const long long party = (blk / rtiles) % parties;
-      const int ctile = static_cast<int>(blk / (rtiles * parties));
-      const long long r0 = rtile * kWideRows;
-      const long long left = nf - r0;
-      wide_tile(x + (party * rows + f0 + r0) * d,
-                w + party * static_cast<long long>(d) * mw,
-                z + (party * nf + r0) * mw,
-                left < kWideRows ? static_cast<int>(left) : kWideRows, d, mw,
-                ctile);
+      wide_block(x + (party * rows + f0) * d,
+                 w + party * static_cast<long long>(d) * mw,
+                 z + party * nf * mw,
+                 static_cast<int>(blk % rtiles * tile),
+                 static_cast<int>(nf),
+                 static_cast<int>(blk / (rtiles * parties)) * kWideTileCols,
+                 d, mw, vec);
     }
     return;
   }
@@ -746,6 +890,25 @@ int narrow_vec(const void* x, const void* w, long long d, int rpw) {
   return rpw > 1 ? kVecOnce : kVec;
 }
 
+// How the wide forward loads (every choice sums in the same order): bit 0,
+// x as 16-byte vectors (d whole groups, x 16-byte aligned); bit 1, w's
+// kWideCols columns as one vector (m a multiple of kWideCols, w aligned to
+// the vector).
+template <typename T>
+int wide_vec(const void* x, const void* w, long long d, long long m) {
+  const int xv = d % Lanes<T>::G == 0 &&
+                 reinterpret_cast<uintptr_t>(x) % kVecBytes == 0;
+  const int wv = m % kWideCols == 0 &&
+                 reinterpret_cast<uintptr_t>(w) % (kWideCols * sizeof(T)) ==
+                     0;
+  return xv | wv << 1;
+}
+
+// Column tiles of the wide forward's grid.
+long long wide_ctiles(long long m) {
+  return (m + kWideTileCols - 1) / kWideTileCols;
+}
+
 template <typename T>
 int launch_narrow(const void* x, const void* w, void* z, long long parties,
                   long long rows, long long d, long long m, void* stream) {
@@ -771,16 +934,19 @@ int launch_narrow(const void* x, const void* w, void* z, long long parties,
 template <typename T>
 int launch_wide(const void* x, const void* w, void* z, long long parties,
                 long long rows, long long d, long long m, void* stream) {
-  if (bad_sizes(parties, rows, d, m) || m <= kNarrow || (m + 31) / 32 > 65535) {
+  // rows < 2^30: a warp's row index stays in 32 bits
+  if (bad_sizes(parties, rows, d, m) || m <= kNarrow ||
+      rows >= (1LL << 30) || wide_ctiles(m) > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(static_cast<unsigned>((rows + kWideRows - 1) / kWideRows),
-                  static_cast<unsigned>(parties),
-                  static_cast<unsigned>((m + 31) / 32));
+  const dim3 grid(
+      static_cast<unsigned>((rows + wide_rows(d) - 1) / wide_rows(d)),
+      static_cast<unsigned>(parties), static_cast<unsigned>(wide_ctiles(m)));
   vfl_forward_wide<T><<<grid, dim3(kWarpsPerBlock * 32), 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<float*>(z), rows, static_cast<int>(d), static_cast<int>(m));
+      static_cast<float*>(z), static_cast<int>(rows), static_cast<int>(d),
+      static_cast<int>(m), wide_vec<T>(x, w, d, m));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -851,8 +1017,7 @@ int launch_fused(const void* x, const void* w, const void* th, void* z,
                  int lamw, void* stream) {
   if (bad_sizes(parties, rows, d, mw) || bad_sizes(parties, rows, d, mth) ||
       d < 1 || nf < 1 || nb < 1 || f0 < 0 || f0 + nf > rows || nb > rows ||
-      nf >= (1LL << 30) || th_pstride < 0 || (lamw && mw != mth) ||
-      (mw + 31) / 32 > 65535) {
+      nf >= (1LL << 30) || th_pstride < 0 || (lamw && mw != mth)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = fused_kernel<kBwdCols, T>(mw);
@@ -862,9 +1027,9 @@ int launch_fused(const void* x, const void* w, const void* th, void* z,
   const long long fbpp = (nf + kWarpsPerBlock * frpw - 1) /
                          (kWarpsPerBlock * frpw);
   const long long fblocks =
-      mw <= kNarrow
-          ? parties * fbpp
-          : (nf + kWideRows - 1) / kWideRows * parties * ((mw + 31) / 32);
+      mw <= kNarrow ? parties * fbpp
+                    : (nf + wide_rows(d) - 1) / wide_rows(d) * parties *
+                          wide_ctiles(mw);
   const long long blocks = fblocks + bwd_blocks(parties, nb, d, mth);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<dim3(static_cast<unsigned>(blocks)), dim3(kWarpsPerBlock * 32), 0,
@@ -874,7 +1039,9 @@ int launch_fused(const void* x, const void* w, const void* th, void* z,
       static_cast<float*>(out), parties, rows, f0, nf, nb,
       static_cast<int>(d), static_cast<int>(mw), static_cast<int>(mth),
       th_pstride, denom, lam, lamw, fblocks, static_cast<int>(fbpp), frpw,
-      narrow_vec<T>(static_cast<const T*>(x) + f0 * d, w, d, frpw));
+      mw <= kNarrow
+          ? narrow_vec<T>(static_cast<const T*>(x) + f0 * d, w, d, frpw)
+          : wide_vec<T>(static_cast<const T*>(x) + f0 * d, w, d, mw));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,7 +11,12 @@ library under ``build/kernels/`` and loads it with ``ctypes``; nothing is
 built or loaded when the module is imported.
 
 The source holds one ``__global__`` program, templated on the state size
-N (``STATE_SIZES``), with one entry point per xa dtype.
+N (``STATE_SIZES``), with one entry point per xa dtype.  Two lanes share
+a channel, each holding half of its states; a block stages xa, dt, B and
+C in shared memory a chunk of steps ahead with asynchronous copies, and
+the two lanes' partial outputs are added by one warp shuffle in a fixed
+order, so two calls give the same bits.  The launcher refuses batches of
+more than ``MAX_ROWS`` rows (its grid's second dimension).
 ``KERNEL.launches["selective_scan"]`` goes up by one exactly where it is
 launched.
 """
@@ -25,6 +30,7 @@ from repro_torch.kernels.build import SUFFIX, CudaLibrary
 
 PROGRAMS = ("selective_scan",)
 STATE_SIZES = (4, 8, 16)         # the template instances in the source
+MAX_ROWS = 65535                 # kMaxRows in the source: batch rows
 _PTR, _I64 = ctypes.c_void_p, ctypes.c_longlong
 # xa, dt, b_ssm, c_ssm, a_log, d_skip, y; batch, steps, channels, state;
 # stream
@@ -58,12 +64,12 @@ class ScanKernel(CudaLibrary):
                 or tuple(c_ssm.shape) != (bsz, s, n)
                 or tuple(a_log.shape) != (c, n)
                 or tuple(d_skip.shape) != (c,) or n not in STATE_SIZES
-                or bsz > 65535):
+                or bsz > MAX_ROWS):
             raise ValueError(
                 "selective_scan kernel takes contiguous CUDA xa (B, S, C) in "
                 "{float32, bfloat16}, f32 dt (B, S, C), b/c (B, S, N), a_log "
                 f"(C, N), d_skip (C,) on one device, N in {STATE_SIZES}, "
-                f"B <= 65535; got xa {tuple(xa.shape)} {xa.dtype} "
+                f"B <= {MAX_ROWS}; got xa {tuple(xa.shape)} {xa.dtype} "
                 f"{xa.device}, " + ", ".join(
                     f"{tuple(t.shape)} {t.dtype} {t.device}"
                     for t in others))

@@ -532,16 +532,19 @@ def _misaligned(t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,m", [(512, 1), (512, 2), (333, 3), (40, 4)])
+@pytest.mark.parametrize("d,m", [(512, 1), (512, 2), (333, 3), (40, 4),
+                                 # the wide program
+                                 (512, 5), (32, 16), (512, 32), (333, 33)])
 def test_cuda_forward_rows_bit_identical_across_launches(cuda_device, dtype,
                                                          d, m):
     """A row's z depends on D, M and its column alone: the same bits in a
-    batch of 1, 32, 64 or 4,096 rows (the last in the streaming geometry),
-    in a (1, B, D) launch and in a (8, B, D) launch, at any row offset."""
+    batch of 1, 4, 32, 64 or 4,096 rows (the narrow program's streaming
+    geometry; a wide block's row tile holds the row at another place), in
+    a (1, B, D) launch and in a (8, B, D) launch, at any row offset."""
     x, w = _forward_operands(cuda_device, dtype, 8, 4096, d, m, 5)
     full = vg.KERNEL.forward(x, w)
-    for rows in (slice(0, 1), slice(0, 32), slice(0, 64),
-                 slice(1000, 1064), slice(4095, 4096)):
+    for rows in (slice(0, 1), slice(0, 4), slice(0, 32), slice(0, 64),
+                 slice(1000, 1064), slice(1003, 1007), slice(4095, 4096)):
         part = vg.KERNEL.forward(x[:, rows].contiguous(), w)
         assert torch.equal(part, full[:, rows]), rows
     one = vg.KERNEL.forward(x[3:4].contiguous(), w[3:4].contiguous())
@@ -552,7 +555,8 @@ def test_cuda_forward_rows_bit_identical_across_launches(cuda_device, dtype,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 64, 512, 1), (8, 32, 512, 2),
-                                   (3, 37, 333, 3), (2, 3000, 64, 1)])
+                                   (3, 37, 333, 3), (2, 3000, 64, 1),
+                                   (8, 64, 512, 32), (3, 37, 336, 20)])
 def test_cuda_forward_misaligned_view_bit_identical(cuda_device, dtype,
                                                     shape):
     """Vector loads (aligned) and element loads (a view whose pointer is
@@ -572,11 +576,13 @@ def test_cuda_forward_misaligned_view_bit_identical(cuda_device, dtype,
     (8, 32, 32, 512, 2, 2),      # the pipelined SVRG step
     (8, 64, 64, 512, 1, 2),      # multi-pipelined
     (3, 60, 40, 70, 3, 3),
-    (2, 13, 3000, 512, 4, 1)])   # a streaming forward side
+    (2, 13, 3000, 512, 4, 1),    # a streaming forward side
+    (8, 32, 64, 512, 32, 1),     # a wide forward side
+    (2, 13, 11, 40, 37, 6)])
 def test_cuda_fused_forward_side_equals_forward(cuda_device, dtype, shape):
-    """``vfl_fused_split``'s forward blocks run the narrow program's body:
-    its z equals the forward mode's over the same rows bit for bit, also
-    from a misaligned x."""
+    """``vfl_fused_split``'s forward blocks run the forward program's body
+    (narrow or wide by Mw): its z equals the forward mode's over the same
+    rows bit for bit, also from a misaligned x."""
     p, bb, bf, d, mw, mth = shape
     x, w = _forward_operands(cuda_device, dtype, p, bb + bf, d, mw, 7)
     th = torch.randn((p, bb, mth), device=cuda_device)

@@ -45,14 +45,21 @@ def jax_ssm():
     return ssm
 
 
-def _scan_inputs(seed, b, s, c, n):
-    """xa, dt = softplus(normal), b, c, a_log = log(1..n), d_skip = 1."""
+def _scan_inputs(seed, b, s, c, n, random_a=False):
+    """xa, dt = softplus(normal), b, c, d_skip normal; a_log = log(1..n) in
+    every channel (mamba's initialisation) or, with ``random_a``, the log
+    of uniform [0.5, 16] drawn per (channel, state), as trained weights
+    have: exp(dt A) then shares no power structure across the states."""
     rng = np.random.default_rng(seed)
     xa = rng.standard_normal((b, s, c)).astype(np.float32)
     dt = np.logaddexp(rng.standard_normal((b, s, c)), 0).astype(np.float32)
     bm = rng.standard_normal((b, s, n)).astype(np.float32)
     cm = rng.standard_normal((b, s, n)).astype(np.float32)
-    a_log = np.log(np.tile(np.arange(1, n + 1, dtype=np.float32), (c, 1)))
+    if random_a:
+        a_log = np.log(rng.uniform(0.5, 16.0, (c, n))).astype(np.float32)
+    else:
+        a_log = np.log(np.tile(np.arange(1, n + 1, dtype=np.float32),
+                               (c, 1)))
     d_skip = rng.standard_normal(c).astype(np.float32)
     return xa, dt, bm, cm, a_log, d_skip
 
@@ -84,6 +91,32 @@ def test_plain_scan_matches_jax_kernel(jnp, dtype, shape, tiles):
     assert y.dtype == DTYPES[dtype] and tuple(y.shape) == shape[:3]
     tol = SCAN_TOL[dtype]
     np.testing.assert_allclose(_f32(y), _f32(yj), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape,tiles", list(zip(SWEEP, SWEEP_TILES)))
+def test_plain_scan_random_a_matches_jax_kernel(jnp, dtype, shape, tiles):
+    """As above with a_log drawn per (channel, state): a kernel that
+    relied on A = -(1..N) in every channel would fail here."""
+    from repro.kernels import ops as jops
+    args = _scan_inputs(9, *shape, random_a=True)
+    y = ops.selective_scan(*_torch_args(args, dtype))
+    yj = jops.selective_scan(*_jax_args(jnp, args, dtype), chunk=tiles[0],
+                             block_c=tiles[1], interpret=True)
+    tol = SCAN_TOL[dtype]
+    np.testing.assert_allclose(_f32(y), _f32(yj), atol=tol, rtol=tol)
+
+
+def test_wrapper_constants_match_source():
+    """The wrapper refuses what the CUDA source's launcher refuses: the
+    state sizes it has instances for and the batch rows its grid takes."""
+    import re
+    text = ss.ScanKernel().source.read_text()
+    launcher = text[text.index("int launch(const void*"):]
+    assert tuple(int(n) for n in re.findall(r"case (\d+):", launcher)) \
+        == ss.STATE_SIZES
+    assert re.findall(r"constexpr int kMaxRows = (\d+);", text) \
+        == [str(ss.MAX_ROWS)]
 
 
 @pytest.mark.parametrize("shape", [(2, 37, 75, 8), (3, 5, 130, 16),
@@ -252,15 +285,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
+CUDA_SHAPES = SWEEP + [(3, 100, 300, 8), (2, 517, 1000, 16),
+                      (4, 1024, 2048, 16)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("random_a", [False, True])
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("shape", SWEEP + [(3, 100, 300, 8),
-                                           (2, 517, 1000, 16),
-                                           (4, 1024, 2048, 16)])
-def test_cuda_kernel_matches_plain(cuda_device, dtype, shape):
+@pytest.mark.parametrize("shape", CUDA_SHAPES)
+def test_cuda_kernel_matches_plain(cuda_device, dtype, shape, random_a):
     """The kernel against its plain version on the card at the sweep
-    shapes, ragged S and C, and a wide one, at the scan tolerances."""
-    args = _torch_args(_scan_inputs(7, *shape), dtype)
+    shapes, ragged S and C, and a wide one, at the scan tolerances, with
+    mamba's a_log and with a_log drawn per (channel, state)."""
+    args = _torch_args(_scan_inputs(7, *shape, random_a=random_a), dtype)
     args = [a.to(cuda_device) for a in args]
     before = ss.KERNEL.launches["selective_scan"]
     y = ops.selective_scan(*args)
@@ -278,3 +315,32 @@ def test_cuda_kernel_refuses_other_state_sizes(cuda_device):
             _torch_args(_scan_inputs(8, 1, 4, 8, 12), "f32")]
     with pytest.raises(ValueError):
         ops.selective_scan(*args)
+
+
+def _misaligned(t):
+    """A contiguous copy of t at a storage offset of one element, so its
+    data pointer is off the 16-byte copy width."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(2, 128, 256, 16), (3, 100, 300, 8),
+                                   (4, 1024, 2048, 16)])
+def test_cuda_kernel_repeats_bit_for_bit(cuda_device, dtype, shape):
+    """No atomics and a fixed order of the lanes' partials: two calls give
+    the same bits, and so do operands off the 16-byte copy width (staged
+    element by element into the same layout)."""
+    args = [a.to(cuda_device) for a in
+            _torch_args(_scan_inputs(10, *shape, random_a=True), dtype)]
+    first, again = (ops.selective_scan(*args) for _ in range(2))
+    for i in (0, 1, 2):
+        moved = list(args)
+        moved[i] = _misaligned(args[i])
+        assert torch.equal(ops.selective_scan(*moved), first), i
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)

@@ -71,22 +71,28 @@ def cases(torch, dev):
     q, dp, b, n = cs.Q, cs.D // cs.Q, cs.TRAIN_BATCH, cs.N
     out = []
 
-    def forward(name, p, rows, m, dtype=torch.float32, big=False):
-        x = randn(p, rows, dp, dtype=dtype)
-        w = randn(p, dp, m, dtype=dtype)
+    def forward(name, p, rows, m, dtype=torch.float32, d=dp, big=False):
+        x = randn(p, rows, d, dtype=dtype)
+        w = randn(p, d, m, dtype=dtype)
         out.append((name, "forward", (x, w),
                     lambda x=x, w=w: ref.vfl_forward_ref(x, w),
                     lambda x=x, w=w: torch.matmul(x, w),
                     cs._nbytes(x, w) + p * rows * m * 4,
                     2.0 * x.numel() * m, big))
 
-    # the narrow forward at its step shapes: (name, P, rows, M, dtype)
+    # the narrow forward at its step shapes, then the wide forward at deep
+    # serving's: (name, P, rows, M, dtype, D)
     for args in (("linear_full", q, 2 * b, 1),
                  ("linear_full_bf16", q, 2 * b, 1, torch.bfloat16),
                  ("linear_hit", 1, 2 * b, 1),
                  ("train_step_forward", q, b, 1),
                  ("train_svrg_forward", q, b, 2),
-                 ("train_multi_forward", q, cs.M_ACT * b, 1)):
+                 ("train_multi_forward", q, cs.M_ACT * b, 1),
+                 ("deep_layer1", q, 2 * b, 32),
+                 ("deep_layer1_bf16", q, 2 * b, 32, torch.bfloat16),
+                 ("deep_layer2", q, 2 * b, 16, torch.float32, 32),
+                 ("deep_hit", 1, 2 * b, 32),
+                 ("deep_hit_layer2", 1, 2 * b, 16, torch.float32, 32)):
         forward(*args)
     # backward steps: (name, rows, M, ϑ shared, denom); the first is the
     # yardstick of a change to the forward
@@ -218,20 +224,69 @@ def epoch_steps(torch, dev, builds, order):
     return out
 
 
-def narrow_ptxas(build_log):
-    """Registers and spill stores of each instance of the programs that
-    run the narrow forward, from a build's ``-Xptxas -v`` report."""
-    out = []
-    for sym, stores, regs in re.findall(
-            r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
-            r"(\d+) bytes spill stores.*?\n.*?Used (\d+) registers",
-            build_log):
-        name = cs._kernel_name(sym)
-        if name.startswith(("vfl_forward_narrow", "vfl_fused_split")):
-            dtype = "bf16" if "bfloat16" in sym else "f32"
-            out.append(f"{name} {dtype}: {regs} registers, {stores} B "
-                       "spilled")
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+
+
+def build_all(builds, prefixes):
+    """Build every library of ``builds`` (tag -> ``CudaLibrary``), the
+    ``nvcc`` runs started together; log each build's ``-Xptxas -v``
+    summary and the registers and spills of its instances whose names
+    start with one of ``prefixes``.  Returns {tag: summary}."""
+    failed = []
+
+    def build(lib):
+        try:
+            lib.library()
+        except Exception as e:                  # relayed to the main thread
+            failed.append(e)
+
+    threads = [threading.Thread(target=build, args=(k,))
+               for k in builds.values()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if failed:
+        raise failed[0]
+    out = {}
+    for tag, lib in builds.items():
+        if lib.build_seconds is None:       # an earlier run's library
+            cs.log(f"{tag}: reused, no build report")
+            continue
+        out[tag] = cs._ptxas_summary(lib.build_log)
+        cs.log(f"{tag}: built in {lib.build_seconds:.1f} s; {out[tag]}")
+        for line in cs._instances(lib.build_log, prefixes):
+            cs.log(f"    {line}")
     return out
+
+
+def write_sass(builds, out_dir, name):
+    """Each library's ``cuobjdump -sass`` of the kernels whose demangled
+    name holds ``name``, one file a build under ``out_dir``."""
+    from repro_torch.kernels import build as vb
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for tag, lib in builds.items():
+        sass = subprocess.run(
+            [str(Path(vb._nvcc()).with_name("cuobjdump")), "-sass",
+             lib.library()._name], capture_output=True, text=True,
+            timeout=300, check=True).stdout
+        (out_dir / f"{tag}.sass").write_text("".join(
+            "\tFunction : " + f for f in sass.split("\tFunction : ")
+            if name in f.split("\n", 1)[0]))
+
+
+def in_turns(torch, fns, order, **reps):
+    """Device ms of one call of each ``fns[tag]``, timed by
+    ``chip_smoke._graph_ms`` in the given order of tags (each tag in it
+    twice: forward, then reversed)."""
+    times = {tag: [] for tag in fns}
+    for tag in order:
+        times[tag].append(cs._graph_ms(torch, fns[tag], **reps))
+    return times
 
 
 def program_us(torch, epoch, wq, idx, steps):
@@ -271,20 +326,17 @@ def main() -> int:
     ap.add_argument("--out", type=Path,
                     default=ROOT / "results" / "vfl_grad_ab.json")
     ap.add_argument("--sass", type=Path,
-                    help="write the SASS of each build's vfl_forward_narrow "
+                    help="write the SASS of each build's vfl_forward "
                          "instances here (cuobjdump -sass)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("vfl_grad_ab: needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    from repro_torch.kernels import build as vb
     from repro_torch.kernels import vfl_grad as vg
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
+    smi = card_line()
     cs.log(f"card: {smi}; torch {torch.__version__}, CUDA "
            f"{torch.version.cuda}")
     builds = {"base": vg.CudaKernel(), "new": vg.CudaKernel()}
@@ -292,45 +344,14 @@ def main() -> int:
     for path in args.also:
         builds[path.stem] = vg.CudaKernel()
         builds[path.stem].source = path.resolve()
-    failed = []
-
-    def build(kern):
-        try:
-            kern.library()
-        except Exception as e:                  # relayed to the main thread
-            failed.append(e)
-
-    threads = [threading.Thread(target=build, args=(k,))
-               for k in builds.values()]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if failed:
-        raise failed[0]
     record = {"card": smi, "torch": torch.__version__,
-              "baseline": str(args.baseline), "ptxas": {}, "rows": []}
+              "baseline": str(args.baseline),
+              "ptxas": build_all(builds, ("vfl_forward", "vfl_fused_split")),
+              "rows": []}
     for tag, kern in builds.items():
-        if kern.build_seconds is None:      # an earlier run's library
-            cs.log(f"{tag}: reused, no build report")
-            continue
-        record["ptxas"][tag] = cs._ptxas_summary(kern.build_log)
         record[f"{tag}_build_log"] = kern.build_log
-        cs.log(f"{tag}: built in {kern.build_seconds:.1f} s; "
-               f"{record['ptxas'][tag]}")
-        for line in narrow_ptxas(kern.build_log):
-            cs.log(f"    {line}")
     if args.sass is not None:
-        args.sass.mkdir(parents=True, exist_ok=True)
-        for tag, kern in builds.items():
-            sass = subprocess.run(
-                [str(Path(vb._nvcc()).with_name("cuobjdump")), "-sass",
-                 kern.library()._name], capture_output=True, text=True,
-                timeout=300, check=True).stdout
-            (args.sass / f"{tag}.sass").write_text("".join(
-                "\tFunction : " + f for f in sass.split("\tFunction : ")
-                if f.startswith(("_ZN", "vfl")) and "vfl_forward_narrow"
-                in f.split("\n", 1)[0]))
+        write_sass(builds, args.sass, "vfl_forward")
     tiny = torch.zeros(1, device=dev)
     record["floor_ms"] = cs._graph_ms(torch, tiny.zero_)
     cs.log(f"launch floor (a one-element fill): "
@@ -357,13 +378,13 @@ def main() -> int:
             row[f"{tag}_err"], row[f"{tag}_repeat_equal"] = err, same
             ok &= close and same
             fns[tag] = (lambda k=kern: call(k, kind, ops))
-        if kind != "forward":   # g: the backward sides are unchanged
-            row["g_equal_across_builds"] = all(torch.equal(gs[0], g)
-                                               for g in gs[1:])
-            ok &= row["g_equal_across_builds"]
-        times = {tag: [] for tag in builds}
-        for tag in order:
-            times[tag].append(cs._graph_ms(torch, fns[tag], **reps))
+        same = all(torch.equal(gs[0], g) for g in gs[1:])
+        if kind == "forward":   # recorded: a redesign may change the order
+            row["z_equal_across_builds"] = same
+        else:                   # g: the backward sides are unchanged
+            row["g_equal_across_builds"] = same
+            ok &= same
+        times = in_turns(torch, fns, order, **reps)
         row.update({f"{tag}_ms": ts for tag, ts in times.items()})
         row["library_ms"] = None if library is None \
             else cs._graph_ms(torch, library, **reps)
@@ -371,10 +392,10 @@ def main() -> int:
         record["rows"].append(row)
         lib = "-" if row["library_ms"] is None \
             else f"{row['library_ms'] * 1e3:.2f}"
-        same = row.get("g_equal_across_builds")
+        what = "z" if kind == "forward" else "g"
         cs.log(f"{name}: library {lib} us, bound "
-               f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})"
-               + ("" if same is None else f", g equal across builds {same}"))
+               f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}), "
+               f"{what} equal across builds {same}")
         for tag, ts in times.items():
             cs.log(f"    {tag:14s} {sum(ts) / len(ts) * 1e3:9.2f} us "
                    f"{[round(t * 1e3, 2) for t in ts]}  err "
