@@ -66,6 +66,26 @@ JAX or of the JAX package.
    ``train(multi_dominator=True, pipelined=True)`` for one SGD epoch,
    which must give the engine-driven iterate bit for bit.  Samples/s per
    kind.
+11. Stale-gradient (bounded-delay) training on phase 7's universe, τ = 4,
+   the delays ``party_delay_values(layout, 4, 0)`` per party and
+   ``party_dominator_delays(layout, 4, 0)`` per (party, dominator): one
+   epoch of each of the four delayed kinds (``delayed``,
+   ``multi_delayed``, ``pipelined_delayed``, ``multi_pipelined_delayed``
+   SGD) from w = 0 under ``two_tree``, run twice (the second timed and
+   equal to the first bit for bit), each under no host sync and within
+   ‖w − w₆₄‖/‖w₆₄‖ ≤ 1e-4 (its ring too) of the port's float64 staleness
+   oracle on the same schedule and delays; each stale iterate must differ
+   from its τ = 0 iterate (phases 7-8's fresh epoch) and lie at least
+   10× nearer its own oracle than the τ = 0 oracle does.  Delayed SGD
+   under ``off`` and ``ring`` against ``two_tree`` (1e-4); a second
+   delayed SGD epoch chained on the first, so that the ring and the step
+   counter cross the epoch boundary, against the chained oracle;
+   ``run_delayed_fused`` for one epoch, which must give the engine-driven
+   iterate bit for bit; at τ = 0 the delayed and pipelined delayed SGD
+   epochs within 1e-6 of phase 7's first SGD iterate and phase 8's
+   pipelined SGD iterate.  Samples/s and host µs a step per kind, and a
+   profiler window over 1,000 delayed SGD steps.  It runs before phase
+   9, on phase 7's resident data.
 9. LM serving, falcon-mamba-7b at full width (d_model 4096, d_inner 8192,
    N = 16, 64 layers, vocabulary 65,024, random weights from a seed) across
    q = 8 parties under ``two_tree``: ``launch.serve.serve`` with batch 4,
@@ -136,14 +156,15 @@ so the sums do not depend on scheduling.  ``vfl_fused_split``'s backward
 blocks are rows blocks.  Every program's launch count (all four sources)
 is reset just before phase 3 and read after
 phase 5, reset again just before phase 7's runs and read after them,
-just before phase 8 and after it, just before phase 9's serve call and
-after it, and just before phase 10's serve call and after it;
+just before phase 8 and after it, just before phase 11 and after it,
+just before phase 9's serve call and after it, and just before phase
+10's serve call and after it;
 each count must equal what the dispatch or step structure implies, every
 program of each path must have run, and no other program.  The
 ``kernels`` line has one entry per program, timed at its main-path shape
 (serving: the linear full dispatch and deep layer 1; training: the SGD
 step, the full-dataset reduce and the pipelined SGD step), with its
-launches summed over every path.  The ``selective_scan`` source holds one
+launches summed over every path (phases 3-8 and 11).  The ``selective_scan`` source holds one
 program, held against its plain version at the reference's sweep shapes,
 a ragged shape and phase 9's prefill shape (4, 2048, 8192), N = 16, bf16
 (1e-4 for f32 xa, 5e-2 for bf16), the last two also with a_log drawn per
@@ -1158,7 +1179,8 @@ def implied(steps=0, full=0, objective=0, pipe_steps=0):
     over 342 chunks and its reduce), ``objective`` evaluations (one
     forward) and one pipelined epoch of ``pipe_steps`` steps (a forward
     prologue, one split-batch fused launch per interior step, a backward
-    epilogue)."""
+    epilogue).  A delayed epoch launches as its fresh form does: the
+    ring's write and read are PyTorch ops, not kernel programs."""
     pipe = int(pipe_steps > 0)
     return Counter(vfl_forward_narrow=steps + full + objective + pipe,
                    vfl_backward_rows=steps + full + pipe,
@@ -1341,7 +1363,8 @@ def pipe_phase(torch, dev, x, y, layout, first_sgd, log_):
     against phase 7's sequential epoch on the same schedule (it must
     differ: the reads are one update old); and ``train(multi_dominator=True,
     pipelined=True)`` for one SGD epoch against the engine-driven epoch.
-    Returns (record, expected launches)."""
+    Returns (record, expected launches, each SGD kind's (iterate, float64
+    oracle) keyed by phase 11's delayed kind)."""
     from repro_torch.core import algorithms as alg
     from repro_torch.core.engine import EngineConfig, FusedEngine
     from repro_torch.core.losses import logistic_l2
@@ -1454,6 +1477,10 @@ def pipe_phase(torch, dev, x, y, layout, first_sgd, log_):
           > 10 * res["stale"]["vs_pipelined_f64"],
           "pipelined SGD is not nearer its own oracle than the sequential "
           "one")
+    # phase 11's τ = 0 iterates and oracles: each SGD kind's fresh epoch
+    fresh = {"delayed": (w_seq, seq64)}
+    for kind in KINDS:
+        fresh[f"{kind}_delayed"] = (out[kind, "sgd"], out64[kind, "sgd"])
     del eng
 
     for secure in ("off", "ring"):
@@ -1483,15 +1510,230 @@ def pipe_phase(torch, dev, x, y, layout, first_sgd, log_):
     check(res["train"]["bit_equal_to_epoch"],
           "train(multi_dominator, pipelined) differs from its epoch")
     log_(f"phase 8 train(sgd, multi_dominator, pipelined): {res['train']}")
+    return res, expected, fresh
+
+
+STALE_TAU = 4
+STALE_PROFILE_STEPS = 1000
+# delayed kind -> (multi-dominator, pipelined)
+STALE_KINDS = {"delayed": (False, False), "multi_delayed": (True, False),
+               "pipelined_delayed": (False, True),
+               "multi_pipelined_delayed": (True, True)}
+STALE_ORACLES = {"delayed": "delayed_sgd_epoch",
+                 "multi_delayed": "delayed_multi_sgd_epoch",
+                 "pipelined_delayed": "pipelined_delayed_sgd_epoch",
+                 "multi_pipelined_delayed":
+                 "pipelined_delayed_multi_sgd_epoch"}
+
+
+def stale_phase(torch, dev, x, y, layout, first_sgd, fresh, log_):
+    """Phase 11: the bounded-delay epochs at τ = 4 on phase 7's universe.
+    One epoch of each of the four delayed kinds from w = 0 under
+    ``two_tree`` on epoch 0's schedule, run twice (the first run captures
+    the step's graph, the second is timed and must equal the first bit for
+    bit), each under no host sync and held against the port's float64
+    staleness oracle on the same schedule and delays; each stale iterate
+    must differ from its τ = 0 iterate (``fresh``: phases 7-8's) and lie
+    at least 10x nearer its own oracle than the τ = 0 oracle does.
+    Delayed SGD under ``off`` and ``ring`` against ``two_tree``; a second
+    delayed SGD epoch chained on the first (the ring and the step counter
+    cross the epoch boundary) against the chained oracle;
+    ``run_delayed_fused`` for one epoch against the engine-driven epoch;
+    at τ = 0 the delayed SGD and pipelined delayed SGD epochs against
+    phase 7's first SGD iterate and phase 8's pipelined SGD iterate.
+    Returns (record, expected launches)."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import staleness as st
+    from repro_torch.core.engine import EngineConfig, FusedEngine
+    from repro_torch.core.losses import logistic_l2
+    n, d = x.shape
+    m, tau = layout.m, STALE_TAU
+    prob, lr, batch = logistic_l2(1e-4), TRAIN_LR, TRAIN_BATCH
+    steps = n // batch
+    x64, y64 = x.double(), y.double()
+    mask64 = torch.ones(d, dtype=torch.float64, device=dev)
+    key = (SEED, 0)
+
+    def unpack(vq):
+        return torch.cat([vq[p, : hi - lo]
+                          for p, (lo, hi) in enumerate(layout.bounds)])
+
+    def on_card(a):
+        return torch.from_numpy(a).to(dev).long()
+
+    delays = {False: on_card(st.party_delay_values(layout, tau, SEED)),
+              True: on_card(st.party_dominator_delays(layout, tau, SEED))}
+    coord = {False: on_card(st.party_delays(layout, d, tau, SEED)),
+             True: on_card(st.dominator_delays_by_coord(layout, d, tau,
+                                                        SEED))}
+    idx = {multi: alg.epoch_indices(SEED, 0, n, (m if multi else 1) * batch,
+                                    steps, dev) for multi in (False, True)}
+    idx1 = alg.epoch_indices(SEED, 1, n, batch, steps, dev)
+    check(torch.equal(first_sgd[0], idx[False]),
+          "phase 7's first SGD schedule is not epoch 0's")
+
+    expected = Counter()
+    res = {"tau": tau, "delays": delays[False].tolist(),
+           "dominator_delays": delays[True].tolist(), "epochs": [],
+           "secure_modes": {}}
+    eng = FusedEngine(prob, x, y, layout, EngineConfig(secure="two_tree"),
+                      device=dev)
+    zero = eng.pack_w(torch.zeros(d, device=dev))
+
+    def ring(multi, t):
+        return torch.zeros((layout.q, t + 1, eng.dp) + ((m,) if multi
+                                                         else ()),
+                           device=dev)
+
+    def oracle(kind, ix, state=None):
+        multi, _ = STALE_KINDS[kind]
+        if state is None:
+            state = st.init_multi_state(d, tau, m, dtype=torch.float64,
+                                        device=dev) if multi \
+                else st.init_state(d, tau, dtype=torch.float64, device=dev)
+        return getattr(st, STALE_ORACLES[kind])(
+            prob, state, x64, y64, lr, coord[multi], ix,
+            *((m,) if multi else ()), mask=mask64)
+
+    def rel(wq, w64):
+        return _rel(unpack(wq), w64)
+
+    out, states64 = {}, {}
+    for kind, (multi, pipelined) in STALE_KINDS.items():
+        fn = getattr(eng, f"{kind}_sgd_epoch")
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with no_host_sync(torch):
+                got = fn(zero, ring(multi, tau), 0, delays[multi], lr,
+                         idx[multi], tau, key)
+            torch.cuda.synchronize()
+            return got, time.perf_counter() - t0
+
+        first, first_seconds = run()
+        got, seconds = run()
+        check(all(torch.equal(a, b) for a, b in zip(first, got)),
+              f"{kind}: a second run differs from the first")
+        check(int(got[2]) == steps, f"{kind}: counter {int(got[2])} after "
+              f"{steps} steps")
+        out[kind] = got
+        per_run = implied(pipe_steps=steps) if pipelined \
+            else implied(steps=steps)
+        expected += per_run + per_run + implied(objective=1)
+        obj = eng.objective(got[0])
+        states64[kind] = o64 = oracle(kind, idx[multi])
+        w_fresh, fresh64 = fresh[kind]
+        rec = dict(kind=kind, seconds=seconds,
+                   samples_per_s=steps * idx[multi].shape[1] / seconds,
+                   host_us_per_step=seconds / steps * 1e6,
+                   first_seconds=first_seconds,
+                   rel_err_vs_f64=rel(got[0], o64.w),
+                   ring_rel_err_vs_f64=max(
+                       _rel(unpack(got[1][:, s]), o64.buf[s])
+                       for s in range(tau + 1)),
+                   vs_tau0_iterate=rel(got[0], unpack(w_fresh).double()),
+                   vs_tau0_f64=rel(got[0], fresh64),
+                   objective=obj)
+        obj64 = float(prob.loss(x64 @ o64.w, y64).mean()
+                      + prob.lam * prob.reg(o64.w).sum())
+        rec["objective_rel_err"] = abs(obj - obj64) / abs(obj64)
+        res["epochs"].append(rec)
+        log_(f"phase 11 {kind} (tau={tau}): {rec}")
+        check(rec["rel_err_vs_f64"] <= 1e-4, f"{kind}: iterate "
+              f"{rec['rel_err_vs_f64']:.3e} beyond 1e-4 of the float64 "
+              "staleness oracle")
+        check(rec["ring_rel_err_vs_f64"] <= 1e-4, f"{kind}: ring beyond "
+              "1e-4 of the float64 oracle's")
+        check(rec["objective_rel_err"] <= 1e-5,
+              f"{kind}: objective {obj} vs float64 {obj64}")
+        check(not torch.equal(got[0], w_fresh),
+              f"{kind}: the tau={tau} iterate equals the tau=0 one")
+        check(rec["vs_tau0_f64"] > 10 * rec["rel_err_vs_f64"],
+              f"{kind}: not 10x nearer its own oracle than the tau=0 one")
+
+    # the masks are lossless: off and ring agree with two_tree
+    w_tt = out["delayed"][0]
+    for secure in ("off", "ring"):
+        e2 = FusedEngine(prob, x, y, layout, EngineConfig(secure=secure),
+                         device=dev)
+        with no_host_sync(torch):
+            w2, _, _ = e2.delayed_sgd_epoch(zero, ring(False, tau), 0,
+                                            delays[False], lr, idx[False],
+                                            tau, key)
+        expected += implied(steps=steps)
+        r = _rel(unpack(w2), unpack(w_tt).double())
+        res["secure_modes"][secure] = dict(rel_vs_two_tree=r)
+        check(r <= 1e-4, f"delayed sgd {secure} vs two_tree: {r:.3e}")
+        del e2
+    log_(f"phase 11 secure modes agree: {res['secure_modes']}")
+
+    # a second epoch: the ring and the counter cross the epoch boundary
+    with no_host_sync(torch):
+        wq2, _, t2 = eng.delayed_sgd_epoch(*out["delayed"][:3],
+                                           delays[False], lr, idx1, tau,
+                                           (SEED, 1))
+    expected += implied(steps=steps)
+    chain64 = oracle("delayed", idx1, states64["delayed"])
+    res["chained"] = dict(rel_err_vs_f64=rel(wq2, chain64.w),
+                          counter=int(t2))
+    log_(f"phase 11 chained second epoch: {res['chained']}")
+    check(res["chained"]["rel_err_vs_f64"] <= 1e-4,
+          "chained delayed epoch beyond 1e-4 of the float64 oracle")
+    check(int(t2) == int(chain64.t) == 2 * steps,
+          f"chained counter {int(t2)} != {2 * steps}")
+
+    # the user's entry point gives the engine-driven epoch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w_run = st.run_delayed_fused(prob, x, y, layout, tau, 1, lr, batch,
+                                 seed=SEED, engine_config=EngineConfig(
+                                     secure="two_tree"), device=dev)
+    wall = time.perf_counter() - t0
+    expected += implied(steps=steps)
+    res["runner"] = dict(seconds=wall,
+                         bit_equal_to_epoch=bool(np.array_equal(
+                             w_run, unpack(w_tt).cpu().numpy())))
+    log_(f"phase 11 run_delayed_fused: {res['runner']}")
+    check(res["runner"]["bit_equal_to_epoch"],
+          "run_delayed_fused differs from its epoch")
+
+    # τ = 0: the ring hands each step its own gradient back
+    res["tau0"] = {}
+    for kind, pipelined in (("delayed", False), ("pipelined_delayed", True)):
+        with no_host_sync(torch):
+            w0, _, _ = getattr(eng, f"{kind}_sgd_epoch")(
+                zero, ring(False, 0), 0, torch.zeros_like(delays[False]),
+                lr, idx[False], 0, key)
+        expected += implied(pipe_steps=steps) if pipelined \
+            else implied(steps=steps)
+        w_fresh = fresh[kind][0]
+        res["tau0"][kind] = dict(rel_vs_fresh=rel(w0, unpack(w_fresh)
+                                                  .double()),
+                                 bit_equal=bool(torch.equal(w0, w_fresh)))
+        check(res["tau0"][kind]["rel_vs_fresh"] <= 1e-6,
+              f"{kind} at tau=0 differs from the fresh epoch")
+    log_(f"phase 11 tau=0 against the fresh epochs: {res['tau0']}")
+
+    # where a delayed step's time goes: a profiler window over the first
+    # STALE_PROFILE_STEPS rows of the schedule (the profiler takes about
+    # 40 s to read a whole epoch's window)
+    ix = idx[False][:STALE_PROFILE_STEPS]
+    res["profile_delayed"] = epoch_profile(
+        torch, lambda: eng.delayed_sgd_epoch(zero, ring(False, tau), 0,
+                                             delays[False], lr, ix, tau,
+                                             key), ix.shape[0])
+    for _ in range(3):
+        expected += implied(steps=ix.shape[0])
+    log_(f"phase 11 profile of {ix.shape[0]} delayed SGD steps: "
+         f"{res['profile_delayed']}")
+    del eng
     return res, expected
 
 
 def train_measure(torch, dev, x, y, layout):
     """After the counted run: the full-gradient pass time beside its bound
     and a profiler window over one SGD epoch."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core import algorithms as alg
     from repro_torch.core.engine import EngineConfig, FusedEngine
     from repro_torch.core.losses import logistic_l2
@@ -1517,32 +1759,42 @@ def train_measure(torch, dev, x, y, layout):
     idx = alg.epoch_indices(SEED, 99, n, TRAIN_BATCH, steps, dev)
     for name in ("sgd", "pipelined_sgd"):
         epoch = getattr(eng, f"{name}_epoch")
-        epoch(wq, TRAIN_LR, idx)                     # capture its graph
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        epoch(wq, TRAIN_LR, idx)
-        torch.cuda.synchronize()
-        plain_wall_us = (time.perf_counter() - t0) * 1e6
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            epoch(wq, TRAIN_LR, idx)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = {}
-        for ev in prof.key_averages():
-            if ev.device_type == DeviceType.CUDA:
-                kernels[ev.key] = kernels.get(ev.key, 0.0) \
-                    + ev.self_device_time_total
-        busy = sum(kernels.values())
-        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
-        out[f"profile_{name}"] = dict(
-            steps=steps, wall_us=wall_us, unprofiled_wall_us=plain_wall_us,
-            device_busy_us=busy,
-            device_busy_share=(busy / wall_us) if busy > 0 else None,
-            top_device_us=[[k[:80], v] for k, v in top])
+        out[f"profile_{name}"] = epoch_profile(
+            torch, lambda: epoch(wq, TRAIN_LR, idx), steps)
         log(f"profile of one {name} epoch: {out[f'profile_{name}']}")
     return out
+
+
+def epoch_profile(torch, epoch, steps):
+    """Run ``epoch()`` three times: to capture its step's graph, timed
+    without the profiler, and in a profiler window; returns the device
+    busy time by kernel over the window's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    epoch()                                          # capture its graph
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch()
+    torch.cuda.synchronize()
+    plain_wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        epoch()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) \
+                + ev.self_device_time_total
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
+    return dict(steps=steps, wall_us=wall_us,
+                unprofiled_wall_us=plain_wall_us, device_busy_us=busy,
+                device_busy_share=(busy / wall_us) if busy > 0 else None,
+                top_device_us=[[k[:80], v] for k, v in top])
 
 
 # ---------------------------------------------------------------------------
@@ -2145,8 +2397,8 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()                                  # phase 8 path starts
-    record["pipe"], expected = pipe_phase(torch, dev, x, y, layout,
-                                          first_sgd, log)
+    record["pipe"], expected, fresh = pipe_phase(torch, dev, x, y, layout,
+                                                 first_sgd, log)
     pipe_launches = dict(vg.KERNEL.launches)        # phase 8 path ends
     check_idle(_libs()[1:], "the phase 8 path")
     check(pipe_launches == {p: expected[p] for p in vg.PROGRAMS},
@@ -2159,7 +2411,29 @@ def main() -> int:
         "imply")
     record["pipe_launches"] = pipe_launches
     record["pipe_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    del x, y, first_sgd                             # free phases 7-8's data
+
+    t11 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                  # phase 11 path starts
+    record["stale"], expected = stale_phase(torch, dev, x, y, layout,
+                                            first_sgd, fresh, log)
+    stale_launches = dict(vg.KERNEL.launches)       # phase 11 path ends
+    check_idle(_libs()[1:], "the phase 11 path")
+    check(stale_launches == {p: expected[p] for p in vg.PROGRAMS},
+          f"phase 11 launches {stale_launches} != {dict(expected)} implied "
+          "by the steps")
+    check(all(stale_launches[p] for p in ("vfl_forward_narrow",
+                                          "vfl_backward_rows",
+                                          "vfl_fused_split")),
+          f"a kernel of the phase 11 path was never launched: "
+          f"{stale_launches}")
+    log(f"phase 11 path: kernel launches {stale_launches}, as the steps "
+        "imply")
+    record["stale_launches"] = stale_launches
+    record["stale_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    record["stale"]["seconds"] = time.perf_counter() - t11
+    log(f"phase 11: {record['stale']['seconds']:.1f} s")
+    del x, y, first_sgd, fresh                      # free phases 7-11's data
     torch.cuda.empty_cache()
 
     t9 = time.perf_counter()
@@ -2191,7 +2465,7 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/vfl_grad.cu",
             "replaces": "src/repro/kernels/vfl_grad.py:343",
             "launches": serve_launches[prog] + train_launches[prog]
-            + pipe_launches[prog],
+            + pipe_launches[prog] + stale_launches[prog],
             "max_abs_err": max(r["max_abs_err"] for r in shapes
                                if prog in r["programs"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -54,3 +54,9 @@ def secure_vfl_reduce(partial: torch.Tensor, gen: torch.Generator,
         raise ValueError(f"mode must be one of {MODES}; got {mode!r}")
     return _SecureVflReduce.apply(partial, gen, float(mask_scale),
                                   bool(schedule_faithful), mode)
+
+
+def host_theta(loss_grad_fn, agg, y):
+    """ϑ = ∂L(wᵀx, y)/∂(wᵀx), computed only where the labels live (the
+    active party)."""
+    return loss_grad_fn(agg, y)

@@ -8,8 +8,9 @@ contractions (``_fwd``, ``_bwd``, ``_bwd_doms`` and the pipelined step's
 split-batch fused modes), the masked secure aggregation over the party
 axis (``_agg``, Algorithm 1), the SGD / SVRG / SAGA epochs with their
 full-dataset passes (``full_gradient``, ``saga_init``), their
-multi-dominator, pipelined and multi-dominator pipelined forms, and the
-objective.
+multi-dominator, pipelined and multi-dominator pipelined forms, the
+bounded-delay SGD epochs in the same four forms (``core.staleness``
+semantics: per-party gradient rings), and the objective.
 
 Party axis: the q parties are the leading dimension of every
 party-stacked tensor on one device (``xs`` is (q, n, dp), an iterate
@@ -307,9 +308,7 @@ class FusedEngine:
         with ``carries``, the schedule and ``lr``, its counter at 0, and
         the mask generator seeded from ``mask_key``."""
         idx = torch.as_tensor(idx, dtype=torch.int64).to(self.device)
-        carries = {k: torch.as_tensor(v, dtype=torch.float32,
-                                      device=self.device)
-                   for k, v in carries.items()}
+        carries = {k: self._carry(v) for k, v in carries.items()}
         if idx.dim() != 2:
             raise ValueError(f"idx must be (steps, batch); got "
                              f"{tuple(idx.shape)}")
@@ -331,6 +330,16 @@ class FusedEngine:
         b["lr"].fill_(float(lr))
         seed_generator(self._gen, *mask_key, _TAG_STEPS)
         return loop
+
+    def _carry(self, v) -> torch.Tensor:
+        """A carry on the engine's device: float32, or int64 for integer
+        values (delays, the global step).  A host int is filled in on the
+        device: a host-to-device copy would synchronise."""
+        if isinstance(v, (int, np.integer)):
+            return torch.full((), int(v), dtype=torch.int64,
+                              device=self.device)
+        v = torch.as_tensor(v, device=self.device)
+        return v.float() if v.is_floating_point() else v.long()
 
     def _run(self, loop: _StepLoop, step, steps=None) -> None:
         """Run ``step(loop.bufs)`` ``steps`` times (default once per row of
@@ -505,6 +514,33 @@ class FusedEngine:
 
         return _Parts(lambda b: b["wq"], theta, apply, multi)
 
+    def _delayed_parts(self, multi: bool) -> _Parts:
+        """Stale-gradient SGD (``core.staleness``): SGD's forward columns
+        and ϑ; the update writes the step's gradient, regulariser
+        included, into ring slot t mod (τ+1) of ``bufq`` (q, τ+1, dp[, m]),
+        reads each party's (each (party, dominator) pair's) slot
+        max(t − d, 0) mod (τ+1) and applies the masked stale gradient
+        (multi: the sum of the m stale columns, each carrying the
+        regulariser of its own step's iterate).  The global step t is the
+        device counter ``step``; the slots are device indices, so a
+        replay of the captured step moves them."""
+        prob = self.problem
+
+        def apply(b, g, _):
+            wq, buf, t = b["wq"], b["bufq"], b["step"]
+            reg = prob.lam * prob.reg_grad(wq)
+            g = g + (reg[..., None] if multi else reg)
+            ring = buf.shape[1]
+            buf.index_copy_(1, (t % ring).view(1), g.unsqueeze(1))
+            eff = (t - b["delays"]).clamp_min(0) % ring     # (q[, m])
+            stale = buf.gather(1, eff[:, None, None].expand_as(
+                g.unsqueeze(1))).squeeze(1)
+            wq.sub_(b["lr"] * self.maskq * (stale.sum(-1) if multi
+                                            else stale))
+            t.add_(1)
+
+        return self._sgd_parts(multi)._replace(apply=apply)
+
     def _step_bwd(self, parts: _Parts, xb, th, denom: int):
         """The backward of a fresh step or of a pipelined epilogue."""
         if parts.doms:
@@ -555,11 +591,12 @@ class FusedEngine:
                     aux)
 
     def _run_epoch(self, algo: str, multi: bool, pipelined: bool, idx, lr,
-                   mask_key, **carries):
+                   mask_key, tag="", **carries):
         """Run one epoch of ``algo`` in the given form from ``carries``;
-        returns the loop's buffers."""
+        returns the loop's buffers.  ``tag`` completes the loop's name
+        where a carry's shape is not fixed by the engine (the ring's τ)."""
         name = ("multi_" if multi else "") \
-            + ("pipelined_" if pipelined else "") + algo
+            + ("pipelined_" if pipelined else "") + algo + tag
         parts = getattr(self, f"_{algo}_parts")(multi)
         loop = self._loop(name, idx, lr, mask_key, **carries)
         if pipelined:
@@ -580,6 +617,16 @@ class FusedEngine:
         b = self._run_epoch("saga", multi, pipelined, idx, lr, mask_key,
                             wq=wq, tabq=tabq, avgq=avgq)
         return b["wq"].clone(), b["tabq"].clone(), b["avgq"].clone()
+
+    def _delayed(self, multi, pipelined, wq, bufq, t0, delays, lr, idx, tau,
+                 mask_key):
+        if bufq.shape[1] != tau + 1:
+            raise ValueError(f"bufq holds {bufq.shape[1]} ring slots; "
+                             f"tau={tau} needs {tau + 1}")
+        b = self._run_epoch("delayed", multi, pipelined, idx, lr, mask_key,
+                            tag=str(tau), wq=wq, bufq=bufq, delays=delays,
+                            step=t0)
+        return b["wq"].clone(), b["bufq"].clone(), b["step"].clone()
 
     def sgd_epoch(self, wq, lr, idx, mask_key=(0,)):
         """One VFB²-SGD epoch over the schedule ``idx`` (steps, batch);
@@ -652,6 +699,45 @@ class FusedEngine:
         """Pipelined multi-dominator VFB²-SAGA: per-party, per-dominator Δϑ
         columns beside the single forward column, one launch per step."""
         return self._saga(True, True, wq, tabq, avgq, lr, idx, mask_key)
+
+    # -- bounded-delay (τ) epochs (core.staleness semantics) -----------------
+    #
+    # Party ℓ applies at global step t the BUM gradient of step
+    # t − d_ℓ (clamped at the first step), from a per-party ring of the
+    # last τ+1 gradients: ``bufq`` (q, τ+1, dp) with ``delays`` (q,), or
+    # per (party, dominator) for the multi-dominator forms, (q, τ+1, dp, m)
+    # with (q, m).  ``t0`` is the global step at the epoch's start (an int
+    # or a device int tensor); each epoch returns ``(wq, bufq, t0 +
+    # steps)``, the counter as a 0-d int64 device tensor, so that the ring
+    # and the counter carry into the next epoch.
+
+    def delayed_sgd_epoch(self, wq, bufq, t0, delays, lr, idx, tau,
+                          mask_key=(0,)):
+        """Stale-gradient VFB²-SGD over the (steps, B) schedule ``idx``."""
+        return self._delayed(False, False, wq, bufq, t0, delays, lr, idx,
+                             tau, mask_key)
+
+    def multi_delayed_sgd_epoch(self, wq, bufq, t0, delays, lr, idx, tau,
+                                mask_key=(0,)):
+        """Multi-dominator stale-gradient VFB²-SGD over the (steps, m·B)
+        schedule: dominator j's gradient column ages in ring column j
+        under party ℓ's delay d_{ℓ,j}."""
+        return self._delayed(True, False, wq, bufq, t0, delays, lr, idx,
+                             tau, mask_key)
+
+    def pipelined_delayed_sgd_epoch(self, wq, bufq, t0, delays, lr, idx,
+                                    tau, mask_key=(0,)):
+        """Pipelined stale-gradient VFB²-SGD: each step's stale-read (τ = 1)
+        gradient enters the ring (written by every interior step and by
+        the epilogue, never by the prologue)."""
+        return self._delayed(False, True, wq, bufq, t0, delays, lr, idx,
+                             tau, mask_key)
+
+    def multi_pipelined_delayed_sgd_epoch(self, wq, bufq, t0, delays, lr,
+                                          idx, tau, mask_key=(0,)):
+        """Pipelined multi-dominator stale-gradient VFB²-SGD."""
+        return self._delayed(True, True, wq, bufq, t0, delays, lr, idx, tau,
+                             mask_key)
 
     def objective(self, wq) -> float:
         """Full objective (one device sync; for per-epoch telemetry).

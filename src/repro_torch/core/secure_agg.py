@@ -23,16 +23,71 @@ Each function returns the aggregate every party receives, without the
 party dimension.  ``transcript``, when a list, receives the party-stacked
 tensor of the values that cross the party boundary (for the security
 tests: every transmitted value is mask-offset).
+
+``secure_aggregate_host`` is the faithful host form of Algorithm 1: numpy
+values, explicit masks drawn from a ``np.random.Generator``, explicit
+tree schedules, and an ``AggTranscript`` of every message each party
+receives.  For the same generator and trees it gives the reference's
+numbers bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import trees as trees_lib
+
+
+@dataclasses.dataclass
+class AggTranscript:
+    """Every value each party observed during the protocol (for audits)."""
+
+    # messages[p] = list of (tag, value) pairs party p received
+    messages: List[List[Tuple[str, np.ndarray]]]
+
+    def seen_by(self, party: int) -> List[np.ndarray]:
+        return [v for _, v in self.messages[party]]
+
+
+def secure_aggregate_host(
+    partials: Sequence[np.ndarray],
+    rng: np.random.Generator,
+    t1: Optional[trees_lib.ReductionTree] = None,
+    t2: Optional[trees_lib.ReductionTree] = None,
+    mask_scale: float = 1.0,
+) -> Tuple[np.ndarray, AggTranscript]:
+    """Algorithm 1 on host values; returns (sum, transcript).
+
+    ``partials[ℓ]`` is party ℓ's local ``w_{G_ℓ}ᵀ(x_i)_{G_ℓ}`` (any shape).
+    Each party masks its partial with δ_ℓ ~ N(0, mask_scale²), the masked
+    values are reduced over T1 and the masks over T2, and the output is
+    ξ1 − ξ2.  Without trees, ``trees.default_tree_pair(q)``; explicit
+    trees may violate Definition 4, to study the collusion attack."""
+    q = len(partials)
+    if t1 is None or t2 is None:
+        t1, t2 = trees_lib.default_tree_pair(q)   # checks Definition 4
+    partials = [np.asarray(p, dtype=np.float64) for p in partials]
+    deltas = [mask_scale * rng.standard_normal(partials[0].shape)
+              for _ in range(q)]
+    masked = [p + d for p, d in zip(partials, deltas)]
+    transcript = AggTranscript(messages=[[] for _ in range(q)])
+
+    def run(tree: trees_lib.ReductionTree, values, tag: str):
+        acc = list(values)
+        for rnd in tree.rounds:
+            for dst, src in rnd:
+                transcript.messages[dst].append((f"{tag}:from{src}",
+                                                 acc[src].copy()))
+                acc[dst] = acc[dst] + acc[src]
+        return acc[tree.root]
+
+    xi1 = run(t1, masked, "xi1")   # masked sum over T1
+    xi2 = run(t2, deltas, "xi2")   # mask sum over the different T2
+    return xi1 - xi2, transcript
 
 
 def seed_generator(gen: torch.Generator, seed: int, *key) -> torch.Generator:

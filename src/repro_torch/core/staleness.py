@@ -1,0 +1,268 @@
+"""Bounded-delay (τ) emulation of BAPA: the stale-gradient linear epochs.
+
+The port of ``repro.core.staleness``, its linear part.  The paper's
+asynchronous iterate sequence (Eqs. 4–5) is realised deterministically:
+party ℓ applies, at global step t, the BUM gradient computed from the
+iterate of step t − d_ℓ, with per-party delays d_ℓ ≤ τ.  The state is a
+ring of the last τ+1 gradients; early steps read slot max(t − d, 0), the
+first step's gradient.  Every active party is the dominator of its own
+block, so all m active-party delays are zero.
+
+Multi-dominator: party ℓ receives m update streams, one per dominator,
+each aging under its own delay d_{ℓ,j} (a (q, m) matrix with d_{j,j} = 0):
+dominator j's gradient column, regulariser of its own step's iterate
+included, enters ring column j, and the applied update sums the m stale
+columns.
+
+Pipelined: the gradient entering the ring is already a τ = 1 stale-read
+one (ϑ from the forward read taken before the previous update), which
+composes with the delay schedule to a total delay of τ + 1.
+
+* The oracles (``delayed_sgd_epoch``, ``pipelined_delayed_sgd_epoch``,
+  ``delayed_multi_sgd_epoch``, ``pipelined_delayed_multi_sgd_epoch``)
+  are plain torch on the pooled (n, d) data with the per-coordinate delay
+  form, (d,) or (d, m), dtype-generic, and take an explicit
+  ``(steps, batch)`` (``(steps, m·batch)``) int64 schedule ``idx``
+  where the reference draws one from its key.
+* The delay schedules are numpy and give the reference's integers for the
+  same seed.
+* The runners ``run_delayed_fused`` and ``run_delayed_multi_fused`` run
+  ``core.engine.FusedEngine``'s delayed epochs (each a CUDA-graph replay
+  of its step on the card), carrying the ring and the global step from
+  one epoch to the next.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.algorithms import PartyLayout, _rounds, epoch_indices
+from repro_torch.core.losses import Problem
+
+
+# ---------------------------------------------------------------------------
+# delay schedules (numpy; the reference's integers for the same seed)
+# ---------------------------------------------------------------------------
+
+def party_delay_values(layout: PartyLayout, tau: int,
+                       seed: int = 0) -> np.ndarray:
+    """One delay in [0, τ] per party (the deterministic τ₁/τ₂ schedule);
+    the m active parties' delays are zero (Alg. 2: a dominator's own block
+    update uses its fresh gradient).  (q,) int32."""
+    rng = np.random.default_rng(seed)
+    per_party = rng.integers(0, tau + 1, size=layout.q)
+    per_party[:layout.m] = 0
+    return per_party.astype(np.int32)
+
+
+def party_delays(layout: PartyLayout, d: int, tau: int,
+                 seed: int = 0) -> np.ndarray:
+    """The per-party delays mapped to coordinates: (d,) int32."""
+    per_party = party_delay_values(layout, tau, seed)
+    return per_party[layout.party_of_coord(d)].astype(np.int32)
+
+
+def party_dominator_delays(layout: PartyLayout, tau: int,
+                           seed: int = 0) -> np.ndarray:
+    """(q, m) int32 delays d_{ℓ,j}: party ℓ's staleness for dominator j's
+    update stream; the diagonal d_{j,j} is zero."""
+    rng = np.random.default_rng(seed)
+    dd = rng.integers(0, tau + 1, size=(layout.q, layout.m))
+    for j in range(layout.m):
+        dd[j, j] = 0
+    return dd.astype(np.int32)
+
+
+def dominator_delays_by_coord(layout: PartyLayout, d: int, tau: int,
+                              seed: int = 0) -> np.ndarray:
+    """The (q, m) schedule mapped to coordinates: (d, m) int32."""
+    dd = party_dominator_delays(layout, tau, seed)
+    return dd[layout.party_of_coord(d)].astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# oracle state
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DelayedState:
+    w: torch.Tensor          # (d,)
+    buf: torch.Tensor        # (τ+1, d) gradient ring
+    t: torch.Tensor          # 0-d int64 global step
+
+
+@dataclasses.dataclass
+class MultiDelayedState:
+    w: torch.Tensor          # (d,)
+    buf: torch.Tensor        # (τ+1, d, m) per-dominator gradient ring
+    t: torch.Tensor          # 0-d int64 global step
+
+
+def init_state(d: int, tau: int, *, dtype=torch.float32,
+               device="cuda") -> DelayedState:
+    dev = resolve_device(device)
+    return DelayedState(w=torch.zeros(d, dtype=dtype, device=dev),
+                        buf=torch.zeros((tau + 1, d), dtype=dtype,
+                                        device=dev),
+                        t=torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def init_multi_state(d: int, tau: int, m: int, *, dtype=torch.float32,
+                     device="cuda") -> MultiDelayedState:
+    dev = resolve_device(device)
+    return MultiDelayedState(w=torch.zeros(d, dtype=dtype, device=dev),
+                             buf=torch.zeros((tau + 1, d, m), dtype=dtype,
+                                             device=dev),
+                             t=torch.zeros((), dtype=torch.int64,
+                                           device=dev))
+
+
+# ---------------------------------------------------------------------------
+# oracles
+# ---------------------------------------------------------------------------
+
+def _delayed_round(problem: Problem, x, y, lr, mask, delays, m: int):
+    """One stale step on the state ``(w, buf, t)`` from the forward read
+    ``z`` of the round's rows: the m dominators' gradients (each
+    Xᵀϑ_j/B + λ∇g(w)) enter ring slot t, and the update applies slot
+    max(t − d, 0) of each coordinate (of each (coordinate, dominator)
+    pair, summed over the dominators).  ``m = 1`` with (d,) delays is the
+    single-dominator form."""
+    multi = delays.dim() == 2
+
+    def step(state, z, ib):
+        w, buf, t = state
+        theta = problem.theta(z, y[ib])
+        b = ib.shape[0] // m
+        g = (x[ib].view(m, b, -1).transpose(1, 2) @ theta.view(m, b, 1)) \
+            .squeeze(-1).T / b + problem.lam * problem.reg_grad(w)[:, None]
+        if not multi:
+            g = g[:, 0]
+        ring = buf.shape[0]
+        buf = buf.index_copy(0, (t % ring).view(1), g[None])
+        eff = (t - delays).clamp_min(0) % ring
+        stale = buf.gather(0, eff[None]).squeeze(0)
+        if multi:
+            stale = stale.sum(1)
+        return w - lr * mask * stale, buf, t + 1
+
+    return step
+
+
+def _delayed_epoch(problem, state, x, y, lr, delays, idx, m, mask,
+                   pipelined):
+    upd = torch.ones_like(state.w) if mask is None else mask
+    delays = torch.as_tensor(delays, device=state.w.device).long()
+    w, buf, t = _rounds(_delayed_round(problem, x, y, lr, upd, delays, m),
+                        (state.w, state.buf, state.t),
+                        lambda st, ib: x[ib] @ st[0], idx, pipelined)
+    return type(state)(w=w, buf=buf, t=t)
+
+
+def delayed_sgd_epoch(problem: Problem, state: DelayedState, x, y, lr,
+                      delays, idx, mask=None) -> DelayedState:
+    """One epoch of stale-gradient VFB²-SGD over the (steps, B) schedule
+    ``idx``.  ``delays``: (d,) per-coordinate delays (constant per party
+    block); ``mask``: optional (d,) update mask — frozen blocks stay
+    frozen on the delayed path too."""
+    return _delayed_epoch(problem, state, x, y, lr, delays, idx, 1, mask,
+                          False)
+
+
+def pipelined_delayed_sgd_epoch(problem: Problem, state: DelayedState, x,
+                                y, lr, delays, idx,
+                                mask=None) -> DelayedState:
+    """The pipelined stale-gradient epoch: step t's gradient comes from
+    the τ = 1 stale forward read (the epoch's first read is fresh), then
+    ages in the ring as in :func:`delayed_sgd_epoch`."""
+    return _delayed_epoch(problem, state, x, y, lr, delays, idx, 1, mask,
+                          True)
+
+
+def delayed_multi_sgd_epoch(problem: Problem, state: MultiDelayedState, x,
+                            y, lr, delays, idx, m: int,
+                            mask=None) -> MultiDelayedState:
+    """Multi-dominator stale-gradient VFB²-SGD over the (steps, m·B)
+    schedule ``idx``: the m dominators compute their gradients from the
+    same read w_t; gradient j enters ring column j; the update sums, per
+    coordinate, each dominator's gradient from step t − d_{·,j}.
+    ``delays``: (d, m)."""
+    return _delayed_epoch(problem, state, x, y, lr, delays, idx, m, mask,
+                          False)
+
+
+def pipelined_delayed_multi_sgd_epoch(problem: Problem,
+                                      state: MultiDelayedState, x, y, lr,
+                                      delays, idx, m: int,
+                                      mask=None) -> MultiDelayedState:
+    """Pipelined multi-dominator stale-gradient epoch: the m ϑ vectors of
+    step t come from the τ = 1 stale forward read, then each column ages
+    in its ring column as in :func:`delayed_multi_sgd_epoch`."""
+    return _delayed_epoch(problem, state, x, y, lr, delays, idx, m, mask,
+                          True)
+
+
+# ---------------------------------------------------------------------------
+# runners (the fused engine's delayed epochs)
+# ---------------------------------------------------------------------------
+
+def _run_fused(problem, x, y, layout, tau, epochs, lr, batch, seed,
+               engine_config, active_only, pipelined, device, multi):
+    from repro_torch.core.engine import EngineConfig, FusedEngine  # cycle
+
+    n, d = x.shape
+    cfg = engine_config if engine_config is not None else EngineConfig()
+    eng = FusedEngine(problem, x, y, layout, cfg, active_only=active_only,
+                      device=device)
+    delays = party_dominator_delays(layout, tau, seed) if multi \
+        else party_delay_values(layout, tau, seed)
+    delays = torch.from_numpy(delays).to(eng.device)
+    wq = eng.pack_w(np.zeros(d, np.float32))
+    bufq = torch.zeros((layout.q, tau + 1, eng.dp)
+                       + ((layout.m,) if multi else ()),
+                       dtype=torch.float32, device=eng.device)
+    t0 = 0
+    steps = max(1, n // batch)
+    rows = layout.m * batch if multi else batch
+    epoch = getattr(eng, ("multi_" if multi else "")
+                    + ("pipelined_" if pipelined else "")
+                    + "delayed_sgd_epoch")
+    for ep in range(epochs):
+        idx = epoch_indices(seed, ep, n, rows, steps, eng.device)
+        wq, bufq, t0 = epoch(wq, bufq, t0, delays, lr, idx, tau, (seed, ep))
+    return eng.unpack_w(wq)
+
+
+def run_delayed_fused(problem: Problem, x, y, layout: PartyLayout,
+                      tau: int, epochs: int, lr: float, batch: int,
+                      seed: int = 0, engine_config=None,
+                      active_only: bool = False, pipelined: bool = False,
+                      device="cuda") -> np.ndarray:
+    """Bounded-delay VFB²-SGD on the fused engine, on ``device`` (default
+    the card; raises without one).  Epoch ``ep`` runs the schedule
+    ``epoch_indices(seed, ep, n, batch, n // batch)`` with masks seeded
+    from ``(seed, ep)``, as ``algorithms.train`` does, under the delays
+    ``party_delay_values(layout, tau, seed)``; the ring and the global
+    step carry across epochs.  ``active_only=True`` freezes the passive
+    blocks; ``pipelined=True`` runs the pipelined delayed epoch.  Returns
+    the final (d,) iterate."""
+    return _run_fused(problem, x, y, layout, tau, epochs, lr, batch, seed,
+                      engine_config, active_only, pipelined, device, False)
+
+
+def run_delayed_multi_fused(problem: Problem, x, y, layout: PartyLayout,
+                            tau: int, epochs: int, lr: float, batch: int,
+                            seed: int = 0, engine_config=None,
+                            active_only: bool = False,
+                            pipelined: bool = False,
+                            device="cuda") -> np.ndarray:
+    """Multi-dominator bounded-delay VFB²-SGD on the fused engine: m·batch
+    ids a step (``epoch_indices(seed, ep, n, m*batch, n // batch)``), each
+    party carrying m gradient rings under the (q, m) delays
+    ``party_dominator_delays(layout, tau, seed)``.  Otherwise as
+    :func:`run_delayed_fused`.  Returns the final (d,) iterate."""
+    return _run_fused(problem, x, y, layout, tau, epochs, lr, batch, seed,
+                      engine_config, active_only, pipelined, device, True)

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch import convert, resolve_device
 from repro_torch.configs.base import get_arch
-from repro_torch.core import algorithms, engine, losses
+from repro_torch.core import algorithms, engine, losses, staleness
 from repro_torch.launch.serve import serve
 from repro_torch.models import model as lm_model
 from repro_torch.serve import ServeEngine
@@ -65,7 +65,8 @@ def _cpu_engine():
     "resolve_device", "FusedEngine", "ServeEngine", "linear_iterate",
     "deep_params", "svrg_state", "saga_state", "train", "train_fused",
     "train_multi_pipelined", "serve", "lm_params", "lm_init_params",
-    "serve_dense", "lm_init_params_dense", "lm_init_cache_dense"])
+    "serve_dense", "lm_init_params_dense", "lm_init_cache_dense",
+    "run_delayed_fused", "run_delayed_multi_fused", "init_state"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
                                                                entry):
     x = np.ones((6, 4), np.float32)
@@ -103,6 +104,13 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
             get_arch("gemma3_4b").reduced()),
         "lm_init_cache_dense": lambda: lm_model.init_cache(
             Runtime(), get_arch("gemma3_4b").reduced(), 1, 4),
+        "run_delayed_fused": lambda: staleness.run_delayed_fused(
+            losses.ridge(), x, np.ones(6, np.float32),
+            algorithms.PartyLayout.even(4, 2, 1), 1, 1, 0.1, 2),
+        "run_delayed_multi_fused": lambda: staleness.run_delayed_multi_fused(
+            losses.ridge(), x, np.ones(6, np.float32),
+            algorithms.PartyLayout.even(4, 2, 1), 1, 1, 0.1, 2),
+        "init_state": lambda: staleness.init_state(4, 1),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
