@@ -17,10 +17,12 @@ JAX or of the JAX package.
 2. Kernel phase: ``vfl_grad`` forward, backward and fused (split-batch)
    against their plain PyTorch versions on the card at the serving and
    training shapes (the minibatch steps, the multi-dominator
-   block-diagonal backward, the pipelined steps and the full-dataset
-   passes), ragged shapes, fewer rows than a backward block has warps (B =
-   7), a one-row second chunk (B = 1,025), a wide side, a chunked backward
-   side and bf16 (atol = rtol = 1e-4), and ``selective_scan`` (below);
+   block-diagonal backward, the pipelined steps, the full-dataset
+   passes, and phase 12's deep steps and ``deep_full_gradient`` passes
+   with hidden 32 and d_rep 16 as M), ragged shapes, fewer rows than a
+   backward block has warps (B = 7), a one-row second chunk (B = 1,025),
+   a wide side, a chunked backward side and bf16 (atol = rtol = 1e-4),
+   and ``selective_scan`` (below);
    kernel, plain and library times from CUDA events over CUDA-graph
    replays, beside the byte/FLOP bound.  No single PyTorch call computes
    the split-batch function: its rows time the ``matmul`` + ``baddbmm``
@@ -86,6 +88,24 @@ JAX or of the JAX package.
    pipelined SGD iterate.  Samples/s and host µs a step per kind, and a
    profiler window over 1,000 delayed SGD steps.  It runs before phase
    9, on phase 7's resident data.
+12. Deep training on phase 7's resident data and problem (hidden 32,
+   d_rep 16: deep serving's widths; batch 32, lr = 1e-3), from the port's
+   ``deep_vfl.initial_params(0)`` under ``two_tree``: one full epoch
+   (10,937 steps) of each of the 8 deep kinds ({SGD, SVRG} × {fresh,
+   multi-dominator, pipelined, multi-dominator pipelined}; SVRG with its
+   ``deep_full_gradient`` μ), run twice (the second timed and equal to
+   the first bit for bit), each under no host sync, finite and below its
+   starting objective; each kind's first 1,000 steps (their own loop
+   shape) against the port's float64 oracle ``train_deep_vfl`` on the
+   same schedule (every leaf within ‖·−·₆₄‖/‖·₆₄‖ ≤ 1e-4, the objective
+   within a relative 1e-5); deep SGD under ``off`` and ``ring`` against
+   ``two_tree`` (1e-4); pipelined SGD against the sequential one (it must
+   differ and lie 10× nearer its own oracle); ``train(deep=True,
+   engine="fused")`` for one SGD epoch, which must give the engine-driven
+   iterate bit for bit.  Samples/s and host µs a step per kind,
+   ``deep_full_gradient``'s time beside its bytes bound (X read twice),
+   and profiler windows over 1,000 deep SGD and 1,000 pipelined deep SGD
+   steps.  It runs after phase 11 and before phase 9.
 9. LM serving, falcon-mamba-7b at full width (d_model 4096, d_inner 8192,
    N = 16, 64 layers, vocabulary 65,024, random weights from a seed) across
    q = 8 parties under ``two_tree``: ``launch.serve.serve`` with batch 4,
@@ -157,6 +177,7 @@ blocks are rows blocks.  Every program's launch count (all four sources)
 is reset just before phase 3 and read after
 phase 5, reset again just before phase 7's runs and read after them,
 just before phase 8 and after it, just before phase 11 and after it,
+just before phase 12 and after it,
 just before phase 9's serve call and after it, and just before phase
 10's serve call and after it;
 each count must equal what the dispatch or step structure implies, every
@@ -164,7 +185,7 @@ program of each path must have run, and no other program.  The
 ``kernels`` line has one entry per program, timed at its main-path shape
 (serving: the linear full dispatch and deep layer 1; training: the SGD
 step, the full-dataset reduce and the pipelined SGD step), with its
-launches summed over every path (phases 3-8 and 11).  The ``selective_scan`` source holds one
+launches summed over every path (phases 3-8, 11 and 12).  The ``selective_scan`` source holds one
 program, held against its plain version at the reference's sweep shapes,
 a ragged shape and phase 9's prefill shape (4, 2048, 8192), N = 16, bf16
 (1e-4 for f32 xa, 5e-2 for bf16), the last two also with a_log drawn per
@@ -230,6 +251,7 @@ SEED = 0
 BATCH = 64                       # max_batch: requests per dispatch
 Q, M_ACT, D, N = 8, 2, 4096, 350_000
 TRAIN_BATCH, TRAIN_LR, TRAIN_EPOCHS = 32, 1e-3, 2
+DEEP_HIDDEN, DEEP_DREP = 32, 16  # deep serving's and training's widths
 SFU_EXP_PER_CLOCK_PER_SM = 16    # Hopper's special-function units (ex2)
 LM_ARCH, LM_Q, LM_BATCH, LM_PROMPT, LM_GEN = "falcon_mamba_7b", 8, 4, 2048, 32
 LM_TOL = 5e-2                    # the reference's bf16 scan tolerance
@@ -377,6 +399,12 @@ def kernel_phase(torch, dev):
         ("deep_layer1_bf16", 8, 64, 512, 32, torch.bfloat16),
         ("train_step", 8, 32, 512, None, torch.float32),
         ("train_svrg_step", 8, 32, 512, 2, torch.float32),
+        # phase 12's deep steps (the multi-dominator layer 1 and layer 2
+        # are deep serving's (8, 64, 512)·32 and (8, 64, 32)·16 above)
+        ("deep_train_layer1", 8, 32, 512, 32, torch.float32),
+        ("deep_train_layer2", 8, 32, 32, 16, torch.float32),
+        ("deep_svrg_layer1", 8, 32, 512, 64, torch.float32),
+        ("deep_multi_svrg_layer1", 8, 64, 512, 64, torch.float32),
     ]
     for name, p, b, d, m, dtype in fwd:
         x = randn(*((b, d) if p is None else (p, b, d)), dtype=dtype)
@@ -407,6 +435,14 @@ def kernel_phase(torch, dev):
         ("chunk_edge", 2, 1025, 512, 2, False, True, None, torch.float32),
         ("train_sgd_step_bf16", 8, 32, 512, None, True, False, None,
          torch.bfloat16),
+        # phase 12's deep steps: xᵀ∂u per party at Mθ = hidden (SVRG:
+        # 2·hidden), hᵀϑ_z with ϑ_z shared at Mθ = d_rep
+        ("deep_w1_step", 8, 32, 512, 32, False, False, 1, torch.float32),
+        ("deep_svrg_w1_step", 8, 32, 512, 64, False, False, 1,
+         torch.float32),
+        ("deep_multi_w1_step", 8, 64, 512, 32, False, False, 1,
+         torch.float32),
+        ("deep_w2_step", 8, 32, 32, 16, True, False, 1, torch.float32),
     ]
     for name, p, b, d, m, shared, with_w, denom, dtype in bwd:
         x = randn(p, b, d, dtype=dtype)
@@ -477,8 +513,53 @@ def kernel_phase(torch, dev):
         lambda: vg.KERNEL.reduce(ws, None, g, float(N), 0.0),
         lambda: ws.sum(0) / N, lambda: torch.sum(ws, 0).div_(N),
         _nbytes(ws) + g.numel() * 4, float(ws.numel())))
-    del x, ws
+    del ws
+    rows += deep_full_rows(torch, dev, randn, x)
+    del x
     torch.cuda.empty_cache()
+    return rows
+
+
+def deep_full_rows(torch, dev, randn, x):
+    """``deep_full_gradient``'s passes over all n samples (phase 12's SVRG
+    μ): layer 1's wide forward (8, 350000, 512)·32 and its backward at
+    Mθ = 32 (rows and reduce), layer 2's forward (8, 350000, 32)·16 and
+    its backward against the shared ϑ_z (n, 16)."""
+    from repro_torch.kernels import ops, ref
+    rows = []
+    hid, drep = DEEP_HIDDEN, DEEP_DREP
+    w1 = randn(Q, D // Q, hid)
+    rows.append(_kernel_row(
+        torch, "deep_full_layer1", ["vfl_forward_wide"], x,
+        lambda: ops.vfl_grad(x, w1)[0], lambda: ref.vfl_forward_ref(x, w1),
+        lambda: torch.matmul(x, w1), _nbytes(x, w1) + Q * N * hid * 4,
+        2.0 * x.numel() * hid, big=True))
+    # ∂u and ϑ_z carry the path's 1/n (ϑ_logit is the loss's derivative
+    # over n), so the sums stay at the gradient's scale
+    du = randn(Q, N, hid) / N
+    zeros = torch.zeros((Q, D // Q, hid), device=dev)
+    rows.append(_kernel_row(
+        torch, "deep_full_w1", ["vfl_backward_rows", "vfl_backward_reduce"],
+        x, lambda: ops.vfl_grad(x, None, du, mode="backward", denom=1)[1],
+        lambda: ref.vfl_backward_ref(x, du, None, 0.0, 1),
+        lambda: torch.baddbmm(zeros, x.transpose(1, 2), du, beta=0.0),
+        _nbytes(x, du) + zeros.numel() * 4, 2.0 * x.numel() * hid,
+        big=True))
+    h, w2 = torch.tanh(randn(Q, N, hid)), randn(Q, hid, drep)
+    rows.append(_kernel_row(
+        torch, "deep_full_layer2", ["vfl_forward_wide"], h,
+        lambda: ops.vfl_grad(h, w2)[0], lambda: ref.vfl_forward_ref(h, w2),
+        lambda: torch.matmul(h, w2), _nbytes(h, w2) + Q * N * drep * 4,
+        2.0 * h.numel() * drep, big=True))
+    thz = (randn(N, drep) / N).expand(Q, N, drep)
+    zeros = torch.zeros((Q, hid, drep), device=dev)
+    rows.append(_kernel_row(
+        torch, "deep_full_w2", ["vfl_backward_rows", "vfl_backward_reduce"],
+        h, lambda: ops.vfl_grad(h, None, thz, mode="backward", denom=1)[1],
+        lambda: ref.vfl_backward_ref(h, thz, None, 0.0, 1),
+        lambda: torch.baddbmm(zeros, h.transpose(1, 2), thz, beta=0.0),
+        _nbytes(h, thz) + zeros.numel() * 4, 2.0 * h.numel() * drep,
+        big=True))
     return rows
 
 
@@ -520,6 +601,14 @@ def fused_rows(torch, dev, randn):
         ("ragged_split", 3, 60, 40, 70, 1, 3, True, 0.0, None, False),
         ("fused_lam", Q, 32, None, 512, 2, 2, False, 0.03, None, False),
         ("wide_split", Q, 32, 32, 512, 32, 32, False, 0.0, None, False),
+        # phase 12's pipelined deep steps: xᵀ∂u beside the next round's
+        # layer-1 forward, per-party ∂u, Mw = Mθ = hidden (SVRG 2·hidden)
+        ("deep_pipe_sgd_step", Q, 32, 32, 512, 32, 32, False, 0.0, 1,
+         False),
+        ("deep_pipe_svrg_step", Q, 32, 32, 512, 64, 64, False, 0.0, 1,
+         False),
+        ("deep_multi_pipe_sgd_step", Q, 64, 64, 512, 32, 32, False, 0.0, 1,
+         False),
         ("chunked_split", 3, 2500, 100, 130, 2, 2, False, 0.03, None,
          False),
     ]
@@ -1731,6 +1820,228 @@ def stale_phase(torch, dev, x, y, layout, first_sgd, fresh, log_):
     return res, expected
 
 
+DEEP_PREFIX = 1000               # steps of the oracle and profiler runs
+# deep kind -> (multi-dominator, pipelined)
+DEEP_KINDS = {"fresh": (False, False), "multi": (True, False),
+              "pipelined": (False, True), "multi_pipelined": (True, True)}
+
+
+def deep_implied(steps=0, svrg_steps=0, full=0, objective=0, pipe_steps=0):
+    """Launches per kernel program implied by ``steps`` fresh deep SGD
+    steps (layer 1's and layer 2's wide forward, hᵀϑ_z and xᵀ∂u on the
+    rows program), ``svrg_steps`` fresh deep SVRG steps (3 and 3: the
+    iterate and the snapshot share layer 1's forward and backward),
+    ``full`` ``deep_full_gradient`` passes (two wide forwards and two
+    backwards over all n rows, each with its reduce), ``objective``
+    ``deep_objective`` evaluations (two wide forwards) and one pipelined
+    epoch of ``pipe_steps`` steps (a layer-1 forward prologue, one
+    split-batch launch per interior step, a backward epilogue)."""
+    pipe = int(pipe_steps > 0)
+    return Counter(
+        vfl_forward_wide=2 * steps + 3 * svrg_steps + 2 * full
+        + 2 * objective + pipe,
+        vfl_backward_rows=2 * steps + 3 * svrg_steps + 2 * full + pipe,
+        vfl_backward_reduce=2 * full,
+        vfl_fused_split=max(pipe_steps - 1, 0))
+
+
+def _deep_method(kind, algo):
+    multi, pipelined = DEEP_KINDS[kind]
+    return "deep_" + ("multi_" if multi else "") \
+        + ("pipelined_" if pipelined else "") + f"{algo}_epoch"
+
+
+def deep_train_phase(torch, dev, x, y, layout, log_):
+    """Phase 12: deep training on phase 7's resident data.  One full epoch
+    of each of the 8 deep kinds ({SGD, SVRG} × {fresh, multi, pipelined,
+    multi pipelined}) from the port's ``initial_params(SEED)`` under
+    ``two_tree``, run twice (the first run captures, the second is timed
+    and must equal the first bit for bit), each under no host sync; each
+    kind's first ``DEEP_PREFIX`` steps (their own loop shape) against the
+    port's float64 oracle on the same schedule (every leaf within 1e-4
+    relative, the objective within 1e-5); ``off`` and ``ring`` deep SGD
+    against ``two_tree``; pipelined SGD against the sequential one (it
+    must differ and lie 10× nearer its own oracle); ``train(deep=True,
+    engine="fused")`` for one SGD epoch against the engine-driven epoch,
+    bit for bit; ``deep_full_gradient``'s time beside its bytes bound;
+    profiler windows over ``DEEP_PREFIX`` deep SGD and pipelined SGD
+    steps.  Returns (record, expected launches)."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import deep_vfl
+    from repro_torch.core.engine import EngineConfig, FusedEngine
+    from repro_torch.core.losses import logistic_l2
+    n, d = x.shape
+    m = layout.m
+    prob, lr, batch = logistic_l2(1e-4), TRAIN_LR, TRAIN_BATCH
+    steps = n // batch
+    key = (SEED, 0)
+    x64, y64 = x.double(), y.double()
+    expected = Counter()
+    res = {"hidden": DEEP_HIDDEN, "d_rep": DEEP_DREP, "lr": lr, "epochs": [],
+           "secure_modes": {}}
+    eng = FusedEngine(prob, x, y, layout, EngineConfig(secure="two_tree"),
+                      device=dev)
+    p0 = deep_vfl.initial_params(SEED, layout, d, DEEP_HIDDEN, DEEP_DREP)
+    pq0 = eng.pack_deep(p0)
+    res["objective_start"] = obj0 = eng.deep_objective(pq0)
+    expected += deep_implied(objective=1)
+    log_(f"phase 12 objective at the start: {obj0}")
+    idx = {multi: alg.epoch_indices(SEED, 0, n, (m if multi else 1) * batch,
+                                    steps, dev) for multi in (False, True)}
+
+    def leaves(params):
+        return [*params.enc_w1, *params.enc_b1, *params.enc_w2, params.head]
+
+    def rel_leaves(pq, params64):
+        return max(_rel(a, b) for a, b in zip(leaves(eng.unpack_deep(pq)),
+                                              leaves(params64)))
+
+    def run(fn, algo, ix):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_host_sync(torch):
+            if algo == "sgd":
+                got = fn(pq0, lr, ix, key)
+            else:
+                got = fn(pq0, pq0, eng.deep_full_gradient(pq0, key), lr, ix,
+                         key)
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    def launches(algo, pipelined, s):
+        per = deep_implied(full=algo == "svrg")
+        if pipelined:
+            return per + deep_implied(pipe_steps=s)
+        return per + deep_implied(**{"steps" if algo == "sgd"
+                                     else "svrg_steps": s})
+
+    out, pre, out64 = {}, {}, {}
+    for kind, (multi, pipelined) in DEEP_KINDS.items():
+        ix = idx[multi]
+        for algo in ("sgd", "svrg"):
+            fn = getattr(eng, _deep_method(kind, algo))
+            first, first_seconds = run(fn, algo, ix)
+            got, seconds = run(fn, algo, ix)
+            check(all(torch.equal(a, b) for a, b in zip(first, got)),
+                  f"deep {kind} {algo}: a second run differs from the first")
+            check(all(bool(torch.isfinite(a).all()) for a in got),
+                  f"deep {kind} {algo}: non-finite parameters")
+            out[kind, algo] = got
+            obj = eng.deep_objective(got)
+            # the oracle comparison over the schedule's first DEEP_PREFIX
+            # rows (their own loop shape)
+            pre[kind, algo], _ = run(fn, algo, ix[:DEEP_PREFIX])
+            expected += launches(algo, pipelined, steps) \
+                + launches(algo, pipelined, steps) \
+                + launches(algo, pipelined, DEEP_PREFIX) \
+                + deep_implied(objective=2)
+            o64, hist64 = deep_vfl.train_deep_vfl(
+                prob, x64, y64, layout, epochs=1, lr=lr, batch=batch,
+                params=p0, algo=algo, multi_dominator=multi,
+                pipelined=pipelined, indices=[ix[:DEEP_PREFIX]], device=dev)
+            out64[kind, algo] = o64
+            pre_obj = eng.deep_objective(pre[kind, algo])
+            rec = dict(kind=kind, algo=algo, seconds=seconds,
+                       samples_per_s=steps * ix.shape[1] / seconds,
+                       host_us_per_step=seconds / steps * 1e6,
+                       first_seconds=first_seconds, objective=obj,
+                       prefix_rel_err_vs_f64=rel_leaves(pre[kind, algo],
+                                                        o64),
+                       prefix_objective=pre_obj,
+                       prefix_objective_f64=hist64[0],
+                       prefix_objective_rel_err=abs(pre_obj - hist64[0])
+                       / abs(hist64[0]))
+            res["epochs"].append(rec)
+            log_(f"phase 12 {kind} {algo}: {rec}")
+            check(rec["prefix_rel_err_vs_f64"] <= 1e-4,
+                  f"deep {kind} {algo}: a leaf "
+                  f"{rec['prefix_rel_err_vs_f64']:.3e} beyond 1e-4 of the "
+                  "float64 oracle")
+            check(rec["prefix_objective_rel_err"] <= 1e-5,
+                  f"deep {kind} {algo}: objective {pre_obj} vs float64 "
+                  f"{hist64[0]}")
+            check(obj < obj0, f"deep {kind} {algo}: objective {obj} not "
+                  f"below the start's {obj0}")
+
+    # the pipelined iterate is genuinely stale: not the sequential one, and
+    # far nearer its own float64 oracle than the sequential oracle
+    w_pipe = pre["pipelined", "sgd"]
+    res["stale"] = dict(
+        vs_sequential_f64=rel_leaves(w_pipe, out64["fresh", "sgd"]),
+        vs_pipelined_f64=rel_leaves(w_pipe, out64["pipelined", "sgd"]))
+    log_(f"phase 12 pipelined vs sequential SGD: {res['stale']}")
+    check(not all(torch.equal(a, b)
+                  for a, b in zip(w_pipe, pre["fresh", "sgd"])),
+          "deep pipelined SGD equals the sequential epoch")
+    check(res["stale"]["vs_sequential_f64"]
+          > 10 * res["stale"]["vs_pipelined_f64"],
+          "deep pipelined SGD is not 10x nearer its own oracle than the "
+          "sequential one")
+
+    # the masks are lossless: off and ring agree with two_tree
+    want = leaves(eng.unpack_deep(out["fresh", "sgd"]))
+    for secure in ("off", "ring"):
+        e2 = FusedEngine(prob, x, y, layout, EngineConfig(secure=secure),
+                         device=dev)
+        with no_host_sync(torch):
+            got = e2.deep_sgd_epoch(pq0, lr, idx[False], key)
+        expected += deep_implied(steps=steps)
+        r = max(_rel(a, b.double())
+                for a, b in zip(leaves(e2.unpack_deep(got)), want))
+        res["secure_modes"][secure] = dict(rel_vs_two_tree=r)
+        check(r <= 1e-4, f"deep sgd {secure} vs two_tree: {r:.3e}")
+        del e2
+    log_(f"phase 12 secure modes agree: {res['secure_modes']}")
+
+    # the user's entry point gives the engine-driven epoch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = alg.train(prob, x, y, layout, algo="sgd", epochs=1, lr=lr,
+                   batch=batch, seed=SEED, engine="fused",
+                   engine_config=EngineConfig(secure="two_tree"), deep=True,
+                   hidden=DEEP_HIDDEN, d_rep=DEEP_DREP, device=dev)
+    wall = time.perf_counter() - t0
+    expected += deep_implied(steps=steps, objective=1)
+    res["train"] = dict(seconds=wall, samples_per_s=steps * batch / wall,
+                        bit_equal_to_epoch=all(
+                            torch.equal(a, b) for a, b in
+                            zip(leaves(tr.params), want)))
+    log_(f"phase 12 train(deep=True, sgd): {res['train']}")
+    check(res["train"]["bit_equal_to_epoch"],
+          "train(deep=True) differs from its epoch")
+
+    # deep SVRG's μ: the full-dataset passes, beside the bytes bound of
+    # reading X twice (the aggregation sits between the two reads)
+    eng.deep_full_gradient(pq0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        eng.deep_full_gradient(pq0)
+    end.record()
+    end.synchronize()
+    expected += deep_implied(full=11)
+    xbytes = eng.xs.numel() * eng.xs.element_size()
+    res["full_gradient"] = dict(
+        ms=start.elapsed_time(end) / 10,
+        bound_ms=2 * xbytes / HBM_BYTES_PER_S * 1e3)
+    log_(f"phase 12 deep_full_gradient: {res['full_gradient']}")
+
+    # where a deep step's time goes: profiler windows over DEEP_PREFIX
+    # steps (never whole epochs: reading a window takes ~4 ms a step)
+    for kind in ("fresh", "pipelined"):
+        fn = getattr(eng, _deep_method(kind, "sgd"))
+        ix = idx[False][:DEEP_PREFIX]
+        res[f"profile_{kind}_sgd"] = epoch_profile(
+            torch, lambda: fn(pq0, lr, ix, key), DEEP_PREFIX)
+        for _ in range(3):
+            expected += launches("sgd", kind == "pipelined", DEEP_PREFIX)
+        log_(f"phase 12 profile of {DEEP_PREFIX} deep {kind} SGD steps: "
+             f"{res[f'profile_{kind}_sgd']}")
+    del eng
+    return res, expected
+
+
 def train_measure(torch, dev, x, y, layout):
     """After the counted run: the full-gradient pass time beside its bound
     and a profiler window over one SGD epoch."""
@@ -2433,7 +2744,32 @@ def main() -> int:
     record["stale_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     record["stale"]["seconds"] = time.perf_counter() - t11
     log(f"phase 11: {record['stale']['seconds']:.1f} s")
-    del x, y, first_sgd, fresh                      # free phases 7-11's data
+    del first_sgd, fresh
+
+    t12 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                  # phase 12 path starts
+    record["deep_train"], expected = deep_train_phase(torch, dev, x, y,
+                                                      layout, log)
+    deep_launches = dict(vg.KERNEL.launches)        # phase 12 path ends
+    check_idle(_libs()[1:], "the phase 12 path")
+    check(deep_launches == {p: expected[p] for p in vg.PROGRAMS},
+          f"phase 12 launches {deep_launches} != {dict(expected)} implied "
+          "by the steps")
+    check(all(deep_launches[p] for p in ("vfl_forward_wide",
+                                         "vfl_backward_rows",
+                                         "vfl_backward_reduce",
+                                         "vfl_fused_split")),
+          f"a kernel of the phase 12 path was never launched: "
+          f"{deep_launches}")
+    log(f"phase 12 path: kernel launches {deep_launches}, as the steps "
+        "imply")
+    record["deep_train_launches"] = deep_launches
+    record["deep_train_peak_memory_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    record["deep_train"]["seconds"] = time.perf_counter() - t12
+    log(f"phase 12: {record['deep_train']['seconds']:.1f} s")
+    del x, y                                        # free phases 7-12's data
     torch.cuda.empty_cache()
 
     t9 = time.perf_counter()
@@ -2465,7 +2801,8 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/vfl_grad.cu",
             "replaces": "src/repro/kernels/vfl_grad.py:343",
             "launches": serve_launches[prog] + train_launches[prog]
-            + pipe_launches[prog] + stale_launches[prog],
+            + pipe_launches[prog] + stale_launches[prog]
+            + deep_launches[prog],
             "max_abs_err": max(r["max_abs_err"] for r in shapes
                                if prog in r["programs"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -1,10 +1,11 @@
 """VFB²-SGD / -SVRG / -SAGA (paper Algorithms 2–7): the plain oracles and
 the trainer.
 
-The port of ``repro.core.algorithms``, its linear part: the
-single-dominator, multi-dominator and pipelined epochs.  ``PartyLayout``
-is a numpy-only copy, kept here so the port imports nothing of the JAX
-package.
+The port of ``repro.core.algorithms``: the linear epochs (single-
+dominator, multi-dominator and pipelined) and the trainer, which also
+routes ``deep=True`` to ``core.deep_vfl`` and the engine's deep epochs.
+``PartyLayout`` is a numpy-only copy, kept here so the port imports
+nothing of the JAX package.
 
 The epoch oracles are plain torch on the pooled (n, d) data: the
 aggregation Σ_ℓ X_{G_ℓ} w_{G_ℓ} is block-separable, so ``x[ib] @ w`` is
@@ -325,6 +326,9 @@ def multi_pipelined_saga_epoch(problem: Problem, w, theta_tab, avg, x, y,
 class TrainResult:
     w: np.ndarray
     history: List[dict]  # per-epoch: objective, epoch, algo
+    # deep runs carry the full DeepVFLParams here; ``w`` is then the
+    # shared head vector (the active parties' model)
+    params: object = None
 
 
 def _eval(problem, w, x, y):
@@ -348,8 +352,8 @@ _ORACLES = {
     ("saga", True, True): multi_pipelined_saga_epoch,
 }
 
-_UNPORTED = (("deep", "A8"), ("checkpoint_dir", "A9"),
-             ("resume_from", "A9"), ("supervise", "A10"))
+_UNPORTED = (("checkpoint_dir", "A9"), ("resume_from", "A9"),
+             ("supervise", "A10"))
 
 
 def train(
@@ -368,7 +372,10 @@ def train(
     engine_config=None,         # core.engine.EngineConfig when engine="fused"
     multi_dominator: bool = False,  # all m active parties update per round
     pipelined: bool = False,    # τ = 1 backward(t) ∥ forward(t+1) schedule
-    deep: bool = False,
+    deep: bool = False,         # nonlinear party-local encoders (deep VFB²)
+    hidden: int = 32,           # deep: encoder hidden width
+    d_rep: int = 16,            # deep: aggregated representation width
+    deep_params=None,           # deep: DeepVFLParams warm start (w0 analogue)
     checkpoint_dir: Optional[str] = None,
     resume_from: Optional[str] = None,
     supervise: bool = False,
@@ -376,7 +383,9 @@ def train(
 ) -> TrainResult:
     """Train a linear VFB² model for ``epochs`` epochs of ``algo`` in
     {"sgd", "svrg", "saga"} on ``device`` (default the card; raises
-    without one, so the CPU runs only when asked for).
+    without one, so the CPU runs only when asked for).  ``deep=True``
+    trains the deep model instead (``algo`` in {"sgd", "svrg"}; see
+    :func:`_train_deep`).
 
     ``x`` (n, d) and ``y`` (n,) are numpy arrays or tensors.  Epoch ``ep``
     runs the schedule ``epoch_indices(seed, ep, n, batch, n // batch)``
@@ -387,16 +396,24 @@ def train(
     schedule.  The fused engine's masks are seeded from ``(seed, ep)``.
     ``history`` holds each epoch's full objective.
 
-    ``deep``, ``checkpoint_dir``, ``resume_from`` and ``supervise`` are
-    not ported yet and raise ``NotImplementedError`` naming the ROADMAP
-    queue-A item that ports them.
+    ``checkpoint_dir``, ``resume_from`` and ``supervise`` are not ported
+    yet and raise ``NotImplementedError`` naming the ROADMAP queue-A item
+    that ports them.
     """
-    given = dict(deep=deep, checkpoint_dir=checkpoint_dir,
-                 resume_from=resume_from, supervise=supervise)
+    given = dict(checkpoint_dir=checkpoint_dir, resume_from=resume_from,
+                 supervise=supervise)
     for name, item in _UNPORTED:
         if given[name] not in (False, None):
             raise NotImplementedError(
                 f"train({name}=...) is not ported yet (ROADMAP {item})")
+    if deep:
+        if w0 is not None:
+            raise ValueError("deep VFB² has no flat w0; pass deep_params="
+                             "(a DeepVFLParams) to warm-start")
+        return _train_deep(problem, x, y, layout, algo, epochs, lr, batch,
+                           seed, active_only, engine, engine_config,
+                           multi_dominator, pipelined, hidden, d_rep,
+                           deep_params, resolve_device(device))
     if algo not in ("sgd", "svrg", "saga"):
         raise ValueError(f"unknown algo {algo}")
     dev = resolve_device(device)
@@ -468,6 +485,64 @@ def _train_fused(problem, x, y, layout, algo, epochs, lr, batch, seed,
         hist.append({"epoch": ep + 1, "objective": eng.objective(wq),
                      "algo": algo, "engine": "fused"})
     return TrainResult(w=eng.unpack_w(wq), history=hist)
+
+
+def _train_deep(problem, x, y, layout, algo, epochs, lr, batch, seed,
+                active_only, engine, engine_config, multi_dominator,
+                pipelined, hidden, d_rep, deep_params, dev) -> TrainResult:
+    """Deep VFB²: party-local two-layer encoders.  ``engine="reference"``
+    runs ``core.deep_vfl.train_deep_vfl`` (the sequential oracle),
+    ``engine="fused"`` the engine's ``deep_*_epoch`` methods; both start
+    from ``deep_params`` (default ``deep_vfl.initial_params(seed, ...)``)
+    and run epoch ``ep``'s schedule ``epoch_indices(seed, ep, n, rows,
+    n // batch)``, so they agree to float tolerance.
+    ``active_only=True`` freezes the passive encoders.  ``w`` in the result
+    is the head; the full ``DeepVFLParams`` ride ``result.params``."""
+    from repro_torch.core import deep_vfl  # lazy: deep_vfl imports this
+
+    if algo not in ("sgd", "svrg"):
+        raise ValueError(f"deep VFB² supports algo in ('sgd', 'svrg'); "
+                         f"got {algo!r}")
+    if engine == "reference":
+        params, objs = deep_vfl.train_deep_vfl(
+            problem, x, y, layout, algo=algo, epochs=epochs, lr=lr,
+            batch=batch, seed=seed, hidden=hidden, d_rep=d_rep,
+            freeze_passive=active_only, params=deep_params,
+            multi_dominator=multi_dominator, pipelined=pipelined,
+            device=dev)
+        hist = [{"epoch": i + 1, "objective": o, "algo": f"deep_{algo}"}
+                for i, o in enumerate(objs)]
+        return TrainResult(w=params.head.cpu().numpy(), history=hist,
+                           params=params)
+    if engine != "fused":
+        raise ValueError(f"unknown engine {engine}")
+    from repro_torch.core.engine import EngineConfig, FusedEngine  # cycle
+
+    n, d = x.shape
+    cfg = engine_config if engine_config is not None else EngineConfig()
+    eng = FusedEngine(problem, x, y, layout, cfg, active_only=active_only,
+                      device=dev)
+    if deep_params is None:
+        deep_params = deep_vfl.initial_params(seed, layout, d, hidden, d_rep)
+    pq = eng.pack_deep(deep_params)
+    steps = max(1, n // batch)
+    rows = layout.m * batch if multi_dominator else batch
+    name = ("multi_" if multi_dominator else "") \
+        + ("pipelined_" if pipelined else "") + algo
+    fn = getattr(eng, f"deep_{name}_epoch")
+    hist = []
+    for ep in range(epochs):
+        idx = epoch_indices(seed, ep, n, rows, steps, dev)
+        key = (seed, ep)
+        if algo == "sgd":
+            pq = fn(pq, lr, idx, key)
+        else:  # the snapshot aliases the live iterate
+            pq = fn(pq, pq, eng.deep_full_gradient(pq, key), lr, idx, key)
+        hist.append({"epoch": ep + 1, "objective": eng.deep_objective(pq),
+                     "algo": f"deep_{algo}", "engine": "fused"})
+    params = eng.unpack_deep(pq)
+    return TrainResult(w=params.head.cpu().numpy(), history=hist,
+                       params=params)
 
 
 def accuracy(w, x, y) -> float:

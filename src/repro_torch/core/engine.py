@@ -10,7 +10,9 @@ axis (``_agg``, Algorithm 1), the SGD / SVRG / SAGA epochs with their
 full-dataset passes (``full_gradient``, ``saga_init``), their
 multi-dominator, pipelined and multi-dominator pipelined forms, the
 bounded-delay SGD epochs in the same four forms (``core.staleness``
-semantics: per-party gradient rings), and the objective.
+semantics: per-party gradient rings), the deep (party-local two-layer
+encoder) SGD and SVRG epochs in the four fresh and pipelined forms with
+``deep_full_gradient``, and the linear and deep objectives.
 
 Party axis: the q parties are the leading dimension of every
 party-stacked tensor on one device (``xs`` is (q, n, dp), an iterate
@@ -62,6 +64,8 @@ from repro_torch.kernels import vfl_grad as _vg
 
 # mask-stream tags, one per entry point (the reference's fold_in constants)
 _TAG_STEPS, _TAG_FULL, _TAG_SAGA_INIT = 0x5EC, 0xF, 0xA
+# the deep parameter leaves, as the loops' buffers name them
+_DEEP = ("w1", "b1", "w2", "head")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,13 +204,15 @@ class _StepLoop:
 class FusedEngine:
     """Holds the packed vertical data and the security configuration, and
     runs the kernel-backed contractions, the masked aggregation and the
-    linear epochs.
+    linear and deep epochs.
 
     Iterates are **party-stacked**: a linear iterate ``wq`` is (q, dp);
     use :meth:`pack_w`/:meth:`unpack_w` at the boundary.  SAGA's state is
     ``tabq`` (q, n), every party's copy of the ϑ̃ table, and ``avgq``
     (q, dp), as in the reference.  ``active_only=True`` freezes the
-    passive parties' blocks (AFSVRG-VP).
+    passive parties' blocks (AFSVRG-VP).  Deep parameters are the
+    party-stacked ``pq = (w1q, b1q, w2q, headq)`` of :meth:`pack_deep`;
+    ``active_only`` freezes the passive encoders too (``trainq``).
     """
 
     def __init__(self, problem: Problem, x, y, layout: PartyLayout,
@@ -225,6 +231,11 @@ class FusedEngine:
         self.dp = int(self.xs.shape[2])
         self.y = torch.as_tensor(y, dtype=torch.float32, device=self.device)
         self.maskq = pack_mask(layout, active_only, self.device)
+        # (q,) trainability of the deep encoders' b1 and w2 (no coordinate
+        # rows for maskq to act on): active_only freezes the passive ones
+        self.trainq = torch.tensor(
+            [1.0 if (not active_only or p < layout.m) else 0.0
+             for p in range(layout.q)], device=self.device)
         # party p's sample i is row p*n + i of xs viewed as (q*n, dp)
         self._row0 = torch.arange(self.q, device=self.device)[:, None] \
             * self.n
@@ -738,6 +749,232 @@ class FusedEngine:
         """Pipelined multi-dominator stale-gradient VFB²-SGD."""
         return self._delayed(True, True, wq, bufq, t0, delays, lr, idx, tau,
                              mask_key)
+
+    # -- deep VFB² epochs (party-local two-layer encoders) ---------------------
+    #
+    # Party ℓ holds w1 (dp, hidden), b1 (hidden,) and w2 (hidden, d_rep);
+    # the head (d_rep,) is replicated over the party axis (the stand-in for
+    # the dominator broadcasting ϑ_z) and takes the same update in every
+    # row.  A fresh step: layer 1's and layer 2's forward through the
+    # kernel (hidden and d_rep as M), one masked aggregation of the
+    # (q, R, d_rep) partials, ϑ_z = ϑ_logit·head shared by every party, and
+    # the Jacobian-transpose contractions hᵀϑ_z and xᵀ∂u through the kernel:
+    # 4 launches.  SVRG runs the iterate (side "") and the snapshot (side
+    # "s") together: one layer-1 forward against [W1 | W1ˢ] and one
+    # backward against [∂u₁ | ∂u₀] (M = 2·hidden), two layer-2 forwards and
+    # backwards, one aggregation of both partial sets: 6 launches.  A
+    # pipelined interior step is one split-batch launch, round t's xᵀ∂u
+    # beside round t+1's layer-1 forward at the pre-update params; its
+    # layer 2 is plain batched matmuls, as in the reference, and its
+    # activations ``h``/``hs`` and aggregate ``agg`` ride the loop's
+    # buffers.  Every leaf carries mdom·λ∇g(·) (the m dominators' updates
+    # summed in the multi-dominator forms); SVRG's μ leaves are ``mw1``,
+    # ``mb1``, ``mw2``, ``mhead``.
+
+    def _deep_cols(self, b, sides):
+        """Layer 1's forward columns: W1, or [W1 | W1ˢ] for SVRG."""
+        if len(sides) == 1:
+            return b["w1"]
+        return torch.cat([b["w1" + s] for s in sides], 2)
+
+    def _deep_acts(self, b, u, sides, kernel: bool):
+        """Each side's activations h (q, R, hidden) from layer 1's forward
+        ``u`` and the masked aggregate (R, sides·d_rep) of layer 2's
+        partials, through the kernel or (pipelined) a plain matmul."""
+        hid = b["w1"].shape[2]
+        hs = [torch.tanh(u[..., i * hid:(i + 1) * hid] + b["b1" + s][:, None])
+              for i, s in enumerate(sides)]
+        layer2 = self._fwd if kernel else torch.matmul
+        parts = [layer2(h, b["w2" + s]) for h, s in zip(hs, sides)]
+        return hs, self._agg(parts[0] if len(parts) == 1
+                             else torch.cat(parts, 2), self._gen)
+
+    def _deep_tail(self, h, agg, yb, w2, head, mdom: int, kernel: bool):
+        """One side's application-time data gradients from its activations
+        h and aggregate ``agg`` (R, d_rep): ϑ_logit at the dominator, ϑ_z
+        shared by every party, each party's Jacobian transpose.  Returns
+        (∂u (q, R, hidden), g_b1, g_w2, g_head) without the regulariser;
+        hᵀϑ_z through the kernel or a plain batched matmul."""
+        hd = head[0]
+        th_l = self.problem.theta(agg @ hd, yb) / (yb.shape[0] // mdom)
+        th_z = th_l[:, None] * hd
+        g_w2 = self._bwd(h, self._share(th_z), 1) if kernel \
+            else h.transpose(1, 2) @ th_z
+        du = (th_z @ w2.transpose(1, 2)) * (1.0 - h * h)
+        return du, du.sum(1), g_w2, agg.T @ th_l
+
+    def _deep_round(self, b, sides, mdom: int, hs, agg, yb, contract,
+                    kernel: bool):
+        """Apply one deep round from the activations ``hs`` and aggregate
+        ``agg``: ``contract(∂u)`` forms xᵀ∂u (and, pipelined, the next
+        round's forward) before the update, in place on the loop's
+        leaves."""
+        prob = self.problem
+        dr = b["head"].shape[1]
+        tails = [self._deep_tail(h, agg[:, i * dr:(i + 1) * dr], yb,
+                                 b["w2" + s], b["head" + s], mdom, kernel)
+                 for i, (h, s) in enumerate(zip(hs, sides))]
+        gx = contract(tails[0][0] if len(sides) == 1
+                      else torch.cat([t[0] for t in tails], 2))
+        lam = mdom * prob.lam
+        if len(sides) == 1:
+            g = [a + lam * prob.reg_grad(b[k])
+                 for a, k in zip((gx,) + tails[0][1:], _DEEP)]
+        else:
+            hid = b["w1"].shape[2]
+            data = (gx[..., :hid] - gx[..., hid:],) + tuple(
+                a - c for a, c in zip(tails[0][1:], tails[1][1:]))
+            g = [a + lam * (prob.reg_grad(b[k]) - prob.reg_grad(b[k + "s"]))
+                 + mdom * b["m" + k] for a, k in zip(data, _DEEP)]
+        lr = b["lr"]
+        b["w1"].sub_(lr * self.maskq[..., None] * g[0])
+        b["b1"].sub_(lr * self.trainq[:, None] * g[1])
+        b["w2"].sub_(lr * self.trainq[:, None, None] * g[2])
+        b["head"].sub_(lr * g[3])
+
+    def _deep_fresh_step(self, b, sides, mdom: int):
+        """A fresh deep step: 4 kernel launches (SVRG: 6)."""
+        ib, xb, yb = self._batch(b)
+        hs, agg = self._deep_acts(b, self._fwd(xb, self._deep_cols(b, sides)),
+                                  sides, True)
+        self._deep_round(b, sides, mdom, hs, agg, yb,
+                         lambda du: self._bwd(xb, du, 1), True)
+
+    def _deep_store(self, b, sides, hs, agg):
+        """Carry the next round's activations and aggregate in the loop's
+        buffers."""
+        for h, s in zip(hs, sides):
+            b["h" + s].copy_(h)
+        b["agg"].copy_(agg)
+
+    def _deep_pipe_step(self, b, sides, mdom: int):
+        """An interior pipelined deep step: exactly one kernel launch."""
+        ib, xcat, yb = self._pair(b)
+
+        def contract(du):
+            u, gx = self._pipe(xcat, ib.shape[0], self._deep_cols(b, sides),
+                               du, 1)
+            # round t+1's read, at the params before round t's update
+            self._deep_store(b, sides, *self._deep_acts(b, u, sides, False))
+            return gx
+
+        self._deep_round(b, sides, mdom, [b["h" + s] for s in sides],
+                         b["agg"], yb, contract, False)
+
+    def _deep_pipelined(self, loop: _StepLoop, sides, mdom: int) -> None:
+        """A pipelined deep epoch: the layer-1 forward prologue of schedule
+        row 0, ``steps − 1`` interior steps and the backward epilogue of
+        the last row (launches: steps + 1)."""
+        b = loop.bufs
+        hs, agg = self._deep_acts(
+            b, self._fwd(self._gather(b["idx"][0]), self._deep_cols(b, sides)),
+            sides, False)
+        for k, v in zip(["h" + s for s in sides] + ["agg"], hs + [agg]):
+            if k not in b:
+                b[k] = torch.empty_like(v)
+        self._deep_store(b, sides, hs, agg)
+        self._run(loop, lambda bufs: self._deep_pipe_step(bufs, sides, mdom),
+                  b["idx"].shape[0] - 1)
+        ib = b["idx"][-1]
+        xb = self._gather(ib)
+        self._deep_round(b, sides, mdom, [b["h" + s] for s in sides],
+                         b["agg"], self.y.index_select(0, ib),
+                         lambda du: self._bwd(xb, du, 1), False)
+
+    def _deep(self, multi, pipelined, pq, lr, idx, mask_key, snap=None,
+              muq=None):
+        """One deep epoch from the party-stacked ``pq`` (SVRG: with the
+        snapshot ``snap`` and its full gradient ``muq``); returns the new
+        ``(w1q, b1q, w2q, headq)``."""
+        svrg = snap is not None
+        sides = ("", "s") if svrg else ("",)
+        carries = dict(zip(_DEEP, pq))
+        if svrg:
+            carries.update(zip((k + "s" for k in _DEEP), snap))
+            carries.update(zip(("m" + k for k in _DEEP), muq))
+        name = "deep_" + ("multi_" if multi else "") \
+            + ("pipelined_" if pipelined else "") \
+            + ("svrg" if svrg else "sgd") \
+            + "_{}x{}".format(*pq[2].shape[1:])
+        mdom = self.layout.m if multi else 1
+        loop = self._loop(name, idx, lr, mask_key, **carries)
+        if pipelined:
+            self._deep_pipelined(loop, sides, mdom)
+        else:
+            self._run(loop, lambda b: self._deep_fresh_step(b, sides, mdom))
+        return tuple(loop.bufs[k].clone() for k in _DEEP)
+
+    def deep_sgd_epoch(self, pq, lr, idx, mask_key=(0,)):
+        """One deep VFB²-SGD epoch over the schedule ``idx`` (steps, B) from
+        the party-stacked ``pq = (w1q, b1q, w2q, headq)`` of
+        :meth:`pack_deep`; returns the new ``pq``."""
+        return self._deep(False, False, pq, lr, idx, mask_key)
+
+    def deep_multi_sgd_epoch(self, pq, lr, idx, mask_key=(0,)):
+        """Deep VFB²-SGD with all m = layout.m dominators per step over the
+        (steps, m·B) schedule: one encoder pass over the concatenated
+        minibatches, one aggregation of all m partial sets, the summed
+        Jacobian-transpose updates."""
+        return self._deep(True, False, pq, lr, idx, mask_key)
+
+    def deep_pipelined_sgd_epoch(self, pq, lr, idx, mask_key=(0,)):
+        """Pipelined deep VFB²-SGD (τ = 1): one split-batch launch per
+        interior step."""
+        return self._deep(False, True, pq, lr, idx, mask_key)
+
+    def deep_multi_pipelined_sgd_epoch(self, pq, lr, idx, mask_key=(0,)):
+        """Pipelined multi-dominator deep VFB²-SGD over the (steps, m·B)
+        schedule."""
+        return self._deep(True, True, pq, lr, idx, mask_key)
+
+    def deep_svrg_epoch(self, pq, pq_snap, muq, lr, idx, mask_key=(0,)):
+        """Deep VFB²-SVRG inner loop: v = g(w) − g(w̃) + μ per leaf, with
+        ``muq`` from :meth:`deep_full_gradient` at the snapshot."""
+        return self._deep(False, False, pq, lr, idx, mask_key, pq_snap, muq)
+
+    def deep_multi_svrg_epoch(self, pq, pq_snap, muq, lr, idx,
+                              mask_key=(0,)):
+        """Multi-dominator deep VFB²-SVRG: the m summed variance-reduced
+        updates, v = Σ_j[g₁ⱼ − g₀ⱼ] + m·(λ∇g(w) − λ∇g(w̃)) + m·μ."""
+        return self._deep(True, False, pq, lr, idx, mask_key, pq_snap, muq)
+
+    def deep_pipelined_svrg_epoch(self, pq, pq_snap, muq, lr, idx,
+                                  mask_key=(0,)):
+        """Pipelined deep VFB²-SVRG: both sides ride one M = 2·hidden
+        split-batch launch per interior step; the snapshot is constant, so
+        its stale read is delay-free."""
+        return self._deep(False, True, pq, lr, idx, mask_key, pq_snap, muq)
+
+    def deep_multi_pipelined_svrg_epoch(self, pq, pq_snap, muq, lr, idx,
+                                        mask_key=(0,)):
+        """Pipelined multi-dominator deep VFB²-SVRG."""
+        return self._deep(True, True, pq, lr, idx, mask_key, pq_snap, muq)
+
+    def deep_full_gradient(self, pq, mask_key=(0,)):
+        """The full-dataset deep BUM gradient at ``pq`` (SVRG's μ), every
+        leaf party-stacked as ``pq`` is: one masked aggregation and the
+        two layers' forward and backward over all n samples."""
+        prob = self.problem
+        b = dict(zip(_DEEP, (self._carry(a) for a in pq)))
+        gen = seed_generator(self._gen, *mask_key, _TAG_FULL)
+        h = torch.tanh(self._fwd(self.xs, b["w1"]) + b["b1"][:, None])
+        agg = self._agg(self._fwd(h, b["w2"]), gen)
+        du, *rest = self._deep_tail(h, agg, self.y, b["w2"], b["head"], 1,
+                                    True)
+        return tuple(a + prob.lam * prob.reg_grad(b[k]) for a, k in
+                     zip([self._bwd(self.xs, du, 1)] + rest, _DEEP))
+
+    def deep_objective(self, pq) -> float:
+        """Full deep objective (one device sync; per-epoch telemetry).  The
+        padded w1 rows are zero and every shipped regulariser maps 0 → 0,
+        so summing ``reg`` over the padded stack is exact; the replicated
+        head counts once."""
+        prob = self.problem
+        w1q, b1q, w2q, headq = pq
+        h = torch.tanh(self._fwd(self.xs, w1q) + b1q[:, None])
+        logit = self._fwd(h, w2q).sum(0) @ headq[0]
+        regv = sum(torch.sum(prob.reg(a)) for a in (w1q, b1q, w2q, headq[0]))
+        return float(torch.mean(prob.loss(logit, self.y)) + prob.lam * regv)
 
     def objective(self, wq) -> float:
         """Full objective (one device sync; for per-epoch telemetry).

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch import convert, resolve_device
 from repro_torch.configs.base import get_arch
-from repro_torch.core import algorithms, engine, losses, staleness
+from repro_torch.core import algorithms, deep_vfl, engine, losses, staleness
 from repro_torch.launch.serve import serve
 from repro_torch.models import model as lm_model
 from repro_torch.serve import ServeEngine
@@ -66,7 +66,9 @@ def _cpu_engine():
     "deep_params", "svrg_state", "saga_state", "train", "train_fused",
     "train_multi_pipelined", "serve", "lm_params", "lm_init_params",
     "serve_dense", "lm_init_params_dense", "lm_init_cache_dense",
-    "run_delayed_fused", "run_delayed_multi_fused", "init_state"])
+    "run_delayed_fused", "run_delayed_multi_fused", "init_state",
+    "train_deep", "train_deep_fused", "train_deep_vfl",
+    "train_centralized"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
                                                                entry):
     x = np.ones((6, 4), np.float32)
@@ -111,6 +113,19 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
             losses.ridge(), x, np.ones(6, np.float32),
             algorithms.PartyLayout.even(4, 2, 1), 1, 1, 0.1, 2),
         "init_state": lambda: staleness.init_state(4, 1),
+        "train_deep": lambda: algorithms.train(
+            losses.ridge(), x, np.ones(6, np.float32),
+            algorithms.PartyLayout.even(4, 2, 1), epochs=1, deep=True),
+        "train_deep_fused": lambda: algorithms.train(
+            losses.ridge(), x, np.ones(6, np.float32),
+            algorithms.PartyLayout.even(4, 2, 1), epochs=1, deep=True,
+            engine="fused"),
+        "train_deep_vfl": lambda: deep_vfl.train_deep_vfl(
+            losses.ridge(), x, np.ones(6, np.float32),
+            algorithms.PartyLayout.even(4, 2, 1), epochs=1),
+        "train_centralized": lambda: deep_vfl.train_centralized(
+            losses.ridge(), x, np.ones(6, np.float32),
+            algorithms.PartyLayout.even(4, 2, 1), epochs=1),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -210,7 +210,7 @@ def test_train_secure_fused_matches_off(ds, layout, prob):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (dict(deep=True), "A8"), (dict(checkpoint_dir="ckpt"), "A9"),
+    (dict(deep=True, checkpoint_dir="ckpt"), "A9"), (dict(checkpoint_dir="ckpt"), "A9"),
     (dict(resume_from="ckpt"), "A9"), (dict(supervise=True), "A10")])
 def test_unported_train_options_raise(ds, layout, prob, flag, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -24,7 +24,14 @@ pass (8, 350000, 512)·1 beside cuBLAS ``matmul``), the backward
 programs' (the SGD step's rows, which is the noise yardstick when a
 change leaves the backward alone, then the SVRG, SAGA and
 multi-dominator steps, the full-dataset backward and its reduce) and
-the four pipelined steps' ``vfl_fused_split``.  All builds run in one
+the four pipelined steps' ``vfl_fused_split``; and deep training's
+(``chip_smoke.py`` phase 12: hidden 32, d_rep 16): the wide forward's
+layer 1 (8, 32, 512)·32, SVRG's ·64 and the multi-dominator SVRG's
+(8, 64, 512)·64, layer 2 (8, 32, 32)·16, the rows backward per party at
+Mθ = 32 and 64 and shared at Mθ = 16, the split steps at Mw = Mθ = 32
+and 64, and ``deep_full_gradient``'s passes over all n rows (the wide
+forward ·32 and its backward with the reduce, layer 2's forward and
+backward).  All builds run in one
 process on one card, so their times compare.  Last, end to end, with
 ``vfl_grad.KERNEL`` set to each build in the same turns: one SGD and one
 pipelined SGD epoch of ``chip_smoke.py``'s phase 7 (q = 8, d = 4096, n =
@@ -92,22 +99,32 @@ def cases(torch, dev):
                  ("deep_layer1_bf16", q, 2 * b, 32, torch.bfloat16),
                  ("deep_layer2", q, 2 * b, 16, torch.float32, 32),
                  ("deep_hit", 1, 2 * b, 32),
-                 ("deep_hit_layer2", 1, 2 * b, 16, torch.float32, 32)):
+                 ("deep_hit_layer2", 1, 2 * b, 16, torch.float32, 32),
+                 # deep training's steps (multi: deep_layer1's shape)
+                 ("deep_train_layer1", q, b, 32),
+                 ("deep_train_layer2", q, b, 16, torch.float32, 32),
+                 ("deep_svrg_layer1", q, b, 64),
+                 ("deep_multi_svrg_layer1", q, 2 * b, 64)):
         forward(*args)
-    # backward steps: (name, rows, M, ϑ shared, denom); the first is the
+    # backward steps: (name, rows, M, ϑ shared, denom, D); the first is the
     # yardstick of a change to the forward
-    for name, rows, m, shared, denom in (
-            ("train_sgd_step", b, 1, True, b),
-            ("train_svrg_step", b, 2, True, b),
-            ("train_saga_step", b, 1, False, 1),
-            ("train_multi_step", 2 * b, 2, True, b)):
-        x = randn(q, rows, dp)
+    for name, rows, m, shared, denom, d in (
+            ("train_sgd_step", b, 1, True, b, dp),
+            ("train_svrg_step", b, 2, True, b, dp),
+            ("train_saga_step", b, 1, False, 1, dp),
+            ("train_multi_step", 2 * b, 2, True, b, dp),
+            # deep training's xᵀ∂u (per party) and hᵀϑ_z (shared)
+            ("deep_w1_step", b, 32, False, 1, dp),
+            ("deep_svrg_w1_step", b, 64, False, 1, dp),
+            ("deep_multi_w1_step", 2 * b, 32, False, 1, dp),
+            ("deep_w2_step", b, 16, True, 1, 32)):
+        x = randn(q, rows, d)
         if name == "train_multi_step":
             th = randn(rows)[:, None] * dominator_onehot(m, b, dev)
         else:
             th = randn(rows, m) if shared else randn(q, rows, m)
         thq = th.expand(q, rows, m) if shared else th
-        zeros = torch.zeros((q, dp, m), device=dev)
+        zeros = torch.zeros((q, d, m), device=dev)
         out.append((name, "backward", (x, thq, None, 0.0, float(denom)),
                     lambda x=x, thq=thq, d=denom: ref.vfl_backward_ref(
                         x, thq, None, 0.0, d),
@@ -120,7 +137,11 @@ def cases(torch, dev):
             ("pipe_sgd_step", b, 1, 1, True, b, False),
             ("pipe_svrg_step", b, 2, 2, True, b, False),
             ("pipe_saga_step", b, 1, 1, False, 1, False),
-            ("multi_pipe_sgd_step", 2 * b, 1, 2, True, b, True)):
+            ("multi_pipe_sgd_step", 2 * b, 1, 2, True, b, True),
+            # deep training's: per-party ∂u beside layer 1's forward
+            ("deep_pipe_sgd_step", b, 32, 32, False, 1, False),
+            ("deep_pipe_svrg_step", b, 64, 64, False, 1, False),
+            ("deep_multi_pipe_sgd_step", 2 * b, 32, 32, False, 1, False)):
         x = randn(q, 2 * bb, dp)
         w = randn(q, dp, mw)
         if doms:
@@ -148,6 +169,24 @@ def cases(torch, dev):
                                       beta=0.0, alpha=1.0 / n),
                 cs._nbytes(x, thq) + zeros.numel() * 4, 2.0 * x.numel(),
                 True))
+    # deep SVRG's μ over one X: layer 1's wide forward and its backward at
+    # Mθ = 32 (rows and reduce), layer 2's forward and backward over n
+    forward("deep_full_layer1", q, n, 32, big=True)
+    forward("deep_full_layer2", q, n, 16, d=32, big=True)
+    # (∂u and ϑ_z carry the path's 1/n, so the sums stay at its scale)
+    for name, xx, m, shared in (("deep_full_w1", x, 32, False),
+                                ("deep_full_w2", torch.tanh(randn(q, n, 32)),
+                                 16, True)):
+        cot = (randn(n, m) / n).expand(q, n, m) if shared \
+            else randn(q, n, m) / n
+        zz = torch.zeros((q, xx.shape[2], m), device=dev)
+        out.append((name, "backward", (xx, cot, None, 0.0, 1.0),
+                    lambda xx=xx, cot=cot: ref.vfl_backward_ref(
+                        xx, cot, None, 0.0, 1),
+                    lambda xx=xx, cot=cot, zz=zz: torch.baddbmm(
+                        zz, xx.transpose(1, 2), cot, beta=0.0),
+                    cs._nbytes(xx, cot) + zz.numel() * 4,
+                    2.0 * xx.numel() * m, True))
     ws = randn(math.ceil(n / 1024), q, dp, 1)
     g = torch.empty((q, dp, 1), device=dev)
     out.append(("full_dataset_reduce", "reduce", (ws, None, g, float(n), 0.0),
