@@ -18,8 +18,11 @@ JAX or of the JAX package.
    against their plain PyTorch versions on the card at the serving and
    training shapes (the minibatch steps, the multi-dominator
    block-diagonal backward, the pipelined steps, the full-dataset
-   passes, and phase 12's deep steps and ``deep_full_gradient`` passes
-   with hidden 32 and d_rep 16 as M), ragged shapes, fewer rows than a
+   passes, phase 12's deep steps and ``deep_full_gradient`` passes
+   with hidden 32 and d_rep 16 as M, and phase 13's per-dominator
+   block-diagonal steps: the rows backward at Mθ = m·hidden per party and
+   m·d_rep shared, the split step at Mw = hidden, Mθ = m·hidden), ragged
+   shapes, fewer rows than a
    backward block has warps (B = 7), a one-row second chunk (B = 1,025),
    a wide side, a chunked backward side and bf16 (atol = rtol = 1e-4),
    and ``selective_scan`` (below);
@@ -105,7 +108,27 @@ JAX or of the JAX package.
    iterate bit for bit.  Samples/s and host µs a step per kind,
    ``deep_full_gradient``'s time beside its bytes bound (X read twice),
    and profiler windows over 1,000 deep SGD and 1,000 pipelined deep SGD
-   steps.  It runs after phase 11 and before phase 9.
+   steps.  It runs after phase 11 and before phase 13.
+13. Bounded-delay deep training on phase 12's universe and start, τ = 4,
+   phase 11's seed-0 delays: one full epoch of each of the 4 deep
+   delayed kinds (``deep_delayed``, ``deep_multi_delayed``,
+   ``deep_pipelined_delayed``, ``deep_multi_pipelined_delayed`` SGD)
+   under ``two_tree``, run twice (the second timed and equal to the
+   first bit for bit), each under no host sync, finite and below its
+   start's objective; each kind's first 1,000 steps against the port's
+   float64 staleness oracle (``train_deep_delayed`` /
+   ``train_deep_multi_delayed``) on the same schedule and delays (every
+   leaf and every ring slot within 1e-4 relative, the objective within
+   1e-5) and at least 10× nearer it than phase 12's float64 τ = 0
+   oracle; each full epoch differs from phase 12's fresh epoch of its
+   form, and at τ = 0 lies within 1e-6 of it.  Deep delayed SGD under
+   ``off`` and ``ring`` against ``two_tree`` (1e-4); a second full epoch
+   chained on the first (the counter reaches 2 × steps) and a chained
+   1,000-step prefix against the chained oracle; ``run_deep_delayed_fused``
+   and ``run_deep_multi_delayed_fused(pipelined=True)`` bit-equal to
+   their epochs.  Samples/s and host µs a step per kind, and profiler
+   windows over 1,000 delayed and multi delayed deep SGD steps.  It runs
+   after phase 12 and before phase 9.
 9. LM serving, falcon-mamba-7b at full width (d_model 4096, d_inner 8192,
    N = 16, 64 layers, vocabulary 65,024, random weights from a seed) across
    q = 8 parties under ``two_tree``: ``launch.serve.serve`` with batch 4,
@@ -177,7 +200,7 @@ blocks are rows blocks.  Every program's launch count (all four sources)
 is reset just before phase 3 and read after
 phase 5, reset again just before phase 7's runs and read after them,
 just before phase 8 and after it, just before phase 11 and after it,
-just before phase 12 and after it,
+just before phase 12 and after it, just before phase 13 and after it,
 just before phase 9's serve call and after it, and just before phase
 10's serve call and after it;
 each count must equal what the dispatch or step structure implies, every
@@ -185,7 +208,7 @@ program of each path must have run, and no other program.  The
 ``kernels`` line has one entry per program, timed at its main-path shape
 (serving: the linear full dispatch and deep layer 1; training: the SGD
 step, the full-dataset reduce and the pipelined SGD step), with its
-launches summed over every path (phases 3-8, 11 and 12).  The ``selective_scan`` source holds one
+launches summed over every path (phases 3-8 and 11-13).  The ``selective_scan`` source holds one
 program, held against its plain version at the reference's sweep shapes,
 a ragged shape and phase 9's prefill shape (4, 2048, 8192), N = 16, bf16
 (1e-4 for f32 xa, 5e-2 for bf16), the last two also with a_log drawn per
@@ -484,6 +507,27 @@ def kernel_phase(torch, dev):
         lambda: torch.baddbmm(zeros, x.transpose(1, 2), thq, beta=0.0,
                               alpha=1.0 / TRAIN_BATCH),
         _nbytes(x, thq) + zeros.numel() * 4, 2.0 * x.numel() * M_ACT))
+    # phase 13's multi-dominator deep delayed steps: each dominator's slab
+    # apart, through the block-diagonal columns of the m = 2 dominators
+    # (dom_block_cols): xᵀ∂u per party at Mθ = m·hidden, hᵀϑ_z shared by
+    # the parties at Mθ = m·d_rep
+    from repro_torch.core.engine import dom_block_cols
+    for name, d, k, shared in (
+            ("deep_dom_w1_step", D // Q, DEEP_HIDDEN, False),
+            ("deep_dom_w2_step", DEEP_HIDDEN, DEEP_DREP, True)):
+        x = randn(Q, M_ACT * TRAIN_BATCH, d)
+        th = dom_block_cols(randn(*((M_ACT * TRAIN_BATCH, k) if shared
+                                    else (Q, M_ACT * TRAIN_BATCH, k))),
+                            M_ACT)
+        thq = th.expand(Q, *th.shape) if shared else th
+        zeros = torch.zeros((Q, d, M_ACT * k), device=dev)
+        rows.append(_kernel_row(
+            torch, name, ["vfl_backward_rows"], x,
+            lambda: ops.vfl_grad(x, None, thq, mode="backward", denom=1)[1],
+            lambda: ref.vfl_backward_ref(x, thq, None, 0.0, 1),
+            lambda: torch.baddbmm(zeros, x.transpose(1, 2), thq, beta=0.0),
+            _nbytes(x, thq) + zeros.numel() * 4,
+            2.0 * x.numel() * M_ACT * k))
     rows += fused_rows(torch, dev, randn)
 
     # the full-dataset passes: (8, 350000, 512) against one column
@@ -592,34 +636,36 @@ def fused_rows(torch, dev, randn):
     from repro_torch.kernels import ops, ref
     rows = []
     # (name, P, Bb, Bf or None (no split), D, Mw, Mθ, θ shared, λ, denom,
-    # Θ block-diagonal over Mθ dominators)
+    # dominators: Θ block-diagonal over them (dom_block_cols), or 0)
     cases = [
-        ("pipe_sgd_step", Q, 32, 32, 512, 1, 1, True, 0.0, None, False),
-        ("pipe_svrg_step", Q, 32, 32, 512, 2, 2, True, 0.0, None, False),
-        ("multi_pipe_sgd_step", Q, 64, 64, 512, 1, 2, True, 0.0, 32, True),
-        ("pipe_saga_step", Q, 32, 32, 512, 1, 1, False, 0.0, 1, False),
-        ("ragged_split", 3, 60, 40, 70, 1, 3, True, 0.0, None, False),
-        ("fused_lam", Q, 32, None, 512, 2, 2, False, 0.03, None, False),
-        ("wide_split", Q, 32, 32, 512, 32, 32, False, 0.0, None, False),
+        ("pipe_sgd_step", Q, 32, 32, 512, 1, 1, True, 0.0, None, 0),
+        ("pipe_svrg_step", Q, 32, 32, 512, 2, 2, True, 0.0, None, 0),
+        ("multi_pipe_sgd_step", Q, 64, 64, 512, 1, 2, True, 0.0, 32, 2),
+        ("pipe_saga_step", Q, 32, 32, 512, 1, 1, False, 0.0, 1, 0),
+        ("ragged_split", 3, 60, 40, 70, 1, 3, True, 0.0, None, 0),
+        ("fused_lam", Q, 32, None, 512, 2, 2, False, 0.03, None, 0),
+        ("wide_split", Q, 32, 32, 512, 32, 32, False, 0.0, None, 0),
         # phase 12's pipelined deep steps: xᵀ∂u beside the next round's
         # layer-1 forward, per-party ∂u, Mw = Mθ = hidden (SVRG 2·hidden)
-        ("deep_pipe_sgd_step", Q, 32, 32, 512, 32, 32, False, 0.0, 1,
-         False),
-        ("deep_pipe_svrg_step", Q, 32, 32, 512, 64, 64, False, 0.0, 1,
-         False),
+        ("deep_pipe_sgd_step", Q, 32, 32, 512, 32, 32, False, 0.0, 1, 0),
+        ("deep_pipe_svrg_step", Q, 32, 32, 512, 64, 64, False, 0.0, 1, 0),
         ("deep_multi_pipe_sgd_step", Q, 64, 64, 512, 32, 32, False, 0.0, 1,
-         False),
-        ("chunked_split", 3, 2500, 100, 130, 2, 2, False, 0.03, None,
-         False),
+         0),
+        # phase 13's multi pipelined delayed step: the m dominators' ∂u
+        # slabs (Mθ = m·hidden) beside layer 1's forward (Mw = hidden)
+        ("deep_dom_pipe_step", Q, 64, 64, 512, 32, 64, False, 0.0, 1,
+         M_ACT),
+        ("chunked_split", 3, 2500, 100, 130, 2, 2, False, 0.03, None, 0),
     ]
-    from repro_torch.core.engine import dominator_onehot
+    from repro_torch.core.engine import dom_block_cols
     for name, p, bb, bf, d, mw, mth, shared, lam, denom, doms in cases:
         b = bb + (bf or 0)
         split = None if bf is None else bb
         x = randn(p, b, d)
         w = randn(p, d, mw)
         if doms:
-            th = randn(bb)[:, None] * dominator_onehot(mth, bb // mth, dev)
+            th = dom_block_cols(randn(*((bb, mth // doms) if shared
+                                        else (p, bb, mth // doms))), doms)
         else:
             th = randn(*((bb, mth) if shared else (p, bb, mth)))
         thq = th.expand(p, *th.shape) if shared else th
@@ -1835,7 +1881,12 @@ def deep_implied(steps=0, svrg_steps=0, full=0, objective=0, pipe_steps=0):
     backwards over all n rows, each with its reduce), ``objective``
     ``deep_objective`` evaluations (two wide forwards) and one pipelined
     epoch of ``pipe_steps`` steps (a layer-1 forward prologue, one
-    split-batch launch per interior step, a backward epilogue)."""
+    split-batch launch per interior step, a backward epilogue).  The
+    delayed kinds of phase 13 launch as their fresh forms do: a fresh or
+    multi delayed step 2 and 2 (the multi one's backwards over the
+    per-dominator block-diagonal columns), a pipelined or multi pipelined
+    delayed epoch one forward, one split launch per interior step (multi:
+    Mw = hidden beside Mθ = m·hidden) and one backward."""
     pipe = int(pipe_steps > 0)
     return Counter(
         vfl_forward_wide=2 * steps + 3 * svrg_steps + 2 * full
@@ -1865,7 +1916,8 @@ def deep_train_phase(torch, dev, x, y, layout, log_):
     engine="fused")`` for one SGD epoch against the engine-driven epoch,
     bit for bit; ``deep_full_gradient``'s time beside its bytes bound;
     profiler windows over ``DEEP_PREFIX`` deep SGD and pipelined SGD
-    steps.  Returns (record, expected launches)."""
+    steps.  Returns (record, expected launches, each kind's SGD epoch and
+    float64 prefix oracle, for phase 13)."""
     from repro_torch.core import algorithms as alg
     from repro_torch.core import deep_vfl
     from repro_torch.core.engine import EngineConfig, FusedEngine
@@ -2038,6 +2090,247 @@ def deep_train_phase(torch, dev, x, y, layout, log_):
             expected += launches("sgd", kind == "pipelined", DEEP_PREFIX)
         log_(f"phase 12 profile of {DEEP_PREFIX} deep {kind} SGD steps: "
              f"{res[f'profile_{kind}_sgd']}")
+    del eng
+    return res, expected, {kind: (out[kind, "sgd"], out64[kind, "sgd"])
+                           for kind in DEEP_KINDS}
+
+
+# deep delayed kind -> the deep kind whose τ = 0 form it is
+DEEP_STALE_FRESH = {"delayed": "fresh", "multi_delayed": "multi",
+                    "pipelined_delayed": "pipelined",
+                    "multi_pipelined_delayed": "multi_pipelined"}
+
+
+def deep_stale_phase(torch, dev, x, y, layout, fresh, log_):
+    """Phase 13: the bounded-delay deep epochs at τ = 4 on phase 12's
+    universe.  One full epoch of each of the 4 deep delayed kinds from
+    ``initial_params(SEED)`` under ``two_tree``, run twice (the second
+    timed and equal to the first bit for bit), each under no host sync,
+    finite and below its start's objective; each kind's first
+    ``DEEP_PREFIX`` steps against the port's float64 staleness oracle on
+    the same schedule and delays (every leaf and every ring slot within
+    1e-4 relative, the objective within 1e-5), and ≥ 10× nearer it than
+    phase 12's float64 τ = 0 oracle; each full τ = 4 epoch differs from
+    phase 12's fresh one (``fresh``), and at τ = 0 lies within 1e-6 of
+    it.  Deep delayed SGD under ``off`` and ``ring`` against
+    ``two_tree``; a second full epoch chained on the first (the counter
+    reaches 2 × steps) and a chained prefix against the chained oracle;
+    ``run_deep_delayed_fused`` and ``run_deep_multi_delayed_fused
+    (pipelined=True)`` bit-equal to their epochs; profiler windows over
+    ``DEEP_PREFIX`` delayed and multi delayed steps.  Returns (record,
+    expected launches)."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import deep_vfl
+    from repro_torch.core import staleness as st
+    from repro_torch.core.engine import EngineConfig, FusedEngine
+    from repro_torch.core.losses import logistic_l2
+    n, d = x.shape
+    m, tau = layout.m, STALE_TAU
+    prob, lr, batch = logistic_l2(1e-4), TRAIN_LR, TRAIN_BATCH
+    steps, pre = n // batch, DEEP_PREFIX
+    key = (SEED, 0)
+    x64, y64 = x.double(), y.double()
+    expected = Counter()
+    res = {"tau": tau, "epochs": [], "secure_modes": {}, "tau0": {}}
+    eng = FusedEngine(prob, x, y, layout, EngineConfig(secure="two_tree"),
+                      device=dev)
+    p0 = deep_vfl.initial_params(SEED, layout, d, DEEP_HIDDEN, DEEP_DREP)
+    pq0 = eng.pack_deep(p0)
+    res["objective_start"] = obj0 = eng.deep_objective(pq0)
+    expected += deep_implied(objective=1)
+    delays = {False: torch.from_numpy(st.party_delay_values(
+                  layout, tau, SEED)).to(dev).long(),
+              True: torch.from_numpy(st.party_dominator_delays(
+                  layout, tau, SEED)).to(dev).long()}
+    idx = {multi: alg.epoch_indices(SEED, 0, n, (m if multi else 1) * batch,
+                                    steps, dev) for multi in (False, True)}
+    idx1 = alg.epoch_indices(SEED, 1, n, batch, steps, dev)
+
+    def leaves(params):
+        return [*params.enc_w1, *params.enc_b1, *params.enc_w2, params.head]
+
+    def rel_leaves(pq, params64):
+        return max(_rel(a, b) for a, b in zip(leaves(eng.unpack_deep(pq)),
+                                              leaves(params64)))
+
+    def rel_rings(bufq, rings64, multi):
+        """The engine's rings (q, τ+1, ...) against the oracle's per-party
+        rings (τ+1[, m], ...), slot by slot, w1's padding dropped."""
+        worst = 0.0
+        for i, (ring, per_party) in enumerate(zip(bufq, rings64)):
+            for s in range(ring.shape[1]):
+                got, want = [], []
+                for p, r64 in enumerate(per_party):
+                    g = ring[p, s]
+                    if i == 0:                  # w1: d_p of the dp rows
+                        g = g[: r64.shape[-2]]
+                    got.append((g.movedim(-2, 0) if multi else g).flatten())
+                    want.append(r64[s].flatten())
+                worst = max(worst, _rel(torch.cat(got), torch.cat(want)))
+        return worst
+
+    def launches(pipelined, s):
+        return deep_implied(pipe_steps=s) if pipelined \
+            else deep_implied(steps=s)
+
+    def buffers(multi, t):
+        return (eng.deep_multi_delay_buffers if multi
+                else eng.deep_delay_buffers)(pq0, t)
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_host_sync(torch):
+            got = fn(*args)
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    out, pres, states64 = {}, {}, {}
+    for kind, (multi, pipelined) in STALE_KINDS.items():
+        fn = getattr(eng, f"deep_{kind}_sgd_epoch")
+        ix = idx[multi]
+
+        def run(ix, t=tau, dl=delays[multi]):
+            return timed(lambda: fn(pq0, buffers(multi, t), 0, dl, lr, ix, t,
+                                    key))
+
+        first, first_seconds = run(ix)
+        got, seconds = run(ix)
+        check(all(torch.equal(a, b) for a, b in
+                  zip(first[0] + first[1], got[0] + got[1])),
+              f"deep {kind}: a second run differs from the first")
+        check(all(bool(torch.isfinite(a).all()) for a in got[0]),
+              f"deep {kind}: non-finite parameters")
+        check(int(got[2]) == steps, f"deep {kind}: counter {int(got[2])} "
+              f"after {steps} steps")
+        out[kind] = got
+        obj = eng.deep_objective(got[0])
+        pres[kind], _ = run(ix[:pre])
+        (w0, _, _), _ = run(ix, 0, torch.zeros_like(delays[multi]))
+        for s in (steps, steps, steps, pre):   # 2 runs, τ = 0, the prefix
+            expected += launches(pipelined, s)
+        expected += deep_implied(objective=2)
+        train64 = st.train_deep_multi_delayed if multi \
+            else st.train_deep_delayed
+        o64, hist64 = train64(prob, x64, y64, layout, tau, epochs=1, lr=lr,
+                              batch=batch, seed=SEED, hidden=DEEP_HIDDEN,
+                              d_rep=DEEP_DREP, pipelined=pipelined,
+                              params=p0, indices=[ix[:pre]], device=dev)
+        states64[kind] = o64
+        pre_obj = eng.deep_objective(pres[kind][0])
+        w_fresh, fresh64 = fresh[DEEP_STALE_FRESH[kind]]
+        rec = dict(kind=kind, seconds=seconds,
+                   samples_per_s=steps * ix.shape[1] / seconds,
+                   host_us_per_step=seconds / steps * 1e6,
+                   first_seconds=first_seconds, objective=obj,
+                   prefix_rel_err_vs_f64=rel_leaves(pres[kind][0],
+                                                    o64.params),
+                   prefix_ring_rel_err_vs_f64=rel_rings(pres[kind][1],
+                                                        o64.rings, multi),
+                   prefix_vs_tau0_f64=rel_leaves(pres[kind][0], fresh64),
+                   prefix_objective=pre_obj, prefix_objective_f64=hist64[0],
+                   prefix_objective_rel_err=abs(pre_obj - hist64[0])
+                   / abs(hist64[0]),
+                   tau0_rel_vs_fresh=max(_rel(a, b.double()) for a, b in
+                                         zip(w0, w_fresh)),
+                   tau0_bit_equal=all(torch.equal(a, b)
+                                      for a, b in zip(w0, w_fresh)))
+        res["epochs"].append(rec)
+        log_(f"phase 13 {kind} (tau={tau}): {rec}")
+        check(rec["prefix_rel_err_vs_f64"] <= 1e-4,
+              f"deep {kind}: a leaf {rec['prefix_rel_err_vs_f64']:.3e} "
+              "beyond 1e-4 of the float64 staleness oracle")
+        check(rec["prefix_ring_rel_err_vs_f64"] <= 1e-4,
+              f"deep {kind}: a ring slot "
+              f"{rec['prefix_ring_rel_err_vs_f64']:.3e} beyond 1e-4 of the "
+              "float64 oracle's")
+        check(rec["prefix_objective_rel_err"] <= 1e-5,
+              f"deep {kind}: objective {pre_obj} vs float64 {hist64[0]}")
+        check(obj < obj0, f"deep {kind}: objective {obj} not below the "
+              f"start's {obj0}")
+        check(not all(torch.equal(a, b) for a, b in zip(got[0], w_fresh)),
+              f"deep {kind}: the tau={tau} epoch equals the tau=0 one")
+        check(rec["prefix_vs_tau0_f64"] > 10 * rec["prefix_rel_err_vs_f64"],
+              f"deep {kind}: not 10x nearer its own oracle than the tau=0 "
+              "one")
+        check(rec["tau0_rel_vs_fresh"] <= 1e-6,
+              f"deep {kind} at tau=0: {rec['tau0_rel_vs_fresh']:.3e} from "
+              "phase 12's fresh epoch")
+
+    # the masks are lossless: off and ring agree with two_tree
+    want = leaves(eng.unpack_deep(out["delayed"][0]))
+    for secure in ("off", "ring"):
+        e2 = FusedEngine(prob, x, y, layout, EngineConfig(secure=secure),
+                         device=dev)
+        with no_host_sync(torch):
+            got, _, _ = e2.deep_delayed_sgd_epoch(
+                pq0, buffers(False, tau), 0, delays[False], lr, idx[False],
+                tau, key)
+        expected += deep_implied(steps=steps)
+        r = max(_rel(a, b.double())
+                for a, b in zip(leaves(e2.unpack_deep(got)), want))
+        res["secure_modes"][secure] = dict(rel_vs_two_tree=r)
+        check(r <= 1e-4, f"deep delayed sgd {secure} vs two_tree: {r:.3e}")
+        del e2
+    log_(f"phase 13 secure modes agree: {res['secure_modes']}")
+
+    # a second epoch: the rings and the counter cross the epoch boundary,
+    # over the full epoch and over the prefix against the chained oracle
+    chain = eng.deep_delayed_sgd_epoch
+    (_, _, t2), chain_seconds = timed(chain, *out["delayed"], delays[False],
+                                      lr, idx1, tau, (SEED, 1))
+    (pq2, _, tp2), _ = timed(chain, *pres["delayed"], delays[False], lr,
+                             idx1[:pre], tau, (SEED, 1))
+    expected += deep_implied(steps=steps + pre)
+    chain64, _ = st.train_deep_delayed(
+        prob, x64, y64, layout, tau, epochs=2, lr=lr, batch=batch,
+        seed=SEED, hidden=DEEP_HIDDEN, d_rep=DEEP_DREP, params=p0,
+        indices=[idx[False][:pre], idx1[:pre]], device=dev)
+    res["chained"] = dict(counter=int(t2), seconds=chain_seconds,
+                          prefix_rel_err_vs_f64=rel_leaves(pq2,
+                                                           chain64.params),
+                          prefix_counter=int(tp2))
+    log_(f"phase 13 chained second epoch: {res['chained']}")
+    check(int(t2) == 2 * steps, f"chained counter {int(t2)} != {2 * steps}")
+    check(int(tp2) == int(chain64.t) == 2 * pre,
+          f"chained prefix counter {int(tp2)} != {2 * pre}")
+    check(res["chained"]["prefix_rel_err_vs_f64"] <= 1e-4,
+          "chained deep delayed prefix beyond 1e-4 of the float64 oracle")
+
+    # the user's entry points give the engine-driven epochs
+    res["runners"] = {}
+    for kind, run in (("delayed", st.run_deep_delayed_fused),
+                      ("multi_pipelined_delayed",
+                       st.run_deep_multi_delayed_fused)):
+        pipelined = STALE_KINDS[kind][1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run(prob, x, y, layout, tau, 1, lr, batch, seed=SEED,
+                  hidden=DEEP_HIDDEN, d_rep=DEEP_DREP,
+                  engine_config=EngineConfig(secure="two_tree"),
+                  pipelined=pipelined, device=dev)
+        wall = time.perf_counter() - t0
+        expected += launches(pipelined, steps)
+        res["runners"][kind] = dict(
+            seconds=wall, bit_equal_to_epoch=all(
+                torch.equal(a, b) for a, b in
+                zip(leaves(got), leaves(eng.unpack_deep(out[kind][0])))))
+        check(res["runners"][kind]["bit_equal_to_epoch"],
+              f"run_deep_*_fused ({kind}) differs from its epoch")
+    log_(f"phase 13 runners: {res['runners']}")
+
+    # where a deep delayed step's time goes: profiler windows over
+    # DEEP_PREFIX steps (never whole epochs)
+    for kind in ("delayed", "multi_delayed"):
+        multi = STALE_KINDS[kind][0]
+        fn = getattr(eng, f"deep_{kind}_sgd_epoch")
+        ix = idx[multi][:pre]
+        res[f"profile_{kind}"] = epoch_profile(
+            torch, lambda: fn(pq0, buffers(multi, tau), 0, delays[multi], lr,
+                              ix, tau, key), pre)
+        expected += deep_implied(steps=3 * pre)
+        log_(f"phase 13 profile of {pre} deep {kind} SGD steps: "
+             f"{res[f'profile_{kind}']}")
     del eng
     return res, expected
 
@@ -2749,8 +3042,8 @@ def main() -> int:
     t12 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()                                  # phase 12 path starts
-    record["deep_train"], expected = deep_train_phase(torch, dev, x, y,
-                                                      layout, log)
+    record["deep_train"], expected, deep_fresh = deep_train_phase(
+        torch, dev, x, y, layout, log)
     deep_launches = dict(vg.KERNEL.launches)        # phase 12 path ends
     check_idle(_libs()[1:], "the phase 12 path")
     check(deep_launches == {p: expected[p] for p in vg.PROGRAMS},
@@ -2769,7 +3062,30 @@ def main() -> int:
         torch.cuda.max_memory_allocated() / 1e9
     record["deep_train"]["seconds"] = time.perf_counter() - t12
     log(f"phase 12: {record['deep_train']['seconds']:.1f} s")
-    del x, y                                        # free phases 7-12's data
+
+    t13 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                  # phase 13 path starts
+    record["deep_stale"], expected = deep_stale_phase(torch, dev, x, y,
+                                                      layout, deep_fresh, log)
+    deep_stale_launches = dict(vg.KERNEL.launches)  # phase 13 path ends
+    check_idle(_libs()[1:], "the phase 13 path")
+    check(deep_stale_launches == {p: expected[p] for p in vg.PROGRAMS},
+          f"phase 13 launches {deep_stale_launches} != {dict(expected)} "
+          "implied by the steps")
+    check(all(deep_stale_launches[p] for p in ("vfl_forward_wide",
+                                               "vfl_backward_rows",
+                                               "vfl_fused_split")),
+          f"a kernel of the phase 13 path was never launched: "
+          f"{deep_stale_launches}")
+    log(f"phase 13 path: kernel launches {deep_stale_launches}, as the "
+        "steps imply")
+    record["deep_stale_launches"] = deep_stale_launches
+    record["deep_stale_peak_memory_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    record["deep_stale"]["seconds"] = time.perf_counter() - t13
+    log(f"phase 13: {record['deep_stale']['seconds']:.1f} s")
+    del x, y, deep_fresh                            # free phases 7-13's data
     torch.cuda.empty_cache()
 
     t9 = time.perf_counter()
@@ -2802,7 +3118,7 @@ def main() -> int:
             "replaces": "src/repro/kernels/vfl_grad.py:343",
             "launches": serve_launches[prog] + train_launches[prog]
             + pipe_launches[prog] + stale_launches[prog]
-            + deep_launches[prog],
+            + deep_launches[prog] + deep_stale_launches[prog],
             "max_abs_err": max(r["max_abs_err"] for r in shapes
                                if prog in r["programs"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -13,6 +13,8 @@ party's own Jacobian transpose, written out for the tanh layer (no
 autodiff across parties).  Every leaf carries λ∇g(·), mdom·λ∇g(·) in the
 multi-dominator round.  It works in the dtype of its data (float64 on the
 card is the yardstick ``chip_smoke.py`` holds the engine against).
+``_bum_dom_grads`` keeps the m dominators' gradients apart for the
+bounded-delay oracles of ``core.staleness``.
 :func:`train_centralized` trains the same model through one autograd
 graph: the losslessness oracle.  The fused engine's ``deep_*_epoch``
 methods (``core.engine``) are the hot path.
@@ -142,6 +144,32 @@ def _bum_stale_grads(pt, xb, hs, z, yb, problem: Problem, q: int,
         gb1.append(du.sum(0) + mdom * lam * problem.reg_grad(enc_b1[p]))
         gw2.append(hs[p].T @ theta_z
                    + mdom * lam * problem.reg_grad(enc_w2[p]))
+    return tuple(gw1), tuple(gb1), tuple(gw2), g_head
+
+
+def _bum_dom_grads(pt, xb, hs, z, yb, problem: Problem, q: int, m: int):
+    """Per-dominator BUM gradients from the activations ``(hs, z)``: the
+    m dominators' updates stay apart so that each stream can age under
+    its own delay (the bounded-delay multi-dominator round;
+    ``core.staleness`` drives it).  Returns per-party tuples of (m, ...)
+    stacked encoder gradients, each carrying λ∇g once, and the fresh
+    summed head gradient with m·λ∇g."""
+    enc_w1, enc_b1, enc_w2, head = pt
+    lam = problem.lam
+    b = yb.shape[0] // m
+    theta_logit = problem.theta(z @ head, yb) / b
+    theta_z = theta_logit[:, None] * head
+    g_head = z.T @ theta_logit + m * lam * problem.reg_grad(head)
+    thz = theta_z.reshape(m, b, -1)
+    gw1, gb1, gw2 = [], [], []
+    for p in range(q):
+        du = (theta_z @ enc_w2[p].T) * (1.0 - hs[p] * hs[p])
+        dus = du.reshape(m, b, -1)
+        gw1.append(xb[p].reshape(m, b, -1).transpose(1, 2) @ dus
+                   + lam * problem.reg_grad(enc_w1[p])[None])
+        gb1.append(dus.sum(1) + lam * problem.reg_grad(enc_b1[p])[None])
+        gw2.append(hs[p].reshape(m, b, -1).transpose(1, 2) @ thz
+                   + lam * problem.reg_grad(enc_w2[p])[None])
     return tuple(gw1), tuple(gb1), tuple(gw2), g_head
 
 

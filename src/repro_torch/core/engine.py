@@ -3,16 +3,19 @@ the linear training epochs.
 
 The port of ``repro.core.engine``: the configuration, the vertical packing
 helpers and the linear parts of ``FusedEngine`` — the X-block
-contractions (``_fwd``, ``_bwd``, ``_bwd_doms`` and the pipelined step's
-``_pipe`` / ``_pipe_doms``: the vfl_grad kernel's forward, backward and
-split-batch fused modes), the masked secure aggregation over the party
-axis (``_agg``, Algorithm 1), the SGD / SVRG / SAGA epochs with their
-full-dataset passes (``full_gradient``, ``saga_init``), their
-multi-dominator, pipelined and multi-dominator pipelined forms, the
-bounded-delay SGD epochs in the same four forms (``core.staleness``
-semantics: per-party gradient rings), the deep (party-local two-layer
-encoder) SGD and SVRG epochs in the four fresh and pipelined forms with
-``deep_full_gradient``, and the linear and deep objectives.
+contractions (``_fwd``, ``_bwd``, ``_bwd_doms``, ``_bwd_doms_wide`` and
+the pipelined step's ``_pipe`` / ``_pipe_doms`` / ``_pipe_doms_wide``:
+the vfl_grad kernel's forward, backward and split-batch fused modes), the
+masked secure aggregation over the party axis (``_agg``, Algorithm 1),
+the SGD / SVRG / SAGA epochs with their full-dataset passes
+(``full_gradient``, ``saga_init``), their multi-dominator, pipelined and
+multi-dominator pipelined forms, the bounded-delay SGD epochs in the same
+four forms (``core.staleness`` semantics: per-party gradient rings), the
+deep (party-local two-layer encoder) SGD and SVRG epochs in the four
+fresh and pipelined forms with ``deep_full_gradient``, the bounded-delay
+deep SGD epochs in the same four forms (per-party, or per (party,
+dominator), encoder gradient rings), and the linear and deep
+objectives.
 
 Party axis: the q parties are the leading dimension of every
 party-stacked tensor on one device (``xs`` is (q, n, dp), an iterate
@@ -130,6 +133,31 @@ def dominator_onehot(m: int, batch: int, device="cpu") -> torch.Tensor:
     return (seg[:, None] == torch.arange(m, device=device)[None, :]).float()
 
 
+def dom_block_cols(cots: torch.Tensor, m: int) -> torch.Tensor:
+    """(..., m·B, K) per-row cotangents -> (..., m·B, m·K) block-diagonal
+    columns: dominator j's rows fill column block j, zeros elsewhere.  The
+    vector-valued (deep) form of the block-diagonal Θ: one XᵀΘ gives all m
+    per-dominator Jacobian-transpose slabs from one pass over X."""
+    rows, k = cots.shape[-2:]
+    sel = dominator_onehot(m, rows // m, cots.device).to(cots.dtype)
+    return (sel[:, :, None] * cots[..., :, None, :]) \
+        .reshape(*cots.shape[:-2], rows, m * k)
+
+
+def _seg_contract(rows: torch.Tensor, cots: torch.Tensor,
+                  m: int) -> torch.Tensor:
+    """(q, D, m, K) per-dominator segment contraction in plain torch: slab
+    j is rows_jᵀ·cots_j over dominator j's B rows of the concatenated
+    (q, m·B, D) block, with cots (m·B, K) shared by the parties or
+    (q, m·B, K).  For the one place a launch must not be issued (the
+    pipelined step's layer 2)."""
+    q, r, d = rows.shape
+    b = r // m
+    g = rows.reshape(q, m, b, d).transpose(2, 3) \
+        @ cots.reshape(*cots.shape[:-2], m, b, cots.shape[-1])
+    return g.permute(0, 2, 1, 3)
+
+
 def pack_mask(layout: PartyLayout, active_only: bool = False,
               device="cpu") -> torch.Tensor:
     """(q, dp) update mask: layout's trainable blocks minus the padding."""
@@ -175,6 +203,27 @@ def unpack_deep_params(pq, layout: PartyLayout) -> DeepVFLParams:
                          headq[0].clone())
 
 
+def _ring_flat(rings, doms: bool) -> torch.Tensor:
+    """A deep epoch's three encoder rings (q, τ+1, ...) -> one flat ring
+    (q, τ+1, m or 1, F): each (party, slot, dominator) row holds its w1,
+    b1 and w2 slabs side by side, so that a step writes and reads the
+    ring once."""
+    return torch.cat([(r.movedim(-2, 2) if doms else r.unsqueeze(2))
+                      .flatten(3) for r in rings], 3)
+
+
+def _ring_split(flat, leaves, doms: bool):
+    """The inverse of :func:`_ring_flat`, in new storage: the rings of the
+    party-stacked ``leaves`` (w1q, b1q, w2q, ...)."""
+    out = []
+    for part, a in zip(flat.split([a[0].numel() for a in leaves[:3]], 3),
+                       leaves):
+        r = part.reshape(*flat.shape[:3], *a.shape[1:])
+        out.append((r.movedim(2, -2) if doms else r.squeeze(2))
+                   .clone(memory_format=torch.contiguous_format))
+    return tuple(out)
+
+
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
@@ -187,6 +236,16 @@ class _Parts(NamedTuple):
     theta: Callable       # theta(b, agg, ib, yb) -> (ϑ, denom, aux)
     apply: Callable       # apply(b, g, aux): the update, in place on b
     doms: bool            # ϑ is the m dominators' (block-diagonal Θ)
+
+
+class _DeepParts(NamedTuple):
+    """One deep epoch kind's round, shared by its fresh steps, its
+    pipelined steps and its pipelined epilogue."""
+
+    sides: tuple          # ("",), or SVRG's iterate and snapshot ("", "s")
+    mdom: int             # the dominators whose updates a step carries
+    doms: bool            # per-dominator gradients (the delayed multi forms)
+    apply: Callable       # apply(b, g): the update from the four gradients
 
 
 class _StepLoop:
@@ -261,22 +320,30 @@ class FusedEngine:
         :meth:`_share`'s view, which the kernel reads without copies."""
         return ops.vfl_grad(xb, None, thq, mode="backward", denom=denom)[1]
 
-    def _dom_theta(self, theta, m: int):
-        """The block-diagonal Θ of m dominators from the concatenated
-        (m·B) ϑ: shared by every party for a (m·B,) ϑ (a party-stride-0
-        view of one (m·B, m) Θ), per party for a (q, m·B) one."""
-        oh = dominator_onehot(m, theta.shape[-1] // m, theta.device)
-        if theta.dim() == 1:
-            return self._share(theta[:, None] * oh)
-        return theta[..., None] * oh
+    def _dom_cols(self, cots, m: int):
+        """The block-diagonal columns (``dom_block_cols``) of m dominators'
+        concatenated (m·B, K) cotangents: shared by every party (a
+        party-stride-0 view of one (m·B, m·K) Θ), or per party for
+        (q, m·B, K) ones."""
+        cols = dom_block_cols(cots, m)
+        return self._share(cols) if cots.dim() == 2 else cols
+
+    def _bwd_doms_wide(self, rows, cots, m: int, denom: int):
+        """(q, D, m, K) per-dominator slabs from the concatenated
+        (q, m·B, D) row block and the (m·B, K) shared or (q, m·B, K)
+        per-party cotangents: slab j is rows_jᵀ·cots_j/denom.  Always one
+        backward launch with the block-diagonal (m·B, m·K) columns (the
+        row block is read once for all m dominators); the port has no size
+        route to a segment contraction."""
+        g = self._bwd(rows, self._dom_cols(cots, m), denom)
+        return g.view(*g.shape[:2], m, cots.shape[-1])
 
     def _bwd_doms(self, xb, theta, m: int, denom: int):
         """(q, dp, m) per-dominator BUM data gradients from the
-        concatenated (q, m·B, dp) minibatch block: column j is
-        X_{b_j}ᵀϑ_j/denom.  Always the block-diagonal Θ through one
-        backward launch (the X block is read once for all m dominators);
-        the port has no size route to a segment contraction."""
-        return self._bwd(xb, self._dom_theta(theta, m), denom)
+        concatenated (q, m·B, dp) minibatch block and the (m·B,) shared or
+        (q, m·B) per-party ϑ: column j is X_{b_j}ᵀϑ_j/denom
+        (:meth:`_bwd_doms_wide` at K = 1)."""
+        return self._bwd_doms_wide(xb, theta[..., None], m, denom)[..., 0]
 
     def _pipe(self, xcat, split: int, wcols, thcols, denom: int):
         """The pipelined step's one contraction: rows [0, split) of the
@@ -288,13 +355,23 @@ class FusedEngine:
         return ops.vfl_grad(xcat, wcols, thcols, mode="fused", split=split,
                             denom=denom)
 
+    def _pipe_doms_wide(self, xcat, split: int, wcols, cots, m: int,
+                        denom: int):
+        """Pipelined per-dominator contraction: backward(t)'s m K-column
+        slabs (block-diagonal, as in :meth:`_bwd_doms_wide`) beside
+        forward(t+1)'s Mw columns ``wcols`` in one split launch — the
+        sides' column counts differ (Mθ = m·K).  Returns
+        ``(z_next (q, Bf[, Mw]), g (q, dp, m, K))``."""
+        z, g = self._pipe(xcat, split, wcols, self._dom_cols(cots, m), denom)
+        return z, g.view(*g.shape[:2], m, cots.shape[-1])
+
     def _pipe_doms(self, xcat, split: int, wq, theta, m: int, denom: int):
-        """Pipelined multi-dominator contraction: backward(t)'s m
-        per-dominator columns (block-diagonal Θ, as in :meth:`_bwd_doms`)
-        beside forward(t+1)'s single iterate column in one launch — the
-        sides' column counts differ (Mw = 1, Mθ = m).  Returns
+        """Pipelined multi-dominator linear contraction: the m ϑ columns
+        beside the single iterate column (Mw = 1, Mθ = m).  Returns
         ``(z_next (q, m·B), gg (q, dp, m))``."""
-        return self._pipe(xcat, split, wq, self._dom_theta(theta, m), denom)
+        z, g = self._pipe_doms_wide(xcat, split, wq, theta[..., None], m,
+                                    denom)
+        return z, g[..., 0]
 
     def _share(self, theta):
         """The dominator's ϑ (B,) or (B, M), broadcast to every party: a
@@ -789,56 +866,111 @@ class FusedEngine:
         return hs, self._agg(parts[0] if len(parts) == 1
                              else torch.cat(parts, 2), self._gen)
 
-    def _deep_tail(self, h, agg, yb, w2, head, mdom: int, kernel: bool):
+    def _deep_tail(self, h, agg, yb, w2, head, mdom: int, kernel: bool,
+                   doms: bool = False):
         """One side's application-time data gradients from its activations
         h and aggregate ``agg`` (R, d_rep): ϑ_logit at the dominator, ϑ_z
         shared by every party, each party's Jacobian transpose.  Returns
         (∂u (q, R, hidden), g_b1, g_w2, g_head) without the regulariser;
-        hᵀϑ_z through the kernel or a plain batched matmul."""
+        hᵀϑ_z through the kernel or a plain batched matmul.  ``doms``
+        keeps the mdom dominators' g_b1 (q, m, hidden) and g_w2
+        (q, hidden, m, d_rep) apart."""
         hd = head[0]
         th_l = self.problem.theta(agg @ hd, yb) / (yb.shape[0] // mdom)
         th_z = th_l[:, None] * hd
-        g_w2 = self._bwd(h, self._share(th_z), 1) if kernel \
-            else h.transpose(1, 2) @ th_z
+        if doms:
+            g_w2 = self._bwd_doms_wide(h, th_z, mdom, 1) if kernel \
+                else _seg_contract(h, th_z, mdom)
+        else:
+            g_w2 = self._bwd(h, self._share(th_z), 1) if kernel \
+                else h.transpose(1, 2) @ th_z
         du = (th_z @ w2.transpose(1, 2)) * (1.0 - h * h)
-        return du, du.sum(1), g_w2, agg.T @ th_l
+        g_b1 = du.view(du.shape[0], mdom, -1, du.shape[2]).sum(2) if doms \
+            else du.sum(1)
+        return du, g_b1, g_w2, agg.T @ th_l
 
-    def _deep_round(self, b, sides, mdom: int, hs, agg, yb, contract,
+    def _deep_round(self, b, dk: _DeepParts, hs, agg, yb, contract,
                     kernel: bool):
         """Apply one deep round from the activations ``hs`` and aggregate
         ``agg``: ``contract(∂u)`` forms xᵀ∂u (and, pipelined, the next
-        round's forward) before the update, in place on the loop's
-        leaves."""
+        round's forward) before ``dk.apply`` updates the loop's leaves in
+        place."""
         prob = self.problem
+        sides, mdom = dk.sides, dk.mdom
         dr = b["head"].shape[1]
         tails = [self._deep_tail(h, agg[:, i * dr:(i + 1) * dr], yb,
-                                 b["w2" + s], b["head" + s], mdom, kernel)
+                                 b["w2" + s], b["head" + s], mdom, kernel,
+                                 dk.doms)
                  for i, (h, s) in enumerate(zip(hs, sides))]
         gx = contract(tails[0][0] if len(sides) == 1
                       else torch.cat([t[0] for t in tails], 2))
         lam = mdom * prob.lam
         if len(sides) == 1:
-            g = [a + lam * prob.reg_grad(b[k])
-                 for a, k in zip((gx,) + tails[0][1:], _DEEP)]
+            g = []
+            for a, k in zip((gx,) + tails[0][1:], _DEEP):
+                reg = prob.reg_grad(b[k])
+                # a per-dominator encoder slab carries λ∇g once, at its
+                # dominator axis (−2); a summed update carries it mdom times
+                g.append(a + (prob.lam * reg.unsqueeze(-2)
+                              if dk.doms and k != "head" else lam * reg))
         else:
             hid = b["w1"].shape[2]
             data = (gx[..., :hid] - gx[..., hid:],) + tuple(
                 a - c for a, c in zip(tails[0][1:], tails[1][1:]))
             g = [a + lam * (prob.reg_grad(b[k]) - prob.reg_grad(b[k + "s"]))
                  + mdom * b["m" + k] for a, k in zip(data, _DEEP)]
+        dk.apply(b, g)
+
+    def _deep_apply(self, b, g):
+        """The fresh update of the four leaves, in place: the masks freeze
+        the padding and, under ``active_only``, the passive encoders."""
         lr = b["lr"]
         b["w1"].sub_(lr * self.maskq[..., None] * g[0])
         b["b1"].sub_(lr * self.trainq[:, None] * g[1])
         b["w2"].sub_(lr * self.trainq[:, None, None] * g[2])
         b["head"].sub_(lr * g[3])
 
-    def _deep_fresh_step(self, b, sides, mdom: int):
+    def _deep_delayed_apply(self, doms: bool):
+        """The bounded-delay update (``core.staleness``): the step's
+        encoder gradients, regulariser included (per dominator under
+        ``doms``), enter slot t mod (τ+1) of the loop's flat ring ``ring``
+        (q, τ+1, m or 1, F); each party (each (party, dominator) pair)
+        reads slot max(t − d, 0) mod (τ+1), and the stale gradients,
+        summed over the dominators, take the fresh update's place.  The
+        head applies its gradient fresh (delaying a replicated parameter
+        would fork the replicas).  One ``index_copy_`` and one ``gather``
+        a step, at device indices from the int64 counter ``step``."""
+        def apply(b, g):
+            ring, t = b["ring"], b["step"]
+            slots = ring.shape[1]
+            enc = [a if doms else a.unsqueeze(-2) for a in g[:3]]
+            ring.index_copy_(1, (t % slots).view(1), torch.cat(
+                [a.movedim(-2, 1).flatten(2) for a in enc], 2).unsqueeze(1))
+            eff = (t - b["delays"]).clamp_min(0) % slots    # (q[, m])
+            stale = ring.gather(1, eff.view(self.q, 1, -1, 1).expand(
+                -1, -1, *ring.shape[2:])).sum((1, 2))
+            parts = stale.split([b[k][0].numel() for k in _DEEP[:3]], 1)
+            self._deep_apply(b, [a.view_as(b[k]) for a, k in zip(parts, _DEEP)]
+                             + [g[3]])
+            t.add_(1)
+
+        return apply
+
+    def _deep_xbwd(self, xb, du, dk: _DeepParts):
+        """xᵀ∂u of a fresh step or a pipelined epilogue: summed over the
+        rows, or the mdom dominators' slabs apart (one launch either
+        way)."""
+        if dk.doms:
+            return self._bwd_doms_wide(xb, du, dk.mdom, 1)
+        return self._bwd(xb, du, 1)
+
+    def _deep_fresh_step(self, b, dk: _DeepParts):
         """A fresh deep step: 4 kernel launches (SVRG: 6)."""
         ib, xb, yb = self._batch(b)
-        hs, agg = self._deep_acts(b, self._fwd(xb, self._deep_cols(b, sides)),
-                                  sides, True)
-        self._deep_round(b, sides, mdom, hs, agg, yb,
-                         lambda du: self._bwd(xb, du, 1), True)
+        hs, agg = self._deep_acts(
+            b, self._fwd(xb, self._deep_cols(b, dk.sides)), dk.sides, True)
+        self._deep_round(b, dk, hs, agg, yb,
+                         lambda du: self._deep_xbwd(xb, du, dk), True)
 
     def _deep_store(self, b, sides, hs, agg):
         """Carry the next round's activations and aggregate in the loop's
@@ -847,25 +979,30 @@ class FusedEngine:
             b["h" + s].copy_(h)
         b["agg"].copy_(agg)
 
-    def _deep_pipe_step(self, b, sides, mdom: int):
+    def _deep_pipe_step(self, b, dk: _DeepParts):
         """An interior pipelined deep step: exactly one kernel launch."""
         ib, xcat, yb = self._pair(b)
+        sides = dk.sides
 
         def contract(du):
-            u, gx = self._pipe(xcat, ib.shape[0], self._deep_cols(b, sides),
-                               du, 1)
+            cols = self._deep_cols(b, sides)
+            if dk.doms:
+                u, gx = self._pipe_doms_wide(xcat, ib.shape[0], cols, du,
+                                             dk.mdom, 1)
+            else:
+                u, gx = self._pipe(xcat, ib.shape[0], cols, du, 1)
             # round t+1's read, at the params before round t's update
             self._deep_store(b, sides, *self._deep_acts(b, u, sides, False))
             return gx
 
-        self._deep_round(b, sides, mdom, [b["h" + s] for s in sides],
-                         b["agg"], yb, contract, False)
+        self._deep_round(b, dk, [b["h" + s] for s in sides], b["agg"], yb,
+                         contract, False)
 
-    def _deep_pipelined(self, loop: _StepLoop, sides, mdom: int) -> None:
+    def _deep_pipelined(self, loop: _StepLoop, dk: _DeepParts) -> None:
         """A pipelined deep epoch: the layer-1 forward prologue of schedule
         row 0, ``steps − 1`` interior steps and the backward epilogue of
         the last row (launches: steps + 1)."""
-        b = loop.bufs
+        b, sides = loop.bufs, dk.sides
         hs, agg = self._deep_acts(
             b, self._fwd(self._gather(b["idx"][0]), self._deep_cols(b, sides)),
             sides, False)
@@ -873,13 +1010,29 @@ class FusedEngine:
             if k not in b:
                 b[k] = torch.empty_like(v)
         self._deep_store(b, sides, hs, agg)
-        self._run(loop, lambda bufs: self._deep_pipe_step(bufs, sides, mdom),
+        self._run(loop, lambda bufs: self._deep_pipe_step(bufs, dk),
                   b["idx"].shape[0] - 1)
         ib = b["idx"][-1]
         xb = self._gather(ib)
-        self._deep_round(b, sides, mdom, [b["h" + s] for s in sides],
-                         b["agg"], self.y.index_select(0, ib),
-                         lambda du: self._bwd(xb, du, 1), False)
+        self._deep_round(b, dk, [b["h" + s] for s in sides], b["agg"],
+                         self.y.index_select(0, ib),
+                         lambda du: self._deep_xbwd(xb, du, dk), False)
+
+    def _deep_run(self, algo, multi, pipelined, dk: _DeepParts, pq, lr, idx,
+                  mask_key, **carries):
+        """Run one deep epoch of kind ``dk`` from the party-stacked ``pq``
+        and ``carries``; returns the loop's buffers.  The loop's name
+        carries the form, ``algo`` and the deep widths."""
+        name = "deep_" + ("multi_" if multi else "") \
+            + ("pipelined_" if pipelined else "") + algo \
+            + "_{}x{}".format(*pq[2].shape[1:])
+        loop = self._loop(name, idx, lr, mask_key, **dict(zip(_DEEP, pq)),
+                          **carries)
+        if pipelined:
+            self._deep_pipelined(loop, dk)
+        else:
+            self._run(loop, lambda b: self._deep_fresh_step(b, dk))
+        return loop.bufs
 
     def _deep(self, multi, pipelined, pq, lr, idx, mask_key, snap=None,
               muq=None):
@@ -887,22 +1040,31 @@ class FusedEngine:
         snapshot ``snap`` and its full gradient ``muq``); returns the new
         ``(w1q, b1q, w2q, headq)``."""
         svrg = snap is not None
-        sides = ("", "s") if svrg else ("",)
-        carries = dict(zip(_DEEP, pq))
+        carries = {}
         if svrg:
             carries.update(zip((k + "s" for k in _DEEP), snap))
             carries.update(zip(("m" + k for k in _DEEP), muq))
-        name = "deep_" + ("multi_" if multi else "") \
-            + ("pipelined_" if pipelined else "") \
-            + ("svrg" if svrg else "sgd") \
-            + "_{}x{}".format(*pq[2].shape[1:])
-        mdom = self.layout.m if multi else 1
-        loop = self._loop(name, idx, lr, mask_key, **carries)
-        if pipelined:
-            self._deep_pipelined(loop, sides, mdom)
-        else:
-            self._run(loop, lambda b: self._deep_fresh_step(b, sides, mdom))
-        return tuple(loop.bufs[k].clone() for k in _DEEP)
+        dk = _DeepParts(("", "s") if svrg else ("",),
+                        self.layout.m if multi else 1, False,
+                        self._deep_apply)
+        b = self._deep_run("svrg" if svrg else "sgd", multi, pipelined, dk,
+                           pq, lr, idx, mask_key, **carries)
+        return tuple(b[k].clone() for k in _DEEP)
+
+    def _deep_delayed(self, multi, pipelined, pq, bufq, t0, delays, lr, idx,
+                      tau, mask_key):
+        if bufq[0].shape[1] != tau + 1:
+            raise ValueError(f"bufq holds {bufq[0].shape[1]} ring slots; "
+                             f"tau={tau} needs {tau + 1}")
+        dk = _DeepParts(("",), self.layout.m if multi else 1, multi,
+                        self._deep_delayed_apply(multi))
+        b = self._deep_run(f"delayed{tau}", multi, pipelined, dk, pq, lr, idx,
+                           mask_key, delays=delays, step=t0,
+                           ring=_ring_flat([self._carry(r) for r in bufq],
+                                           multi))
+        leaves = tuple(b[k].clone() for k in _DEEP)
+        return leaves, _ring_split(b["ring"], leaves, multi), \
+            b["step"].clone()
 
     def deep_sgd_epoch(self, pq, lr, idx, mask_key=(0,)):
         """One deep VFB²-SGD epoch over the schedule ``idx`` (steps, B) from
@@ -949,6 +1111,71 @@ class FusedEngine:
                                         mask_key=(0,)):
         """Pipelined multi-dominator deep VFB²-SVRG."""
         return self._deep(True, True, pq, lr, idx, mask_key, pq_snap, muq)
+
+    # -- bounded-delay deep epochs (core.staleness semantics) ----------------
+    #
+    # Party ℓ applies at global step t its encoder gradients of step
+    # t − d_ℓ (clamped at the first step) from a ring of the last τ+1;
+    # the dominator-held head applies its gradient fresh.  ``bufq`` is
+    # (w1, b1, w2) rings (q, τ+1, ...) of :meth:`deep_delay_buffers` with
+    # ``delays`` (q,), or, for the multi-dominator forms, per (party,
+    # dominator) rings (q, τ+1, dp, m, hid), (q, τ+1, m, hid),
+    # (q, τ+1, hid, m, dr) of :meth:`deep_multi_delay_buffers` with (q, m)
+    # delays; the reference's layouts, held inside the loop as one flat
+    # ring.  Each epoch returns ``(pq, bufq, t0 + steps)``, the counter a
+    # 0-d int64 device tensor, as the linear delayed epochs do.  A fresh
+    # step makes 4 launches (multi: 2 forwards and 2 per-dominator
+    # backwards, ``_bwd_doms_wide``), a pipelined interior step exactly 1
+    # (multi: ``_pipe_doms_wide``, Mw = hidden and Mθ = m·hidden).
+
+    def deep_delay_buffers(self, pq, tau: int):
+        """Zeroed per-party encoder gradient rings for
+        :meth:`deep_delayed_sgd_epoch`: (q, τ+1, ...) per leaf of
+        (w1q, b1q, w2q)."""
+        return tuple(torch.zeros((a.shape[0], tau + 1) + tuple(a.shape[1:]),
+                                 device=self.device) for a in pq[:3])
+
+    def deep_multi_delay_buffers(self, pq, tau: int):
+        """Zeroed per-(party, dominator) encoder gradient rings for
+        :meth:`deep_multi_delayed_sgd_epoch`: each leaf's dominator axis
+        sits before its last, (q, τ+1, dp, m, hid), (q, τ+1, m, hid),
+        (q, τ+1, hid, m, dr)."""
+        m = self.layout.m
+        return tuple(torch.zeros((a.shape[0], tau + 1) + tuple(a.shape[1:-1])
+                                 + (m, a.shape[-1]), device=self.device)
+                     for a in pq[:3])
+
+    def deep_delayed_sgd_epoch(self, pq, bufq, t0, delays, lr, idx, tau,
+                               mask_key=(0,)):
+        """Bounded-delay deep VFB²-SGD over the (steps, B) schedule
+        ``idx``; ``staleness.train_deep_delayed`` is the oracle."""
+        return self._deep_delayed(False, False, pq, bufq, t0, delays, lr,
+                                  idx, tau, mask_key)
+
+    def deep_multi_delayed_sgd_epoch(self, pq, bufq, t0, delays, lr, idx,
+                                     tau, mask_key=(0,)):
+        """Bounded-delay multi-dominator deep VFB²-SGD over the (steps, m·B)
+        schedule: dominator j's Jacobian-transpose slabs age in ring
+        column j under party ℓ's delay d_{ℓ,j}; the head applies the
+        fresh summed gradient.  ``staleness.train_deep_multi_delayed`` is
+        the oracle."""
+        return self._deep_delayed(True, False, pq, bufq, t0, delays, lr,
+                                  idx, tau, mask_key)
+
+    def deep_pipelined_delayed_sgd_epoch(self, pq, bufq, t0, delays, lr,
+                                         idx, tau, mask_key=(0,)):
+        """Pipelined bounded-delay deep VFB²-SGD: each round's stale-read
+        (τ = 1) encoder gradients enter the ring (total delay τ + 1)."""
+        return self._deep_delayed(False, True, pq, bufq, t0, delays, lr,
+                                  idx, tau, mask_key)
+
+    def deep_multi_pipelined_delayed_sgd_epoch(self, pq, bufq, t0, delays,
+                                               lr, idx, tau, mask_key=(0,)):
+        """Pipelined bounded-delay multi-dominator deep VFB²-SGD: the m
+        stale-read slabs are the Mθ = m·hidden block-diagonal columns of
+        the one split launch per interior step."""
+        return self._deep_delayed(True, True, pq, bufq, t0, delays, lr,
+                                  idx, tau, mask_key)
 
     def deep_full_gradient(self, pq, mask_key=(0,)):
         """The full-dataset deep BUM gradient at ``pq`` (SVRG's μ), every

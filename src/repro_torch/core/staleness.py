@@ -1,6 +1,7 @@
-"""Bounded-delay (τ) emulation of BAPA: the stale-gradient linear epochs.
+"""Bounded-delay (τ) emulation of BAPA: the stale-gradient linear and
+deep epochs.
 
-The port of ``repro.core.staleness``, its linear part.  The paper's
+The port of ``repro.core.staleness``.  The paper's
 asynchronous iterate sequence (Eqs. 4–5) is realised deterministically:
 party ℓ applies, at global step t, the BUM gradient computed from the
 iterate of step t − d_ℓ, with per-party delays d_ℓ ≤ τ.  The state is a
@@ -30,6 +31,25 @@ composes with the delay schedule to a total delay of τ + 1.
   ``core.engine.FusedEngine``'s delayed epochs (each a CUDA-graph replay
   of its step on the card), carrying the ring and the global step from
   one epoch to the next.
+
+Deep: each party's encoder gradients (w1, b1, w2, regulariser included)
+age in its rings; the dominator-held head applies its gradient fresh,
+since delaying a replicated parameter would fork the replicas.  In the
+multi-dominator form each dominator's Jacobian-transpose slabs stay
+apart (``deep_vfl._bum_dom_grads``, λ∇g once per stream) and age under
+d_{ℓ,j}; the head takes the fresh summed gradient with m·λ∇g.
+
+* The oracles ``train_deep_delayed`` and ``train_deep_multi_delayed``
+  (both also ``pipelined=True``) are ``deep_vfl.train_deep_vfl``'s
+  rounds with the rings: per-party loops, dtype-generic, ``params=`` and
+  ``indices=`` as there (by default ``initial_params(seed)`` and
+  ``epoch_indices(seed, ep, …)``), the delays of ``seed``.  They return
+  the final params, the rings and the global step, and each epoch's
+  objective.
+* The runners ``run_deep_delayed_fused`` and
+  ``run_deep_multi_delayed_fused`` run the engine's deep delayed epochs
+  on the same start, schedules and delays, carrying the rings and the
+  counter across epochs.
 """
 from __future__ import annotations
 
@@ -40,6 +60,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.algorithms import PartyLayout, _rounds, epoch_indices
+from repro_torch.core.deep_vfl import (DeepVFLParams, _bum_dom_grads,
+                                       _bum_stale_grads, _deep_fwd_acts,
+                                       _objective, _schedules, _setup,
+                                       _to_params, initial_params)
 from repro_torch.core.losses import Problem
 
 
@@ -206,6 +230,119 @@ def pipelined_delayed_multi_sgd_epoch(problem: Problem,
 
 
 # ---------------------------------------------------------------------------
+# deep oracles: each party's encoder gradients age, the head stays fresh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DeepDelayedState:
+    params: DeepVFLParams
+    rings: tuple             # per leaf (w1, b1, w2), per party (τ+1[, m], ...)
+    t: torch.Tensor          # 0-d int64 global step
+
+
+def _deep_ring_round(problem, blocks, y, lr, delays, live, q: int, m: int,
+                     multi: bool):
+    """One stale deep step on the state ``(pt, rings, t)`` from the
+    activations ``acts`` of the round's rows: the BUM gradients (each
+    dominator's apart under ``multi``, λ∇g once per stream) enter ring
+    slot t of every party, party ℓ's update reads slot max(t − d_ℓ, 0)
+    (dominator j's slab at max(t − d_{ℓ,j}, 0), the m slabs summed), and
+    the head applies its gradient fresh."""
+    def step(state, acts, ib):
+        pt, rings, t = state
+        hs, z = acts
+        xb = [b[ib] for b in blocks]
+        if multi:
+            grads = _bum_dom_grads(pt, xb, hs, z, y[ib], problem, q, m)
+        else:
+            grads = _bum_stale_grads(pt, xb, hs, z, y[ib], problem, q)
+        slots = rings[0][0].shape[0]
+        new_pt, new_rings = [], []
+        for leaves, ring, g in zip(pt[:3], rings, grads[:3]):
+            ps, rs = [], []
+            for p in range(q):
+                buf = ring[p].index_copy(0, (t % slots).view(1), g[p][None])
+                eff = (t - delays[p]).clamp_min(0) % slots
+                stale = buf[eff, torch.arange(m, device=eff.device)].sum(0) \
+                    if multi else buf[eff]
+                ps.append(leaves[p] - lr * live[p] * stale)
+                rs.append(buf)
+            new_pt.append(tuple(ps))
+            new_rings.append(tuple(rs))
+        return (tuple(new_pt) + (pt[3] - lr * grads[3],), tuple(new_rings),
+                t + 1)
+
+    return step
+
+
+def _train_deep_delayed(problem, x, y, layout, tau, epochs, lr, batch, seed,
+                        hidden, d_rep, freeze_passive, pipelined, params,
+                        indices, device, multi):
+    dev, blocks, yt, pt = _setup(x, y, layout, params, seed, hidden, d_rep,
+                                 device)
+    n = yt.shape[0]
+    q, m = layout.q, layout.m
+    delays = torch.from_numpy(
+        party_dominator_delays(layout, tau, seed) if multi
+        else party_delay_values(layout, tau, seed)).to(dev).long()
+    live = [0.0 if (freeze_passive and p >= m) else 1.0 for p in range(q)]
+    lead = (tau + 1, m) if multi else (tau + 1,)
+    rings = tuple(tuple(torch.zeros(lead + a.shape, dtype=a.dtype, device=dev)
+                        for a in leaf) for leaf in pt[:3])
+    state = (pt, rings, torch.zeros((), dtype=torch.int64, device=dev))
+    step = _deep_ring_round(problem, blocks, yt, lr, delays, live, q, m,
+                            multi)
+    hist = []
+    for idx in _schedules(indices, seed, epochs, n,
+                          (m if multi else 1) * batch, max(1, n // batch),
+                          dev):
+        state = _rounds(step, state, lambda st, ib: _deep_fwd_acts(
+            st[0], [b[ib] for b in blocks], q), idx, pipelined)
+        hist.append(_objective(problem, _to_params(state[0]), blocks, yt))
+    return DeepDelayedState(_to_params(state[0]), *state[1:]), hist
+
+
+def train_deep_delayed(problem: Problem, x, y, layout: PartyLayout,
+                       tau: int, epochs: int = 3, lr: float = 0.05,
+                       batch: int = 32, seed: int = 0, hidden: int = 32,
+                       d_rep: int = 16, freeze_passive: bool = False,
+                       pipelined: bool = False, params=None, indices=None,
+                       device="cuda"):
+    """The sequential oracle of bounded-delay deep VFB²-SGD on ``device``
+    (default the card; raises without one): ``deep_vfl.train_deep_vfl``'s
+    rounds with per-party encoder gradient rings under the delays
+    :func:`party_delay_values` of ``seed``; the head stays fresh.
+    ``pipelined=True`` makes each ringed gradient a τ = 1 stale-read one.
+    ``params`` and ``indices`` as in ``train_deep_vfl`` (by default
+    ``initial_params(seed)`` and ``epoch_indices(seed, ep, n, batch,
+    n // batch)``); it runs in x's floating dtype.  Returns
+    ``(DeepDelayedState, objectives)``: the final params, the rings (per
+    party (τ+1, ...) a leaf) and the global step, and each epoch's
+    objective."""
+    return _train_deep_delayed(problem, x, y, layout, tau, epochs, lr, batch,
+                               seed, hidden, d_rep, freeze_passive,
+                               pipelined, params, indices, device, False)
+
+
+def train_deep_multi_delayed(problem: Problem, x, y, layout: PartyLayout,
+                             tau: int, epochs: int = 3, lr: float = 0.05,
+                             batch: int = 32, seed: int = 0,
+                             hidden: int = 32, d_rep: int = 16,
+                             freeze_passive: bool = False,
+                             pipelined: bool = False, params=None,
+                             indices=None, device="cuda"):
+    """The sequential oracle of bounded-delay multi-dominator deep
+    VFB²-SGD: m·batch rows a step; every party keeps one ring per
+    dominator's stream (per party (τ+1, m, ...) a leaf) under the (q, m)
+    delays :func:`party_dominator_delays` of ``seed`` (the diagonal
+    fresh), and the head applies the fresh summed gradient.  Otherwise as
+    :func:`train_deep_delayed`."""
+    return _train_deep_delayed(problem, x, y, layout, tau, epochs, lr, batch,
+                               seed, hidden, d_rep, freeze_passive,
+                               pipelined, params, indices, device, True)
+
+
+# ---------------------------------------------------------------------------
 # runners (the fused engine's delayed epochs)
 # ---------------------------------------------------------------------------
 
@@ -266,3 +403,66 @@ def run_delayed_multi_fused(problem: Problem, x, y, layout: PartyLayout,
     :func:`run_delayed_fused`.  Returns the final (d,) iterate."""
     return _run_fused(problem, x, y, layout, tau, epochs, lr, batch, seed,
                       engine_config, active_only, pipelined, device, True)
+
+
+def _run_deep_fused(problem, x, y, layout, tau, epochs, lr, batch, seed,
+                    hidden, d_rep, engine_config, active_only, pipelined,
+                    device, multi):
+    from repro_torch.core.engine import EngineConfig, FusedEngine  # cycle
+
+    n, d = x.shape
+    cfg = engine_config if engine_config is not None else EngineConfig()
+    eng = FusedEngine(problem, x, y, layout, cfg, active_only=active_only,
+                      device=device)
+    pq = eng.pack_deep(initial_params(seed, layout, d, hidden, d_rep))
+    delays = party_dominator_delays(layout, tau, seed) if multi \
+        else party_delay_values(layout, tau, seed)
+    delays = torch.from_numpy(delays).to(eng.device)
+    bufq = (eng.deep_multi_delay_buffers if multi
+            else eng.deep_delay_buffers)(pq, tau)
+    t0 = 0
+    steps = max(1, n // batch)
+    rows = layout.m * batch if multi else batch
+    epoch = getattr(eng, "deep_" + ("multi_" if multi else "")
+                    + ("pipelined_" if pipelined else "")
+                    + "delayed_sgd_epoch")
+    for ep in range(epochs):
+        idx = epoch_indices(seed, ep, n, rows, steps, eng.device)
+        pq, bufq, t0 = epoch(pq, bufq, t0, delays, lr, idx, tau, (seed, ep))
+    return eng.unpack_deep(pq)
+
+
+def run_deep_delayed_fused(problem: Problem, x, y, layout: PartyLayout,
+                           tau: int, epochs: int, lr: float, batch: int,
+                           seed: int = 0, hidden: int = 32, d_rep: int = 16,
+                           engine_config=None, active_only: bool = False,
+                           pipelined: bool = False,
+                           device="cuda") -> DeepVFLParams:
+    """Bounded-delay deep VFB²-SGD on the fused engine, on ``device``
+    (default the card; raises without one), from ``initial_params(seed)``:
+    epoch ``ep`` runs ``epoch_indices(seed, ep, n, batch, n // batch)``
+    with masks seeded from ``(seed, ep)`` under the delays
+    ``party_delay_values(layout, tau, seed)``, the rings and the global
+    step carried across epochs, as :func:`train_deep_delayed` does.
+    ``pipelined=True`` runs the pipelined delayed epoch.  Returns the
+    final ``DeepVFLParams``."""
+    return _run_deep_fused(problem, x, y, layout, tau, epochs, lr, batch,
+                           seed, hidden, d_rep, engine_config, active_only,
+                           pipelined, device, False)
+
+
+def run_deep_multi_delayed_fused(problem: Problem, x, y,
+                                 layout: PartyLayout, tau: int, epochs: int,
+                                 lr: float, batch: int, seed: int = 0,
+                                 hidden: int = 32, d_rep: int = 16,
+                                 engine_config=None,
+                                 active_only: bool = False,
+                                 pipelined: bool = False,
+                                 device="cuda") -> DeepVFLParams:
+    """Multi-dominator bounded-delay deep VFB²-SGD on the fused engine:
+    m·batch ids a step, per-(party, dominator) rings under the (q, m)
+    delays ``party_dominator_delays(layout, tau, seed)``.  Otherwise as
+    :func:`run_deep_delayed_fused`."""
+    return _run_deep_fused(problem, x, y, layout, tau, epochs, lr, batch,
+                           seed, hidden, d_rep, engine_config, active_only,
+                           pipelined, device, True)

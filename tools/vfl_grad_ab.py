@@ -31,7 +31,10 @@ layer 1 (8, 32, 512)·32, SVRG's ·64 and the multi-dominator SVRG's
 Mθ = 32 and 64 and shared at Mθ = 16, the split steps at Mw = Mθ = 32
 and 64, and ``deep_full_gradient``'s passes over all n rows (the wide
 forward ·32 and its backward with the reduce, layer 2's forward and
-backward).  All builds run in one
+backward); and phase 13's per-dominator steps over the m = 2 dominators'
+block-diagonal columns: the rows backward (8, 64, 512) at Mθ = 64 per
+party and (8, 64, 32) at a shared Mθ = 32, and the split step
+(8, 64+64, 512) at Mw = 32, Mθ = 64.  All builds run in one
 process on one card, so their times compare.  Last, end to end, with
 ``vfl_grad.KERNEL`` set to each build in the same turns: one SGD and one
 pipelined SGD epoch of ``chip_smoke.py``'s phase 7 (q = 8, d = 4096, n =
@@ -68,7 +71,7 @@ def cases(torch, dev):
     """(name, kind, operands, plain, library, bytes, flops, big): kind is
     ``forward``, ``backward``, ``reduce`` or ``fused`` and says which
     ``CudaKernel`` method runs the operands."""
-    from repro_torch.core.engine import dominator_onehot
+    from repro_torch.core.engine import dom_block_cols
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
 
@@ -106,23 +109,27 @@ def cases(torch, dev):
                  ("deep_svrg_layer1", q, b, 64),
                  ("deep_multi_svrg_layer1", q, 2 * b, 64)):
         forward(*args)
-    # backward steps: (name, rows, M, ϑ shared, denom, D); the first is the
+    # backward steps: (name, rows, M, ϑ shared, denom, D, dominators: Θ
+    # block-diagonal over them (dom_block_cols), or 0); the first is the
     # yardstick of a change to the forward
-    for name, rows, m, shared, denom, d in (
-            ("train_sgd_step", b, 1, True, b, dp),
-            ("train_svrg_step", b, 2, True, b, dp),
-            ("train_saga_step", b, 1, False, 1, dp),
-            ("train_multi_step", 2 * b, 2, True, b, dp),
+    for name, rows, m, shared, denom, d, doms in (
+            ("train_sgd_step", b, 1, True, b, dp, 0),
+            ("train_svrg_step", b, 2, True, b, dp, 0),
+            ("train_saga_step", b, 1, False, 1, dp, 0),
+            ("train_multi_step", 2 * b, 2, True, b, dp, 2),
             # deep training's xᵀ∂u (per party) and hᵀϑ_z (shared)
-            ("deep_w1_step", b, 32, False, 1, dp),
-            ("deep_svrg_w1_step", b, 64, False, 1, dp),
-            ("deep_multi_w1_step", 2 * b, 32, False, 1, dp),
-            ("deep_w2_step", b, 16, True, 1, 32)):
+            ("deep_w1_step", b, 32, False, 1, dp, 0),
+            ("deep_svrg_w1_step", b, 64, False, 1, dp, 0),
+            ("deep_multi_w1_step", 2 * b, 32, False, 1, dp, 0),
+            ("deep_w2_step", b, 16, True, 1, 32, 0),
+            # the multi delayed deep step's per-dominator slabs
+            ("deep_dom_w1_step", 2 * b, 64, False, 1, dp, 2),
+            ("deep_dom_w2_step", 2 * b, 32, True, 1, 32, 2)):
         x = randn(q, rows, d)
-        if name == "train_multi_step":
-            th = randn(rows)[:, None] * dominator_onehot(m, b, dev)
-        else:
-            th = randn(rows, m) if shared else randn(q, rows, m)
+        tail = m // doms if doms else m
+        th = randn(rows, tail) if shared else randn(q, rows, tail)
+        if doms:
+            th = dom_block_cols(th, doms)
         thq = th.expand(q, rows, m) if shared else th
         zeros = torch.zeros((q, d, m), device=dev)
         out.append((name, "backward", (x, thq, None, 0.0, float(denom)),
@@ -132,22 +139,25 @@ def cases(torch, dev):
                         z, x.transpose(1, 2), thq, beta=0.0, alpha=1.0 / d),
                     cs._nbytes(x, thq) + zeros.numel() * 4,
                     2.0 * x.numel() * m, False))
-    # pipelined steps: (name, Bb = Bf, Mw, Mθ, ϑ shared, denom, block-diag)
+    # pipelined steps: (name, Bb = Bf, Mw, Mθ, ϑ shared, denom,
+    # dominators of a block-diagonal Θ or 0)
     for name, bb, mw, mth, shared, denom, doms in (
-            ("pipe_sgd_step", b, 1, 1, True, b, False),
-            ("pipe_svrg_step", b, 2, 2, True, b, False),
-            ("pipe_saga_step", b, 1, 1, False, 1, False),
-            ("multi_pipe_sgd_step", 2 * b, 1, 2, True, b, True),
+            ("pipe_sgd_step", b, 1, 1, True, b, 0),
+            ("pipe_svrg_step", b, 2, 2, True, b, 0),
+            ("pipe_saga_step", b, 1, 1, False, 1, 0),
+            ("multi_pipe_sgd_step", 2 * b, 1, 2, True, b, 2),
             # deep training's: per-party ∂u beside layer 1's forward
-            ("deep_pipe_sgd_step", b, 32, 32, False, 1, False),
-            ("deep_pipe_svrg_step", b, 64, 64, False, 1, False),
-            ("deep_multi_pipe_sgd_step", 2 * b, 32, 32, False, 1, False)):
+            ("deep_pipe_sgd_step", b, 32, 32, False, 1, 0),
+            ("deep_pipe_svrg_step", b, 64, 64, False, 1, 0),
+            ("deep_multi_pipe_sgd_step", 2 * b, 32, 32, False, 1, 0),
+            # the multi pipelined delayed one: per-dominator ∂u slabs
+            ("deep_dom_pipe_step", 2 * b, 32, 64, False, 1, 2)):
         x = randn(q, 2 * bb, dp)
         w = randn(q, dp, mw)
+        tail = mth // doms if doms else mth
+        th = randn(bb, tail) if shared else randn(q, bb, tail)
         if doms:
-            th = randn(bb)[:, None] * dominator_onehot(mth, bb // mth, dev)
-        else:
-            th = randn(bb, mth) if shared else randn(q, bb, mth)
+            th = dom_block_cols(th, doms)
         thq = th.expand(q, bb, mth) if shared else th
         out.append((name, "fused", (x, w, thq, 0.0, float(denom), bb),
                     lambda x=x, w=w, thq=thq, d=denom, s=bb:
