@@ -128,7 +128,25 @@ JAX or of the JAX package.
    and ``run_deep_multi_delayed_fused(pipelined=True)`` bit-equal to
    their epochs.  Samples/s and host µs a step per kind, and profiler
    windows over 1,000 delayed and multi delayed deep SGD steps.  It runs
-   after phase 12 and before phase 9.
+   after phase 12 and before phase 14.
+14. Faults, guards, checkpoints and the supervisor on phase 7's resident
+   data and problem, τ = 4, phase 11's seed-0 delays: one full epoch
+   (10,937 steps) of each faulted kind (SGD, SVRG, SAGA) on a
+   ``random_trace`` of crashes, rejoins, straggles and dropped broadcasts,
+   and of each guarded kind on a trace with NaN and Inf corruptions added,
+   under ``two_tree``, run twice (the second timed and equal to the first
+   bit for bit), each under no host sync; each kind's first 1,000 steps
+   against the port's float64 faulted or guarded oracle (iterate and ring
+   within 1e-4 relative; guarded: ``finite``/``alive`` equal, the norms
+   within 1e-4); guarded with ``guard=True`` finite with no poisoned step,
+   with ``guard=False`` NaN in the oracle's coordinates; faulted SGD under
+   ``off`` and ``ring`` against ``two_tree`` (1e-4);
+   ``run_faulted_fused`` and ``train(engine="fused", algo="saga")``
+   checkpointed after 1 epoch and resumed to 2, bit-equal to an
+   uninterrupted 2-epoch run; ``train(supervise=True)`` on ridge at a
+   divergent learning rate, finite after at least one heal; profiler
+   windows over 1,000 faulted, guarded and delayed SGD steps.  It runs
+   after phase 13 and before phase 9.
 9. LM serving, falcon-mamba-7b at full width (d_model 4096, d_inner 8192,
    N = 16, 64 layers, vocabulary 65,024, random weights from a seed) across
    q = 8 parties under ``two_tree``: ``launch.serve.serve`` with batch 4,
@@ -201,14 +219,15 @@ is reset just before phase 3 and read after
 phase 5, reset again just before phase 7's runs and read after them,
 just before phase 8 and after it, just before phase 11 and after it,
 just before phase 12 and after it, just before phase 13 and after it,
-just before phase 9's serve call and after it, and just before phase
+just before phase 14 and after it, just before phase 9's serve call and
+after it, and just before phase
 10's serve call and after it;
 each count must equal what the dispatch or step structure implies, every
 program of each path must have run, and no other program.  The
 ``kernels`` line has one entry per program, timed at its main-path shape
 (serving: the linear full dispatch and deep layer 1; training: the SGD
 step, the full-dataset reduce and the pipelined SGD step), with its
-launches summed over every path (phases 3-8 and 11-13).  The ``selective_scan`` source holds one
+launches summed over every path (phases 3-8 and 11-14).  The ``selective_scan`` source holds one
 program, held against its plain version at the reference's sweep shapes,
 a ragged shape and phase 9's prefill shape (4, 2048, 8192), N = 16, bf16
 (1e-4 for f32 xa, 5e-2 for bf16), the last two also with a_log drawn per
@@ -2335,6 +2354,319 @@ def deep_stale_phase(torch, dev, x, y, layout, fresh, log_):
     return res, expected
 
 
+FAULT_PREFIX = 1000              # steps of the oracle and profiler runs
+FAULT_ALGOS = ("sgd", "svrg", "saga")
+FAULT_P_CORRUPT = 0.002          # a NaN or Inf partial per party and step
+# ridge SGD on phase 7's data diverges at lr = 0.1 and at 0.01 and holds at
+# 0.001, so the supervisor's tenfold backoff heals it in two rollbacks
+FAULT_DIVERGENT_LR = 0.1
+
+
+def _same_bits(torch, a, b):
+    """``a`` equals ``b`` bit for bit, NaN for NaN (the guarded telemetry
+    holds the NaN partials' norms)."""
+    return torch.equal(torch.isnan(a), torch.isnan(b)) \
+        and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
+def fault_phase(torch, dev, x, y, layout, log_):
+    """Phase 14: the faulted and guarded linear epochs (``core.faults``
+    semantics) at τ = 4 on phase 7's universe, under phase 11's seed-0
+    delays, with checkpoints and the supervisor.  (a) One full faulted
+    epoch each of SGD, SVRG and SAGA from w = 0 under ``two_tree`` on a
+    ``random_trace`` of the epoch's steps (crash, rejoin, straggle,
+    dropped broadcast), run twice (the second timed and equal to the first
+    bit for bit); each kind's first ``FAULT_PREFIX`` steps against the
+    port's float64 faulted oracle (iterate and ring slots within 1e-4
+    relative); faulted SGD under ``off`` and ``ring`` against
+    ``two_tree``.  (b) One full guarded epoch each on the same trace with
+    NaN and Inf corruptions added: under ``guard=True`` finite iterates
+    and no poisoned step, and over the prefix the float64 guarded
+    oracle's ``finite``/``alive`` (equal) and norms, iterate and ring
+    (1e-4); under ``guard=False`` the prefix's iterate NaN in the
+    oracle's coordinates.  (c) Every epoch runs under no host sync.  (d)
+    ``run_faulted_fused`` and ``train(engine="fused", algo="saga")``
+    checkpoint 1 epoch, resume to 2, and equal an uninterrupted 2-epoch
+    run bit for bit (the step graphs are captured anew after the resume).
+    (e) ``train(supervise=True)`` on ridge at a divergent learning rate
+    ends finite after at least one heal.  (f) Profiler windows over
+    ``FAULT_PREFIX`` faulted, guarded and (phase 11's) delayed SGD steps.
+    Returns (record, expected launches)."""
+    import tempfile
+
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import faults
+    from repro_torch.core import staleness as st
+    from repro_torch.core.engine import EngineConfig, FusedEngine
+    from repro_torch.core.losses import logistic_l2, ridge
+    from repro_torch.core.supervisor import SupervisorConfig, poisoned_steps
+    n, d = x.shape
+    tau, pre = STALE_TAU, FAULT_PREFIX
+    prob, lr, batch = logistic_l2(1e-4), TRAIN_LR, TRAIN_BATCH
+    steps = n // batch
+    x64, y64 = x.double(), y.double()
+    mask64 = torch.ones(d, dtype=torch.float64, device=dev)
+    own64 = faults._ownership(layout, d, dev, torch.float64)
+    key = (SEED, 0)
+    delays_q = st.party_delay_values(layout, tau, SEED)
+    traces = {"faulted": faults.random_trace(layout, steps, seed=SEED),
+              "guarded": faults.random_trace(layout, steps, seed=SEED,
+                                             p_corrupt=FAULT_P_CORRUPT,
+                                             corrupt_modes=("nan", "inf"))}
+    scheds = {k: tr.compile(layout.m) for k, tr in traces.items()}
+    for sched in scheds.values():
+        faults._check_delay_budget(delays_q, sched, tau)
+    dcoord = delays_q[layout.party_of_coord(d)]
+    delays = torch.from_numpy(delays_q).to(dev).long()
+    idx = alg.epoch_indices(SEED, 0, n, batch, steps, dev)
+
+    def unpack(vq):
+        return torch.cat([vq[p, : hi - lo]
+                          for p, (lo, hi) in enumerate(layout.bounds)])
+
+    def rows(kind, k=steps):
+        win = scheds[kind].epoch(0, steps)
+        out = [torch.from_numpy(a[:, :k].copy()).to(dev)
+               for a in win.party_rows()]
+        if kind == "guarded":
+            out.append(torch.from_numpy(win.corrupt_rows()[:, :k].copy())
+                       .to(dev))
+        return out
+
+    expected = Counter()
+    res = {"tau": tau, "delays": delays_q.tolist(), "epochs": [],
+           "prefix": [], "secure_modes": {},
+           "events": {k: Counter(e.kind for e in tr.events)
+                      for k, tr in traces.items()}}
+    log_(f"phase 14 traces: {res['events']}")
+    eng = FusedEngine(prob, x, y, layout, EngineConfig(secure="two_tree"),
+                      device=dev)
+    zero = eng.pack_w(torch.zeros(d, device=dev))
+    muq = eng.full_gradient(zero, key)
+    tabq, avgq = eng.saga_init(zero, key)
+    expected += implied(full=2)
+    w64 = torch.zeros(d, dtype=torch.float64, device=dev)
+    mu64 = alg.full_gradient(prob, w64, x64, y64)
+    tab64, avg64 = alg.saga_init(prob, w64, x64, y64)
+    head = {"sgd": (zero,), "svrg": (zero, zero, muq),
+            "saga": (zero, tabq, avgq)}
+    head64 = {"sgd": (w64,), "svrg": (w64, w64, mu64),
+              "saga": (w64, tab64, avg64)}
+
+    def ring(t=tau):
+        return torch.zeros((layout.q, t + 1, eng.dp), device=dev)
+
+    def epoch(e, kind, algo, chans, ix, guard=True, sync_check=True):
+        kw = {} if kind == "faulted" else {"guard": guard}
+        with no_host_sync(torch) if sync_check else contextlib.nullcontext():
+            return getattr(e, f"{kind}_{algo}_epoch")(
+                *head[algo], ring(), 0, delays, *chans, lr, ix, tau, key,
+                **kw)
+
+    def oracle(kind, algo, k, guard=True):
+        win = scheds[kind].epoch(0, steps)
+        fc, bc, ec = (a[:k] for a in win.coord_rows(layout, d))
+        common = (torch.zeros((tau + 1, d), dtype=torch.float64,
+                              device=dev), 0, x64, y64, lr, mask64, dcoord)
+        fn = getattr(faults, f"{kind}_{algo}_epoch")
+        if kind == "faulted":
+            return fn(prob, *head64[algo], *common, idx[:k], fc, bc, ec)
+        return fn(prob, *head64[algo], *common, own64, idx[:k],
+                  win.fwd[:k], bc, ec, win.codes()[:k], guard=guard)
+
+    def ring_rel(bufq, buf64):
+        return max(_rel(unpack(bufq[:, s]), buf64[s])
+                   for s in range(tau + 1))
+
+    full = {}
+    for kind in ("faulted", "guarded"):
+        chans, chans_pre = rows(kind), rows(kind, pre)
+        for algo in FAULT_ALGOS:
+            def run():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = epoch(eng, kind, algo, chans, idx)
+                torch.cuda.synchronize()
+                return got, time.perf_counter() - t0
+
+            first, first_seconds = run()
+            got, seconds = run()
+            flat = [a for a in got if isinstance(a, torch.Tensor)]
+            flat0 = [a for a in first if isinstance(a, torch.Tensor)]
+            if kind == "guarded":
+                flat += list(got[-1])
+                flat0 += list(first[-1])
+            check(all(_same_bits(torch, a, b) for a, b in zip(flat0, flat)),
+                  f"{kind} {algo}: a second run differs from the first")
+            n_state = 3 if algo == "saga" else 1
+            check(int(got[n_state + 1]) == steps,
+                  f"{kind} {algo}: counter {int(got[n_state + 1])}")
+            expected += implied(steps=2 * steps, objective=1)
+            full[kind, algo] = got
+            rec = dict(kind=kind, algo=algo, seconds=seconds,
+                       first_seconds=first_seconds,
+                       samples_per_s=steps * batch / seconds,
+                       host_us_per_step=seconds / steps * 1e6,
+                       finite=bool(torch.isfinite(got[0]).all()),
+                       objective=eng.objective(got[0]))
+            if kind == "guarded":
+                health = faults.HealthStats(*(a.cpu().numpy()
+                                              for a in got[-1]))
+                rec["quarantined"] = int((health.finite == 0).sum())
+                rec["poisoned"] = int(poisoned_steps(health).sum())
+                check(rec["finite"] and rec["poisoned"] == 0,
+                      f"guarded {algo}: a non-finite partial got through")
+                check(rec["quarantined"] > 0,
+                      f"guarded {algo}: the trace corrupted nothing")
+            check(np.isfinite(rec["objective"]),
+                  f"{kind} {algo}: objective {rec['objective']}")
+            res["epochs"].append(rec)
+            log_(f"phase 14 {kind} {algo}: {rec}")
+
+            # the prefix against the float64 oracle
+            got = epoch(eng, kind, algo, chans_pre, idx[:pre])
+            expected += implied(steps=pre)
+            o64 = oracle(kind, algo, pre)
+            prec = dict(kind=kind, algo=algo,
+                        rel_err_vs_f64=_rel(unpack(got[0]), o64[0]),
+                        ring_rel_err_vs_f64=ring_rel(got[n_state],
+                                                     o64[n_state]))
+            if kind == "guarded":
+                h, h64 = got[-1], o64[-1]
+                prec["finite_equal"] = bool(torch.equal(
+                    h.finite, h64.finite.float()))
+                prec["alive_equal"] = bool(torch.equal(
+                    h.alive, h64.alive.float()))
+                both = torch.isfinite(h.pnorm) & torch.isfinite(h64.pnorm)
+                prec["pnorm_pattern_equal"] = bool(torch.equal(
+                    torch.isfinite(h.pnorm), torch.isfinite(h64.pnorm)))
+                prec["pnorm_rel_err"] = float(
+                    ((h.pnorm.double() - h64.pnorm).abs()
+                     / h64.pnorm.abs().clamp_min(1e-30))[both].max())
+                prec["gnorm_rel_err"] = float(
+                    ((h.gnorm.double() - h64.gnorm).abs()
+                     / h64.gnorm.abs().clamp_min(1e-30)).max())
+                check(prec["finite_equal"] and prec["alive_equal"]
+                      and prec["pnorm_pattern_equal"],
+                      f"guarded {algo}: telemetry differs from the oracle's")
+                check(max(prec["pnorm_rel_err"], prec["gnorm_rel_err"])
+                      <= 1e-4, f"guarded {algo}: norms beyond 1e-4")
+            res["prefix"].append(prec)
+            log_(f"phase 14 {kind} {algo} prefix: {prec}")
+            check(prec["rel_err_vs_f64"] <= 1e-4, f"{kind} {algo}: iterate "
+                  f"{prec['rel_err_vs_f64']:.3e} beyond 1e-4 of float64")
+            check(prec["ring_rel_err_vs_f64"] <= 1e-4,
+                  f"{kind} {algo}: ring beyond 1e-4 of float64")
+
+    # unguarded, a NaN partial poisons the iterate in the oracle's places
+    got = epoch(eng, "guarded", "sgd", rows("guarded", pre), idx[:pre],
+                guard=False)
+    expected += implied(steps=pre)
+    o64 = oracle("guarded", "sgd", pre, guard=False)
+    nan, nan64 = torch.isnan(unpack(got[0])), torch.isnan(o64[0])
+    res["unguarded"] = dict(nan_coords=int(nan.sum()),
+                            same_coords=bool(torch.equal(nan, nan64)))
+    log_(f"phase 14 unguarded prefix: {res['unguarded']}")
+    check(res["unguarded"]["nan_coords"] > 0
+          and res["unguarded"]["same_coords"],
+          "unguarded: NaN not in the float64 oracle's coordinates")
+
+    # the masks are lossless over the survivors: off and ring agree
+    w_tt = full["faulted", "sgd"][0]
+    for secure in ("off", "ring"):
+        e2 = FusedEngine(prob, x, y, layout, EngineConfig(secure=secure),
+                         device=dev)
+        w2 = epoch(e2, "faulted", "sgd", rows("faulted"), idx)[0]
+        expected += implied(steps=steps)
+        r = _rel(unpack(w2), unpack(w_tt).double())
+        res["secure_modes"][secure] = dict(rel_vs_two_tree=r)
+        check(r <= 1e-4, f"faulted sgd {secure} vs two_tree: {r:.3e}")
+        del e2
+    log_(f"phase 14 secure modes agree: {res['secure_modes']}")
+
+    # kill and resume: one epoch checkpointed, resumed to two, against an
+    # uninterrupted two-epoch run
+    cfg = EngineConfig(secure="two_tree")
+    trace2 = faults.random_trace(layout, 2 * steps, seed=SEED + 1)
+    run_kw = dict(seed=SEED, delays_q=delays_q, engine_config=cfg,
+                  device=dev)
+    train_kw = dict(algo="saga", lr=lr, batch=batch, seed=SEED,
+                    engine="fused", engine_config=cfg, device=dev)
+    (ROOT / "results").mkdir(exist_ok=True)
+    res["resume"] = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "results") as tmp:
+        t0 = time.perf_counter()
+        whole = faults.run_faulted_fused(prob, x, y, layout, trace2, tau, 2,
+                                         lr, batch, **run_kw)
+        faults.run_faulted_fused(prob, x, y, layout, trace2, tau, 1, lr,
+                                 batch, checkpoint_dir=f"{tmp}/run",
+                                 horizon_epochs=2, **run_kw)
+        resumed = faults.run_faulted_fused(prob, x, y, layout, trace2, tau,
+                                           2, lr, batch,
+                                           resume_from=f"{tmp}/run",
+                                           **run_kw)
+        expected += implied(steps=4 * steps)
+        res["resume"]["run_faulted_fused"] = dict(
+            seconds=time.perf_counter() - t0,
+            bit_equal=bool(np.array_equal(resumed, whole)))
+        t0 = time.perf_counter()
+        whole = alg.train(prob, x, y, layout, epochs=2, **train_kw)
+        alg.train(prob, x, y, layout, epochs=1, horizon_epochs=2,
+                  checkpoint_dir=f"{tmp}/train", **train_kw)
+        resumed = alg.train(prob, x, y, layout, epochs=2,
+                            resume_from=f"{tmp}/train", **train_kw)
+        # saga_init runs in each of the three calls, resumed or not
+        expected += implied(steps=4 * steps, full=3, objective=4)
+        res["resume"]["train_saga"] = dict(
+            seconds=time.perf_counter() - t0,
+            bit_equal=bool(np.array_equal(resumed.w, whole.w)
+                           and resumed.history == whole.history))
+        log_(f"phase 14 kill and resume: {res['resume']}")
+        for name, rec in res["resume"].items():
+            check(rec["bit_equal"], f"{name}: the resumed run differs from "
+                  "the uninterrupted one")
+
+        # the supervisor heals a divergent ridge run
+        t0 = time.perf_counter()
+        before = Counter(_libs()[0].launches)
+        sup = alg.train(ridge(1e-4), x, y, layout, algo="sgd", epochs=2,
+                        lr=FAULT_DIVERGENT_LR, batch=batch, seed=SEED,
+                        engine="fused",
+                        engine_config=cfg, supervise=True,
+                        supervisor_config=SupervisorConfig(
+                            lr_backoff=0.1, max_retries=4, keep_last=2),
+                        checkpoint_dir=f"{tmp}/sup", device=dev)
+        ran = Counter(_libs()[0].launches) - before
+        epochs_run = ran["vfl_backward_rows"] // steps
+        expected += implied(steps=epochs_run * steps, objective=epochs_run)
+        objs = [h["objective"] for h in sup.history]
+        res["supervisor"] = dict(seconds=time.perf_counter() - t0,
+                                 heals=sup.heals, objectives=objs,
+                                 epochs_run=epochs_run)
+        log_(f"phase 14 supervised ridge: {res['supervisor']}")
+        check(len(sup.heals) >= 1 and np.isfinite(objs).all()
+              and np.isfinite(sup.w).all(),
+              "the supervisor did not heal the divergent ridge run")
+
+    # where a faulted and a guarded step's time goes, beside phase 11's
+    # delayed step in the same call
+    chans = {k: rows(k, pre) for k in ("faulted", "guarded")}
+    for kind, fn in (("faulted", lambda: epoch(
+            eng, "faulted", "sgd", chans["faulted"], idx[:pre],
+            sync_check=False)),
+                     ("guarded", lambda: epoch(
+            eng, "guarded", "sgd", chans["guarded"], idx[:pre],
+            sync_check=False)),
+                     ("delayed", lambda: eng.delayed_sgd_epoch(
+            zero, ring(), 0, delays, lr, idx[:pre], tau, key))):
+        res[f"profile_{kind}"] = epoch_profile(torch, fn, pre)
+        expected += implied(steps=3 * pre)
+        log_(f"phase 14 profile of {pre} {kind} SGD steps: "
+             f"{res[f'profile_{kind}']}")
+    del eng
+    return res, expected
+
+
 def train_measure(torch, dev, x, y, layout):
     """After the counted run: the full-gradient pass time beside its bound
     and a profiler window over one SGD epoch."""
@@ -3085,7 +3417,27 @@ def main() -> int:
         torch.cuda.max_memory_allocated() / 1e9
     record["deep_stale"]["seconds"] = time.perf_counter() - t13
     log(f"phase 13: {record['deep_stale']['seconds']:.1f} s")
-    del x, y, deep_fresh                            # free phases 7-13's data
+    del deep_fresh
+
+    t14 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                  # phase 14 path starts
+    record["faults"], expected = fault_phase(torch, dev, x, y, layout, log)
+    fault_launches = dict(vg.KERNEL.launches)       # phase 14 path ends
+    check_idle(_libs()[1:], "the phase 14 path")
+    check(fault_launches == {p: expected[p] for p in vg.PROGRAMS},
+          f"phase 14 launches {fault_launches} != {dict(expected)} "
+          "implied by the steps")
+    check(all(fault_launches[p] for p in train_programs),
+          f"a kernel of the phase 14 path was never launched: "
+          f"{fault_launches}")
+    log(f"phase 14 path: kernel launches {fault_launches}, as the steps "
+        "imply")
+    record["fault_launches"] = fault_launches
+    record["fault_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    record["faults"]["seconds"] = time.perf_counter() - t14
+    log(f"phase 14: {record['faults']['seconds']:.1f} s")
+    del x, y                                        # free phases 7-14's data
     torch.cuda.empty_cache()
 
     t9 = time.perf_counter()
@@ -3118,7 +3470,8 @@ def main() -> int:
             "replaces": "src/repro/kernels/vfl_grad.py:343",
             "launches": serve_launches[prog] + train_launches[prog]
             + pipe_launches[prog] + stale_launches[prog]
-            + deep_launches[prog] + deep_stale_launches[prog],
+            + deep_launches[prog] + deep_stale_launches[prog]
+            + fault_launches[prog],
             "max_abs_err": max(r["max_abs_err"] for r in shapes
                                if prog in r["programs"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -329,11 +329,46 @@ class TrainResult:
     # deep runs carry the full DeepVFLParams here; ``w`` is then the
     # shared head vector (the active parties' model)
     params: object = None
+    # supervised runs (supervise=True) record every divergence rollback
+    # here (core.supervisor.HealEvent dicts); an empty list: no heals
+    heals: Optional[List[dict]] = None
 
 
 def _eval(problem, w, x, y):
     return float(torch.mean(problem.loss(x @ w, y))
                  + problem.lam * torch.sum(problem.reg(w)))
+
+
+def _resume_hist(objs, ep0, algo, engine=None):
+    """The per-epoch history entries recorded before a preemption."""
+    hist = []
+    for i in range(ep0):
+        entry = {"epoch": i + 1, "objective": float(objs[i]), "algo": algo}
+        if engine is not None:
+            entry["engine"] = engine
+        hist.append(entry)
+    return hist
+
+
+def _restore(resume_from, state):
+    """``(state, ep0)``: the state restored from ``resume_from``'s newest
+    bundle (numpy leaves in ``state``'s structure) and the epoch it was
+    saved after; ``state`` itself and 0 without ``resume_from``.  The
+    checkpoint functions are looked up at call time."""
+    if resume_from is None:
+        return state, 0
+    from repro_torch.checkpoint import ckpt
+    return ckpt.load_checkpoint(resume_from, state), \
+        ckpt.checkpoint_step(resume_from)
+
+
+def _save(checkpoint_dir, state, ep, keep_last):
+    """Checkpoint ``state`` as the bundle of epoch ``ep`` (nothing without
+    ``checkpoint_dir``)."""
+    if checkpoint_dir is not None:
+        from repro_torch.checkpoint import ckpt
+        ckpt.save_checkpoint(checkpoint_dir, state, step=ep,
+                             keep_last=keep_last)
 
 
 # (algo, multi_dominator, pipelined) -> the epoch oracle
@@ -351,9 +386,6 @@ _ORACLES = {
     ("svrg", True, True): multi_pipelined_svrg_epoch,
     ("saga", True, True): multi_pipelined_saga_epoch,
 }
-
-_UNPORTED = (("checkpoint_dir", "A9"), ("resume_from", "A9"),
-             ("supervise", "A10"))
 
 
 def train(
@@ -376,9 +408,12 @@ def train(
     hidden: int = 32,           # deep: encoder hidden width
     d_rep: int = 16,            # deep: aggregated representation width
     deep_params=None,           # deep: DeepVFLParams warm start (w0 analogue)
-    checkpoint_dir: Optional[str] = None,
-    resume_from: Optional[str] = None,
-    supervise: bool = False,
+    checkpoint_dir: Optional[str] = None,  # atomic per-epoch checkpoints
+    resume_from: Optional[str] = None,     # bit-exact preemption resume
+    keep_last: Optional[int] = 1,          # checkpoint ring depth
+    supervise: bool = False,               # divergence rollback supervisor
+    supervisor_config=None,     # core.supervisor.SupervisorConfig
+    horizon_epochs: Optional[int] = None,  # objs allocation horizon
     device="cuda",
 ) -> TrainResult:
     """Train a linear VFB² model for ``epochs`` epochs of ``algo`` in
@@ -396,16 +431,33 @@ def train(
     schedule.  The fused engine's masks are seeded from ``(seed, ep)``.
     ``history`` holds each epoch's full objective.
 
-    ``checkpoint_dir``, ``resume_from`` and ``supervise`` are not ported
-    yet and raise ``NotImplementedError`` naming the ROADMAP queue-A item
-    that ports them.
-    """
-    given = dict(checkpoint_dir=checkpoint_dir, resume_from=resume_from,
-                 supervise=supervise)
-    for name, item in _UNPORTED:
-        if given[name] not in (False, None):
-            raise NotImplementedError(
-                f"train({name}=...) is not ported yet (ROADMAP {item})")
+    ``checkpoint_dir=`` atomically checkpoints the trainer's state after
+    every epoch — the iterate (or the deep parameters), the objectives so
+    far (NaN-filled to ``horizon_epochs``), SAGA's ϑ̃ table and average —
+    keeping the newest ``keep_last`` bundles (``None`` keeps all).  Since
+    an epoch is a function of that state and ``(seed, ep)``, the state
+    holds no generator; ``resume_from=`` restores it and continues from
+    the epoch after it, bit for bit the uninterrupted run, its history
+    rebuilt from the stored objectives.
+
+    ``supervise=True`` hands the run to ``core.supervisor``: training
+    proceeds in ring-depth segments, the objective trajectory is watched
+    for divergence (non-finite, or a spike over a trailing window), and a
+    diverged run is rolled back to the last healthy checkpoint with the
+    learning rate backed off, under a bounded retry budget.  It needs
+    ``checkpoint_dir=``; the rollbacks ride ``result.heals``."""
+    if supervise:
+        from repro_torch.core.supervisor import supervised_train  # cycle
+        return supervised_train(
+            problem, x, y, layout, algo=algo, epochs=epochs, lr=lr,
+            batch=batch, seed=seed, active_only=active_only, w0=w0,
+            engine=engine, engine_config=engine_config,
+            multi_dominator=multi_dominator, pipelined=pipelined,
+            deep=deep, hidden=hidden, d_rep=d_rep,
+            deep_params=deep_params, checkpoint_dir=checkpoint_dir,
+            config=supervisor_config, device=device)
+    ck = dict(checkpoint_dir=checkpoint_dir, resume_from=resume_from,
+              keep_last=keep_last, horizon_epochs=horizon_epochs)
     if deep:
         if w0 is not None:
             raise ValueError("deep VFB² has no flat w0; pass deep_params="
@@ -413,7 +465,7 @@ def train(
         return _train_deep(problem, x, y, layout, algo, epochs, lr, batch,
                            seed, active_only, engine, engine_config,
                            multi_dominator, pipelined, hidden, d_rep,
-                           deep_params, resolve_device(device))
+                           deep_params, resolve_device(device), **ck)
     if algo not in ("sgd", "svrg", "saga"):
         raise ValueError(f"unknown algo {algo}")
     dev = resolve_device(device)
@@ -424,7 +476,7 @@ def train(
     if engine == "fused":
         return _train_fused(problem, x, y, layout, algo, epochs, lr, batch,
                             seed, active_only, w0, engine_config,
-                            multi_dominator, pipelined, dev)
+                            multi_dominator, pipelined, dev, **ck)
     if engine != "reference":
         raise ValueError(f"unknown engine {engine}")
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -432,64 +484,84 @@ def train(
     w = torch.zeros(d, dtype=torch.float32, device=dev) if w0 is None \
         else torch.as_tensor(w0, dtype=torch.float32, device=dev)
     mask = torch.as_tensor(layout.update_mask(d, active_only), device=dev)
+    st = {"w": w, "objs": np.full(max(horizon_epochs or 0, epochs), np.nan)}
     if algo == "saga":
-        theta_tab, avg = saga_init(problem, w, x, y)
-    hist = []
+        st["tab"], st["avg"] = saga_init(problem, w, x, y)
+    st, ep0 = _restore(resume_from, st)
+    st = {k: v if k == "objs" else torch.as_tensor(v, device=dev)
+          for k, v in st.items()}
+    hist = _resume_hist(st["objs"], ep0, algo)
     fn = _ORACLES[algo, multi_dominator, pipelined]
     extra = (m,) if multi_dominator else ()
-    for ep in range(epochs):
+    for ep in range(ep0, epochs):
         idx = epoch_indices(seed, ep, n, rows, steps, dev)
+        w = st["w"]
         if algo == "sgd":
-            w = fn(problem, w, x, y, lr, mask, idx, *extra)
+            st["w"] = fn(problem, w, x, y, lr, mask, idx, *extra)
         elif algo == "svrg":
             mu = full_gradient(problem, w, x, y)
-            w = fn(problem, w, w, mu, x, y, lr, mask, idx, *extra)
+            st["w"] = fn(problem, w, w, mu, x, y, lr, mask, idx, *extra)
         else:
-            w, theta_tab, avg = fn(problem, w, theta_tab, avg, x, y, lr,
-                                   mask, idx, *extra)
-        hist.append({"epoch": ep + 1, "objective": _eval(problem, w, x, y),
+            st["w"], st["tab"], st["avg"] = fn(problem, w, st["tab"],
+                                               st["avg"], x, y, lr, mask,
+                                               idx, *extra)
+        hist.append({"epoch": ep + 1,
+                     "objective": _eval(problem, st["w"], x, y),
                      "algo": algo})
-    return TrainResult(w=w.cpu().numpy(), history=hist)
+        st["objs"][ep] = hist[-1]["objective"]
+        _save(checkpoint_dir, st, ep + 1, keep_last)
+    return TrainResult(w=st["w"].cpu().numpy(), history=hist)
 
 
 def _train_fused(problem, x, y, layout, algo, epochs, lr, batch, seed,
                  active_only, w0, engine_config, multi_dominator, pipelined,
-                 dev) -> TrainResult:
+                 dev, checkpoint_dir=None, resume_from=None, keep_last=1,
+                 horizon_epochs=None) -> TrainResult:
     """Hot-path trainer: the engine's epochs, each a CUDA-graph replay of
     its step on the card with no host sync inside, and one objective
-    evaluation (one sync) after each."""
+    evaluation (one sync) and, with ``checkpoint_dir``, one checkpoint
+    after each."""
     from repro_torch.core.engine import EngineConfig, FusedEngine  # cycle
 
     n, d = x.shape
     cfg = engine_config if engine_config is not None else EngineConfig()
     eng = FusedEngine(problem, x, y, layout, cfg, active_only=active_only,
                       device=dev)
-    wq = eng.pack_w(np.zeros(d, np.float32) if w0 is None else w0)
     steps = max(1, n // batch)
     rows = layout.m * batch if multi_dominator else batch
     fn = getattr(eng, ("multi_" if multi_dominator else "")
                  + ("pipelined_" if pipelined else "") + f"{algo}_epoch")
+    st = {"wq": eng.pack_w(np.zeros(d, np.float32) if w0 is None else w0),
+          "objs": np.full(max(horizon_epochs or 0, epochs), np.nan)}
     if algo == "saga":
-        tabq, avgq = eng.saga_init(wq, (seed,))
-    hist = []
-    for ep in range(epochs):
+        st["tabq"], st["avgq"] = eng.saga_init(st["wq"], (seed,))
+    st, ep0 = _restore(resume_from, st)
+    st = {k: v if k == "objs" else torch.as_tensor(v, device=eng.device)
+          for k, v in st.items()}
+    hist = _resume_hist(st["objs"], ep0, algo, engine="fused")
+    for ep in range(ep0, epochs):
         idx = epoch_indices(seed, ep, n, rows, steps, dev)
         key = (seed, ep)
+        wq = st["wq"]
         if algo == "sgd":
-            wq = fn(wq, lr, idx, key)
+            st["wq"] = fn(wq, lr, idx, key)
         elif algo == "svrg":
-            muq = eng.full_gradient(wq, key)
-            wq = fn(wq, wq, muq, lr, idx, key)
+            st["wq"] = fn(wq, wq, eng.full_gradient(wq, key), lr, idx, key)
         else:
-            wq, tabq, avgq = fn(wq, tabq, avgq, lr, idx, key)
-        hist.append({"epoch": ep + 1, "objective": eng.objective(wq),
+            st["wq"], st["tabq"], st["avgq"] = fn(wq, st["tabq"],
+                                                  st["avgq"], lr, idx, key)
+        hist.append({"epoch": ep + 1, "objective": eng.objective(st["wq"]),
                      "algo": algo, "engine": "fused"})
-    return TrainResult(w=eng.unpack_w(wq), history=hist)
+        st["objs"][ep] = hist[-1]["objective"]
+        _save(checkpoint_dir, st, ep + 1, keep_last)
+    return TrainResult(w=eng.unpack_w(st["wq"]), history=hist)
 
 
 def _train_deep(problem, x, y, layout, algo, epochs, lr, batch, seed,
                 active_only, engine, engine_config, multi_dominator,
-                pipelined, hidden, d_rep, deep_params, dev) -> TrainResult:
+                pipelined, hidden, d_rep, deep_params, dev,
+                checkpoint_dir=None, resume_from=None, keep_last=1,
+                horizon_epochs=None) -> TrainResult:
     """Deep VFB²: party-local two-layer encoders.  ``engine="reference"``
     runs ``core.deep_vfl.train_deep_vfl`` (the sequential oracle),
     ``engine="fused"`` the engine's ``deep_*_epoch`` methods; both start
@@ -497,7 +569,9 @@ def _train_deep(problem, x, y, layout, algo, epochs, lr, batch, seed,
     and run epoch ``ep``'s schedule ``epoch_indices(seed, ep, n, rows,
     n // batch)``, so they agree to float tolerance.
     ``active_only=True`` freezes the passive encoders.  ``w`` in the result
-    is the head; the full ``DeepVFLParams`` ride ``result.params``."""
+    is the head; the full ``DeepVFLParams`` ride ``result.params``.  The
+    checkpoint arguments as in :func:`train` (the state: the parameters
+    and the objectives)."""
     from repro_torch.core import deep_vfl  # lazy: deep_vfl imports this
 
     if algo not in ("sgd", "svrg"):
@@ -509,7 +583,8 @@ def _train_deep(problem, x, y, layout, algo, epochs, lr, batch, seed,
             batch=batch, seed=seed, hidden=hidden, d_rep=d_rep,
             freeze_passive=active_only, params=deep_params,
             multi_dominator=multi_dominator, pipelined=pipelined,
-            device=dev)
+            checkpoint_dir=checkpoint_dir, resume_from=resume_from,
+            keep_last=keep_last, horizon_epochs=horizon_epochs, device=dev)
         hist = [{"epoch": i + 1, "objective": o, "algo": f"deep_{algo}"}
                 for i, o in enumerate(objs)]
         return TrainResult(w=params.head.cpu().numpy(), history=hist,
@@ -524,14 +599,18 @@ def _train_deep(problem, x, y, layout, algo, epochs, lr, batch, seed,
                       device=dev)
     if deep_params is None:
         deep_params = deep_vfl.initial_params(seed, layout, d, hidden, d_rep)
-    pq = eng.pack_deep(deep_params)
     steps = max(1, n // batch)
     rows = layout.m * batch if multi_dominator else batch
     name = ("multi_" if multi_dominator else "") \
         + ("pipelined_" if pipelined else "") + algo
     fn = getattr(eng, f"deep_{name}_epoch")
-    hist = []
-    for ep in range(epochs):
+    st = {"pq": eng.pack_deep(deep_params),
+          "objs": np.full(max(horizon_epochs or 0, epochs), np.nan)}
+    st, ep0 = _restore(resume_from, st)
+    pq = tuple(torch.as_tensor(a, device=eng.device) for a in st["pq"])
+    objs = st["objs"]
+    hist = _resume_hist(objs, ep0, f"deep_{algo}", engine="fused")
+    for ep in range(ep0, epochs):
         idx = epoch_indices(seed, ep, n, rows, steps, dev)
         key = (seed, ep)
         if algo == "sgd":
@@ -540,6 +619,8 @@ def _train_deep(problem, x, y, layout, algo, epochs, lr, batch, seed,
             pq = fn(pq, pq, eng.deep_full_gradient(pq, key), lr, idx, key)
         hist.append({"epoch": ep + 1, "objective": eng.deep_objective(pq),
                      "algo": f"deep_{algo}", "engine": "fused"})
+        objs[ep] = hist[-1]["objective"]
+        _save(checkpoint_dir, {"pq": pq, "objs": objs}, ep + 1, keep_last)
     params = eng.unpack_deep(pq)
     return TrainResult(w=params.head.cpu().numpy(), history=hist,
                        params=params)

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.algorithms import PartyLayout, _rounds, epoch_indices
+from repro_torch.core.algorithms import (PartyLayout, _restore, _rounds,
+                                         _save, epoch_indices)
 from repro_torch.core.losses import Problem
 from repro_torch.core.secure_agg import seed_generator
 
@@ -290,7 +291,9 @@ def train_deep_vfl(problem: Problem, x, y, layout: PartyLayout,
                    pipelined: bool = False,
                    indices: Optional[Sequence] = None,
                    checkpoint_dir: Optional[str] = None,
-                   resume_from: Optional[str] = None, device="cuda"):
+                   resume_from: Optional[str] = None,
+                   keep_last: Optional[int] = 1,
+                   horizon_epochs: Optional[int] = None, device="cuda"):
     """BUM training of the deep VFL model (the sequential oracle) on
     ``device`` (default the card; raises without one).  Returns
     ``(params, objectives)``: the final ``DeepVFLParams`` and each
@@ -311,12 +314,11 @@ def train_deep_vfl(problem: Problem, x, y, layout: PartyLayout,
     multi-dominator round); by default epoch ``ep`` runs
     ``epoch_indices(seed, ep, n, rows, n // batch)``, as ``train`` does.
 
-    ``checkpoint_dir`` and ``resume_from`` are not ported yet and raise
-    ``NotImplementedError`` naming ROADMAP A9."""
-    if checkpoint_dir is not None or resume_from is not None:
-        raise NotImplementedError("train_deep_vfl(checkpoint_dir=, "
-                                  "resume_from=) is not ported yet "
-                                  "(ROADMAP A9)")
+    ``checkpoint_dir=`` atomically checkpoints the parameters and the
+    objectives so far (NaN-filled to ``horizon_epochs``) after every
+    epoch, keeping the newest ``keep_last``; ``resume_from=`` restores
+    them and continues from the epoch after the bundle's, bit for bit the
+    uninterrupted run."""
     if algo not in ("sgd", "svrg"):
         raise ValueError(f"unknown deep algo {algo!r}")
     dev, blocks, yt, pt = _setup(x, y, layout, params, seed, hidden, d_rep,
@@ -326,8 +328,17 @@ def train_deep_vfl(problem: Problem, x, y, layout: PartyLayout,
     mm = m if multi_dominator else 1
     steps = max(1, n // batch)
     kw = dict(lr=lr, freeze=freeze_passive, m=m, q=q, mdom=mm)
-    hist = []
-    for idx in _schedules(indices, seed, epochs, n, mm * batch, steps, dev):
+    objs = np.full(max(horizon_epochs or 0, epochs), np.nan)
+    st, ep0 = _restore(resume_from, {"pt": pt, "objs": objs})
+    pt = tuple(tuple(torch.as_tensor(a, device=dev) for a in leaf)
+               for leaf in st["pt"][:3]) \
+        + (torch.as_tensor(st["pt"][3], device=dev),)
+    objs = st["objs"]
+    hist = [float(o) for o in objs[:ep0]]
+    schedules = _schedules(indices, seed, epochs, n, mm * batch, steps, dev)
+    for ep in range(ep0, epochs):
+        idx = schedules[ep]
+
         def read(p, ib):
             return _deep_fwd_acts(p, [b[ib] for b in blocks], q)
 
@@ -342,6 +353,8 @@ def train_deep_vfl(problem: Problem, x, y, layout: PartyLayout,
             pt = _rounds(_sgd_round(problem, blocks, yt, **kw), pt, read,
                          idx, pipelined)
         hist.append(_objective(problem, _to_params(pt), blocks, yt))
+        objs[ep] = hist[-1]
+        _save(checkpoint_dir, {"pt": pt, "objs": objs}, ep + 1, keep_last)
     return _to_params(pt), hist
 
 

@@ -59,8 +59,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.algorithms import PartyLayout, last_occurrence
 from repro_torch.core.deep_vfl import DeepVFLParams
+from repro_torch.core.faults import HealthStats, apply_corruption
 from repro_torch.core.losses import Problem
-from repro_torch.core.secure_agg import (secure_psum, secure_psum_ring,
+from repro_torch.core.secure_agg import (secure_psum, secure_psum_members,
+                                         secure_psum_ring,
+                                         secure_psum_ring_members,
                                          seed_generator)
 from repro_torch.kernels import ops
 from repro_torch.kernels import vfl_grad as _vg
@@ -389,6 +392,22 @@ class FusedEngine:
         return secure_psum(z, gen, mask_scale=cfg.mask_scale,
                            schedule_faithful=cfg.schedule_faithful)
 
+    def _agg_members(self, z, gen: torch.Generator, alive):
+        """Survivor-aware masked aggregation (the faulted epochs'
+        Algorithm 1) over the parties whose ``alive`` (q,) flag is set: the
+        masks cancel over the survivors.  ``two_tree`` always lowers to the
+        masked-psum form here, ``schedule_faithful`` or not: a replay of a
+        fixed tree schedule is not membership-safe (a crashed party is a
+        hole in it), while mask cancellation does not depend on the
+        schedule."""
+        cfg = self.cfg
+        if cfg.secure == "off":
+            return (alive.view(-1, *([1] * (z.dim() - 1))) * z).sum(0)
+        if cfg.secure == "ring":
+            return secure_psum_ring_members(z, gen, alive,
+                                            mask_scale=cfg.mask_scale)
+        return secure_psum_members(z, gen, alive, mask_scale=cfg.mask_scale)
+
     # -- running an epoch ----------------------------------------------------
 
     def _loop(self, name, idx, lr, mask_key, **carries) -> _StepLoop:
@@ -679,18 +698,23 @@ class FusedEngine:
                     aux)
 
     def _run_epoch(self, algo: str, multi: bool, pipelined: bool, idx, lr,
-                   mask_key, tag="", **carries):
+                   mask_key, tag="", parts=None, step_fn=None,
+                   **carries):
         """Run one epoch of ``algo`` in the given form from ``carries``;
         returns the loop's buffers.  ``tag`` completes the loop's name
-        where a carry's shape is not fixed by the engine (the ring's τ)."""
+        where a carry's shape is not fixed by the engine (the ring's τ) or
+        where ``parts`` and ``step_fn`` replace the algorithm's parts and
+        the fresh step (the faulted and guarded epochs)."""
         name = ("multi_" if multi else "") \
             + ("pipelined_" if pipelined else "") + algo + tag
-        parts = getattr(self, f"_{algo}_parts")(multi)
+        if parts is None:
+            parts = getattr(self, f"_{algo}_parts")(multi)
         loop = self._loop(name, idx, lr, mask_key, **carries)
         if pipelined:
             self._pipelined(loop, parts)
         else:
-            self._run(loop, lambda b: self._fresh_step(b, parts))
+            step_fn = step_fn or self._fresh_step
+            self._run(loop, lambda b: step_fn(b, parts))
         return loop.bufs
 
     def _sgd(self, multi, pipelined, wq, lr, idx, mask_key):
@@ -826,6 +850,189 @@ class FusedEngine:
         """Pipelined multi-dominator stale-gradient VFB²-SGD."""
         return self._delayed(True, True, wq, bufq, t0, delays, lr, idx, tau,
                              mask_key)
+
+    # -- faulted and guarded epochs (core.faults semantics) -------------------
+    #
+    # The bounded-delay single-dominator epochs with a fault trace's
+    # per-step channels, read inside the captured step at the device
+    # counter as the schedule is: the loop buffer ``chan`` (4, q, steps)
+    # holds each party's forward liveness, backward liveness, corrupt code
+    # and base delay + straggle extra.  A step's forward partials enter the
+    # survivor-aware aggregation (``_agg_members``) under the forward
+    # liveness; the direction (SGD's gradient, SVRG's v, SAGA's v, each
+    # with its regulariser) enters ring slot t mod (τ+1) only where the
+    # party received ϑ (a gated write: a crashed or cut-off party writes
+    # nothing), the read slot is max(t − (d + e), 0) mod (τ+1) in int64,
+    # and the update is gated by the backward liveness too.  SAGA keeps
+    # the replicated ϑ̃ table fresh at every step and gates the private
+    # average.  The guarded epochs first corrupt each party's partial by
+    # its code (``faults.apply_corruption``) and take a finiteness verdict
+    # per party; ``guard=True`` quarantines a non-finite party (its
+    # partial zeroed by ``where``, its forward liveness cleared for the
+    # step), and each step writes its health columns (finite, alive, max
+    # |z|, max |v|) into the loop's (4, q, steps) buffer at the step's
+    # index.  No host read anywhere: on the card the whole epoch is an
+    # eager step and replays of one graph.
+
+    def _faulted_parts(self, algo: str) -> _Parts:
+        """``algo``'s forward columns and ϑ, with the faulted update as
+        ``apply(b, g, (aux, bl, de))``: the gated ring write and read, the
+        gated update (and SAGA's table and gated average); returns the
+        direction, for the telemetry."""
+        prob = self.problem
+
+        def direction(b, g, aux):
+            reg = prob.lam * prob.reg_grad(b["wq"])
+            if algo == "svrg":
+                return (g[..., 0] + reg) \
+                    - (g[..., 1] + prob.lam * prob.reg_grad(b["wsq"])) \
+                    + b["muq"]
+            if algo == "saga":
+                return g / aux[1].shape[0] + b["avgq"] + reg
+            return g + reg
+
+        def apply(b, g, aux):
+            aux, bl, de = aux
+            v = direction(b, g, aux)
+            buf, t = b["bufq"], b["step"]
+            ring = buf.shape[1]
+            slot = (t % ring).view(1)
+            bl = bl[:, None]
+            buf.index_copy_(1, slot, torch.where(
+                bl[..., None] > 0, v.unsqueeze(1), buf.index_select(1, slot)))
+            eff = (t - de).clamp_min(0) % ring                   # (q,)
+            stale = buf.gather(1, eff[:, None, None].expand(
+                -1, 1, buf.shape[2])).squeeze(1)
+            b["wq"].sub_(b["lr"] * bl * self.maskq * stale)
+            if algo == "saga":
+                th_new, ib = aux
+                b["avgq"].add_(bl * g / self.n)     # private: frozen while out
+                b["tabq"][:, ib] = th_new[last_occurrence(ib)]
+            t.add_(1)
+            return v
+
+        return getattr(self, f"_{algo}_parts")(False)._replace(apply=apply)
+
+    def _faulted_step(self, b, parts: _Parts, guard):
+        """One faulted (``guard`` None) or guarded step: the schedule's row
+        and the channels' column at the device counter ``t``, one forward
+        and one backward launch, the survivor aggregation, the gated ring
+        and update, and (guarded) the step's health columns at ``t``."""
+        t = b["t"]
+        ch = b["chan"].index_select(2, t).squeeze(2)   # fwd, bwd, code, d+e
+        ib = b["idx"].index_select(0, t).squeeze(0)
+        xb = self._gather(ib)
+        z = self._fwd(xb, parts.cols(b))
+        live = ch[0]
+        if guard is not None:
+            shape = (self.q,) + (1,) * (z.dim() - 1)
+            z = apply_corruption(z, ch[2].view(shape))
+            healthy = torch.isfinite(z).flatten(1).all(1).float()
+            pnorm = z.abs().flatten(1).amax(1)
+            if guard:
+                live = live * healthy
+                z = torch.where(healthy.view(shape) > 0, z, 0.0)
+        agg = self._agg_members(z, self._gen, live)
+        th, denom, aux = parts.theta(b, agg, ib, self.y.index_select(0, ib))
+        v = parts.apply(b, self._bwd(xb, th, denom),
+                        (aux, ch[1], ch[3].long()))
+        if guard is not None:
+            b["health"].index_copy_(2, t, torch.stack(
+                [healthy, live, pnorm, v.abs().amax(1)]).unsqueeze(2))
+        t.add_(1)
+
+    def _faulted(self, algo, guard, delays, fwdq, bwdq, extraq, corruptq,
+                 lr, idx, tau, mask_key, **carries):
+        """Run one faulted (``guard`` None) or guarded epoch of ``algo``;
+        returns the state, the counter as a 0-d int64 device tensor, and
+        (guarded) the epoch's ``HealthStats`` of (q, steps) device
+        tensors."""
+        if carries["bufq"].shape[1] != tau + 1:
+            raise ValueError(f"bufq holds {carries['bufq'].shape[1]} ring "
+                             f"slots; tau={tau} needs {tau + 1}")
+        chan = torch.stack(torch.broadcast_tensors(*(
+            self._carry(a).float() for a in (
+                fwdq, bwdq, corruptq,
+                self._carry(delays)[:, None] + self._carry(extraq)))))
+        if chan.shape[1:] != (self.q, len(idx)):
+            raise ValueError(f"fault channels {tuple(chan.shape[1:])} != "
+                             f"(q, steps) = ({self.q}, {len(idx)})")
+        if guard is not None:
+            carries["health"] = torch.zeros_like(chan)
+        tag = f"_faulted{tau}" if guard is None \
+            else f"_guarded{tau}_{int(bool(guard))}"
+        b = self._run_epoch(algo, False, False, idx, lr, mask_key, tag=tag,
+                            parts=self._faulted_parts(algo),
+                            step_fn=lambda bb, parts: self._faulted_step(
+                                bb, parts, guard),
+                            chan=chan, **carries)
+        out = ("wq", "tabq", "avgq") if algo == "saga" else ("wq",)
+        out = tuple(b[k].clone() for k in out + ("bufq", "step"))
+        if guard is None:
+            return out
+        return out + (HealthStats(*b["health"].clone()),)
+
+    def faulted_sgd_epoch(self, wq, bufq, t0, delays, fwdq, bwdq, extraq, lr,
+                          idx, tau, mask_key=(0,)):
+        """Fault-trace VFB²-SGD over the (steps, B) schedule ``idx``:
+        ``fwdq``/``bwdq`` (q, steps) 0/1 forward and backward liveness,
+        ``extraq`` (q, steps) straggle's delay added to ``delays`` (q,).  A
+        party with ``bwd = 0`` writes nothing into its ring and applies
+        nothing; on rejoin its ring replays its last pre-crash gradients.
+        Returns ``(wq, bufq, t0 + steps)``; ``faults.faulted_sgd_epoch``
+        is the oracle."""
+        return self._faulted("sgd", None, delays, fwdq, bwdq, extraq, 0, lr,
+                             idx, tau, mask_key, wq=wq, bufq=bufq, step=t0)
+
+    def faulted_svrg_epoch(self, wq, wq_snap, muq, bufq, t0, delays, fwdq,
+                           bwdq, extraq, lr, idx, tau, mask_key=(0,)):
+        """Fault-trace VFB²-SVRG inner loop: both forward columns (iterate
+        and snapshot) are survivor aggregates; v = g(w) − g(w̃) + μ̃ ages in
+        the gated ring.  Returns ``(wq, bufq, t0 + steps)``."""
+        return self._faulted("svrg", None, delays, fwdq, bwdq, extraq, 0,
+                             lr, idx, tau, mask_key, wq=wq, wsq=wq_snap,
+                             muq=muq, bufq=bufq, step=t0)
+
+    def faulted_saga_epoch(self, wq, tabq, avgq, bufq, t0, delays, fwdq,
+                           bwdq, extraq, lr, idx, tau, mask_key=(0,)):
+        """Fault-trace VFB²-SAGA: the replicated ϑ̃ table stays fresh at
+        every step (the last occurrence of a duplicate id wins), the
+        party-private average freezes while the party is out.  Returns
+        ``(wq, tabq, avgq, bufq, t0 + steps)``."""
+        return self._faulted("saga", None, delays, fwdq, bwdq, extraq, 0,
+                             lr, idx, tau, mask_key, wq=wq, tabq=tabq,
+                             avgq=avgq, bufq=bufq, step=t0)
+
+    def guarded_sgd_epoch(self, wq, bufq, t0, delays, fwdq, bwdq, extraq,
+                          corruptq, lr, idx, tau, mask_key=(0,),
+                          guard: bool = True):
+        """Guarded VFB²-SGD: the faulted epoch with corrupt-value injection
+        (``corruptq`` (q, steps) codes), the finiteness quarantine
+        (``guard=True``) and the health telemetry.  Returns ``(wq, bufq,
+        t0 + steps, HealthStats)``; ``faults.guarded_sgd_epoch`` is the
+        oracle."""
+        return self._faulted("sgd", guard, delays, fwdq, bwdq, extraq,
+                             corruptq, lr, idx, tau, mask_key, wq=wq,
+                             bufq=bufq, step=t0)
+
+    def guarded_svrg_epoch(self, wq, wq_snap, muq, bufq, t0, delays, fwdq,
+                           bwdq, extraq, corruptq, lr, idx, tau,
+                           mask_key=(0,), guard: bool = True):
+        """Guarded VFB²-SVRG inner loop: a party's message is both partial
+        columns; one code corrupts both and the verdict covers both."""
+        return self._faulted("svrg", guard, delays, fwdq, bwdq, extraq,
+                             corruptq, lr, idx, tau, mask_key, wq=wq,
+                             wsq=wq_snap, muq=muq, bufq=bufq, step=t0)
+
+    def guarded_saga_epoch(self, wq, tabq, avgq, bufq, t0, delays, fwdq,
+                           bwdq, extraq, corruptq, lr, idx, tau,
+                           mask_key=(0,), guard: bool = True):
+        """Guarded VFB²-SAGA: the faulted epoch's freshness split with the
+        corrupt channel on the forward partial.  Returns ``(wq, tabq,
+        avgq, bufq, t0 + steps, HealthStats)``."""
+        return self._faulted("saga", guard, delays, fwdq, bwdq, extraq,
+                             corruptq, lr, idx, tau, mask_key, wq=wq,
+                             tabq=tabq, avgq=avgq, bufq=bufq, step=t0)
 
     # -- deep VFB² epochs (party-local two-layer encoders) ---------------------
     #

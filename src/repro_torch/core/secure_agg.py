@@ -29,11 +29,37 @@ values, explicit masks drawn from a ``np.random.Generator``, explicit
 tree schedules, and an ``AggTranscript`` of every message each party
 receives.  For the same generator and trees it gives the reference's
 numbers bit for bit.
+
+The membership-aware forms (fault tolerance: party dropout and rejoin)
+take an ``alive`` (q,) 0/1 vector beside the partials, a device tensor
+that a captured step computes (from a fault trace's forward liveness, or
+from a finiteness verdict), so every survivor-dependent quantity — rank
+in the surviving sub-ring, survivor count, the mask gather — is a tensor
+op with no host read.
+
+* ``secure_psum_members`` — ξ₁ − ξ₂ with both sums over the survivors
+  only;
+* ``secure_psum_ring_members`` — ring masks by rank in the surviving
+  sub-ring, Σδ ≡ 0 over the survivors for any survivor count;
+* ``secure_aggregate_survivors`` — the host form: Algorithm 1 re-run over
+  the survivors with a rebuilt Definition-4 tree pair, degrading below 3
+  survivors to a pairwise-cancelling masked psum with a warning (or an
+  error under ``strict``).
+
+Re-keying: the reference folds the alive-set fingerprint
+(``_alive_fingerprint``) into the step's threefry key, so that no mask
+stream of one membership set is reused under another.  The port cannot
+re-seed a generator from device data inside a captured step; instead
+every aggregation draws its masks fresh from the step's generator, so one
+step's masks serve exactly one membership set and no draw is ever used
+twice.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import re
+import warnings
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -88,6 +114,69 @@ def secure_aggregate_host(
     xi1 = run(t1, masked, "xi1")   # masked sum over T1
     xi2 = run(t2, deltas, "xi2")   # mask sum over the different T2
     return xi1 - xi2, transcript
+
+
+def secure_aggregate_survivors(
+    partials: Sequence[np.ndarray],
+    alive: Sequence[bool],
+    rng: np.random.Generator,
+    mask_scale: float = 1.0,
+    strict: bool = False,
+) -> Tuple[np.ndarray, AggTranscript]:
+    """Algorithm 1 across a membership change (host form).
+
+    The protocol is re-run over the survivors only: (T1, T2) are rebuilt
+    over them (``trees.survivor_tree_pair``, Definition 4 kept), fresh
+    masks are drawn (no mask of the configuration before the dropout is
+    reused), and crashed parties contribute neither value nor mask.  With
+    fewer than 3 survivors no two-tree pair exists, so the protocol
+    degrades to a pairwise-cancelling masked psum (Σδ ≡ 0 over the
+    survivors, every transmitted value still masked) with a
+    ``RuntimeWarning``; ``strict=True`` raises ``RuntimeError`` there
+    instead.  Returns ``(survivor sum, transcript)``, the transcript's
+    rows indexed by original party ids (crashed parties see nothing).
+    For the same generator it gives the reference's numbers bit for
+    bit."""
+    q = len(partials)
+    surv = [p for p in range(q) if alive[p]]
+    if not surv:
+        raise ValueError("secure aggregation needs >= 1 surviving party")
+    sub = [np.asarray(partials[p], dtype=np.float64) for p in surv]
+    transcript = AggTranscript(messages=[[] for _ in range(q)])
+    if len(surv) >= 3:
+        t1, t2, _ = trees_lib.survivor_tree_pair(q, surv)
+        val, sub_tr = secure_aggregate_host(sub, rng, t1, t2, mask_scale)
+        # route the compact-index transcript back to original party ids
+        for ci, p in enumerate(surv):
+            for tag, v in sub_tr.messages[ci]:
+                tag = re.sub(r"from(\d+)",
+                             lambda mo: f"from{surv[int(mo.group(1))]}", tag)
+                transcript.messages[p].append((tag, v))
+        return val, transcript
+    if strict:
+        raise RuntimeError(
+            f"secure aggregation: only {len(surv)} survivor(s) < 3 and "
+            "strict=True — refusing to degrade below the two-tree "
+            "protocol (no Definition-4 tree pair exists)")
+    warnings.warn(
+        f"secure aggregation degraded: only {len(surv)} survivor(s) < 3, "
+        "two-tree protocol has no Definition-4 pair — falling back to "
+        "pairwise-cancelling masked psum (values stay masked; the "
+        "mask-sum/value-sum schedule separation is lost)", RuntimeWarning)
+    s = len(surv)
+    deltas = [mask_scale * rng.standard_normal(sub[0].shape)
+              for _ in range(s)]
+    total = np.sum(deltas, axis=0)
+    deltas = [d - total / s for d in deltas]          # Σδ ≡ 0 exactly
+    masked = [p + d for p, d in zip(sub, deltas)]
+    # psum = all-broadcast-reduce: every survivor sees every other
+    # survivor's masked value (and nothing unmasked)
+    for ci, p in enumerate(surv):
+        for cj, pj in enumerate(surv):
+            if ci != cj:
+                transcript.messages[pj].append(
+                    (f"psum:from{p}", masked[ci].copy()))
+    return np.sum(masked, axis=0), transcript
 
 
 def seed_generator(gen: torch.Generator, seed: int, *key) -> torch.Generator:
@@ -200,3 +289,74 @@ def secure_psum(partial: torch.Tensor, gen: torch.Generator,
         xi1 = masked.sum(0)
         xi2 = delta.sum(0)
     return (xi1 - xi2).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# membership-aware forms (fault tolerance: party dropout / rejoin)
+# ---------------------------------------------------------------------------
+
+def _alive_fingerprint(av: torch.Tensor) -> torch.Tensor:
+    """int32 fingerprint of the alive vector ``av`` (q,) of 0/1: the
+    reference's, which folds it into the mask key.  An exact bitmask (bit
+    p = party p) for q <= 30; wider federations fold each flag in order
+    (fp ← 2·fp + av[i]) with int32 wrap-around, i.e. Σ av[i]·2^(q−1−i)
+    mod 2³² read as a signed int32.  A device op (no host read)."""
+    av = av.long()
+    q = av.shape[0]
+    if q <= 30:
+        return (av << torch.arange(q, device=av.device)).sum().int()
+    shift = torch.arange(q - 1, -1, -1, device=av.device)
+    fp = torch.where(shift < 32, av << shift.clamp_max(31), 0).sum() \
+        % (1 << 32)
+    return (fp - (fp >= (1 << 31)).long() * (1 << 32)).int()
+
+
+def _live(alive: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The (q,) alive flags shaped to broadcast over ``like`` (q, ...)."""
+    return alive.to(like.dtype).view(-1, *([1] * (like.dim() - 1)))
+
+
+def secure_psum_members(partial: torch.Tensor, gen: torch.Generator,
+                        alive: torch.Tensor, mask_scale: float = 1.0,
+                        transcript: Optional[List[torch.Tensor]] = None
+                        ) -> torch.Tensor:
+    """Membership-safe two-tree lowering: ξ₁ = Σ alive·(z + δ) and
+    ξ₂ = Σ alive·δ over the party dimension, output ξ₁ − ξ₂.  A schedule
+    replay is not membership-safe (a crashed party sits on the reduction
+    path), so this form never replays T1/T2; the host form
+    (:func:`secure_aggregate_survivors`) carries the rebuilt trees."""
+    out_dtype = partial.dtype
+    partial = partial.float()
+    live = _live(alive, partial)
+    delta = mask_scale * _party_normal(partial.shape, gen, partial.device)
+    masked = partial + delta
+    if transcript is not None:
+        transcript.append(live * masked)
+    xi1 = (live * masked).sum(0)
+    xi2 = (live * delta).sum(0)
+    return (xi1 - xi2).to(out_dtype)
+
+
+def secure_psum_ring_members(partial: torch.Tensor, gen: torch.Generator,
+                             alive: torch.Tensor, mask_scale: float = 1.0,
+                             transcript: Optional[List[torch.Tensor]] = None
+                             ) -> torch.Tensor:
+    """``secure_psum_ring`` on the surviving sub-ring.
+
+    A survivor's rank r is the number of survivors before it (an
+    exclusive ``cumsum`` of the alive vector); with n survivors it masks
+    with R[r] − R[(r − 1) mod n] from one drawn table R (q, ...), so the
+    masks cancel over the survivors for any n (a lone survivor's two rows
+    coincide: δ = 0).  Crashed parties contribute neither value nor
+    mask."""
+    out_dtype = partial.dtype
+    partial = partial.float()
+    av = (alive > 0).long()
+    rank = torch.cumsum(av, 0) - av
+    prev = (rank - 1) % av.sum().clamp_min(1)
+    table = _party_normal(partial.shape, gen, partial.device)
+    delta = table.index_select(0, rank) - table.index_select(0, prev)
+    masked = _live(alive, partial) * (partial + mask_scale * delta)
+    if transcript is not None:
+        transcript.append(masked)
+    return masked.sum(0).to(out_dtype)

@@ -280,11 +280,12 @@ def test_bum_equals_centralized_autodiff(ds, prob):
     _close_params(p1, p2, atol=1e-4)
 
 
-def test_oracle_options(ds, prob):
+def test_oracle_options(ds, prob, tmp_path):
     layout = _layout("q4m2")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(FileNotFoundError, match="no checkpoint bundle"):
         deep_vfl.train_deep_vfl(prob, ds.x_train, ds.y_train, layout,
-                                checkpoint_dir="ckpt", device="cpu")
+                                resume_from=str(tmp_path / "ckpt"),
+                                device="cpu")
     with pytest.raises(ValueError, match="saga"):
         deep_vfl.train_deep_vfl(prob, ds.x_train, ds.y_train, layout,
                                 algo="saga", device="cpu")

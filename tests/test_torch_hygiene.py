@@ -3,7 +3,8 @@
 * no module under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
   ``jax`` or anything of the JAX package ``repro`` (AST scan);
 * without a card every entry point called without ``device=`` raises
-  instead of running on the CPU (``torch.cuda.is_available`` is patched
+  instead of running on the CPU (the fault runners and the supervisor
+  among them) (``torch.cuda.is_available`` is patched
   to False, so the test means the same on a machine with a card);
 * ``chip_smoke.py`` exits non-zero and prints no result without a card,
   and in a directory that holds nothing else of the repository.
@@ -21,7 +22,8 @@ import torch
 
 from repro_torch import convert, resolve_device
 from repro_torch.configs.base import get_arch
-from repro_torch.core import algorithms, deep_vfl, engine, losses, staleness
+from repro_torch.core import (algorithms, deep_vfl, engine, faults, losses,
+                              staleness, supervisor)
 from repro_torch.launch.serve import serve
 from repro_torch.models import model as lm_model
 from repro_torch.serve import ServeEngine
@@ -68,10 +70,16 @@ def _cpu_engine():
     "serve_dense", "lm_init_params_dense", "lm_init_cache_dense",
     "run_delayed_fused", "run_delayed_multi_fused", "init_state",
     "train_deep", "train_deep_fused", "train_deep_vfl",
-    "train_centralized"])
+    "train_centralized", "run_faulted_fused", "run_guarded_fused",
+    "run_faulted_reference", "run_guarded_reference", "train_supervised",
+    "supervised_train", "supervised_guarded_run"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
-                                                               entry):
+                                                               entry,
+                                                               tmp_path):
     x = np.ones((6, 4), np.float32)
+    lay = algorithms.PartyLayout.even(4, 2, 1)
+    trace = faults.FaultTrace(q=2, steps=3)
+    ck = str(tmp_path / "ck")
     calls = {
         "resolve_device": lambda: resolve_device(),
         "FusedEngine": lambda: engine.FusedEngine(
@@ -126,6 +134,27 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
         "train_centralized": lambda: deep_vfl.train_centralized(
             losses.ridge(), x, np.ones(6, np.float32),
             algorithms.PartyLayout.even(4, 2, 1), epochs=1),
+        "run_faulted_fused": lambda: faults.run_faulted_fused(
+            losses.ridge(), x, np.ones(6, np.float32), lay, trace, 1, 1,
+            0.1, 2),
+        "run_guarded_fused": lambda: faults.run_guarded_fused(
+            losses.ridge(), x, np.ones(6, np.float32), lay, trace, 1, 1,
+            0.1, 2),
+        "run_faulted_reference": lambda: faults.run_faulted_reference(
+            losses.ridge(), x, np.ones(6, np.float32), lay, trace, 1, 1,
+            0.1, 2),
+        "run_guarded_reference": lambda: faults.run_guarded_reference(
+            losses.ridge(), x, np.ones(6, np.float32), lay, trace, 1, 1,
+            0.1, 2),
+        "train_supervised": lambda: algorithms.train(
+            losses.ridge(), x, np.ones(6, np.float32), lay, epochs=1,
+            supervise=True, checkpoint_dir=ck),
+        "supervised_train": lambda: supervisor.supervised_train(
+            losses.ridge(), x, np.ones(6, np.float32), lay, epochs=1,
+            checkpoint_dir=ck),
+        "supervised_guarded_run": lambda: supervisor.supervised_guarded_run(
+            losses.ridge(), x, np.ones(6, np.float32), lay, trace, 1, 1,
+            0.1, 2, checkpoint_dir=ck),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
