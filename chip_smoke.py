@@ -146,7 +146,34 @@ JAX or of the JAX package.
    uninterrupted 2-epoch run; ``train(supervise=True)`` on ridge at a
    divergent learning rate, finite after at least one heal; profiler
    windows over 1,000 faulted, guarded and delayed SGD steps.  It runs
-   after phase 13 and before phase 9.
+   after phase 13 and before phase 15.
+15. Deep faults and guards on phase 12's universe and start, τ = 4,
+   phase 11's seed-0 delays and phase 14's traces: one full epoch of deep
+   faulted SGD and SVRG and of deep guarded SGD and SVRG (NaN/Inf
+   trace) under ``two_tree``, run twice (the second timed and equal to
+   the first bit for bit, NaN for NaN in the telemetry), each under no
+   host sync, each step's graph launching 4 ``vfl_grad`` programs (SVRG
+   6); each kind's first 500 steps against the port's float64 deep
+   oracle (every leaf and ring slot within 1e-4 relative; guarded:
+   ``finite``/``alive`` equal, the norms within 1e-4); guarded finite
+   with no poisoned step, with ``guard=False`` NaN in the oracle's
+   places; deep faulted SGD under ``off`` and ``ring`` against
+   ``two_tree`` (1e-4); ``run_deep_faulted_fused`` checkpointed after 1
+   epoch and resumed to 2, bit-equal; ``supervised_guarded_run(deep=
+   True)`` finite; profiler windows over 1,000 deep faulted, guarded and
+   delayed SGD steps.
+16. The party mesh on one card, on phase 7's data and problem:
+   ``PartyMesh(q=8, slots=4)``, ``PartyMesh(q=8, slots=2,
+   data_shards=2)`` and ``PartyMesh(q=64, slots=8)`` (64 parties of 64
+   features, a (64, 350000, 64) pack of 5.73 GB, freed before phase 9):
+   one SGD and one SVRG epoch each in every secure mode under no host
+   sync, ``off`` bit-equal to the flat epoch where packed (1e-4 over the
+   data axis), ``two_tree``/``ring`` within 1e-4 of the flat ``two_tree``
+   iterate, a 1,000-step ``two_tree`` prefix within 1e-4 of the float64
+   oracle; host µs a step beside the flat step;
+   ``run_faulted_fused(mesh=PartyMesh(q=8, slots=2))`` within 1e-4 of the
+   flat runner; profiler windows over 1,000 packed and flat SGD steps.
+   It runs before phase 9.
 9. LM serving, falcon-mamba-7b at full width (d_model 4096, d_inner 8192,
    N = 16, 64 layers, vocabulary 65,024, random weights from a seed) across
    q = 8 parties under ``two_tree``: ``launch.serve.serve`` with batch 4,
@@ -219,7 +246,8 @@ is reset just before phase 3 and read after
 phase 5, reset again just before phase 7's runs and read after them,
 just before phase 8 and after it, just before phase 11 and after it,
 just before phase 12 and after it, just before phase 13 and after it,
-just before phase 14 and after it, just before phase 9's serve call and
+just before phase 14 and after it, just before phase 15 and after it,
+just before phase 16 and after it, just before phase 9's serve call and
 after it, and just before phase
 10's serve call and after it;
 each count must equal what the dispatch or step structure implies, every
@@ -294,6 +322,7 @@ BATCH = 64                       # max_batch: requests per dispatch
 Q, M_ACT, D, N = 8, 2, 4096, 350_000
 TRAIN_BATCH, TRAIN_LR, TRAIN_EPOCHS = 32, 1e-3, 2
 DEEP_HIDDEN, DEEP_DREP = 32, 16  # deep serving's and training's widths
+MESH_Q, MESH_SLOTS = 64, 8       # phase 16's "q past the mesh" layout
 SFU_EXP_PER_CLOCK_PER_SM = 16    # Hopper's special-function units (ex2)
 LM_ARCH, LM_Q, LM_BATCH, LM_PROMPT, LM_GEN = "falcon_mamba_7b", 8, 4, 2048, 32
 LM_TOL = 5e-2                    # the reference's bf16 scan tolerance
@@ -447,6 +476,8 @@ def kernel_phase(torch, dev):
         ("deep_train_layer2", 8, 32, 32, 16, torch.float32),
         ("deep_svrg_layer1", 8, 32, 512, 64, torch.float32),
         ("deep_multi_svrg_layer1", 8, 64, 512, 64, torch.float32),
+        # phase 16's packed q = 64 step: dp = 64 a party
+        ("train_step_q64", MESH_Q, 32, D // MESH_Q, None, torch.float32),
     ]
     for name, p, b, d, m, dtype in fwd:
         x = randn(*((b, d) if p is None else (p, b, d)), dtype=dtype)
@@ -485,6 +516,9 @@ def kernel_phase(torch, dev):
         ("deep_multi_w1_step", 8, 64, 512, 32, False, False, 1,
          torch.float32),
         ("deep_w2_step", 8, 32, 32, 16, True, False, 1, torch.float32),
+        # phase 16's packed q = 64 step: dp = 64 a party
+        ("train_sgd_step_q64", MESH_Q, 32, D // MESH_Q, None, True, False,
+         None, torch.float32),
     ]
     for name, p, b, d, m, shared, with_w, denom, dtype in bwd:
         x = randn(p, b, d, dtype=dtype)
@@ -2667,6 +2701,467 @@ def fault_phase(torch, dev, x, y, layout, log_):
     return res, expected
 
 
+DEEP_FAULT_KINDS = [(k, a) for k in ("faulted", "guarded")
+                    for a in ("sgd", "svrg")]
+# steps of phase 15's float64 oracle runs: its party-loop oracles over
+# 1,000 steps took the phase to 106.5 s (measured on one H100); the
+# profiler windows keep FAULT_PREFIX steps
+DEEP_FAULT_PREFIX = 500
+
+
+def deep_fault_phase(torch, dev, x, y, layout, log_):
+    """Phase 15: the deep faulted and guarded epochs at τ = 4 on phase 12's
+    universe and start, under phase 11's seed-0 delays and phase 14's
+    traces.  (a) One full epoch each of deep faulted SGD and SVRG on
+    phase 14's crash/rejoin/straggle/drop trace and of deep guarded SGD
+    and SVRG on its NaN/Inf trace, under ``two_tree``, run twice (the
+    second timed and equal to the first bit for bit, NaN for NaN in the
+    telemetry), each under no host sync, each step's graph launching as a
+    fresh deep step does (4, SVRG 6); guarded: finite with no poisoned
+    step.  (b) Each kind's first ``DEEP_FAULT_PREFIX`` steps against the
+    port's float64 deep oracle on the same schedule (every leaf and ring
+    slot within 1e-4 relative; guarded: ``finite``/``alive`` equal, the
+    norms within 1e-4); ``guard=False`` NaN in the oracle's coordinates.
+    (c) Deep faulted SGD under ``off`` and ``ring`` against ``two_tree``.
+    (d) ``run_deep_faulted_fused`` checkpointed after 1 epoch and resumed
+    to 2, bit-equal to an uninterrupted run.  (e)
+    ``supervised_guarded_run(deep=True)`` finishes finite.  (f) Profiler
+    windows over ``FAULT_PREFIX`` deep faulted, deep guarded and (phase
+    13's) deep delayed SGD steps.  Returns (record, expected launches)."""
+    import tempfile
+
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import deep_vfl
+    from repro_torch.core import faults
+    from repro_torch.core import staleness as st
+    from repro_torch.core.engine import EngineConfig, FusedEngine
+    from repro_torch.core.losses import logistic_l2
+    from repro_torch.core.supervisor import (poisoned_steps,
+                                             supervised_guarded_run)
+    n, d = x.shape
+    tau, pre, win = STALE_TAU, DEEP_FAULT_PREFIX, FAULT_PREFIX
+    prob, lr, batch = logistic_l2(1e-4), TRAIN_LR, TRAIN_BATCH
+    steps = n // batch
+    key = (SEED, 0)
+    delays_q = st.party_delay_values(layout, tau, SEED)
+    delays = torch.from_numpy(delays_q).to(dev).long()
+    traces = {"faulted": faults.random_trace(layout, steps, seed=SEED),
+              "guarded": faults.random_trace(layout, steps, seed=SEED,
+                                             p_corrupt=FAULT_P_CORRUPT,
+                                             corrupt_modes=("nan", "inf"))}
+    scheds = {k: tr.compile(layout.m) for k, tr in traces.items()}
+    idx = alg.epoch_indices(SEED, 0, n, batch, steps, dev)
+    expected = Counter()
+    res = {"tau": tau, "epochs": [], "prefix": [], "secure_modes": {}}
+    eng = FusedEngine(prob, x, y, layout, EngineConfig(secure="two_tree"),
+                      device=dev)
+    p0 = deep_vfl.initial_params(SEED, layout, d, DEEP_HIDDEN, DEEP_DREP)
+    pq0 = eng.pack_deep(p0)
+    muq = eng.deep_full_gradient(pq0, key)
+    expected += deep_implied(full=1)
+    # the float64 oracles' inputs: the same start, blocks, labels and μ̃
+    _, blocks64, y64, pt64 = deep_vfl._setup(x.double(), y, layout, p0, SEED,
+                                             DEEP_HIDDEN, DEEP_DREP, dev)
+    mu64 = deep_vfl._bum_grads(pt64, list(blocks64), y64, prob, layout.q)
+
+    def rows(kind, k=steps):
+        win = scheds[kind].epoch(0, steps)
+        out = [torch.from_numpy(a[:, :k].copy()).to(dev)
+               for a in win.party_rows()]
+        if kind == "guarded":
+            out.append(torch.from_numpy(win.corrupt_rows()[:, :k].copy())
+                       .to(dev))
+        return out
+
+    def launches(algo, s):
+        return deep_implied(steps=s) if algo == "sgd" \
+            else deep_implied(svrg_steps=s)
+
+    def epoch(e, kind, algo, chans, ix, guard=True, sync_check=True):
+        head = (pq0,) if algo == "sgd" else (pq0, pq0, muq)
+        kw = {} if kind == "faulted" else {"guard": guard}
+        with no_host_sync(torch) if sync_check else contextlib.nullcontext():
+            return getattr(e, f"deep_{kind}_{algo}_epoch")(
+                *head, e.deep_delay_buffers(pq0, tau), 0, delays, *chans,
+                lr, ix, tau, key, **kw)
+
+    def oracle(kind, algo, k, guard=True):
+        win = scheds[kind].epoch(0, steps)
+        head = (pt64,) if algo == "sgd" else (pt64, pt64, mu64)
+        extra = (win.codes()[:k],) if kind == "guarded" else ()
+        kw = {"guard": guard} if kind == "guarded" else {}
+        return getattr(faults, f"deep_{kind}_{algo}_epoch")(
+            prob, *head, faults._deep_ring_init(pt64, tau), 0, blocks64,
+            y64, lr, delays_q, idx[:k], win.fwd[:k], win.bwd[:k],
+            win.extra[:k], *extra, **kw)
+
+    def leaves(params):
+        return [*params.enc_w1, *params.enc_b1, *params.enc_w2, params.head]
+
+    def rel_rings(bufq, rings64):
+        """The engine's (q, τ+1, ...) rings against the oracle's per-party
+        (τ+1, ...) rings, slot by slot, w1's padding dropped."""
+        worst = 0.0
+        for i, (ring, per_party) in enumerate(zip(bufq, rings64)):
+            for s in range(ring.shape[1]):
+                got = torch.cat([(ring[p, s][: r.shape[-2]] if i == 0
+                                  else ring[p, s]).flatten()
+                                 for p, r in enumerate(per_party)])
+                want = torch.cat([r[s].flatten() for r in per_party])
+                worst = max(worst, _rel(got, want))
+        return worst
+
+    full = {}
+    for kind, algo in DEEP_FAULT_KINDS:
+        chans = rows(kind)
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = epoch(eng, kind, algo, chans, idx)
+            torch.cuda.synchronize()
+            return got, time.perf_counter() - t0
+
+        first, first_seconds = run()
+        got, seconds = run()
+        flat = [*got[0], *got[1], got[2]]
+        flat0 = [*first[0], *first[1], first[2]]
+        if kind == "guarded":
+            flat += list(got[3])
+            flat0 += list(first[3])
+        check(all(_same_bits(torch, a, b) for a, b in zip(flat0, flat)),
+              f"deep {kind} {algo}: a second run differs from the first")
+        check(int(got[2]) == steps,
+              f"deep {kind} {algo}: counter {int(got[2])}")
+        expected += launches(algo, 2 * steps) + deep_implied(objective=1)
+        full[kind, algo] = got
+        rec = dict(kind=kind, algo=algo, seconds=seconds,
+                   first_seconds=first_seconds,
+                   samples_per_s=steps * batch / seconds,
+                   host_us_per_step=seconds / steps * 1e6,
+                   finite=all(bool(torch.isfinite(a).all()) for a in got[0]),
+                   objective=eng.deep_objective(got[0]))
+        if kind == "guarded":
+            health = faults.HealthStats(*(a.cpu().numpy() for a in got[3]))
+            rec["quarantined"] = int((health.finite == 0).sum())
+            rec["poisoned"] = int(poisoned_steps(health).sum())
+            check(rec["quarantined"] > 0,
+                  f"deep guarded {algo}: the trace corrupted nothing")
+            check(rec["poisoned"] == 0,
+                  f"deep guarded {algo}: a non-finite partial got through")
+        check(rec["finite"] and np.isfinite(rec["objective"]),
+              f"deep {kind} {algo}: non-finite parameters or objective")
+        res["epochs"].append(rec)
+        log_(f"phase 15 {kind} {algo}: {rec}")
+
+        # the prefix against the float64 oracle
+        got = epoch(eng, kind, algo, rows(kind, pre), idx[:pre])
+        expected += launches(algo, pre)
+        t0 = time.perf_counter()
+        o64 = oracle(kind, algo, pre)
+        params64 = deep_vfl._to_params(o64[0])
+        prec = dict(kind=kind, algo=algo,
+                    oracle_seconds=time.perf_counter() - t0,
+                    rel_err_vs_f64=max(
+            _rel(a, b) for a, b in zip(leaves(eng.unpack_deep(got[0])),
+                                       leaves(params64))),
+            ring_rel_err_vs_f64=rel_rings(got[1], o64[1]))
+        if kind == "guarded":
+            h, h64 = got[3], o64[3]
+            prec["finite_equal"] = bool(torch.equal(h.finite,
+                                                    h64.finite.float()))
+            prec["alive_equal"] = bool(torch.equal(h.alive,
+                                                   h64.alive.float()))
+            both = torch.isfinite(h.pnorm) & torch.isfinite(h64.pnorm)
+            prec["pnorm_pattern_equal"] = bool(torch.equal(
+                torch.isfinite(h.pnorm), torch.isfinite(h64.pnorm)))
+            prec["pnorm_rel_err"] = float(
+                ((h.pnorm.double() - h64.pnorm).abs()
+                 / h64.pnorm.abs().clamp_min(1e-30))[both].max())
+            prec["gnorm_rel_err"] = float(
+                ((h.gnorm.double() - h64.gnorm).abs()
+                 / h64.gnorm.abs().clamp_min(1e-30)).max())
+            check(prec["finite_equal"] and prec["alive_equal"]
+                  and prec["pnorm_pattern_equal"],
+                  f"deep guarded {algo}: telemetry differs from the oracle's")
+            check(max(prec["pnorm_rel_err"], prec["gnorm_rel_err"]) <= 1e-4,
+                  f"deep guarded {algo}: norms beyond 1e-4")
+        res["prefix"].append(prec)
+        log_(f"phase 15 {kind} {algo} prefix: {prec}")
+        check(prec["rel_err_vs_f64"] <= 1e-4,
+              f"deep {kind} {algo}: a leaf {prec['rel_err_vs_f64']:.3e} "
+              "beyond 1e-4 of the float64 oracle")
+        check(prec["ring_rel_err_vs_f64"] <= 1e-4,
+              f"deep {kind} {algo}: a ring slot beyond 1e-4 of float64")
+
+    # each deep faulted and guarded step's graph launches as a fresh deep
+    # step's does: 4 (SVRG 6)
+    per_step = {name: sum(loop.per_step.values())
+                for (name, _), loop in eng._loops.items()
+                if "faulted" in name or "guarded" in name}
+    res["launches_per_step"] = per_step
+    check(len(per_step) == 4 and all(
+        v == (6 if "svrg" in k else 4) for k, v in per_step.items()),
+        f"deep faulted/guarded launches per step {per_step} != 4 (SVRG 6)")
+
+    # unguarded, a NaN partial poisons the params in the oracle's places
+    got = epoch(eng, "guarded", "sgd", rows("guarded", pre), idx[:pre],
+                guard=False)
+    expected += deep_implied(steps=pre)
+    o64 = oracle("guarded", "sgd", pre, guard=False)
+    nan = [torch.isnan(a) for a in leaves(eng.unpack_deep(got[0]))]
+    nan64 = [torch.isnan(a) for a in leaves(deep_vfl._to_params(o64[0]))]
+    res["unguarded"] = dict(
+        nan_values=int(sum(a.sum() for a in nan)),
+        same_places=all(torch.equal(a, b) for a, b in zip(nan, nan64)))
+    log_(f"phase 15 unguarded prefix: {res['unguarded']}")
+    check(res["unguarded"]["nan_values"] > 0
+          and res["unguarded"]["same_places"],
+          "deep unguarded: NaN not in the float64 oracle's places")
+
+    # the masks are lossless over the survivors: off and ring agree
+    want = leaves(eng.unpack_deep(full["faulted", "sgd"][0]))
+    for secure in ("off", "ring"):
+        e2 = FusedEngine(prob, x, y, layout, EngineConfig(secure=secure),
+                         device=dev)
+        got = epoch(e2, "faulted", "sgd", rows("faulted"), idx)[0]
+        expected += deep_implied(steps=steps)
+        r = max(_rel(a, b.double())
+                for a, b in zip(leaves(e2.unpack_deep(got)), want))
+        res["secure_modes"][secure] = dict(rel_vs_two_tree=r)
+        check(r <= 1e-4, f"deep faulted sgd {secure} vs two_tree: {r:.3e}")
+        del e2
+    log_(f"phase 15 secure modes agree: {res['secure_modes']}")
+
+    # kill and resume; the supervisor
+    cfg = EngineConfig(secure="two_tree")
+    trace2 = faults.random_trace(layout, 2 * steps, seed=SEED + 1)
+    run_kw = dict(seed=SEED, hidden=DEEP_HIDDEN, d_rep=DEEP_DREP,
+                  delays_q=delays_q, engine_config=cfg, device=dev)
+    (ROOT / "results").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "results") as tmp:
+        t0 = time.perf_counter()
+        whole = faults.run_deep_faulted_fused(prob, x, y, layout, trace2,
+                                              tau, 2, lr, batch, **run_kw)
+        faults.run_deep_faulted_fused(prob, x, y, layout, trace2, tau, 1, lr,
+                                      batch, checkpoint_dir=f"{tmp}/run",
+                                      horizon_epochs=2, **run_kw)
+        resumed = faults.run_deep_faulted_fused(prob, x, y, layout, trace2,
+                                                tau, 2, lr, batch,
+                                                resume_from=f"{tmp}/run",
+                                                **run_kw)
+        expected += deep_implied(steps=4 * steps)
+        res["resume"] = dict(seconds=time.perf_counter() - t0,
+                             bit_equal=all(torch.equal(a, b) for a, b in
+                                           zip(leaves(resumed),
+                                               leaves(whole))))
+        log_(f"phase 15 kill and resume: {res['resume']}")
+        check(res["resume"]["bit_equal"], "run_deep_faulted_fused: the "
+              "resumed run differs from the uninterrupted one")
+
+        t0 = time.perf_counter()
+        before = Counter(_libs()[0].launches)
+        p_sup, h_sup, heals = supervised_guarded_run(
+            prob, x, y, layout, traces["guarded"], tau, 1, lr, batch,
+            algo="sgd", seed=SEED, deep=True, hidden=DEEP_HIDDEN,
+            d_rep=DEEP_DREP, engine_config=cfg, delays_q=delays_q,
+            checkpoint_dir=f"{tmp}/sup", device=dev)
+        ran = Counter(_libs()[0].launches) - before
+        epochs_run = ran["vfl_backward_rows"] // (2 * steps)
+        expected += deep_implied(steps=epochs_run * steps)
+        res["supervisor"] = dict(
+            seconds=time.perf_counter() - t0, heals=heals,
+            epochs_run=epochs_run,
+            finite=all(bool(torch.isfinite(a).all()) for a in leaves(p_sup)),
+            poisoned=int(poisoned_steps(h_sup).sum()))
+        log_(f"phase 15 supervised deep guarded run: {res['supervisor']}")
+        check(res["supervisor"]["finite"]
+              and res["supervisor"]["poisoned"] == 0,
+              "supervised_guarded_run(deep=True) did not finish finite")
+
+    # where a deep faulted and a deep guarded step's time goes, beside
+    # phase 13's deep delayed step in the same call
+    chans = {k: rows(k, win) for k in ("faulted", "guarded")}
+    t0 = time.perf_counter()
+    for kind, fn in (("faulted", lambda: epoch(
+            eng, "faulted", "sgd", chans["faulted"], idx[:win],
+            sync_check=False)),
+                     ("guarded", lambda: epoch(
+            eng, "guarded", "sgd", chans["guarded"], idx[:win],
+            sync_check=False)),
+                     ("delayed", lambda: eng.deep_delayed_sgd_epoch(
+            pq0, eng.deep_delay_buffers(pq0, tau), 0, delays, lr, idx[:win],
+            tau, key))):
+        res[f"profile_{kind}"] = epoch_profile(torch, fn, win)
+        expected += deep_implied(steps=3 * win)
+        log_(f"phase 15 profile of {win} deep {kind} SGD steps: "
+             f"{res[f'profile_{kind}']}")
+    res["profile_seconds"] = time.perf_counter() - t0
+    del eng, blocks64, y64
+    return res, expected
+
+
+# phase 16's layouts: (name, PartyMesh keywords); the last packs q = 64
+# parties 8 to a slot on phase 7's data (dp = 64)
+MESH_LAYOUTS = (("packed_q8_slots4", dict(q=Q, slots=4)),
+                ("data_q8_slots2_shards2", dict(q=Q, slots=2, data_shards=2)),
+                ("packed_q64_slots8", dict(q=MESH_Q, slots=MESH_SLOTS)))
+
+
+def mesh_phase(torch, dev, x, y, log_):
+    """Phase 16: the hierarchical party mesh on one card, on phase 7's
+    resident data and problem.  For each of ``PartyMesh(q=8, slots=4)``,
+    ``PartyMesh(q=8, slots=2, data_shards=2)`` and ``PartyMesh(q=64,
+    slots=8)`` (64 parties of 64 features on the same x): one SGD and one
+    SVRG epoch from w = 0 in each secure mode, each under no host sync;
+    under ``off`` bit-equal to the flat epoch where packed, within 1e-4
+    over the data axis; under ``two_tree`` and ``ring`` within 1e-4
+    relative of the flat ``two_tree`` iterate; a ``two_tree`` prefix of
+    ``FAULT_PREFIX`` steps within 1e-4 of the float64 oracle; host µs a
+    step beside the flat step's.  Faulted SGD through
+    ``run_faulted_fused(mesh=PartyMesh(q=8, slots=2))`` within 1e-4 of the
+    flat runner; profiler windows over ``FAULT_PREFIX`` packed and flat
+    ``two_tree`` SGD steps.  Returns (record, expected launches)."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import faults
+    from repro_torch.core import staleness as st
+    from repro_torch.core.algorithms import PartyLayout
+    from repro_torch.core.engine import EngineConfig, FusedEngine
+    from repro_torch.core.losses import logistic_l2
+    from repro_torch.sharding.api import PartyMesh
+    n, d = x.shape
+    prob, lr, batch, pre = logistic_l2(1e-4), TRAIN_LR, TRAIN_BATCH, \
+        FAULT_PREFIX
+    steps = n // batch
+    key = (SEED, 0)
+    idx = alg.epoch_indices(SEED, 0, n, batch, steps, dev)
+    x64, y64 = x.double(), y.double()
+    w64 = torch.zeros(d, dtype=torch.float64, device=dev)
+    mask64 = torch.ones(d, dtype=torch.float64, device=dev)
+    mu64 = alg.full_gradient(prob, w64, x64, y64)
+    o64 = {"sgd": alg.sgd_epoch(prob, w64, x64, y64, lr, mask64, idx[:pre]),
+           "svrg": alg.svrg_epoch(prob, w64, w64, mu64, x64, y64, lr,
+                                  mask64, idx[:pre])}
+    del x64, y64
+    expected = Counter()
+    res = {"layouts": {}}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_host_sync(torch):
+            got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    def run(e, algo, ix, mu):
+        zero = e.pack_w(torch.zeros(d, device=dev))
+        if algo == "sgd":
+            return e.sgd_epoch(zero, lr, ix, key)
+        return e.svrg_epoch(zero, zero, mu, lr, ix, key)
+
+    def epochs(e, timing):
+        """SGD and SVRG (μ̃ at w = 0) epochs of ``e``; under ``timing`` the
+        SGD epoch runs twice, the second timed, and each algorithm's
+        prefix runs too."""
+        mu = e.full_gradient(e.pack_w(torch.zeros(d, device=dev)), key)
+        out = {"seconds": None}
+        for algo in ("sgd", "svrg"):
+            out[algo], seconds = timed(lambda: run(e, algo, idx, mu))
+            if timing and algo == "sgd":
+                again, out["seconds"] = timed(lambda: run(e, algo, idx, mu))
+                check(torch.equal(again, out[algo]),
+                      "a second mesh SGD run differs from the first")
+            if timing:
+                out[algo + "_prefix"], _ = timed(
+                    lambda: run(e, algo, idx[:pre], mu))
+        runs = 3 if timing else 2
+        expected.update(implied(steps=runs * steps + (2 * pre if timing
+                                                      else 0), full=1))
+        return out
+
+    flat = {}
+    for name, kw in MESH_LAYOUTS:
+        mesh = PartyMesh(**kw)
+        lay = PartyLayout.even(d, mesh.q, M_ACT)
+        if mesh.q not in flat:
+            flat[mesh.q] = {}
+            for mode in ("off", "two_tree"):
+                e = FusedEngine(prob, x, y, lay, EngineConfig(secure=mode),
+                                device=dev)
+                flat[mesh.q][mode] = epochs(e, mode == "two_tree")
+                del e
+        ref = flat[mesh.q]
+        rec = {"dp": D // mesh.q, "flat_host_us_per_step":
+               ref["two_tree"]["seconds"] / steps * 1e6}
+        for mode in ("off", "two_tree", "ring"):
+            e = FusedEngine(prob, x, y, lay, EngineConfig(secure=mode),
+                            mesh=mesh, device=dev)
+            got = epochs(e, mode == "two_tree")
+            for algo in ("sgd", "svrg"):
+                if mode == "off" and mesh.data_shards == 1:
+                    ok = torch.equal(got[algo], ref["off"][algo])
+                    rec[f"{algo}_off_bit_equal"] = ok
+                    check(ok, f"{name} {algo} off: not the flat epoch's bits")
+                else:
+                    want = ref["off" if mode == "off" else "two_tree"][algo]
+                    r = _rel(got[algo], want.double())
+                    rec[f"{algo}_{mode}_rel_vs_flat"] = r
+                    check(r <= 1e-4, f"{name} {algo} {mode}: {r:.3e} from "
+                          "the flat epoch")
+                if mode == "two_tree":
+                    r = _rel(torch.from_numpy(e.unpack_w(
+                        got[algo + "_prefix"])).to(dev), o64[algo])
+                    rec[f"{algo}_prefix_rel_err_vs_f64"] = r
+                    check(r <= 1e-4, f"{name} {algo}: prefix {r:.3e} beyond "
+                          "1e-4 of the float64 oracle")
+            if mode == "two_tree":
+                rec["host_us_per_step"] = got["seconds"] / steps * 1e6
+                if name == MESH_LAYOUTS[0][0]:
+                    res["profile_packed"] = epoch_profile(
+                        torch, lambda: e.sgd_epoch(
+                            e.pack_w(torch.zeros(d, device=dev)), lr,
+                            idx[:pre], key), pre)
+                    expected.update(implied(steps=3 * pre))
+                    log_(f"phase 16 profile of {pre} packed two_tree SGD "
+                         f"steps: {res['profile_packed']}")
+            del e
+        res["layouts"][name] = rec
+        log_(f"phase 16 {name}: {rec}")
+        if mesh.q != Q:
+            del flat[mesh.q]                 # the q = 64 packs go here
+            torch.cuda.empty_cache()
+
+    # the flat step's window in the same call
+    e = FusedEngine(prob, x, y, PartyLayout.even(d, Q, M_ACT),
+                    EngineConfig(secure="two_tree"), device=dev)
+    res["profile_flat"] = epoch_profile(
+        torch, lambda: e.sgd_epoch(e.pack_w(torch.zeros(d, device=dev)), lr,
+                                   idx[:pre], key), pre)
+    expected.update(implied(steps=3 * pre))
+    log_(f"phase 16 profile of {pre} flat two_tree SGD steps: "
+         f"{res['profile_flat']}")
+    del e
+
+    # faulted SGD over a packed mesh against the flat runner
+    lay = PartyLayout.even(d, Q, M_ACT)
+    tr = faults.random_trace(lay, steps, seed=SEED)
+    kw = dict(seed=SEED, delays_q=st.party_delay_values(lay, STALE_TAU, SEED),
+              engine_config=EngineConfig(secure="two_tree"), device=dev)
+    w_flat = faults.run_faulted_fused(prob, x, y, lay, tr, STALE_TAU, 1, lr,
+                                      batch, **kw)
+    w_mesh = faults.run_faulted_fused(prob, x, y, lay, tr, STALE_TAU, 1, lr,
+                                      batch, mesh=PartyMesh(q=Q, slots=2),
+                                      **kw)
+    expected.update(implied(steps=2 * steps))
+    res["faulted_runner_rel_vs_flat"] = r = float(
+        np.linalg.norm(w_mesh - w_flat) / np.linalg.norm(w_flat))
+    log_(f"phase 16 run_faulted_fused over PartyMesh(q=8, slots=2): "
+         f"{r:.3e} from the flat runner")
+    check(r <= 1e-4, f"packed faulted runner {r:.3e} from the flat one")
+    return res, expected
+
+
 def train_measure(torch, dev, x, y, layout):
     """After the counted run: the full-gradient pass time beside its bound
     and a profiler window over one SGD epoch."""
@@ -3437,7 +3932,49 @@ def main() -> int:
     record["fault_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     record["faults"]["seconds"] = time.perf_counter() - t14
     log(f"phase 14: {record['faults']['seconds']:.1f} s")
-    del x, y                                        # free phases 7-14's data
+
+    t15 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                  # phase 15 path starts
+    record["deep_faults"], expected = deep_fault_phase(torch, dev, x, y,
+                                                       layout, log)
+    deep_fault_launches = dict(vg.KERNEL.launches)  # phase 15 path ends
+    check_idle(_libs()[1:], "the phase 15 path")
+    check(deep_fault_launches == {p: expected[p] for p in vg.PROGRAMS},
+          f"phase 15 launches {deep_fault_launches} != {dict(expected)} "
+          "implied by the steps")
+    check(all(deep_fault_launches[p] for p in ("vfl_forward_wide",
+                                               "vfl_backward_rows",
+                                               "vfl_backward_reduce")),
+          f"a kernel of the phase 15 path was never launched: "
+          f"{deep_fault_launches}")
+    log(f"phase 15 path: kernel launches {deep_fault_launches}, as the "
+        "steps imply")
+    record["deep_fault_launches"] = deep_fault_launches
+    record["deep_fault_peak_memory_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    record["deep_faults"]["seconds"] = time.perf_counter() - t15
+    log(f"phase 15: {record['deep_faults']['seconds']:.1f} s")
+
+    t16 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                  # phase 16 path starts
+    record["mesh"], expected = mesh_phase(torch, dev, x, y, log)
+    mesh_launches = dict(vg.KERNEL.launches)        # phase 16 path ends
+    check_idle(_libs()[1:], "the phase 16 path")
+    check(mesh_launches == {p: expected[p] for p in vg.PROGRAMS},
+          f"phase 16 launches {mesh_launches} != {dict(expected)} "
+          "implied by the steps")
+    check(all(mesh_launches[p] for p in train_programs),
+          f"a kernel of the phase 16 path was never launched: "
+          f"{mesh_launches}")
+    log(f"phase 16 path: kernel launches {mesh_launches}, as the steps "
+        "imply")
+    record["mesh_launches"] = mesh_launches
+    record["mesh_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    record["mesh"]["seconds"] = time.perf_counter() - t16
+    log(f"phase 16: {record['mesh']['seconds']:.1f} s")
+    del x, y                                       # free phases 7-16's data
     torch.cuda.empty_cache()
 
     t9 = time.perf_counter()
@@ -3471,7 +4008,8 @@ def main() -> int:
             "launches": serve_launches[prog] + train_launches[prog]
             + pipe_launches[prog] + stale_launches[prog]
             + deep_launches[prog] + deep_stale_launches[prog]
-            + fault_launches[prog],
+            + fault_launches[prog] + deep_fault_launches[prog]
+            + mesh_launches[prog],
             "max_abs_err": max(r["max_abs_err"] for r in shapes
                                if prog in r["programs"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -14,8 +14,10 @@ four forms (``core.staleness`` semantics: per-party gradient rings), the
 deep (party-local two-layer encoder) SGD and SVRG epochs in the four
 fresh and pipelined forms with ``deep_full_gradient``, the bounded-delay
 deep SGD epochs in the same four forms (per-party, or per (party,
-dominator), encoder gradient rings), and the linear and deep
-objectives.
+dominator), encoder gradient rings), the faulted and guarded linear and
+deep epochs (``core.faults`` semantics), and the linear and deep
+objectives.  A ``PartyMesh`` makes the masked aggregation two-level and
+slices the fresh SGD and SVRG minibatches over its data axis.
 
 Party axis: the q parties are the leading dimension of every
 party-stacked tensor on one device (``xs`` is (q, n, dp), an iterate
@@ -61,12 +63,15 @@ from repro_torch.core.algorithms import PartyLayout, last_occurrence
 from repro_torch.core.deep_vfl import DeepVFLParams
 from repro_torch.core.faults import HealthStats, apply_corruption
 from repro_torch.core.losses import Problem
-from repro_torch.core.secure_agg import (secure_psum, secure_psum_members,
+from repro_torch.core.secure_agg import (secure_psum, secure_psum_hier,
+                                         secure_psum_hier_members,
+                                         secure_psum_members,
                                          secure_psum_ring,
                                          secure_psum_ring_members,
                                          seed_generator)
 from repro_torch.kernels import ops
 from repro_torch.kernels import vfl_grad as _vg
+from repro_torch.sharding.api import PartyMesh
 
 # mask-stream tags, one per entry point (the reference's fold_in constants)
 _TAG_STEPS, _TAG_FULL, _TAG_SAGA_INIT = 0x5EC, 0xF, 0xA
@@ -275,15 +280,33 @@ class FusedEngine:
     passive parties' blocks (AFSVRG-VP).  Deep parameters are the
     party-stacked ``pq = (w1q, b1q, w2q, headq)`` of :meth:`pack_deep`;
     ``active_only`` freezes the passive encoders too (``trainq``).
+
+    ``mesh`` is a :class:`~repro_torch.sharding.api.PartyMesh` (or None,
+    the flat layout) on this one device: a packed mesh routes every
+    masked aggregation through the two-level forms (under ``off`` the
+    plain sum stays, so a packed ``off`` epoch is the flat one bit for
+    bit), and ``data_shards > 1`` slices the fresh SGD and SVRG
+    minibatches (:meth:`_sliced_step`).
     """
 
     def __init__(self, problem: Problem, x, y, layout: PartyLayout,
                  cfg: EngineConfig = EngineConfig(), *,
-                 active_only: bool = False, device="cuda"):
+                 active_only: bool = False, mesh=None, device="cuda"):
         if cfg.secure not in ("off", "two_tree", "ring"):
             raise ValueError(f"unknown secure mode {cfg.secure!r} "
                              "(expected 'off', 'two_tree' or 'ring')")
+        if mesh is not None:
+            if not isinstance(mesh, PartyMesh):
+                raise TypeError(
+                    f"mesh must be a PartyMesh or None; got "
+                    f"{type(mesh).__name__} (a device mesh is the "
+                    "multi-device port, which this one is not)")
+            if mesh.q != layout.q:
+                raise ValueError(
+                    f"PartyMesh.q={mesh.q} != layout.q={layout.q}")
         self.device = resolve_device(device)
+        self._slots = mesh.slots if mesh is not None else layout.q
+        self._ddp = mesh.data_shards if mesh is not None else 1
         self.problem = problem
         self.layout = layout
         self.cfg = cfg
@@ -383,10 +406,15 @@ class FusedEngine:
 
     def _agg(self, z, gen: torch.Generator):
         """Masked secure aggregation of the party-stacked partials z
-        (q, ...) over the party axis -> the aggregate (...)."""
+        (q, ...) over the party axis -> the aggregate (...).  A packed
+        ``PartyMesh``: the two-level form (``secure_psum_hier``)."""
         cfg = self.cfg
         if cfg.secure == "off":
             return z.sum(0)
+        if self._slots < self.q:
+            return secure_psum_hier(z, gen, self._slots, mode=cfg.secure,
+                                    mask_scale=cfg.mask_scale,
+                                    schedule_faithful=cfg.schedule_faithful)
         if cfg.secure == "ring":
             return secure_psum_ring(z, gen, mask_scale=cfg.mask_scale)
         return secure_psum(z, gen, mask_scale=cfg.mask_scale,
@@ -399,10 +427,15 @@ class FusedEngine:
         masked-psum form here, ``schedule_faithful`` or not: a replay of a
         fixed tree schedule is not membership-safe (a crashed party is a
         hole in it), while mask cancellation does not depend on the
-        schedule."""
+        schedule.  A packed ``PartyMesh``: the two-level membership form,
+        each slot's any-alive flag its liveness across the slots."""
         cfg = self.cfg
         if cfg.secure == "off":
             return (alive.view(-1, *([1] * (z.dim() - 1))) * z).sum(0)
+        if self._slots < self.q:
+            return secure_psum_hier_members(z, gen, alive, self._slots,
+                                            mode=cfg.secure,
+                                            mask_scale=cfg.mask_scale)
         if cfg.secure == "ring":
             return secure_psum_ring_members(z, gen, alive,
                                             mask_scale=cfg.mask_scale)
@@ -662,6 +695,23 @@ class FusedEngine:
         th, denom, aux = parts.theta(b, agg, ib, yb)
         parts.apply(b, self._step_bwd(parts, xb, th, denom), aux)
 
+    def _sliced_step(self, b, parts: _Parts):
+        """A fresh SGD or SVRG step over a ``PartyMesh`` data axis: the
+        minibatch splits into ``data_shards`` disjoint contiguous slices
+        (shard s holds rows [s·B/S, (s+1)·B/S)), each slice's partials
+        are aggregated with a mask draw of their own (the reference's
+        ``_dkey``: no stream serves two slices) and give that slice's ϑ.
+        The data shards share each party's trust domain, so their
+        gradients meet unmasked: one backward launch over the whole batch
+        is the slices' XᵀΘ summed, each denominated by the full batch B.
+        The forward is one launch too (a row's partial is its own)."""
+        ib, xb, yb = self._batch(b)
+        z = self._fwd(xb, parts.cols(b))
+        agg = torch.cat([self._agg(zs, self._gen)
+                         for zs in z.chunk(self._ddp, 1)], 0)
+        th, denom, aux = parts.theta(b, agg, ib, yb)
+        parts.apply(b, self._step_bwd(parts, xb, th, denom), aux)
+
     def _pipe_step(self, b, parts: _Parts):
         """An interior pipelined step: round t's ϑ from the carried
         aggregate (read before this step overwrites it), then exactly one
@@ -709,6 +759,13 @@ class FusedEngine:
             + ("pipelined_" if pipelined else "") + algo + tag
         if parts is None:
             parts = getattr(self, f"_{algo}_parts")(multi)
+            if self._ddp > 1 and algo in ("sgd", "svrg") \
+                    and not (multi or pipelined):
+                batch = np.shape(idx)[1]
+                if batch % self._ddp != 0:
+                    raise ValueError(f"batch={batch} must divide "
+                                     f"data_shards={self._ddp}")
+                step_fn = self._sliced_step
         loop = self._loop(name, idx, lr, mask_key, **carries)
         if pipelined:
             self._pipelined(loop, parts)
@@ -913,33 +970,65 @@ class FusedEngine:
 
         return getattr(self, f"_{algo}_parts")(False)._replace(apply=apply)
 
+    def _fault_column(self, b):
+        """The step's fault channels (forward liveness, backward liveness,
+        corrupt code, delay + straggle), each (q,), and its schedule row,
+        at the device counter ``t``."""
+        t = b["t"]
+        return b["chan"].index_select(2, t).squeeze(2), \
+            b["idx"].index_select(0, t).squeeze(0)
+
+    def _guard_fwd(self, z, code, live, guard: bool):
+        """Corrupt each party's partial (q, ...) by its code, take the
+        per-party finiteness verdict and, under ``guard``, quarantine: a
+        non-finite partial is zeroed by ``where`` (0·NaN is NaN) and its
+        party leaves the step's forward alive set.  Returns (the shipped
+        partials, the liveness, the healthy flags, max |·| of each
+        corrupted partial)."""
+        shape = (self.q,) + (1,) * (z.dim() - 1)
+        z = apply_corruption(z, code.view(shape))
+        healthy = torch.isfinite(z).flatten(1).all(1).float()
+        pnorm = z.abs().flatten(1).amax(1)
+        if guard:
+            live = live * healthy
+            z = torch.where(healthy.view(shape) > 0, z, 0.0)
+        return z, live, healthy, pnorm
+
     def _faulted_step(self, b, parts: _Parts, guard):
         """One faulted (``guard`` None) or guarded step: the schedule's row
         and the channels' column at the device counter ``t``, one forward
         and one backward launch, the survivor aggregation, the gated ring
         and update, and (guarded) the step's health columns at ``t``."""
-        t = b["t"]
-        ch = b["chan"].index_select(2, t).squeeze(2)   # fwd, bwd, code, d+e
-        ib = b["idx"].index_select(0, t).squeeze(0)
+        ch, ib = self._fault_column(b)
         xb = self._gather(ib)
         z = self._fwd(xb, parts.cols(b))
         live = ch[0]
         if guard is not None:
-            shape = (self.q,) + (1,) * (z.dim() - 1)
-            z = apply_corruption(z, ch[2].view(shape))
-            healthy = torch.isfinite(z).flatten(1).all(1).float()
-            pnorm = z.abs().flatten(1).amax(1)
-            if guard:
-                live = live * healthy
-                z = torch.where(healthy.view(shape) > 0, z, 0.0)
+            z, live, healthy, pnorm = self._guard_fwd(z, ch[2], live, guard)
         agg = self._agg_members(z, self._gen, live)
         th, denom, aux = parts.theta(b, agg, ib, self.y.index_select(0, ib))
         v = parts.apply(b, self._bwd(xb, th, denom),
                         (aux, ch[1], ch[3].long()))
         if guard is not None:
-            b["health"].index_copy_(2, t, torch.stack(
+            b["health"].index_copy_(2, b["t"], torch.stack(
                 [healthy, live, pnorm, v.abs().amax(1)]).unsqueeze(2))
-        t.add_(1)
+        b["t"].add_(1)
+
+    def _fault_channels(self, delays, fwdq, bwdq, extraq, corruptq,
+                        steps: int, guard, carries):
+        """Stack an epoch's fault channels into the loop buffer ``chan``
+        (4, q, steps) and, for a guarded epoch, add the zeroed health
+        buffer to ``carries``."""
+        chan = torch.stack(torch.broadcast_tensors(*(
+            self._carry(a).float() for a in (
+                fwdq, bwdq, corruptq,
+                self._carry(delays)[:, None] + self._carry(extraq)))))
+        if chan.shape[1:] != (self.q, steps):
+            raise ValueError(f"fault channels {tuple(chan.shape[1:])} != "
+                             f"(q, steps) = ({self.q}, {steps})")
+        carries["chan"] = chan
+        if guard is not None:
+            carries["health"] = torch.zeros_like(chan)
 
     def _faulted(self, algo, guard, delays, fwdq, bwdq, extraq, corruptq,
                  lr, idx, tau, mask_key, **carries):
@@ -950,22 +1039,14 @@ class FusedEngine:
         if carries["bufq"].shape[1] != tau + 1:
             raise ValueError(f"bufq holds {carries['bufq'].shape[1]} ring "
                              f"slots; tau={tau} needs {tau + 1}")
-        chan = torch.stack(torch.broadcast_tensors(*(
-            self._carry(a).float() for a in (
-                fwdq, bwdq, corruptq,
-                self._carry(delays)[:, None] + self._carry(extraq)))))
-        if chan.shape[1:] != (self.q, len(idx)):
-            raise ValueError(f"fault channels {tuple(chan.shape[1:])} != "
-                             f"(q, steps) = ({self.q}, {len(idx)})")
-        if guard is not None:
-            carries["health"] = torch.zeros_like(chan)
+        self._fault_channels(delays, fwdq, bwdq, extraq, corruptq, len(idx),
+                             guard, carries)
         tag = f"_faulted{tau}" if guard is None \
             else f"_guarded{tau}_{int(bool(guard))}"
         b = self._run_epoch(algo, False, False, idx, lr, mask_key, tag=tag,
                             parts=self._faulted_parts(algo),
                             step_fn=lambda bb, parts: self._faulted_step(
-                                bb, parts, guard),
-                            chan=chan, **carries)
+                                bb, parts, guard), **carries)
         out = ("wq", "tabq", "avgq") if algo == "saga" else ("wq",)
         out = tuple(b[k].clone() for k in out + ("bufq", "step"))
         if guard is None:
@@ -1061,17 +1142,19 @@ class FusedEngine:
             return b["w1"]
         return torch.cat([b["w1" + s] for s in sides], 2)
 
-    def _deep_acts(self, b, u, sides, kernel: bool):
+    def _deep_acts(self, b, u, sides, kernel: bool, agg=None):
         """Each side's activations h (q, R, hidden) from layer 1's forward
         ``u`` and the masked aggregate (R, sides·d_rep) of layer 2's
-        partials, through the kernel or (pipelined) a plain matmul."""
+        partials, through the kernel or (pipelined) a plain matmul.
+        ``agg`` replaces the plain masked aggregation of the party-stacked
+        (q, R, sides·d_rep) partials (the faulted epochs')."""
         hid = b["w1"].shape[2]
         hs = [torch.tanh(u[..., i * hid:(i + 1) * hid] + b["b1" + s][:, None])
               for i, s in enumerate(sides)]
         layer2 = self._fwd if kernel else torch.matmul
         parts = [layer2(h, b["w2" + s]) for h, s in zip(hs, sides)]
-        return hs, self._agg(parts[0] if len(parts) == 1
-                             else torch.cat(parts, 2), self._gen)
+        z = parts[0] if len(parts) == 1 else torch.cat(parts, 2)
+        return hs, (self._agg(z, self._gen) if agg is None else agg(z))
 
     def _deep_tail(self, h, agg, yb, w2, head, mdom: int, kernel: bool,
                    doms: bool = False):
@@ -1101,7 +1184,8 @@ class FusedEngine:
         """Apply one deep round from the activations ``hs`` and aggregate
         ``agg``: ``contract(∂u)`` forms xᵀ∂u (and, pipelined, the next
         round's forward) before ``dk.apply`` updates the loop's leaves in
-        place."""
+        place.  Returns the four update directions (regularisers, and
+        SVRG's μ, included)."""
         prob = self.problem
         sides, mdom = dk.sides, dk.mdom
         dr = b["head"].shape[1]
@@ -1127,17 +1211,23 @@ class FusedEngine:
             g = [a + lam * (prob.reg_grad(b[k]) - prob.reg_grad(b[k + "s"]))
                  + mdom * b["m" + k] for a, k in zip(data, _DEEP)]
         dk.apply(b, g)
+        return g
 
-    def _deep_apply(self, b, g):
+    def _deep_apply(self, b, g, gate=None):
         """The fresh update of the four leaves, in place: the masks freeze
-        the padding and, under ``active_only``, the passive encoders."""
+        the padding and, under ``active_only``, the passive encoders;
+        ``gate`` (q,), where given, freezes a party's encoder whole (the
+        faulted epochs' backward liveness)."""
         lr = b["lr"]
-        b["w1"].sub_(lr * self.maskq[..., None] * g[0])
-        b["b1"].sub_(lr * self.trainq[:, None] * g[1])
-        b["w2"].sub_(lr * self.trainq[:, None, None] * g[2])
+        maskq, trainq = self.maskq, self.trainq
+        if gate is not None:
+            maskq, trainq = gate[:, None] * maskq, gate * trainq
+        b["w1"].sub_(lr * maskq[..., None] * g[0])
+        b["b1"].sub_(lr * trainq[:, None] * g[1])
+        b["w2"].sub_(lr * trainq[:, None, None] * g[2])
         b["head"].sub_(lr * g[3])
 
-    def _deep_delayed_apply(self, doms: bool):
+    def _deep_delayed_apply(self, doms: bool, bl=None, de=None):
         """The bounded-delay update (``core.staleness``): the step's
         encoder gradients, regulariser included (per dominator under
         ``doms``), enter slot t mod (τ+1) of the loop's flat ring ``ring``
@@ -1146,19 +1236,30 @@ class FusedEngine:
         summed over the dominators, take the fresh update's place.  The
         head applies its gradient fresh (delaying a replicated parameter
         would fork the replicas).  One ``index_copy_`` and one ``gather``
-        a step, at device indices from the int64 counter ``step``."""
+        a step, at device indices from the int64 counter ``step``.
+
+        The faulted form gates the write and the encoder update by the
+        backward liveness ``bl`` (q,) (a party that received no ϑ writes
+        its old slot back and keeps its encoder) and reads slot
+        max(t − de, 0) with ``de`` (q,) the step's delay + straggle."""
         def apply(b, g):
             ring, t = b["ring"], b["step"]
             slots = ring.shape[1]
+            slot = (t % slots).view(1)
             enc = [a if doms else a.unsqueeze(-2) for a in g[:3]]
-            ring.index_copy_(1, (t % slots).view(1), torch.cat(
-                [a.movedim(-2, 1).flatten(2) for a in enc], 2).unsqueeze(1))
-            eff = (t - b["delays"]).clamp_min(0) % slots    # (q[, m])
+            new = torch.cat([a.movedim(-2, 1).flatten(2) for a in enc],
+                            2).unsqueeze(1)
+            if bl is not None:
+                new = torch.where(bl.view(-1, 1, 1, 1) > 0, new,
+                                  ring.index_select(1, slot))
+            ring.index_copy_(1, slot, new)
+            eff = (t - (b["delays"] if de is None else de)).clamp_min(0) \
+                % slots                                     # (q[, m])
             stale = ring.gather(1, eff.view(self.q, 1, -1, 1).expand(
                 -1, -1, *ring.shape[2:])).sum((1, 2))
             parts = stale.split([b[k][0].numel() for k in _DEEP[:3]], 1)
             self._deep_apply(b, [a.view_as(b[k]) for a, k in zip(parts, _DEEP)]
-                             + [g[3]])
+                             + [g[3]], bl)
             t.add_(1)
 
         return apply
@@ -1226,10 +1327,11 @@ class FusedEngine:
                          lambda du: self._deep_xbwd(xb, du, dk), False)
 
     def _deep_run(self, algo, multi, pipelined, dk: _DeepParts, pq, lr, idx,
-                  mask_key, **carries):
+                  mask_key, step_fn=None, **carries):
         """Run one deep epoch of kind ``dk`` from the party-stacked ``pq``
         and ``carries``; returns the loop's buffers.  The loop's name
-        carries the form, ``algo`` and the deep widths."""
+        carries the form, ``algo`` and the deep widths.  ``step_fn``
+        replaces the fresh step (the faulted epochs')."""
         name = "deep_" + ("multi_" if multi else "") \
             + ("pipelined_" if pipelined else "") + algo \
             + "_{}x{}".format(*pq[2].shape[1:])
@@ -1238,7 +1340,8 @@ class FusedEngine:
         if pipelined:
             self._deep_pipelined(loop, dk)
         else:
-            self._run(loop, lambda b: self._deep_fresh_step(b, dk))
+            step_fn = step_fn or self._deep_fresh_step
+            self._run(loop, lambda b: step_fn(b, dk))
         return loop.bufs
 
     def _deep(self, multi, pipelined, pq, lr, idx, mask_key, snap=None,
@@ -1383,6 +1486,128 @@ class FusedEngine:
         the one split launch per interior step."""
         return self._deep_delayed(True, True, pq, bufq, t0, delays, lr,
                                   idx, tau, mask_key)
+
+    # -- deep faulted and guarded epochs (core.faults semantics) --------------
+    #
+    # The bounded-delay deep SGD and SVRG epochs with the linear faulted
+    # epochs' channels: the loop buffer ``chan`` (4, q, steps) read at the
+    # device counter, the survivor aggregation (``_agg_members``) of the
+    # (q, B, d_rep) vector partials (SVRG: both sides', (q, B, 2·d_rep))
+    # under the forward liveness, the flat encoder ring of
+    # ``_deep_delayed_apply`` written only where the party received ϑ and
+    # read at max(t − (d + e), 0) mod (τ+1), and a crashed or cut-off
+    # party's encoder (w1, b1, w2) frozen whole.  The replicated head is
+    # dominator-held protocol state and applies its gradient fresh at
+    # every step.  Guarded: the corrupt code rewrites each party's partial
+    # before the survivor sum, ``guard=True`` quarantines a non-finite one,
+    # and the step writes (finite, alive, max |z|, max |·| over the
+    # party's w1, b1 and w2 directions) into ``health`` at its index.  A
+    # step makes a fresh deep step's launches (4; SVRG 6); SVRG's μ̃ comes
+    # from :meth:`deep_full_gradient`, a full-membership round at the
+    # epoch boundary.  ``bufq`` and the returned rings are the per-party
+    # (w1, b1, w2) rings of :meth:`deep_delay_buffers`.
+
+    def _deep_faulted_step(self, b, dk: _DeepParts, guard):
+        """One deep faulted (``guard`` None) or guarded step at the device
+        counter ``t``."""
+        ch, ib = self._fault_column(b)
+        xb = self._gather(ib)
+        live, stats = ch[0], []
+
+        def agg(z):
+            nonlocal live
+            if guard is not None:
+                z, live, healthy, pnorm = self._guard_fwd(z, ch[2], live,
+                                                          guard)
+                stats.extend((healthy, pnorm))
+            return self._agg_members(z, self._gen, live)
+
+        hs, aggv = self._deep_acts(
+            b, self._fwd(xb, self._deep_cols(b, dk.sides)), dk.sides, True,
+            agg)
+        step = dk._replace(apply=self._deep_delayed_apply(
+            False, ch[1], ch[3].long()))
+        g = self._deep_round(b, step, hs, aggv, self.y.index_select(0, ib),
+                             lambda du: self._deep_xbwd(xb, du, dk), True)
+        if guard is not None:
+            gnorm = torch.stack([a.abs().flatten(1).amax(1)
+                                 for a in g[:3]]).amax(0)
+            b["health"].index_copy_(2, b["t"], torch.stack(
+                [stats[0], live, stats[1], gnorm]).unsqueeze(2))
+        b["t"].add_(1)
+
+    def _deep_faulted(self, algo, guard, pq, bufq, t0, delays, fwdq, bwdq,
+                      extraq, corruptq, lr, idx, tau, mask_key, snap=None,
+                      muq=None):
+        """Run one deep faulted (``guard`` None) or guarded epoch; returns
+        ``(pq, bufq, t0 + steps)`` and, guarded, the ``HealthStats``."""
+        if bufq[0].shape[1] != tau + 1:
+            raise ValueError(f"bufq holds {bufq[0].shape[1]} ring slots; "
+                             f"tau={tau} needs {tau + 1}")
+        carries = {"step": t0,
+                   "ring": _ring_flat([self._carry(r) for r in bufq], False)}
+        self._fault_channels(delays, fwdq, bwdq, extraq, corruptq, len(idx),
+                             guard, carries)
+        if snap is not None:
+            carries.update(zip((k + "s" for k in _DEEP), snap))
+            carries.update(zip(("m" + k for k in _DEEP), muq))
+        dk = _DeepParts(("", "s") if snap is not None else ("",), 1, False,
+                        None)
+        kind = f"faulted_{algo}{tau}" if guard is None \
+            else f"guarded_{algo}{tau}_{int(bool(guard))}"
+        b = self._deep_run(kind, False, False, dk, pq, lr, idx, mask_key,
+                           step_fn=lambda bb, d: self._deep_faulted_step(
+                               bb, d, guard), **carries)
+        leaves = tuple(b[k].clone() for k in _DEEP)
+        out = (leaves, _ring_split(b["ring"], leaves, False),
+               b["step"].clone())
+        if guard is None:
+            return out
+        return out + (HealthStats(*b["health"].clone()),)
+
+    def deep_faulted_sgd_epoch(self, pq, bufq, t0, delays, fwdq, bwdq,
+                               extraq, lr, idx, tau, mask_key=(0,)):
+        """Fault-trace deep VFB²-SGD over the (steps, B) schedule ``idx``
+        from the party-stacked ``pq`` and the per-party encoder rings
+        ``bufq``: ``fwdq``/``bwdq`` (q, steps) 0/1 forward and backward
+        liveness, ``extraq`` (q, steps) straggle's delay added to
+        ``delays`` (q,).  Returns ``(pq, bufq, t0 + steps)``;
+        ``faults.run_deep_faulted_reference`` drives the oracle."""
+        return self._deep_faulted("sgd", None, pq, bufq, t0, delays, fwdq,
+                                  bwdq, extraq, 0, lr, idx, tau, mask_key)
+
+    def deep_faulted_svrg_epoch(self, pq, pq_snap, muq, bufq, t0, delays,
+                                fwdq, bwdq, extraq, lr, idx, tau,
+                                mask_key=(0,)):
+        """Fault-trace deep VFB²-SVRG inner loop: both encoder passes
+        (iterate and snapshot) give survivor-aggregated partials, the
+        per-leaf v = g(w) − g(w̃) + μ̃ ages in the gated ring, the head
+        applies its v fresh.  ``muq`` from :meth:`deep_full_gradient` at
+        the snapshot.  Returns ``(pq, bufq, t0 + steps)``."""
+        return self._deep_faulted("svrg", None, pq, bufq, t0, delays, fwdq,
+                                  bwdq, extraq, 0, lr, idx, tau, mask_key,
+                                  pq_snap, muq)
+
+    def deep_guarded_sgd_epoch(self, pq, bufq, t0, delays, fwdq, bwdq,
+                               extraq, corruptq, lr, idx, tau,
+                               mask_key=(0,), guard: bool = True):
+        """Guarded deep VFB²-SGD: the corrupt channel ``corruptq``
+        (q, steps) rewrites each party's (B, d_rep) partial before the
+        survivor sum; ``guard=True`` quarantines a non-finite one.
+        Returns ``(pq, bufq, t0 + steps, HealthStats)``."""
+        return self._deep_faulted("sgd", guard, pq, bufq, t0, delays, fwdq,
+                                  bwdq, extraq, corruptq, lr, idx, tau,
+                                  mask_key)
+
+    def deep_guarded_svrg_epoch(self, pq, pq_snap, muq, bufq, t0, delays,
+                                fwdq, bwdq, extraq, corruptq, lr, idx, tau,
+                                mask_key=(0,), guard: bool = True):
+        """Guarded deep VFB²-SVRG inner loop: a party's message is both
+        partials (iterate and snapshot, (B, 2·d_rep)); one code corrupts
+        both and the verdict covers both."""
+        return self._deep_faulted("svrg", guard, pq, bufq, t0, delays, fwdq,
+                                  bwdq, extraq, corruptq, lr, idx, tau,
+                                  mask_key, pq_snap, muq)
 
     def deep_full_gradient(self, pq, mask_key=(0,)):
         """The full-dataset deep BUM gradient at ``pq`` (SVRG's μ), every

@@ -1,7 +1,7 @@
 """Deterministic fault traces — crash, rejoin, straggle, dropped broadcast
-and corrupt value — with the faulted and guarded linear epochs.
+and corrupt value — with the faulted and guarded linear and deep epochs.
 
-The port of ``repro.core.faults``' linear half.  A :class:`FaultTrace` is a
+The port of ``repro.core.faults``.  A :class:`FaultTrace` is a
 list of per-(party, step) events; ``compile`` turns it into dense per-step
 channels that the engine's faulted and guarded epochs read inside each
 captured step, and that the sequential oracles here read per coordinate.
@@ -53,8 +53,21 @@ Every step needs at least one active party (p < m) alive to compute ϑ;
   ``events`` carrying ``step/party/kind/k/mode``) feeds the runners as
   well.
 
-The deep faulted and guarded epochs are not ported yet (ROADMAP A10b);
-their runners raise ``NotImplementedError``.
+Deep (each party a two-layer encoder, the head dominator-held): the
+crash, straggle and drop channels gate each party's encoder rings (w1,
+b1, w2) and updates as above, the corrupt channel acts on the party's
+(B, d_rep) vector partial, and the replicated head applies its gradient
+fresh at every step.
+
+* The deep oracles ``deep_{faulted,guarded}_{sgd,svrg}_epoch`` are party
+  loops on the per-party feature blocks, in the parameters' dtype (float64
+  included), on the delayed deep oracle's rings
+  (``staleness._deep_ring_apply``).
+* ``run_deep_faulted_reference`` / ``run_deep_guarded_reference`` drive
+  them, ``run_deep_faulted_fused`` / ``run_deep_guarded_fused`` the
+  engine's deep faulted and guarded epochs, from
+  ``deep_vfl.initial_params(seed)``; the fused runners checkpoint and
+  resume as the linear ones do.
 """
 from __future__ import annotations
 
@@ -68,8 +81,12 @@ from repro_torch import resolve_device
 from repro_torch.core.algorithms import (PartyLayout, epoch_indices,
                                          full_gradient, last_occurrence,
                                          saga_init)
+from repro_torch.core.deep_vfl import (DeepVFLParams, _bum_grads,
+                                       _bum_stale_grads, _combine, _schedules,
+                                       _to_params)
+from repro_torch.core.deep_vfl import _setup as _deep_setup
 from repro_torch.core.losses import Problem
-from repro_torch.core.staleness import party_delay_values
+from repro_torch.core.staleness import _deep_ring_apply, party_delay_values
 
 KINDS = ("crash", "rejoin", "straggle", "drop_msg", "corrupt")
 
@@ -313,7 +330,8 @@ def _ring(buf, t, v, b, dcoord, e):
 
 def _channels(x, dcoord, *rows):
     """The oracles' integer delays and per-step channels as tensors on
-    x's device (floats in x's dtype, delays and codes int64)."""
+    x's device (floats in x's dtype, delays and codes int64); ``rows``
+    are (channel, integer?) pairs."""
     def put(a, integer):
         a = torch.as_tensor(a, device=x.device)
         return a.long() if integer else a.to(x.dtype)
@@ -414,17 +432,18 @@ def _party_cols(u, own):
 
 
 def _guard_partials(zcols, f, c, guard: bool):
-    """Corrupt the per-party partial columns (a list of (B, q): SVRG ships
-    the iterate's and the snapshot's), then quarantine or not.  Returns
-    (shipped columns, corrupted columns, healthy flags, liveness)."""
+    """Corrupt the per-party partial columns (a list of (B, q), or of
+    (B, d_rep, q) deep vector partials: SVRG ships the iterate's and the
+    snapshot's), then quarantine or not.  Returns (shipped columns,
+    corrupted columns, healthy flags, liveness)."""
     zc = [apply_corruption(z, c[None, :]) for z in zcols]
-    fin = torch.ones(zc[0].shape[1], dtype=torch.bool, device=f.device)
+    fin = torch.ones(zc[0].shape[-1], dtype=torch.bool, device=f.device)
     for z in zc:
-        fin = fin & torch.isfinite(z).all(0)
+        fin = fin & torch.isfinite(z).flatten(0, -2).all(0)
     healthy = fin.to(f.dtype)
     if not guard:
         return zc, zc, healthy, f
-    return [torch.where(healthy[None, :] > 0, z, torch.zeros_like(z))
+    return [torch.where(healthy > 0, z, torch.zeros_like(z))
             for z in zc], zc, healthy, f * healthy
 
 
@@ -553,12 +572,9 @@ def _base_delays(layout: PartyLayout, tau: int, sched: FaultSchedule,
 
 
 def _setup(trace, layout: PartyLayout, n: int, batch: int, epochs: int,
-           horizon_epochs, tau: int, delays_q, seed: int, mesh=None):
+           horizon_epochs, tau: int, delays_q, seed: int):
     """(port trace's schedule, base delays, steps per epoch) after the
     horizon and delay-budget checks."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (a party mesh with a data axis) "
-                                  "is not ported yet (ROADMAP A11)")
     steps = max(1, n // batch)
     horizon = epochs if horizon_epochs is None \
         else max(int(horizon_epochs), epochs)
@@ -659,12 +675,11 @@ def _fused_run(problem, x, y, layout, trace, tau, epochs, lr, batch, algo,
         raise ValueError(f"unknown algo {algo}")
     n, d = np.shape(x)
     sched, delays_q, steps = _setup(trace, layout, n, batch, epochs,
-                                    horizon_epochs, tau, delays_q, seed,
-                                    mesh)
+                                    horizon_epochs, tau, delays_q, seed)
     horizon = sched.fwd.shape[0] // steps
     cfg = engine_config if engine_config is not None else EngineConfig()
     eng = FusedEngine(problem, x, y, layout, cfg, active_only=active_only,
-                      device=device)
+                      mesh=mesh, device=device)
     dev = eng.device
     dq = torch.from_numpy(delays_q).to(dev).long()
     st = {"wq": eng.pack_w(np.zeros(d, np.float32)),
@@ -736,7 +751,9 @@ def run_faulted_fused(problem: Problem, x, y, layout: PartyLayout, trace,
     newest ``keep_last``; ``resume_from=`` restores it and continues — a
     killed run resumes from the last epoch boundary bit for bit, since
     each epoch is a function of that state and ``(seed, ep)``.  ``mesh=``
-    is ROADMAP A11.  Returns the final (d,) iterate."""
+    (a ``PartyMesh`` on this one device) routes the survivor aggregation
+    through the two-level membership form.  Returns the final (d,)
+    iterate."""
     return _fused_run(problem, x, y, layout, trace, tau, epochs, lr, batch,
                       algo, seed, delays_q, engine_config, active_only, mesh,
                       checkpoint_dir, resume_from, keep_last, horizon_epochs,
@@ -764,17 +781,317 @@ def run_guarded_fused(problem: Problem, x, y, layout: PartyLayout, trace,
                       device, guard)
 
 
-def _deep_unported(name):
-    def run(*args, **kwargs):
-        raise NotImplementedError(
-            f"faults.{name} (the deep faulted and guarded epochs) is not "
-            "ported yet (ROADMAP A10b)")
-    run.__name__ = name
-    run.__doc__ = "Not ported yet (ROADMAP A10b): raises."
-    return run
+# ---------------------------------------------------------------------------
+# deep oracles (party loops)
+# ---------------------------------------------------------------------------
+#
+# The deep delayed oracle's ring (``staleness._deep_ring_apply``) with the
+# linear oracles' channels, per party: the survivor sum of the (B, d_rep)
+# vector partials under the forward liveness (guarded: after the corrupt
+# code and the quarantine of ``_guard_partials``), the ring write and the
+# encoder update gated by the backward liveness, the read at
+# max(t − (d + e), 0) mod (τ+1); the dominator-held head applies its
+# gradient fresh.  ``pt`` is the parameter tuple (w1s, b1s, w2s, head) of
+# per-party tuples, the rings per leaf, per party (τ+1, ...); ``blocks``
+# the per-party (n, d_ℓ) feature blocks; the channels (steps, q) in party
+# space.  Everything runs in the parameters' dtype (float64 included).
+
+def _deep_ring_init(pt, tau: int):
+    """Zeroed per-party encoder gradient rings: per leaf (w1, b1, w2) a
+    (τ+1, ...) ring per party."""
+    return tuple(tuple(torch.zeros((tau + 1,) + tuple(a.shape), dtype=a.dtype,
+                                   device=a.device) for a in leaf)
+                 for leaf in pt[:3])
 
 
-run_deep_faulted_reference = _deep_unported("run_deep_faulted_reference")
-run_deep_faulted_fused = _deep_unported("run_deep_faulted_fused")
-run_deep_guarded_reference = _deep_unported("run_deep_guarded_reference")
-run_deep_guarded_fused = _deep_unported("run_deep_guarded_fused")
+def _survivor_sum(zp, live):
+    """Σ_ℓ live_ℓ · zp[..., ℓ] over the party axis (last), in party order
+    (the reference's left fold)."""
+    out = live[0] * zp[..., 0]
+    for p in range(1, zp.shape[-1]):
+        out = out + live[p] * zp[..., p]
+    return out
+
+
+def _leaf_norm(*gs):
+    """max |·| across one party's update-direction leaves (telemetry)."""
+    return torch.stack([g.abs().amax() for g in gs]).amax()
+
+
+def _deep_fault_step(problem, xb, yb, pt, rings, t, lr, de, f, bw,
+                     snap=None, mu=None, c=None, guard: bool = True):
+    """One sequential deep faulted (``c`` None) or guarded step on the
+    blocks' rows ``xb``: ``de`` (q,) the step's delay + straggle, ``f``/
+    ``bw`` (q,) forward and backward liveness, ``c`` (q,) corrupt codes.
+    SVRG (``snap`` and its full gradient ``mu``): a party's message is
+    both vector partials, and v = g(w) − g(w̃) + μ̃ enters the ring.
+    Returns ``(pt, rings, health column (4, q) or None)``."""
+    q = len(pt[0])
+    sides = (pt,) if snap is None else (pt, snap)
+    hs = [tuple(torch.tanh(xb[p] @ s[0][p] + s[1][p]) for p in range(q))
+          for s in sides]
+    zcols = [torch.stack([h[p] @ s[2][p] for p in range(q)], -1)
+             for h, s in zip(hs, sides)]                 # (B, d_rep, q)
+    if c is None:
+        zs, live = zcols, f
+    else:
+        zs, zc, healthy, live = _guard_partials(zcols, f, c, guard)
+    z = [_survivor_sum(a, live) for a in zs]
+    grads = _bum_stale_grads(pt, xb, hs[0], z[0], yb, problem, q)
+    if snap is not None:
+        grads = _combine(grads, _bum_stale_grads(snap, xb, hs[1], z[1], yb,
+                                                 problem, q), mu, 1)
+    pt, rings = _deep_ring_apply(pt, rings, t, grads, lr, de, [1.0] * q,
+                                 gate=bw)
+    if c is None:
+        return pt, rings, None
+    pnorm = torch.stack([a.abs().flatten(0, -2).amax(0) for a in zc]) \
+        .amax(0)
+    gnorm = torch.stack([_leaf_norm(*(leaf[p] for leaf in grads[:3]))
+                         for p in range(q)])
+    return pt, rings, torch.stack([healthy, live, pnorm, gnorm])
+
+
+def _deep_fault_epoch(problem, pt, snap, mu, rings, t0, blocks, y, lr,
+                      delays, idx, fwd, bwd, extra, corrupt, guard):
+    dev = pt[3].device
+    delays, fwd, bwd, extra, *codes = _channels(
+        pt[3], delays, (fwd, False), (bwd, False), (extra, True),
+        *(() if corrupt is None else ((corrupt, True),)))
+    codes = codes[0] if codes else None
+    idx = torch.as_tensor(idx, device=dev).long()
+    t = _t(t0, dev)
+    hs = []
+    for i in range(idx.shape[0]):
+        ib = idx[i]
+        pt, rings, col = _deep_fault_step(
+            problem, [b[ib] for b in blocks], y[ib], pt, rings, t, lr,
+            delays + extra[i], fwd[i], bwd[i], snap, mu,
+            None if codes is None else codes[i], guard)
+        if col is not None:
+            hs.append(col)
+        t = t + 1
+    return (pt, rings, t) if corrupt is None else (pt, rings, t, _stats(hs))
+
+
+def deep_faulted_sgd_epoch(problem: Problem, pt, rings, t0, blocks, y, lr,
+                           delays, idx, fwd, bwd, extra):
+    """One deep faulted VFB²-SGD epoch (the sequential oracle) over the
+    (steps, B) schedule ``idx``: ``delays`` (q,) base delays, ``fwd``/
+    ``bwd``/``extra`` (steps, q) forward and backward liveness and
+    straggle's delay.  Returns ``(pt, rings, t)``."""
+    return _deep_fault_epoch(problem, pt, None, None, rings, t0, blocks, y,
+                             lr, delays, idx, fwd, bwd, extra, None, True)
+
+
+def deep_faulted_svrg_epoch(problem: Problem, pt, snap, mu, rings, t0,
+                            blocks, y, lr, delays, idx, fwd, bwd, extra):
+    """Deep faulted VFB²-SVRG inner loop from the snapshot ``snap`` and
+    its full-membership full gradient ``mu`` (both parameter tuples)."""
+    return _deep_fault_epoch(problem, pt, snap, mu, rings, t0, blocks, y,
+                             lr, delays, idx, fwd, bwd, extra, None, True)
+
+
+def deep_guarded_sgd_epoch(problem: Problem, pt, rings, t0, blocks, y, lr,
+                           delays, idx, fwd, bwd, extra, corrupt,
+                           guard: bool = True):
+    """One deep guarded VFB²-SGD epoch: the corrupt codes ``corrupt``
+    (steps, q) rewrite each party's (B, d_rep) partial before the survivor
+    sum; ``guard=True`` quarantines a non-finite one.  Returns ``(pt,
+    rings, t, HealthStats)``, the telemetry (q, steps) tensors: gnorm is
+    max |·| over the party's w1, b1 and w2 directions."""
+    return _deep_fault_epoch(problem, pt, None, None, rings, t0, blocks, y,
+                             lr, delays, idx, fwd, bwd, extra, corrupt,
+                             guard)
+
+
+def deep_guarded_svrg_epoch(problem: Problem, pt, snap, mu, rings, t0,
+                            blocks, y, lr, delays, idx, fwd, bwd, extra,
+                            corrupt, guard: bool = True):
+    """Deep guarded VFB²-SVRG inner loop: one code corrupts both partials
+    (iterate and snapshot) and the verdict covers both."""
+    return _deep_fault_epoch(problem, pt, snap, mu, rings, t0, blocks, y,
+                             lr, delays, idx, fwd, bwd, extra, corrupt,
+                             guard)
+
+
+def _deep_check(algo: str, guard):
+    if algo not in ("sgd", "svrg"):
+        kind = "faulted" if guard is None else "guarded"
+        raise ValueError(f"deep {kind} VFB² supports sgd/svrg; got {algo}")
+
+
+def _deep_oracle_run(problem, x, y, layout, trace, tau, epochs, lr, batch,
+                     algo, seed, hidden, d_rep, delays_q, params, indices,
+                     device, guard):
+    """The deep oracle drivers' shared loop; ``guard`` None runs the
+    faulted oracles."""
+    _deep_check(algo, guard)
+    dev, blocks, yt, pt = _deep_setup(x, y, layout, params, seed, hidden,
+                                      d_rep, device)
+    n = yt.shape[0]
+    sched, delays_q, steps = _setup(trace, layout, n, batch, epochs, None,
+                                    tau, delays_q, seed)
+    rings = _deep_ring_init(pt, tau)
+    t = torch.zeros((), dtype=torch.int64, device=dev)
+    health = []
+    for ep, idx in enumerate(_schedules(indices, seed, epochs, n, batch,
+                                        steps, dev)):
+        win = sched.epoch(ep, steps)
+        head = (pt,)
+        if algo == "svrg":
+            head = (pt, pt, _bum_grads(pt, list(blocks), yt, problem,
+                                       layout.q))
+        rows = (win.fwd, win.bwd, win.extra)
+        common = (rings, t, blocks, yt, lr, delays_q, idx) + rows
+        fn = globals()[("deep_faulted" if guard is None else "deep_guarded")
+                       + f"_{algo}_epoch"]
+        if guard is None:
+            pt, rings, t = fn(problem, *head, *common)
+        else:
+            pt, rings, t, hs = fn(problem, *head, *common, win.codes(),
+                                  guard=guard)
+            health.append(hs)
+    params = _to_params(pt)
+    return params if guard is None else (params, HealthStats.concat(health))
+
+
+def run_deep_faulted_reference(problem: Problem, x, y, layout: PartyLayout,
+                               trace, tau: int, epochs: int, lr: float,
+                               batch: int, algo: str = "sgd", seed: int = 0,
+                               hidden: int = 32, d_rep: int = 16,
+                               delays_q=None, params=None, indices=None,
+                               device="cuda") -> DeepVFLParams:
+    """The deep faulted oracles' driver on ``device`` (default the card;
+    raises without one), in x's floating dtype, from ``params`` (default
+    ``deep_vfl.initial_params(seed)``): epoch ``ep`` runs ``indices[ep]``
+    (default ``epoch_indices(seed, ep, n, batch, n // batch)``) and the
+    trace's window; SVRG's snapshot and μ̃ are full-membership rounds at
+    the epoch's start.  Returns the final ``DeepVFLParams``."""
+    return _deep_oracle_run(problem, x, y, layout, trace, tau, epochs, lr,
+                            batch, algo, seed, hidden, d_rep, delays_q,
+                            params, indices, device, None)
+
+
+def run_deep_guarded_reference(problem: Problem, x, y, layout: PartyLayout,
+                               trace, tau: int, epochs: int, lr: float,
+                               batch: int, algo: str = "sgd", seed: int = 0,
+                               hidden: int = 32, d_rep: int = 16,
+                               delays_q=None, guard: bool = True,
+                               params=None, indices=None, device="cuda"):
+    """The deep guarded oracles' driver (as
+    :func:`run_deep_faulted_reference`).  Returns ``(DeepVFLParams,
+    HealthStats)``, the telemetry numpy (q, epochs·steps)."""
+    return _deep_oracle_run(problem, x, y, layout, trace, tau, epochs, lr,
+                            batch, algo, seed, hidden, d_rep, delays_q,
+                            params, indices, device, guard)
+
+
+def _deep_fused_run(problem, x, y, layout, trace, tau, epochs, lr, batch,
+                    algo, seed, hidden, d_rep, delays_q, engine_config,
+                    checkpoint_dir, resume_from, keep_last, horizon_epochs,
+                    device, guard):
+    """The deep fused runners' shared loop; ``guard`` None runs the
+    faulted epochs.  The state — packed params, the per-party encoder
+    rings in the reference's per-leaf layout, the counter (the guarded
+    telemetry so far) — is checkpointed after every epoch."""
+    from repro_torch.checkpoint import ckpt  # looked up at call time
+    from repro_torch.core.deep_vfl import initial_params
+    from repro_torch.core.engine import EngineConfig, FusedEngine  # cycle
+
+    _deep_check(algo, guard)
+    n, d = np.shape(x)
+    sched, delays_q, steps = _setup(trace, layout, n, batch, epochs,
+                                    horizon_epochs, tau, delays_q, seed)
+    horizon = sched.fwd.shape[0] // steps
+    cfg = engine_config if engine_config is not None else EngineConfig()
+    eng = FusedEngine(problem, x, y, layout, cfg, device=device)
+    dev = eng.device
+    dq = torch.from_numpy(delays_q).to(dev).long()
+    pq = eng.pack_deep(initial_params(seed, layout, d, hidden, d_rep))
+    st = {"pq": pq, "bufq": eng.deep_delay_buffers(pq, tau),
+          "t0": torch.zeros((), dtype=torch.int64, device=dev)}
+    if guard is not None:
+        st["health"] = HealthStats(*(np.zeros((layout.q, horizon * steps),
+                                              np.float32) for _ in range(4)))
+    ep0 = 0
+    if resume_from is not None:
+        loaded = ckpt.load_checkpoint(resume_from, st)
+        ep0 = ckpt.checkpoint_step(resume_from)
+        st = {k: (HealthStats(*v) if k == "health" else
+                  tuple(torch.from_numpy(a).to(dev) for a in v)
+                  if isinstance(v, tuple) else torch.from_numpy(v).to(dev))
+              for k, v in loaded.items()}
+    kind = "faulted" if guard is None else "guarded"
+    fn = getattr(eng, f"deep_{kind}_{algo}_epoch")
+    for ep in range(ep0, epochs):
+        win = sched.epoch(ep, steps)
+        rows = [torch.from_numpy(a).to(dev) for a in win.party_rows()]
+        kw = {}
+        if guard is not None:
+            rows.append(torch.from_numpy(win.corrupt_rows()).to(dev))
+            kw["guard"] = guard
+        idx = epoch_indices(seed, ep, n, batch, steps, dev)
+        key = (seed, ep)
+        head = (st["pq"],)
+        if algo == "svrg":
+            head = (st["pq"], st["pq"], eng.deep_full_gradient(st["pq"], key))
+        out = fn(*head, st["bufq"], st["t0"], dq, *rows, lr, idx, tau, key,
+                 **kw)
+        st.update(zip(("pq", "bufq", "t0"), out))
+        if guard is not None:
+            sl = slice(ep * steps, (ep + 1) * steps)
+            for dst, src in zip(st["health"], out[-1]):
+                dst[:, sl] = _host(src)
+        if checkpoint_dir is not None:
+            ckpt.save_checkpoint(checkpoint_dir, st, step=ep + 1,
+                                 keep_last=keep_last)
+    params = eng.unpack_deep(st["pq"])
+    return params if guard is None else (params, st["health"])
+
+
+def run_deep_faulted_fused(problem: Problem, x, y, layout: PartyLayout,
+                           trace, tau: int, epochs: int, lr: float,
+                           batch: int, algo: str = "sgd", seed: int = 0,
+                           hidden: int = 32, d_rep: int = 16, delays_q=None,
+                           engine_config=None,
+                           checkpoint_dir: Optional[str] = None,
+                           resume_from: Optional[str] = None,
+                           keep_last: Optional[int] = 1,
+                           horizon_epochs: Optional[int] = None,
+                           device="cuda") -> DeepVFLParams:
+    """Deep faulted VFB² on the fused engine, on ``device`` (default the
+    card; raises without one): the deep faulted epochs (each an eager
+    step and replays of one CUDA graph on the card) from
+    ``deep_vfl.initial_params(seed)`` on the schedules, delays and trace
+    windows of :func:`run_deep_faulted_reference`, masks seeded from
+    ``(seed, ep)``; SVRG's μ̃ is ``deep_full_gradient`` at each epoch's
+    start.  ``checkpoint_dir=``, ``resume_from=``, ``keep_last=`` and
+    ``horizon_epochs=`` as in :func:`run_faulted_fused`: the bundle holds
+    the packed params, the encoder rings (per leaf, (q, τ+1, ...)) and the
+    counter, and a killed run resumes bit for bit.  Returns the final
+    ``DeepVFLParams``."""
+    return _deep_fused_run(problem, x, y, layout, trace, tau, epochs, lr,
+                           batch, algo, seed, hidden, d_rep, delays_q,
+                           engine_config, checkpoint_dir, resume_from,
+                           keep_last, horizon_epochs, device, None)
+
+
+def run_deep_guarded_fused(problem: Problem, x, y, layout: PartyLayout,
+                           trace, tau: int, epochs: int, lr: float,
+                           batch: int, algo: str = "sgd", seed: int = 0,
+                           hidden: int = 32, d_rep: int = 16, delays_q=None,
+                           engine_config=None, guard: bool = True,
+                           checkpoint_dir: Optional[str] = None,
+                           resume_from: Optional[str] = None,
+                           keep_last: Optional[int] = 1,
+                           horizon_epochs: Optional[int] = None,
+                           device="cuda"):
+    """Deep guarded VFB² on the fused engine (as
+    :func:`run_deep_faulted_fused`); the checkpoints carry the telemetry
+    so far.  Returns ``(DeepVFLParams, HealthStats)``, the telemetry numpy
+    (q, horizon·steps)."""
+    return _deep_fused_run(problem, x, y, layout, trace, tau, epochs, lr,
+                           batch, algo, seed, hidden, d_rep, delays_q,
+                           engine_config, checkpoint_dir, resume_from,
+                           keep_last, horizon_epochs, device, guard)

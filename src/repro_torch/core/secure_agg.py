@@ -1,6 +1,6 @@
 """Secure aggregation (paper Algorithm 1) over a party-stacked tensor.
 
-The port of the non-membership forms of ``repro.core.secure_agg``.  The q
+The port of ``repro.core.secure_agg``.  The q
 parties are the leading dimension of ``partial`` (shape ``(q, ...)``), all
 on one device — the single-device emulation the JAX engine runs under
 ``vmap``.  A ``psum`` over the party axis is ``.sum(0)``; a ``ppermute``
@@ -45,6 +45,10 @@ op with no host read.
   the survivors with a rebuilt Definition-4 tree pair, degrading below 3
   survivors to a pairwise-cancelling masked psum with a warning (or an
   error under ``strict``).
+
+The two-level forms (``secure_psum_hier``, ``secure_psum_hier_members``)
+run the flat forms within each slot of a packed ``PartyMesh``, then
+across the slots' sums.
 
 Re-keying: the reference folds the alive-set fingerprint
 (``_alive_fingerprint``) into the step's threefry key, so that no mask
@@ -312,8 +316,10 @@ def _alive_fingerprint(av: torch.Tensor) -> torch.Tensor:
 
 
 def _live(alive: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """The (q,) alive flags shaped to broadcast over ``like`` (q, ...)."""
-    return alive.to(like.dtype).view(-1, *([1] * (like.dim() - 1)))
+    """The alive flags (q,), or (q, slots) for the two-level form's
+    first level, shaped to broadcast over ``like`` (q, ...)."""
+    return alive.to(like.dtype).view(
+        *alive.shape, *([1] * (like.dim() - alive.dim())))
 
 
 def secure_psum_members(partial: torch.Tensor, gen: torch.Generator,
@@ -348,15 +354,91 @@ def secure_psum_ring_members(partial: torch.Tensor, gen: torch.Generator,
     with R[r] − R[(r − 1) mod n] from one drawn table R (q, ...), so the
     masks cancel over the survivors for any n (a lone survivor's two rows
     coincide: δ = 0).  Crashed parties contribute neither value nor
-    mask."""
+    mask.  A (q, slots) ``alive`` runs one sub-ring per column (the
+    two-level form's first level)."""
     out_dtype = partial.dtype
     partial = partial.float()
     av = (alive > 0).long()
     rank = torch.cumsum(av, 0) - av
-    prev = (rank - 1) % av.sum().clamp_min(1)
+    prev = (rank - 1) % av.sum(0).clamp_min(1)
     table = _party_normal(partial.shape, gen, partial.device)
-    delta = table.index_select(0, rank) - table.index_select(0, prev)
+
+    def rows(r):                    # table[r[i, ...], ...] along the parties
+        return table.gather(0, r.view(
+            *r.shape, *([1] * (table.dim() - r.dim()))).expand_as(table))
+
+    delta = rows(rank) - rows(prev)
     masked = _live(alive, partial) * (partial + mask_scale * delta)
     if transcript is not None:
         transcript.append(masked)
     return masked.sum(0).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# two-level forms: the logical party axis as slots × parties per slot
+# ---------------------------------------------------------------------------
+#
+# Under a packed ``PartyMesh`` party p = s·pps + i is party i of slot s.
+# Level 1 reduces each slot's parties (the flat two-tree form over the
+# inner axis, replaying ``trees.default_tree_pair(pps)`` under
+# ``schedule_faithful``, or ring masks within the slot); level 2 runs the
+# same lowering across the slots on the per-slot sums.  Every mask is a
+# fresh draw from the step's generator: level 1 draws one stream per
+# logical party, level 2 one per slot, so no stream serves two parties
+# and none is used twice.  The reference runs level 2 once per inner
+# replica (each with its own masks; the replicas agree to f32 mask
+# rounding); on one device it runs once and every party receives that
+# one total.
+
+
+def _inner_major(partial: torch.Tensor, slots: int) -> torch.Tensor:
+    """(q, ...) -> (pps, slots, ...): the slots side by side, each slot's
+    parties along dimension 0, where the flat forms reduce."""
+    return partial.view(slots, partial.shape[0] // slots,
+                        *partial.shape[1:]).transpose(0, 1)
+
+
+def secure_psum_hier(partial: torch.Tensor, gen: torch.Generator,
+                     slots: int, mode: str = "two_tree",
+                     mask_scale: float = 1.0,
+                     schedule_faithful: bool = False,
+                     transcript: Optional[List[torch.Tensor]] = None
+                     ) -> torch.Tensor:
+    """Two-level masked aggregation of the party-stacked ``partial``
+    (q, ...) with q = slots × pps.  ``mode`` (``"two_tree"`` or
+    ``"ring"``) is the lowering of both levels.  The masks cancel level
+    by level, so the result is the plain sum over all q parties to f32
+    rounding.  ``transcript`` receives level 1's masked (pps, slots, ...)
+    values, then level 2's masked (slots, ...) slot sums."""
+    out_dtype = partial.dtype
+    inner = _inner_major(partial.float(), slots)
+    if mode == "ring":
+        z_slot = secure_psum_ring(inner, gen, mask_scale, transcript)
+        tot = secure_psum_ring(z_slot, gen, mask_scale, transcript)
+    else:
+        z_slot = secure_psum(inner, gen, mask_scale, schedule_faithful,
+                             transcript)
+        tot = secure_psum(z_slot, gen, mask_scale, schedule_faithful,
+                          transcript)
+    return tot.to(out_dtype)
+
+
+def secure_psum_hier_members(partial: torch.Tensor, gen: torch.Generator,
+                             alive: torch.Tensor, slots: int,
+                             mode: str = "two_tree",
+                             mask_scale: float = 1.0,
+                             transcript: Optional[List[torch.Tensor]] = None
+                             ) -> torch.Tensor:
+    """Membership-safe two-level aggregation over the parties whose
+    ``alive`` (q,) flag is set: level 1 is the flat membership form within
+    each slot, level 2 aggregates the per-slot survivor sums across the
+    slots with each slot's any-alive flag as its liveness, so an all-dead
+    slot adds neither value nor mask.  Never a schedule replay (see
+    :func:`secure_psum_members`)."""
+    out_dtype = partial.dtype
+    inner = _inner_major(partial.float(), slots)
+    av = _inner_major(alive, slots)                       # (pps, slots)
+    fn = secure_psum_ring_members if mode == "ring" else secure_psum_members
+    z_slot = fn(inner, gen, av, mask_scale, transcript)
+    slot_alive = av.float().sum(0).clamp_max(1.0)
+    return fn(z_slot, gen, slot_alive, mask_scale, transcript).to(out_dtype)

@@ -240,14 +240,43 @@ class DeepDelayedState:
     t: torch.Tensor          # 0-d int64 global step
 
 
+def _deep_ring_apply(pt, rings, t, grads, lr, delays, live, m: int = 1,
+                     multi: bool = False, gate=None):
+    """Age the encoder gradients ``grads`` through the per-party rings:
+    they enter slot t mod (τ+1) of every party, party ℓ's update reads
+    slot max(t − d_ℓ, 0) (under ``multi`` dominator j's slab at
+    max(t − d_{ℓ,j}, 0), the m slabs summed) and applies it scaled by
+    ``live[ℓ]``; the head applies its gradient fresh.  ``gate`` (q,),
+    where given, keeps party ℓ's ring and encoder as they were where
+    gate[ℓ] = 0 (the fault oracles' backward liveness: no write, no
+    update).  Returns ``(pt, rings)``."""
+    slots = rings[0][0].shape[0]
+    new_pt, new_rings = [], []
+    for leaves, ring, g in zip(pt[:3], rings, grads[:3]):
+        ps, rs = [], []
+        for p in range(len(leaves)):
+            buf = ring[p].index_copy(0, (t % slots).view(1), g[p][None])
+            if gate is not None:
+                buf = torch.where(gate[p] > 0, buf, ring[p])
+            eff = (t - delays[p]).clamp_min(0) % slots
+            # a 0-d index tensor would be read on the host: index_select
+            stale = buf[eff, torch.arange(m, device=eff.device)].sum(0) \
+                if multi else buf.index_select(0, eff.view(1))[0]
+            upd = leaves[p] - lr * live[p] * stale
+            ps.append(upd if gate is None
+                      else torch.where(gate[p] > 0, upd, leaves[p]))
+            rs.append(buf)
+        new_pt.append(tuple(ps))
+        new_rings.append(tuple(rs))
+    return tuple(new_pt) + (pt[3] - lr * grads[3],), tuple(new_rings)
+
+
 def _deep_ring_round(problem, blocks, y, lr, delays, live, q: int, m: int,
                      multi: bool):
     """One stale deep step on the state ``(pt, rings, t)`` from the
     activations ``acts`` of the round's rows: the BUM gradients (each
-    dominator's apart under ``multi``, λ∇g once per stream) enter ring
-    slot t of every party, party ℓ's update reads slot max(t − d_ℓ, 0)
-    (dominator j's slab at max(t − d_{ℓ,j}, 0), the m slabs summed), and
-    the head applies its gradient fresh."""
+    dominator's apart under ``multi``, λ∇g once per stream) age through
+    the rings (:func:`_deep_ring_apply`)."""
     def step(state, acts, ib):
         pt, rings, t = state
         hs, z = acts
@@ -256,21 +285,8 @@ def _deep_ring_round(problem, blocks, y, lr, delays, live, q: int, m: int,
             grads = _bum_dom_grads(pt, xb, hs, z, y[ib], problem, q, m)
         else:
             grads = _bum_stale_grads(pt, xb, hs, z, y[ib], problem, q)
-        slots = rings[0][0].shape[0]
-        new_pt, new_rings = [], []
-        for leaves, ring, g in zip(pt[:3], rings, grads[:3]):
-            ps, rs = [], []
-            for p in range(q):
-                buf = ring[p].index_copy(0, (t % slots).view(1), g[p][None])
-                eff = (t - delays[p]).clamp_min(0) % slots
-                stale = buf[eff, torch.arange(m, device=eff.device)].sum(0) \
-                    if multi else buf[eff]
-                ps.append(leaves[p] - lr * live[p] * stale)
-                rs.append(buf)
-            new_pt.append(tuple(ps))
-            new_rings.append(tuple(rs))
-        return (tuple(new_pt) + (pt[3] - lr * grads[3],), tuple(new_rings),
-                t + 1)
+        return _deep_ring_apply(pt, rings, t, grads, lr, delays, live, m,
+                                multi) + (t + 1,)
 
     return step
 

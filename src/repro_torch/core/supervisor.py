@@ -271,14 +271,13 @@ def supervised_guarded_run(problem, x, y, layout, trace, tau: int,
     ``guard=False``) heals by turning the guard on for the retry;
     objective spikes heal by the learning-rate backoff; and when diverged
     epochs saw larger realized delays the effective staleness bound
-    tightens (the base delays clamped to it).  ``deep=True`` (the deep
-    guarded epochs) is ROADMAP A10b.  Returns ``(w, health, heals)``."""
+    tightens (the base delays clamped to it).  ``deep=True`` wraps
+    ``faults.run_deep_guarded_fused`` (``hidden``, ``d_rep``; the
+    objective of the trainers' start ``deep_vfl.initial_params(seed)`` is
+    the spike baseline).  Returns ``(w, health, heals)``, ``w`` the final
+    ``DeepVFLParams`` under ``deep=True``."""
     from repro_torch.core import faults
 
-    if deep:
-        raise NotImplementedError("supervised_guarded_run(deep=True) needs "
-                                  "the deep guarded epochs, not ported yet "
-                                  "(ROADMAP A10b)")
     if checkpoint_dir is None:
         raise ValueError("supervised guarded runs need checkpoint_dir=")
     dev = resolve_device(device)
@@ -291,21 +290,32 @@ def supervised_guarded_run(problem, x, y, layout, trace, tau: int,
     tau_eff = tau
     lr_now = float(lr)
     guard_now = bool(guard)
-    base0 = _linear_objective(problem, np.zeros(d, np.float32), x, y, dev)
+    if deep:
+        from repro_torch.core import deep_vfl
+
+        base0 = _deep_objective(problem, deep_vfl.initial_params(
+            seed, layout, d, hidden, d_rep), x, y, layout, dev)
+    else:
+        base0 = _linear_objective(problem, np.zeros(d, np.float32), x, y,
+                                  dev)
     done, resume = 0, None
     samples: List[tuple] = []   # (epoch boundary, objective) per segment
     diverged_eps: List[int] = []
     result = health = None
     while done < epochs:
         seg_end = min(done + cfg.chunk, epochs)
-        result, health = faults.run_guarded_fused(
+        run = faults.run_deep_guarded_fused if deep \
+            else faults.run_guarded_fused
+        kw = dict(hidden=hidden, d_rep=d_rep) if deep else {}
+        result, health = run(
             problem, x, y, layout, trace, tau, seg_end, lr_now, batch,
             algo=algo, seed=seed, guard=guard_now,
             delays_q=np.minimum(base_delays, tau_eff),
             engine_config=engine_config, checkpoint_dir=checkpoint_dir,
             resume_from=resume, keep_last=cfg.keep_last,
-            horizon_epochs=epochs, device=dev)
-        obj = _linear_objective(problem, result, x, y, dev)
+            horizon_epochs=epochs, device=dev, **kw)
+        obj = _deep_objective(problem, result, x, y, layout, dev) if deep \
+            else _linear_objective(problem, result, x, y, dev)
         samples.append((seg_end, obj))
         # the health diagnosis first: poisoning names the exact epoch
         pois = poisoned_steps(health)

@@ -1,7 +1,13 @@
-"""The LM stack's runtime settings (the port of ``repro.sharding.api``'s
-``Runtime``, the fields the SSM and dense serving paths read).
+"""The party mesh of the fused engine and the LM stack's runtime settings:
+the port of ``repro.sharding.api``'s ``PartyMesh`` and of its ``Runtime``
+(the fields the SSM and dense serving paths read).
 
-There is no mesh: the q parties are a leading tensor dimension on one
+``PartyMesh`` factors the q logical parties as slots × parties per slot,
+plus a sample-parallel data axis; the port runs it on one device
+(``mesh=None``), where the factors shape the masked aggregation and the
+data-axis slicing, not the placement.
+
+There is no device mesh: the q parties are a leading tensor dimension on one
 device, so ``model_size`` is q itself.  The decode KV cache's sequence
 axis is sharded over the q parties, as the reference's
 ``cache_seq_axes=("model",)`` shards it: on one device the cache is
@@ -15,6 +21,65 @@ import dataclasses
 from typing import Optional
 
 SECURE_MODES = ("two_tree", "ring_masks")
+
+
+@dataclasses.dataclass(frozen=True)
+class PartyMesh:
+    """The logical party axis factored as ``q = slots × parties_per_slot``,
+    with an optional sample-parallel data axis of ``data_shards``.
+
+    On one device the party axis is the leading tensor dimension; a
+    packed mesh (more than one party a slot) makes the masked aggregation
+    two-level (``secure_agg.secure_psum_hier``: within each slot, then
+    across the slots' sums), and ``data_shards > 1`` splits each fresh
+    SGD and SVRG minibatch into that many disjoint slices, each
+    aggregated with its own mask draw.  The axis names are the
+    reference's and are checked as there; nothing on one device reads
+    them.
+
+    ``mesh`` is the reference's device mesh.  The port has none, so
+    ``mesh=None`` is the only form it runs: any other value raises
+    ``NotImplementedError`` rather than being emulated silently (the
+    reference's rule for a supplied mesh)."""
+
+    q: int                          # logical party count
+    slots: int                      # physical party-axis width
+    mesh: Optional[object] = None   # device mesh; only None runs here
+    axis: str = "model"             # outer (slot) axis name
+    party_axis: str = "party"       # inner (packed parties) axis name
+    data_shards: int = 1            # sample-parallel width
+    data_axis: str = "data"         # batch axis name
+
+    def __post_init__(self):
+        if self.q < 1 or self.slots < 1 or self.data_shards < 1:
+            raise ValueError(
+                f"PartyMesh sizes must be >= 1; got q={self.q}, "
+                f"slots={self.slots}, data_shards={self.data_shards}")
+        if self.q % self.slots != 0:
+            raise ValueError(
+                f"q={self.q} must divide evenly into slots={self.slots} "
+                f"islands (got remainder {self.q % self.slots})")
+        if self.axis == self.party_axis or self.data_axis in (
+                self.axis, self.party_axis):
+            raise ValueError(
+                f"axis names must be distinct; got axis={self.axis!r}, "
+                f"party_axis={self.party_axis!r}, "
+                f"data_axis={self.data_axis!r}")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "PartyMesh(mesh=...): a device mesh (the multi-device "
+                "torch.distributed port of the party mesh) is not ported; "
+                "the port runs the party mesh on one device, mesh=None")
+
+    @property
+    def parties_per_slot(self) -> int:
+        return self.q // self.slots
+
+    @property
+    def packed(self) -> bool:
+        """More than one logical party per slot (the two-level
+        aggregation)."""
+        return self.parties_per_slot > 1
 SCAN_IMPLS = ("kernel", "reference")
 ATTN_IMPLS = ("kernel", "reference")
 

@@ -487,10 +487,13 @@ def test_supervised_guarded_run_options(ds, layout, tmp_path):
     x, y = ds
     tr = faults.FaultTrace(q=layout.q, steps=2 * STEPS)
     kw = dict(device="cpu")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        supervised_guarded_run(losses.ridge(), x, y, layout, tr, TAU, 2,
-                               0.1, BATCH, deep=True,
-                               checkpoint_dir=str(tmp_path), **kw)
+    # deep=True runs the deep guarded epochs under supervision
+    p, health, heals = supervised_guarded_run(
+        losses.ridge(), x, y, layout, tr, TAU, 2, 0.1, BATCH, deep=True,
+        hidden=4, d_rep=3, checkpoint_dir=str(tmp_path), **kw)
+    assert all(np.isfinite(np.asarray(a)).all()
+               for a in (*p.enc_w1, *p.enc_b1, *p.enc_w2, p.head))
+    assert health.finite.shape == (layout.q, 2 * STEPS) and not heals
     with pytest.raises(ValueError, match="checkpoint_dir"):
         supervised_guarded_run(losses.ridge(), x, y, layout, tr, TAU, 2,
                                0.1, BATCH, **kw)

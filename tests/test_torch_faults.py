@@ -42,6 +42,7 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.core import (algorithms, engine, faults, losses,
                               secure_agg, trees)
 from repro_torch.kernels import ops
+from repro_torch.sharding.api import PartyMesh
 
 D, Q, M, N = 12, 4, 2, 48
 TAU, EPOCHS, BATCH, STEPS, LR = 2, 2, 8, 6, 0.3
@@ -581,16 +582,25 @@ def test_runner_checks(ds, layout, prob, traces):
     with pytest.raises(ValueError, match="trace horizon"):
         faults.run_guarded_reference(prob, x, y, layout, tr,
                                      **dict(kw, epochs=1))
-    with pytest.raises(NotImplementedError, match="A11"):
+    # mesh= takes a PartyMesh on this one device; anything else is
+    # refused, and a device mesh is the multi-device port, never emulated
+    with pytest.raises(TypeError, match="PartyMesh"):
         faults.run_guarded_fused(prob, x, y, layout, tr, mesh=object(),
+                                 **kw)
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        faults.run_guarded_fused(prob, x, y, layout, tr,
+                                 mesh=PartyMesh(q=Q, slots=2, mesh=object()),
                                  **kw)
     with pytest.raises(ValueError, match="unknown algo"):
         faults.run_faulted_reference(prob, x, y, layout, tr, algo="adam",
                                      **kw)
     for name in ("run_deep_faulted_reference", "run_deep_faulted_fused",
                  "run_deep_guarded_reference", "run_deep_guarded_fused"):
-        with pytest.raises(NotImplementedError, match="A10b"):
-            getattr(faults, name)(prob, x, y, layout, tr, **kw)
+        with pytest.raises(ValueError, match="supports sgd/svrg"):
+            getattr(faults, name)(prob, x, y, layout, tr, algo="saga", **kw)
+        with pytest.raises(ValueError, match="trace horizon"):
+            getattr(faults, name)(prob, x, y, layout, tr.with_steps(5),
+                                  **kw)
 
 
 def test_empty_trace_is_the_delayed_runner(ds, layout, prob):

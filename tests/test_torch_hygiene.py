@@ -27,7 +27,7 @@ from repro_torch.core import (algorithms, deep_vfl, engine, faults, losses,
 from repro_torch.launch.serve import serve
 from repro_torch.models import model as lm_model
 from repro_torch.serve import ServeEngine
-from repro_torch.sharding.api import Runtime
+from repro_torch.sharding.api import PartyMesh, Runtime
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
@@ -72,7 +72,10 @@ def _cpu_engine():
     "train_deep", "train_deep_fused", "train_deep_vfl",
     "train_centralized", "run_faulted_fused", "run_guarded_fused",
     "run_faulted_reference", "run_guarded_reference", "train_supervised",
-    "supervised_train", "supervised_guarded_run"])
+    "supervised_train", "supervised_guarded_run", "run_deep_faulted_fused",
+    "run_deep_guarded_fused", "run_deep_faulted_reference",
+    "run_deep_guarded_reference", "supervised_guarded_run_deep",
+    "FusedEngine_mesh"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
                                                                entry,
                                                                tmp_path):
@@ -155,6 +158,27 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
         "supervised_guarded_run": lambda: supervisor.supervised_guarded_run(
             losses.ridge(), x, np.ones(6, np.float32), lay, trace, 1, 1,
             0.1, 2, checkpoint_dir=ck),
+        "run_deep_faulted_fused": lambda: faults.run_deep_faulted_fused(
+            losses.ridge(), x, np.ones(6, np.float32), lay, trace, 1, 1,
+            0.1, 2),
+        "run_deep_guarded_fused": lambda: faults.run_deep_guarded_fused(
+            losses.ridge(), x, np.ones(6, np.float32), lay, trace, 1, 1,
+            0.1, 2),
+        "run_deep_faulted_reference":
+            lambda: faults.run_deep_faulted_reference(
+                losses.ridge(), x, np.ones(6, np.float32), lay, trace, 1, 1,
+                0.1, 2),
+        "run_deep_guarded_reference":
+            lambda: faults.run_deep_guarded_reference(
+                losses.ridge(), x, np.ones(6, np.float32), lay, trace, 1, 1,
+                0.1, 2),
+        "supervised_guarded_run_deep":
+            lambda: supervisor.supervised_guarded_run(
+                losses.ridge(), x, np.ones(6, np.float32), lay, trace, 1, 1,
+                0.1, 2, deep=True, checkpoint_dir=ck),
+        "FusedEngine_mesh": lambda: engine.FusedEngine(
+            losses.ridge(), x, np.ones(6, np.float32), lay,
+            mesh=PartyMesh(q=2, slots=1, data_shards=2)),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
