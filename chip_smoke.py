@@ -174,6 +174,28 @@ JAX or of the JAX package.
    ``run_faulted_fused(mesh=PartyMesh(q=8, slots=2))`` within 1e-4 of the
    flat runner; profiler windows over 1,000 packed and flat SGD steps.
    It runs before phase 9.
+17. Serving over the mesh and the thread simulation, on phase 7's data
+   and problem.  (a) ``ServeEngine`` over ``PartyMesh(q=64, slots=8)``:
+   phases 3-5's linear path (cold over every id, the Zipf trace all hits
+   and bit-equal to the cold values, a weight update and the 8,192
+   hottest ids through delta, the queue) under ``two_tree`` and, without
+   the queue, ``ring``, every prediction within 1e-4 of float64 x·w,
+   beside a flat q = 64 engine under ``two_tree``; phase 6's deep path
+   (hidden 32, d_rep 16) under ``two_tree``; ``off`` packed bit-equal to
+   flat.  (b) ``core.async_engine`` at ``examples/async_vfl.py``'s regime
+   (q = 8, m = 3, 3 threads a party, the last party 1.45× slower, 2 ms
+   base delay, batch 32) for 1,000 dominator iterations: ``run_sync``
+   within 1e-4 of the float64 SGD oracle on its own draws; ``run_async``
+   (secure) finite, not timed out, at its update target, its objective
+   falling; a 500-iteration run with a crash and rejoin of the straggler
+   whose realized trace compiles and replays one epoch through
+   ``run_faulted_fused`` at τ = 2 to a finite iterate; each run's
+   launches by the module's rule, exactly (``vfl_backward_rows`` once an
+   update, ``run_sync``: once an iteration; ``vfl_forward_narrow`` once a
+   dominator iteration and once a probe); async and sync wall time and a
+   profiler window over 200 ``run_async`` iterations, printed.  The
+   switch interval the thread runs set is put back.  It runs before
+   phase 9.
 9. LM serving, falcon-mamba-7b at full width (d_model 4096, d_inner 8192,
    N = 16, 64 layers, vocabulary 65,024, random weights from a seed) across
    q = 8 parties under ``two_tree``: ``launch.serve.serve`` with batch 4,
@@ -247,19 +269,20 @@ phase 5, reset again just before phase 7's runs and read after them,
 just before phase 8 and after it, just before phase 11 and after it,
 just before phase 12 and after it, just before phase 13 and after it,
 just before phase 14 and after it, just before phase 15 and after it,
-just before phase 16 and after it, just before phase 9's serve call and
-after it, and just before phase
+just before phase 16 and after it, just before phase 17 and after it,
+just before phase 9's serve call and after it, and just before phase
 10's serve call and after it;
 each count must equal what the dispatch or step structure implies, every
 program of each path must have run, and no other program.  The
 ``kernels`` line has one entry per program, timed at its main-path shape
 (serving: the linear full dispatch and deep layer 1; training: the SGD
 step, the full-dataset reduce and the pipelined SGD step), with its
-launches summed over every path (phases 3-8 and 11-14).  The ``selective_scan`` source holds one
-program, held against its plain version at the reference's sweep shapes,
-a ragged shape and phase 9's prefill shape (4, 2048, 8192), N = 16, bf16
-(1e-4 for f32 xa, 5e-2 for bf16), the last two also with a_log drawn per
-(channel, state) (log of uniform [0.5, 16], as trained weights have), two
+launches summed over every path (phases 3-8 and 11-17).  The
+``selective_scan`` source holds one program, held against its plain
+version at the reference's sweep shapes, a ragged shape and phase 9's
+prefill shape (4, 2048, 8192), N = 16, bf16 (1e-4 for f32 xa, 5e-2 for
+bf16), the last two also with a_log drawn per (channel, state) (log of
+uniform [0.5, 16], as trained weights have), two
 calls of each equal bit for bit, and timed at the prefill shape with
 mamba's a_log; its bound is the
 larger of its bytes over the HBM rate and its exponentials over the
@@ -1157,14 +1180,15 @@ def _zipf_ids(n, count, seed, s=1.0):
     return rng.permutation(n)[np.minimum(ranks, n - 1)]
 
 
-def _serve_engine(torch, dev, x, layout, secure, y=None):
-    """A FusedEngine over the universe ``x`` and a ServeEngine on it."""
+def _serve_engine(torch, dev, x, layout, secure, y=None, mesh=None):
+    """A FusedEngine over the universe ``x`` (on ``mesh``, a PartyMesh or
+    None) and a ServeEngine on it."""
     from repro_torch.core.engine import EngineConfig, FusedEngine
     from repro_torch.core.losses import logistic_l2
     from repro_torch.serve import ServeEngine
     y = torch.ones(x.shape[0], device=dev) if y is None else y
     eng = FusedEngine(logistic_l2(1e-4), x, y, layout,
-                      EngineConfig(secure=secure), device=dev)
+                      EngineConfig(secure=secure), mesh=mesh, device=dev)
     return ServeEngine(eng, max_batch=BATCH, seed=SEED, device=dev)
 
 
@@ -1181,13 +1205,19 @@ def expected_launches(sv):
                    + st.hit_dispatches)
 
 
-def linear_phase(torch, dev, x, layout, *, trace_len, hot_len, log_):
-    """two_tree serving at full size: cold → Zipf hits → update → delta →
-    queue.  Returns (metrics, expected launches)."""
+def linear_phase(torch, dev, x, layout, *, trace_len, hot_len, log_,
+                 secure="two_tree", mesh=None):
+    """Serving at full size (``two_tree`` unless told otherwise, over
+    ``mesh`` if given): cold → Zipf hits → update → delta → queue.  The
+    queue's results must equal a later ``serve`` of the same ids bit for
+    bit, which holds where a row re-dispatched with a zero payload adds
+    exactly zero: ``two_tree`` (ξ₁ − ξ₂ of the same masks) and ``off``,
+    not ``ring`` (its masks cancel to rounding), so under ``ring`` the
+    queue is skipped.  Returns (metrics, expected launches)."""
     n, d = x.shape
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     y = torch.where(torch.randn(n, generator=gen, device=dev) > 0, 1.0, -1.0)
-    sv = _serve_engine(torch, dev, x, layout, "two_tree", y)
+    sv = _serve_engine(torch, dev, x, layout, secure, y, mesh)
     w0 = torch.randn(d, generator=gen, device=dev) / d ** 0.5
     sv.set_weights(w0)
     res = {}
@@ -1228,11 +1258,12 @@ def linear_phase(torch, dev, x, layout, *, trace_len, hot_len, log_):
           "repaired entries must re-serve bit-exactly")
     log_(f"linear delta: {res['delta']}")
 
-    res["queue"] = queue_phase(sv, trace)
-    res["queue"]["max_abs_err"] = _close(
-        sv.serve(trace[:4096]),
-        _linear_ref(torch, x, w1, trace[:4096]), 1e-4, "queue")
-    log_(f"queue: {res['queue']}")
+    if secure != "ring":
+        res["queue"] = queue_phase(sv, trace)
+        res["queue"]["max_abs_err"] = _close(
+            sv.serve(trace[:4096]),
+            _linear_ref(torch, x, w1, trace[:4096]), 1e-4, "queue")
+        log_(f"queue: {res['queue']}")
     res["stats"] = dict(vars(sv.stats))
     return res, expected_launches(sv)
 
@@ -1292,12 +1323,13 @@ def secure_pass(torch, dev, x, layout, secure, count):
     return res, expected_launches(sv)
 
 
-def deep_phase(torch, dev, x, layout, count):
-    """Deep serving (hidden=32, d_rep=16) cold then hits over a subset,
-    against a float64 plain encoder on the card."""
+def deep_phase(torch, dev, x, layout, count, mesh=None):
+    """Deep serving (hidden=32, d_rep=16) under ``two_tree`` (over
+    ``mesh`` if given), cold then hits over a subset, against a float64
+    plain encoder on the card."""
     from repro_torch.core.deep_vfl import init_deep_vfl
     n, d = x.shape
-    sv = _serve_engine(torch, dev, x, layout, "two_tree")
+    sv = _serve_engine(torch, dev, x, layout, "two_tree", mesh=mesh)
     params = init_deep_vfl(torch.Generator(device=dev).manual_seed(SEED + 6),
                            layout, d, hidden=32, d_rep=16)
     sv.set_deep_params(params)
@@ -3162,6 +3194,243 @@ def mesh_phase(torch, dev, x, y, log_):
     return res, expected
 
 
+# phase 17: serving over the mesh, and the thread simulation
+SERVE_MESH_TRACE, SERVE_MESH_HOT = 100_000, 8192   # phases 3-5's trace
+SERVE_MESH_OFF = BATCH * 100      # ids of the packed-against-flat off pass
+ASYNC_M, ASYNC_THREADS = 3, 3     # examples/async_vfl.py's regime
+ASYNC_STRAGGLER, ASYNC_DELAY = 1.45, 2e-3
+ASYNC_ITERS = 1000                # dominator iterations a run
+ASYNC_FAULT_ITERS = 500           # ... and in the run with a crash
+ASYNC_PROFILE_ITERS = 200
+ASYNC_MAX_WALL = 30.0
+
+
+def _mesh_serve(torch, dev, x, log_):
+    """Phase 17 (a): ``ServeEngine`` over ``PartyMesh(q=64, slots=8)`` on
+    phase 7's resident data: phases 3-5's linear path (cold, Zipf hits,
+    delta, queue) under ``two_tree`` and ``ring``, beside a flat q = 64
+    engine under ``two_tree``; phase 6's deep path under ``two_tree``;
+    ``off`` packed against flat on the same ids, bit for bit.  Returns
+    (record, expected launches)."""
+    from repro_torch.core.algorithms import PartyLayout
+    from repro_torch.sharding.api import PartyMesh
+    n, d = x.shape
+    lay = PartyLayout.even(d, MESH_Q, M_ACT)
+    mesh = PartyMesh(q=MESH_Q, slots=MESH_SLOTS)
+    expected = Counter()
+    res = {}
+    for name, secure, m in (("packed_two_tree", "two_tree", mesh),
+                            ("packed_ring", "ring", mesh),
+                            ("flat_two_tree", "two_tree", None)):
+        res[name], e = linear_phase(
+            torch, dev, x, lay, trace_len=SERVE_MESH_TRACE,
+            hot_len=SERVE_MESH_HOT, secure=secure, mesh=m,
+            log_=lambda *a, name=name: log_(f"phase 17 {name}", *a))
+        expected += e
+        torch.cuda.empty_cache()
+    res["packed_deep_two_tree"], e = deep_phase(torch, dev, x, lay,
+                                                BATCH * 300, mesh)
+    expected += e
+    log_(f"phase 17 packed deep two_tree: {res['packed_deep_two_tree']}")
+
+    # off: the packed engine serves the flat engine's bits
+    ids = np.random.default_rng(SEED + 5).permutation(n)[:SERVE_MESH_OFF]
+    w = torch.ones(d, device=dev) / d
+    outs = []
+    for m in (mesh, None):
+        sv = _serve_engine(torch, dev, x, lay, "off", mesh=m)
+        sv.set_weights(w)
+        cold, _ = _serve_chunks(sv, ids)
+        check(np.array_equal(_serve_chunks(sv, ids)[0], cold),
+              "off hits not bit-exact")
+        outs.append(cold)
+        expected += expected_launches(sv)
+        del sv
+        torch.cuda.empty_cache()
+    res["off_packed_bit_equal_flat"] = ok = bool(np.array_equal(*outs))
+    check(ok, "packed off serving is not flat serving's bits")
+    res["off_max_abs_err"] = _close(outs[0], _linear_ref(torch, x, w, ids),
+                                    1e-4, "packed off")
+    for what in ("cold", "warm"):
+        p, f = res["packed_two_tree"][what], res["flat_two_tree"][what]
+        log_(f"phase 17 {what}, packed q={MESH_Q} over {MESH_SLOTS} slots "
+             f"against flat q={MESH_Q} (two_tree): p50 {p['p50_ms']:.3f} / "
+             f"{f['p50_ms']:.3f} ms, p99 {p['p99_ms']:.3f} / "
+             f"{f['p99_ms']:.3f} ms, {p['requests_per_s']:.0f} / "
+             f"{f['requests_per_s']:.0f} req/s")
+    return res, expected
+
+
+def _async_launches(vg, before, res, q, sync):
+    """Check one thread-simulation run's ``vfl_grad`` launches (the counts
+    since ``before``) against ``core.async_engine``'s rule for q parties:
+    a forward launch a dominator iteration and a probe, a backward launch
+    an applied update (``run_sync``: an iteration), nothing else.  Returns
+    the launches the rule gives, from the run's own counts."""
+    got = {p: vg.KERNEL.launches[p] - before[p] for p in vg.PROGRAMS}
+    want = dict.fromkeys(vg.PROGRAMS, 0)
+    want["vfl_forward_narrow"] = res.iterations + len(res.loss_trace)
+    want["vfl_backward_rows"] = res.iterations if sync else res.updates
+    check(got == want,
+          f"{'run_sync' if sync else 'run_async'} launches {got}, not "
+          f"{want}: {res.iterations} iterations, {res.updates} updates, "
+          f"{len(res.loss_trace)} probes")
+    check(res.iterations * q == res.updates if sync
+          else res.iterations * q >= res.updates,
+          f"{res.iterations} iterations for {res.updates} updates of {q} "
+          "parties")
+    return Counter(want)
+
+
+def _thread_sim(torch, dev, x, y, log_):
+    """Phase 17 (b): the thread simulation at ``examples/async_vfl.py``'s
+    regime (q = 8, m = 3, 3 threads a party, the last party 1.45×
+    slower, ``base_delay`` 2 ms, batch 32) on phase 7's resident data and
+    problem for ``ASYNC_ITERS`` dominator iterations.  ``run_sync``
+    against the float64 SGD oracle on its own draws; ``run_async``
+    (secure) finite, not timed out, at its update target, its objective
+    falling; a crash and rejoin of the straggler in a run of
+    ``ASYNC_FAULT_ITERS`` iterations, whose realized trace replays
+    through ``run_faulted_fused``; every run's launches by the module's
+    rule; a profiler window over ``ASYNC_PROFILE_ITERS`` iterations.
+    Returns (record, expected launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import async_engine as ae
+    from repro_torch.core import faults
+    from repro_torch.core.algorithms import PartyLayout
+    from repro_torch.core.losses import logistic_l2
+    from repro_torch.kernels import vfl_grad as vg
+    n, d = x.shape
+    lay, batch, lr = PartyLayout.even(d, Q, ASYNC_M), TRAIN_BATCH, TRAIN_LR
+    prob = logistic_l2(1e-4)
+    speeds = [1.0] * lay.q
+    speeds[-1] = ASYNC_STRAGGLER
+    epochs = ASYNC_ITERS * batch / n
+    kw = dict(lr=lr, batch=batch, total_epochs=epochs, speed_factors=speeds,
+              base_delay=ASYNC_DELAY, seed=SEED, device=dev)
+    akw = dict(kw, threads_per_party=ASYNC_THREADS, max_wall=ASYNC_MAX_WALL)
+    expected = Counter()
+    res = {}
+
+    def counted(fn, sync):
+        _sync(torch, dev)
+        before = dict(vg.KERNEL.launches)
+        out = fn()
+        want = _async_launches(vg, before, out, lay.q, sync)
+        expected.update(want)
+        return out, dict(want)
+
+    s, got = counted(lambda: ae.run_sync(prob, x, y, lay, **kw), True)
+    iters = s.updates // lay.q
+    rng = np.random.default_rng(SEED)
+    idx = np.stack([rng.integers(0, n, size=batch) for _ in range(iters)])
+    idt = torch.as_tensor(idx.ravel(), device=dev)
+    w64 = alg.sgd_epoch(
+        prob, torch.zeros(d, dtype=torch.float64, device=dev),
+        x[idt].double(), y[idt].double(), lr,
+        torch.ones(d, dtype=torch.float64, device=dev),
+        torch.arange(idt.shape[0], device=dev).view(iters, batch))
+    r = _rel(torch.from_numpy(s.w).to(dev), w64)
+    res["sync"] = dict(iterations=iters, wall_s=s.wall_time,
+                       host_s_per_iteration=s.wall_time / iters,
+                       sleep_s_per_iteration=2 * ASYNC_DELAY
+                       * ASYNC_STRAGGLER, rel_err_vs_f64_sgd=r,
+                       objective_first=s.loss_trace[0][2],
+                       objective_last=s.loss_trace[-1][2], launches=got)
+    log_(f"phase 17 run_sync: {res['sync']}")
+    check(r <= 1e-4, f"run_sync {r:.3e} from the float64 SGD oracle")
+    del idt, w64
+
+    a, got = counted(lambda: ae.run_async(prob, x, y, lay, secure=True,
+                                          **akw), False)
+    first, last = a.loss_trace[0][2], a.loss_trace[-1][2]
+    res["async"] = dict(updates=a.updates, target=iters * lay.q,
+                        iterations=a.iterations, wall_s=a.wall_time,
+                        epochs=a.epochs,
+                        host_s_per_iteration=a.wall_time / a.iterations,
+                        objective_first=first,
+                        objective_last=last, probes=len(a.loss_trace),
+                        timed_out=a.timed_out, launches=got)
+    res["sync_over_async_wall"] = s.wall_time / a.wall_time
+    log_(f"phase 17 run_async (secure): {res['async']}")
+    log_(f"phase 17 wall time: async {a.wall_time:.3f} s, sync "
+         f"{s.wall_time:.3f} s, sync / async "
+         f"{res['sync_over_async_wall']:.3f}")
+    check(np.all(np.isfinite(a.w)), "run_async: a non-finite iterate")
+    check(not a.timed_out, "run_async hit its wall-clock bound")
+    check(a.updates >= iters * lay.q,
+          f"run_async: {a.updates} updates, short of {iters * lay.q}")
+    check(last < first, f"run_async: objective {first} -> {last}")
+
+    target = ASYNC_FAULT_ITERS * lay.q
+    plan = ae.ThreadFaultPlan(crash_at={lay.q - 1: target // 4},
+                              rejoin_at={lay.q - 1: target // 2})
+    fkw = dict(akw, total_epochs=ASYNC_FAULT_ITERS * batch / n)
+    f, got = counted(lambda: ae.run_async(prob, x, y, lay, secure=True,
+                                          fault_plan=plan, **fkw), False)
+    tr = f.fault_trace
+    kinds = [(e.kind, e.party) for e in tr.events]
+    check(("crash", lay.q - 1) in kinds and ("rejoin", lay.q - 1) in kinds,
+          f"the realized trace misses the crash or the rejoin: {kinds}")
+    tr.compile(lay.m)
+    steps = n // batch
+    w = faults.run_faulted_fused(prob, x, y, lay, tr.with_steps(steps), 2, 1,
+                                 lr, batch, seed=SEED, device=dev)
+    expected.update(implied(steps=steps))
+    res["faulted"] = dict(updates=f.updates, wall_s=f.wall_time,
+                          events=[(e.kind, e.party, e.step)
+                                  for e in tr.events],
+                          replay_finite=bool(np.all(np.isfinite(w))),
+                          launches=got)
+    log_(f"phase 17 run_async with a crash and rejoin of party "
+         f"{lay.q - 1}: {res['faulted']}")
+    check(np.all(np.isfinite(w)) and np.abs(w).max() > 0,
+          "the realized trace's replay is not finite")
+
+    pkw = dict(akw, total_epochs=ASYNC_PROFILE_ITERS * batch / n)
+    _sync(torch, dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        before = dict(vg.KERNEL.launches)
+        t0 = time.perf_counter()
+        p = ae.run_async(prob, x, y, lay, secure=True, **pkw)
+        _sync(torch, dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    expected.update(_async_launches(vg, before, p, lay.q, False))
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) \
+                + ev.self_device_time_total
+    busy = sum(kernels.values())
+    res["profile"] = dict(
+        iterations=p.iterations, wall_us=wall_us, device_busy_us=busy,
+        device_busy_share=(busy / wall_us) if busy > 0 else None,
+        top_device_us=[[k[:80], v] for k, v in
+                       sorted(kernels.items(), key=lambda kv: -kv[1])[:8]])
+    log_(f"phase 17 profile of {ASYNC_PROFILE_ITERS} run_async iterations: "
+         f"{res['profile']}")
+    return res, expected
+
+
+def serve_async_phase(torch, dev, x, y, log_):
+    """Phase 17: serving over ``PartyMesh(q=64, slots=8)`` (a) and the
+    BAPA thread simulation (b) on phase 7's resident data; the
+    interpreter's switch interval, which the thread runs set, is put back
+    at the end.  Returns (record, expected launches)."""
+    interval = sys.getswitchinterval()
+    try:
+        res, expected = _mesh_serve(torch, dev, x, log_)
+        res["threads"], e = _thread_sim(torch, dev, x, y, log_)
+    finally:
+        sys.setswitchinterval(interval)
+    expected.update(e)
+    return res, expected
+
+
 def train_measure(torch, dev, x, y, layout):
     """After the counted run: the full-gradient pass time beside its bound
     and a profiler window over one SGD epoch."""
@@ -3974,7 +4243,30 @@ def main() -> int:
     record["mesh_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     record["mesh"]["seconds"] = time.perf_counter() - t16
     log(f"phase 16: {record['mesh']['seconds']:.1f} s")
-    del x, y                                       # free phases 7-16's data
+
+    t17 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                  # phase 17 path starts
+    record["serve_async"], expected = serve_async_phase(torch, dev, x, y,
+                                                        log)
+    serve_async_launches = dict(vg.KERNEL.launches)  # phase 17 path ends
+    check_idle(_libs()[1:], "the phase 17 path")
+    check(serve_async_launches == {p: expected[p] for p in vg.PROGRAMS},
+          f"phase 17 launches {serve_async_launches} != {dict(expected)} "
+          "implied by the dispatches, iterations and steps")
+    check(all(serve_async_launches[p] for p in ("vfl_forward_narrow",
+                                                "vfl_forward_wide",
+                                                "vfl_backward_rows")),
+          f"a kernel of the phase 17 path was never launched: "
+          f"{serve_async_launches}")
+    log(f"phase 17 path: kernel launches {serve_async_launches}, as the "
+        "dispatches, iterations and steps imply")
+    record["serve_async_launches"] = serve_async_launches
+    record["serve_async_peak_memory_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    record["serve_async"]["seconds"] = time.perf_counter() - t17
+    log(f"phase 17: {record['serve_async']['seconds']:.1f} s")
+    del x, y                                       # free phases 7-17's data
     torch.cuda.empty_cache()
 
     t9 = time.perf_counter()
@@ -4009,7 +4301,7 @@ def main() -> int:
             + pipe_launches[prog] + stale_launches[prog]
             + deep_launches[prog] + deep_stale_launches[prog]
             + fault_launches[prog] + deep_fault_launches[prog]
-            + mesh_launches[prog],
+            + mesh_launches[prog] + serve_async_launches[prog],
             "max_abs_err": max(r["max_abs_err"] for r in shapes
                                if prog in r["programs"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -47,7 +47,8 @@ def _l2_reg(w):
     return 0.5 * w * w
 
 
-def _l2_reg_grad(w):
+def l2_reg_grad(w):
+    # public so that a caller can fuse λw into ``vfl_grad``'s backward
     return w
 
 
@@ -71,7 +72,7 @@ def _logistic_theta(agg, y):
 def logistic_l2(lam: float = 1e-4) -> Problem:
     """Problem (13): ℓ2-regularized logistic regression (μ-strongly convex)."""
     return Problem("logistic_l2", _logistic_loss, _logistic_theta, _l2_reg,
-                   _l2_reg_grad, lam, True)
+                   l2_reg_grad, lam, True)
 
 
 def logistic_nonconvex(lam: float = 1e-4) -> Problem:
@@ -88,7 +89,7 @@ def ridge(lam: float = 1e-4) -> Problem:
     def theta(agg, y):
         return 2.0 * (agg - y)
 
-    return Problem("ridge", loss, theta, _l2_reg, _l2_reg_grad, lam, True)
+    return Problem("ridge", loss, theta, _l2_reg, l2_reg_grad, lam, True)
 
 
 def robust_regression(lam: float = 0.0) -> Problem:

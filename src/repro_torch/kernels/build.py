@@ -114,15 +114,16 @@ class CudaLibrary:
                 fn.restype = ctypes.c_int
         return lib
 
-    def _launch(self, prog: str, dtype, *args, what: str) -> None:
+    def _launch(self, prog: str, dtype, *args, what) -> None:
         """Call ``prog``'s entry point for ``dtype`` on the current stream
         of the current device; raise if the launch was refused, else count
-        it."""
+        it.  ``what`` (a string, or a function that makes it only when the
+        launch fails) names the operands in the error."""
         fn = getattr(self.library(), f"{prog}_{SUFFIX[dtype]}")
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"{prog} launch failed: CUDA error {err} at "
-                               f"{what}")
+                               f"{what() if callable(what) else what}")
         with self._lock:
             self.launches[prog] += 1

@@ -22,6 +22,16 @@ from repro_torch.kernels import vfl_grad as _vg
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _contig(t: torch.Tensor) -> torch.Tensor:
+    # a no-op call still costs a dispatch, and releases the interpreter
+    # lock: threads that launch (core/async_engine.py) hand it over there
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.float32 else t.float()
+
+
 def vfl_grad(xb, w, theta=None, lam=0.0, *, mode="forward", denom=None,
              split=None):
     """Batched rank-k VFL kernel: forward, backward or fused mode.
@@ -85,7 +95,7 @@ def _forward(xb, w):
         w3 = w.reshape(1, w.shape[0], 1 if rank1 else w.shape[1])
     elif xb.dim() == 3 and w.dim() in (2, 3) and w.shape[0] == xb.shape[0]:
         x3 = xb
-        w3 = w.reshape(w.shape[0], w.shape[1], 1 if rank1 else w.shape[2])
+        w3 = w.unsqueeze(-1) if rank1 else w
     else:
         raise ValueError(f"bad shapes xb {tuple(xb.shape)}, w "
                          f"{tuple(w.shape)}: want (B, D) with (D,)/(D, M) "
@@ -138,11 +148,11 @@ def _backward(xb, w, theta, lam, denom):
     w3 = None
     if w is not None:
         w3 = w.unsqueeze(-1) if rank1 else w
-        w3 = (w3.unsqueeze(0) if lead == 0 else w3).contiguous()
-    th3 = th3.float()
+        w3 = _contig(w3.unsqueeze(0) if lead == 0 else w3)
+    th3 = _f32(th3)
     if not (th3.stride(0) == 0 and th3[0].is_contiguous()):
-        th3 = th3.contiguous()              # not a shared (expanded) θ
-    g = _vg.KERNEL.backward(x3.contiguous(), th3, w3, lam, float(denom))
+        th3 = _contig(th3)                  # not a shared (expanded) θ
+    g = _vg.KERNEL.backward(_contig(x3), th3, w3, lam, float(denom))
     if rank1:
         g = g.squeeze(-1)
     return g.squeeze(0) if lead == 0 else g
@@ -192,10 +202,10 @@ def _fused(xb, w, theta, lam, denom, split):
     x3 = xb.unsqueeze(0) if lead == 0 else xb
     w3 = w.reshape(x3.shape[0], d, mw)
     th3 = theta.unsqueeze(-1) if th_rank1 else theta
-    th3 = (th3.unsqueeze(0) if lead == 0 else th3).float()
+    th3 = _f32(th3.unsqueeze(0) if lead == 0 else th3)
     if not (th3.stride(0) == 0 and th3[0].is_contiguous()):
-        th3 = th3.contiguous()              # not a shared (expanded) θ
-    z, g = _vg.KERNEL.fused(x3.contiguous(), w3.contiguous(), th3, lam,
+        th3 = _contig(th3)                  # not a shared (expanded) θ
+    z, g = _vg.KERNEL.fused(_contig(x3), _contig(w3), th3, lam,
                             float(denom), split)
     if w_rank1:
         z = z.squeeze(-1)

@@ -102,8 +102,8 @@ class CudaKernel(CudaLibrary):
         with torch.cuda.device(x.device):
             self._launch(prog, x.dtype, x.data_ptr(), w.data_ptr(),
                          z.data_ptr(), p, b, d, m,
-                         what=f"x {tuple(x.shape)}, w {tuple(w.shape)}, "
-                              f"{x.dtype}")
+                         what=lambda: f"x {tuple(x.shape)}, w "
+                                      f"{tuple(w.shape)}, {x.dtype}")
         return z
 
     def backward(self, x: torch.Tensor, theta: torch.Tensor,
@@ -146,8 +146,9 @@ class CudaKernel(CudaLibrary):
         out = g if chunks == 1 else torch.empty(
             (chunks, p, d, m), dtype=torch.float32, device=x.device)
         wp = 0 if w is None else w.data_ptr()
-        what = (f"x {tuple(x.shape)}, theta {tuple(theta.shape)}, "
-                f"{x.dtype}")
+        def what():
+            return (f"x {tuple(x.shape)}, theta {tuple(theta.shape)}, "
+                    f"{x.dtype}")
         with torch.cuda.device(x.device):
             self._launch("vfl_backward_rows", x.dtype, x.data_ptr(),
                          theta.data_ptr(), wp, out.data_ptr(), p, b, d, m,

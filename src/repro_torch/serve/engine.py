@@ -30,6 +30,17 @@ is one dominator matvec plus a cache read; an entry exactly one version
 behind (linear) is repaired by one masked aggregation of *deltas*
 x_{i,G_ℓ}·(w_ℓ − w_ℓ^prev).
 
+Serving over a ``PartyMesh``
+----------------------------
+On an engine built with ``mesh=PartyMesh(...)`` every masked dispatch
+(full, delta, deep full) aggregates through the engine's two-level form
+(``FusedEngine._agg`` → ``secure_psum_hier``): level 1 within each slot
+draws one mask stream per logical party, level 2 across the slots' sums
+one per slot, fresh from the dispatch's generator.  Under ``off`` the
+plain sum stays, so packed serving is flat serving bit for bit.  A data
+axis is ignored: the reference runs its serve programs replicated over
+the axis, and the replicas agree.
+
 Where the port differs in mechanism (not in result)
 ---------------------------------------------------
 * The cache has one extra **trash slot** at index n: pad rows scatter
@@ -93,9 +104,11 @@ class ServeEngine:
     """Batched secure inference over a :class:`FusedEngine`.
 
     ``engine`` supplies the vertical layout, the security configuration
-    (``EngineConfig.secure`` — off/two_tree/ring) and the contraction
-    (``FusedEngine._fwd``); ``x`` optionally replaces the engine's features with a dedicated
-    serving universe (same vertical layout, packed onto ``device``).
+    (``EngineConfig.secure`` — off/two_tree/ring, two-level when the
+    engine is bound to a packed ``PartyMesh``) and the contraction
+    (``FusedEngine._fwd``); ``x`` optionally replaces the engine's
+    features with a dedicated serving universe (same vertical layout,
+    packed onto ``device``).
     Weights come from :meth:`set_weights` (linear) or
     :meth:`set_deep_params` (deep); every update bumps the cache version.
 

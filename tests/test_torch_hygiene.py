@@ -22,8 +22,8 @@ import torch
 
 from repro_torch import convert, resolve_device
 from repro_torch.configs.base import get_arch
-from repro_torch.core import (algorithms, deep_vfl, engine, faults, losses,
-                              staleness, supervisor)
+from repro_torch.core import (algorithms, async_engine, deep_vfl, engine,
+                              faults, losses, staleness, supervisor)
 from repro_torch.launch.serve import serve
 from repro_torch.models import model as lm_model
 from repro_torch.serve import ServeEngine
@@ -75,7 +75,7 @@ def _cpu_engine():
     "supervised_train", "supervised_guarded_run", "run_deep_faulted_fused",
     "run_deep_guarded_fused", "run_deep_faulted_reference",
     "run_deep_guarded_reference", "supervised_guarded_run_deep",
-    "FusedEngine_mesh"])
+    "FusedEngine_mesh", "ServeEngine_mesh", "run_async", "run_sync"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
                                                                entry,
                                                                tmp_path):
@@ -179,6 +179,15 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
         "FusedEngine_mesh": lambda: engine.FusedEngine(
             losses.ridge(), x, np.ones(6, np.float32), lay,
             mesh=PartyMesh(q=2, slots=1, data_shards=2)),
+        "ServeEngine_mesh": lambda: ServeEngine(engine.FusedEngine(
+            losses.ridge(), x, np.ones(6, np.float32), lay,
+            mesh=PartyMesh(q=2, slots=1, data_shards=2), device="cpu")),
+        "run_async": lambda: async_engine.run_async(
+            losses.ridge(), x, np.ones(6, np.float32), lay, batch=2,
+            total_epochs=1.0),
+        "run_sync": lambda: async_engine.run_sync(
+            losses.ridge(), x, np.ones(6, np.float32), lay, batch=2,
+            total_epochs=1.0),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Run some of ``chip_smoke.py``'s training phases alone on one card.
+"""Run some of ``chip_smoke.py``'s later phases alone on one card.
 
-    python3 tools/chip_phases.py 15 16 [--out chiprun_out/phases.json]
+    python3 tools/chip_phases.py 15 16 17 [--out PATH]
 
 Builds the ``vfl_grad`` kernel library, makes phase 7's resident data on
 the card (x (350000, 4096) f32 from the seed, the D4 labels) and runs the
 named phases' functions of ``chip_smoke.py`` (14: faults, 15: deep faults,
-16: the party mesh), each with its kernel counters set to 0 just before
-it, its hard checks as in the script, and every log line stamped with the
-seconds since the first phase began.  It prints each phase's launches
+16: the party mesh, 17: serving over the mesh and the thread simulation),
+each with its kernel counters set to 0 just before it, its hard checks as
+in the script, and every log line stamped with the seconds since the
+first phase began.  It prints each phase's launches
 beside what its steps imply, its seconds and its peak device memory, and
 writes the phases' records to ``--out``.  A phase's checks here are the
 script's; its time here is that of the phase alone, without the phases
@@ -36,7 +37,7 @@ def main() -> int:
     from repro_torch.kernels import vfl_grad as vg
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("phases", nargs="+", choices=("14", "15", "16"))
+    ap.add_argument("phases", nargs="+", choices=("14", "15", "16", "17"))
     ap.add_argument("--out", default="chiprun_out/phases.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -62,7 +63,8 @@ def main() -> int:
     phases = {"14": lambda: cs.fault_phase(torch, dev, x, y, layout, log),
               "15": lambda: cs.deep_fault_phase(torch, dev, x, y, layout,
                                                 log),
-              "16": lambda: cs.mesh_phase(torch, dev, x, y, log)}
+              "16": lambda: cs.mesh_phase(torch, dev, x, y, log),
+              "17": lambda: cs.serve_async_phase(torch, dev, x, y, log)}
     out = {}
     for name in args.phases:
         t = time.perf_counter()
