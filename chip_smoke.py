@@ -196,6 +196,19 @@ JAX or of the JAX package.
    profiler window over 200 ``run_async`` iterations, printed.  The
    switch interval the thread runs set is put back.  It runs before
    phase 9.
+18. The linter on the card, on phase 7's data and problem at full width
+   ((8, 350000, 512) f32, batch 32, ``two_tree``): SGD, pipelined SGD,
+   deep SGD (hidden 32, d_rep 16), delayed SGD and faulted SGD (τ = 2)
+   each traced with ``make_fx`` over fake tensors
+   (``FusedEngine.epoch_graph``), then run for one 3-step epoch under no
+   host sync; each traced step's ``repro_torch.vfl_grad`` nodes must equal
+   the launches of one replay of the captured step, and the trace hold no
+   host transfer.  Then ``python -m repro_torch.analysis --quick --device
+   cuda`` in this process must pass every gate against the committed
+   ``analysis/INVARIANTS_torch.json`` with zero host transfers, and the
+   operator's host dispatch cost is timed against the direct call of its
+   CUDA implementation at the SGD step's shape (8, 32, 512) and printed.
+   It runs before phase 9.
 9. LM serving, falcon-mamba-7b at full width (d_model 4096, d_inner 8192,
    N = 16, 64 layers, vocabulary 65,024, random weights from a seed) across
    q = 8 parties under ``two_tree``: ``launch.serve.serve`` with batch 4,
@@ -270,6 +283,7 @@ just before phase 8 and after it, just before phase 11 and after it,
 just before phase 12 and after it, just before phase 13 and after it,
 just before phase 14 and after it, just before phase 15 and after it,
 just before phase 16 and after it, just before phase 17 and after it,
+just before phase 18's census epochs and after its quick lint,
 just before phase 9's serve call and after it, and just before phase
 10's serve call and after it;
 each count must equal what the dispatch or step structure implies, every
@@ -277,7 +291,7 @@ program of each path must have run, and no other program.  The
 ``kernels`` line has one entry per program, timed at its main-path shape
 (serving: the linear full dispatch and deep layer 1; training: the SGD
 step, the full-dataset reduce and the pipelined SGD step), with its
-launches summed over every path (phases 3-8 and 11-17).  The
+launches summed over every path (phases 3-8 and 11-18).  The
 ``selective_scan`` source holds one program, held against its plain
 version at the reference's sweep shapes, a ragged shape and phase 9's
 prefill shape (4, 2048, 8192), N = 16, bf16 (1e-4 for f32 xa, 5e-2 for
@@ -3984,6 +3998,171 @@ def dense_phase(torch, dev, log_):
 
 
 # ---------------------------------------------------------------------------
+# the linter on the card
+# ---------------------------------------------------------------------------
+
+LINT_KINDS = ("sgd", "pipelined_sgd", "deep_sgd", "delayed2", "faulted_sgd2")
+LINT_STEPS, LINT_TAU = 3, 2      # the short epochs' steps; delayed2's τ
+DISPATCH_CALLS, DISPATCH_ROUNDS = 200, 15
+
+
+def _dispatch_cost(torch, dev, ops):
+    """Host µs a call of ``repro_torch::vfl_grad`` (the operator, dispatched
+    in C++ to its CUDA implementation, as a trace records it) and of the
+    public wrapper ``ops.vfl_grad`` (its checks, then, outside a trace, the
+    implementation itself) against a direct call of that implementation,
+    at the SGD step's shape (8, 32, 512): forward with the rank-1 iterate,
+    backward with the shared θ; and the one read of the dispatch mode
+    that the wrapper adds to its eager call.  Blocks of ``DISPATCH_CALLS``
+    calls of each form alternate over ``DISPATCH_ROUNDS`` rounds, the
+    stream drained between blocks; each form's median block, per call."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xb = torch.randn((Q, TRAIN_BATCH, D // Q), generator=gen, device=dev)
+    wq = torch.randn((Q, D // Q), generator=gen, device=dev)
+    th = torch.randn((TRAIN_BATCH,), generator=gen, device=dev) \
+        .expand(Q, TRAIN_BATCH)
+    from torch.fx.experimental.proxy_tensor import get_proxy_mode
+
+    op = torch.ops.repro_torch.vfl_grad
+    forms = {
+        "operator_forward": lambda: op.forward(xb, wq),
+        "direct_forward": lambda: ops._cuda_forward(xb, wq),
+        "wrapper_forward": lambda: ops.vfl_grad(xb, wq),
+        "operator_backward": lambda: op.backward(xb, th, None, 0.0,
+                                                 TRAIN_BATCH),
+        "direct_backward": lambda: ops._cuda_backward(xb, th, None, 0.0,
+                                                      TRAIN_BATCH),
+        "wrapper_backward": lambda: ops.vfl_grad(
+            xb, None, th, mode="backward", denom=TRAIN_BATCH),
+        # what the wrapper adds to the parent's eager call: one read of
+        # the dispatch mode (is a make_fx trace active?)
+        "mode_read": get_proxy_mode}
+    for fn in forms.values():                           # warm
+        fn()
+    torch.cuda.synchronize()
+    blocks = {k: [] for k in forms}
+    for _ in range(DISPATCH_ROUNDS):
+        for name, fn in forms.items():
+            t = time.perf_counter()
+            for _ in range(DISPATCH_CALLS):
+                fn()
+            blocks[name].append((time.perf_counter() - t) / DISPATCH_CALLS)
+            torch.cuda.synchronize()
+    res = {k: float(np.median(v)) * 1e6 for k, v in blocks.items()}
+    for mode in ("forward", "backward"):
+        for form in ("operator", "wrapper"):
+            res[f"{form}_minus_direct_{mode}"] = \
+                res[f"{form}_{mode}"] - res[f"direct_{mode}"]
+    return res
+
+
+def lint_phase(torch, dev, x, y, layout, log_):
+    """Phase 18: the linter on the card.  (a) On phase 7's resident data at
+    full width ((8, 350000, 512) f32, batch 32) under ``two_tree``, each
+    of ``LINT_KINDS`` (τ = 2 for the rings) is traced with ``make_fx`` over
+    fake tensors (``FusedEngine.epoch_graph``: nothing runs), then one
+    short epoch of ``LINT_STEPS`` steps runs (an eager step, the captured
+    graph, its replays) under no host sync; the step's
+    ``repro_torch.vfl_grad`` nodes must equal the launches one replay of
+    the captured graph makes (``_StepLoop.per_step``), and the trace hold
+    no host transfer.  (b) ``python -m repro_torch.analysis --quick
+    --device cuda``, in this process: every gate must pass against the
+    committed manifest, with zero host transfers; its storage audit runs
+    two SGD epochs of the fixture on the card.  (c) The operator's host
+    dispatch cost against the direct call (``_dispatch_cost``).  Returns
+    (record, expected launches of (a) and (b)); the record's
+    ``launches`` are the counts read after (b), before (c)'s calls."""
+    from repro_torch.analysis import runner
+    from repro_torch.analysis.walkers import (count_host_transfers,
+                                              vfl_grad_census)
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import deep_vfl
+    from repro_torch.core.engine import EngineConfig, FusedEngine
+    from repro_torch.core.losses import logistic_l2
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import vfl_grad as vg
+    n, d = x.shape
+    steps, tau, lr = LINT_STEPS, LINT_TAU, TRAIN_LR
+    eng = FusedEngine(logistic_l2(1e-4), x, y, layout,
+                      EngineConfig(secure="two_tree"), device=dev)
+    idx = alg.epoch_indices(SEED, 0, n, TRAIN_BATCH, steps, dev)
+    w0 = eng.pack_w(torch.zeros(d, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pq = eng.pack_deep(deep_vfl.init_deep_vfl(gen, layout, d, DEEP_HIDDEN,
+                                              DEEP_DREP))
+    delays = torch.ones(Q, dtype=torch.int64, device=dev)
+    buf = torch.zeros((Q, tau + 1, eng.dp), device=dev)
+    live = torch.ones((Q, steps), device=dev)
+    extra = torch.zeros((Q, steps), dtype=torch.int64, device=dev)
+    calls = {"sgd": (eng.sgd_epoch, (w0, lr, idx)),
+             "pipelined_sgd": (eng.pipelined_sgd_epoch, (w0, lr, idx)),
+             "deep_sgd": (eng.deep_sgd_epoch, (pq, lr, idx)),
+             "delayed2": (eng.delayed_sgd_epoch,
+                          (w0, buf, 0, delays, lr, idx, tau)),
+             "faulted_sgd2": (eng.faulted_sgd_epoch,
+                              (w0, buf, 0, delays, live, live, extra, lr,
+                               idx, tau))}
+    res = {"census": {}}
+    expected = Counter()
+    for kind in LINT_KINDS:
+        epoch, args = calls[kind]
+        before = set(eng._loops)
+        t = time.perf_counter()
+        program = eng.epoch_graph(kind, epoch, *args)
+        trace_s = time.perf_counter() - t
+        (key,) = set(eng._loops) - before
+        nodes = vfl_grad_census(program)
+        check(count_host_transfers(program) == 0,
+              f"phase 18 {kind}: host transfers in the trace")
+        with no_host_sync(torch):
+            epoch(*args)
+        torch.cuda.synchronize()
+        per_step = dict(eng._loops[key].per_step)
+        check(nodes == sum(per_step.values()),
+              f"phase 18 {kind}: {nodes} vfl_grad nodes a traced step, one "
+              f"replay of the captured step launches {per_step}")
+        if kind.startswith("pipelined"):
+            expected += Counter(vfl_forward_narrow=1, vfl_backward_rows=1)
+            expected += Counter({p: k * (steps - 1)
+                                 for p, k in per_step.items()})
+        else:
+            expected += Counter({p: k * steps for p, k in per_step.items()})
+        res["census"][kind] = {"vfl_grad_nodes": nodes,
+                               "launches_per_replay": per_step,
+                               "trace_seconds": trace_s}
+        log_(f"phase 18 {kind}: {nodes} vfl_grad nodes a step, a replay "
+             f"launches {per_step}; traced in {trace_s:.2f} s")
+    del eng, pq, calls
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    out = ROOT / "results" / "lint_quick.json"
+    rc = runner.main(["--quick", "--device", "cuda", "--ci", "--json",
+                      str(out)])
+    check(rc == 0, "phase 18: python -m repro_torch.analysis --quick "
+          "--device cuda failed its gates")
+    report = json.loads(out.read_text())
+    res["lint"] = {"seconds": time.perf_counter() - t,
+                   "entries": len(report["matrix"]),
+                   "host_transfers": sum(v["host_transfers"]
+                                         for v in report["matrix"].values()),
+                   "kernels": report["kernels"],
+                   "storage": report["storage"],
+                   "collectives": report["collectives"]}
+    check(res["lint"]["host_transfers"] == 0,
+          "phase 18: host transfers in the quick matrix")
+    # the storage audit's two SGD epochs of the fixture (3 steps each)
+    expected += implied(steps=6)
+    log_(f"phase 18 quick lint on the card: {res['lint']}")
+    # the path's launches, read before the dispatch timing's
+    res["launches"] = dict(vg.KERNEL.launches)
+
+    res["dispatch_us"] = _dispatch_cost(torch, dev, ops)
+    log_(f"phase 18 dispatch host µs a call: {res['dispatch_us']}")
+    return res, expected
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -4266,7 +4445,27 @@ def main() -> int:
         torch.cuda.max_memory_allocated() / 1e9
     record["serve_async"]["seconds"] = time.perf_counter() - t17
     log(f"phase 17: {record['serve_async']['seconds']:.1f} s")
-    del x, y                                       # free phases 7-17's data
+
+    t18 = time.perf_counter()
+    reset_counts()                                  # phase 18 path starts
+    record["lint"], expected = lint_phase(torch, dev, x, y, layout, log)
+    lint_launches = record["lint"].pop("launches")  # phase 18 path ends
+    check_idle(_libs()[1:], "the phase 18 path")
+    check(lint_launches == {p: expected[p] for p in vg.PROGRAMS},
+          f"phase 18 launches {lint_launches} != {dict(expected)} "
+          "implied by the census epochs and the lint's storage audit")
+    check(all(lint_launches[p] for p in ("vfl_forward_narrow",
+                                         "vfl_forward_wide",
+                                         "vfl_backward_rows",
+                                         "vfl_fused_split")),
+          f"a kernel of the phase 18 path was never launched: "
+          f"{lint_launches}")
+    log(f"phase 18 path: kernel launches {lint_launches}, as the epochs "
+        "imply")
+    record["lint_launches"] = lint_launches
+    record["lint"]["seconds"] = time.perf_counter() - t18
+    log(f"phase 18: {record['lint']['seconds']:.1f} s")
+    del x, y                                       # free phases 7-18's data
     torch.cuda.empty_cache()
 
     t9 = time.perf_counter()
@@ -4301,7 +4500,8 @@ def main() -> int:
             + pipe_launches[prog] + stale_launches[prog]
             + deep_launches[prog] + deep_stale_launches[prog]
             + fault_launches[prog] + deep_fault_launches[prog]
-            + mesh_launches[prog] + serve_async_launches[prog],
+            + mesh_launches[prog] + serve_async_launches[prog]
+            + lint_launches[prog],
             "max_abs_err": max(r["max_abs_err"] for r in shapes
                                if prog in r["programs"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

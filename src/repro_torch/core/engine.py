@@ -47,11 +47,26 @@ schedule rows t and t+1), and a backward epilogue eagerly.  The
 aggregate of the next round's forward is carried in a static buffer of
 the loop.
 
+Tracing (the counterpart of the reference's ``party_program`` and
+``*_epoch_jaxpr`` probes).  Under ``eng.tracing()`` an epoch call loads
+its loop as usual but neither runs nor captures its step: it records one
+``make_fx`` trace of the whole epoch over fake tensors (the pipelined
+forms' eager prologue and epilogue included, the step once) as its
+kind's program, ``party_program(kind)``, an ``fx.GraphModule`` whose
+party axis is dim 0.  The step's nodes carry ``meta["step"]``, the loop
+buffers' placeholders ``meta["buffer"]`` and ``meta["party_dims"]``, and
+the engine's own tensors (the feature block ``xs`` first) are named by
+identity in ``gm.meta``; ``repro_torch.analysis`` reads them.  The
+``*_epoch_graph`` methods trace one epoch and return its program.  Each
+``ops.vfl_grad`` call is one ``repro_torch.vfl_grad`` node, so a step's
+nodes count its launches on the card.
+
 Device rule: ``FusedEngine`` defaults to ``device="cuda"`` and raises
 without a card; tests pass ``device="cpu"``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, NamedTuple
 
@@ -77,6 +92,11 @@ from repro_torch.sharding.api import PartyMesh
 _TAG_STEPS, _TAG_FULL, _TAG_SAGA_INIT = 0x5EC, 0xF, 0xA
 # the deep parameter leaves, as the loops' buffers name them
 _DEEP = ("w1", "b1", "w2", "head")
+# the party dimension of a loop buffer where it is not dim 0: the schedule,
+# the counters, the learning rate and the carried aggregate have none; the
+# fault channels and the health telemetry (4, q, steps) hold it at dim 1
+_BUF_PARTY_DIM = {"idx": None, "t": None, "lr": None, "step": None,
+                  "agg": None, "chan": 1, "health": 1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,6 +231,55 @@ def unpack_deep_params(pq, layout: PartyLayout) -> DeepVFLParams:
                          headq[0].clone())
 
 
+def trace_program(fn, inputs: dict, party_dims: dict, consts=()):
+    """``make_fx`` trace of ``fn(inputs)`` over fake copies of the tensors
+    in ``inputs`` (a dict of named tensors; nothing runs and no input
+    changes).  Returns the ``fx.GraphModule``: each placeholder's
+    ``meta["buffer"]`` is its name in ``inputs`` and
+    ``meta["party_dims"]`` the dims of it that index parties
+    (``party_dims[name]``: a dim, or None for none); ``gm.meta["consts"]``
+    maps each ``get_attr`` constant that is one of ``consts`` — (tensor,
+    party dim or None, is the feature block) triples, matched by identity —
+    to ``(party dims, is the feature block)``, and ``gm.meta["party_dim"]``
+    is 0, the party axis of every party-stacked tensor."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    keys = list(inputs)
+    gm = make_fx(lambda *ts: fn(dict(zip(keys, ts))), tracing_mode="fake",
+                 _allow_non_fake_inputs=True)(*inputs.values())
+    holders = [n for n in gm.graph.nodes if n.op == "placeholder"]
+    for node, key in zip(holders, keys):
+        pd = party_dims.get(key)
+        node.meta["buffer"] = key
+        node.meta["party_dims"] = () if pd is None else (pd,)
+    known = {}
+    for node in gm.graph.nodes:
+        if node.op != "get_attr":
+            continue
+        val = getattr(gm, node.target)
+        for t, pd, source in consts:
+            if val is t:
+                known[node.target] = ((() if pd is None else (pd,)), source)
+                break
+    if not hasattr(gm, "meta"):
+        gm.meta = {}
+    gm.meta.update(party_dim=0, consts=known)
+    return gm
+
+
+def _mark_step(fn) -> None:
+    """Call ``fn`` inside a ``make_fx`` trace and mark the nodes it adds
+    with ``meta["step"]``: the nodes of one step of the epoch."""
+    from torch.fx.experimental import proxy_tensor
+
+    mode = proxy_tensor.get_proxy_mode()
+    graph = mode.tracer.graph
+    before = len(graph.nodes)
+    fn()
+    for node in list(graph.nodes)[before:]:
+        node.meta["step"] = True
+
+
 def _ring_flat(rings, doms: bool) -> torch.Tensor:
     """A deep epoch's three encoder rings (q, τ+1, ...) -> one flat ring
     (q, τ+1, m or 1, F): each (party, slot, dominator) row holds its w1,
@@ -329,6 +398,8 @@ class FusedEngine:
         # step graphs register so that each replay draws fresh masks
         self._gen = torch.Generator(device=self.device)
         self._loops = {}
+        self._tracing = False
+        self._programs = {}
 
     # -- X-block contractions (the vfl_grad kernel) ---------------------------
 
@@ -481,14 +552,113 @@ class FusedEngine:
         v = torch.as_tensor(v, device=self.device)
         return v.float() if v.is_floating_point() else v.long()
 
+    # -- tracing (the reference's party programs and jaxpr probes) ----------
+
+    @contextlib.contextmanager
+    def tracing(self):
+        """Within this context an epoch call records its kind's program
+        (:meth:`party_program`) instead of running: its loop is loaded,
+        nothing else changes, and it returns the loaded state."""
+        prev, self._tracing = self._tracing, True
+        try:
+            yield self
+        finally:
+            self._tracing = prev
+
+    def party_program(self, name: str):
+        """The recorded ``fx.GraphModule`` of epoch kind ``name`` (the
+        reference's names: ``"sgd"``, ``"pipelined_sgd"``,
+        ``"delayed2"``, ``"faulted_sgd2"``, ``"guarded_sgd2_1"``,
+        ``"deep_sgd"``, ...); the epoch must have been called once under
+        :meth:`tracing`."""
+        if name not in self._programs:
+            raise KeyError(f"no party program recorded for {name!r}; trace "
+                           f"the epoch first (built: "
+                           f"{sorted(self._programs)})")
+        return self._programs[name]
+
+    def party_consts(self):
+        """The engine's tensors a step reads besides its loop buffers, as
+        ``trace_program``'s ``consts``: the feature block (the party's
+        private source) and the party-stacked masks and row offsets."""
+        return ((self.xs, 0, True), (self.maskq, 0, False),
+                (self.trainq, 0, False), (self._row0, 0, False))
+
+    def _epoch(self, kind: str, loop: _StepLoop, body) -> None:
+        """Run ``body()`` (which reads ``loop.bufs``), or, under
+        :meth:`tracing`, record its trace as ``kind``'s program."""
+        if not self._tracing:
+            body()
+            return
+        saved = loop.bufs
+
+        def fn(bufs):
+            loop.bufs = bufs
+            try:
+                body()
+            finally:
+                loop.bufs = saved
+
+        self._programs[kind] = trace_program(
+            fn, saved, {k: _BUF_PARTY_DIM.get(k, 0) for k in saved},
+            self.party_consts())
+
+    def epoch_graph(self, kind: str, epoch, *args, **kw):
+        """Trace one call of ``epoch`` and return ``kind``'s program."""
+        with self.tracing():
+            epoch(*args, **kw)
+        return self.party_program(kind)
+
+    def sgd_epoch_graph(self, wq, lr, idx, mask_key=(0,)):
+        """The SGD epoch's program (``sgd_epoch_jaxpr``'s counterpart)."""
+        return self.epoch_graph("sgd", self.sgd_epoch, wq, lr, idx, mask_key)
+
+    def pipelined_sgd_epoch_graph(self, wq, lr, idx, mask_key=(0,)):
+        """The pipelined SGD epoch's program: prologue, one step (one
+        ``vfl_grad`` node), epilogue."""
+        return self.epoch_graph("pipelined_sgd", self.pipelined_sgd_epoch,
+                                wq, lr, idx, mask_key)
+
+    def deep_sgd_epoch_graph(self, pq, lr, idx, mask_key=(0,)):
+        """The deep SGD epoch's program (4 ``vfl_grad`` nodes a step)."""
+        return self.epoch_graph("deep_sgd", self.deep_sgd_epoch, pq, lr, idx,
+                                mask_key)
+
+    def deep_pipelined_sgd_epoch_graph(self, pq, lr, idx, mask_key=(0,)):
+        """The pipelined deep SGD epoch's program (1 node a step)."""
+        return self.epoch_graph("deep_pipelined_sgd",
+                                self.deep_pipelined_sgd_epoch, pq, lr, idx,
+                                mask_key)
+
+    def faulted_sgd_epoch_graph(self, wq, bufq, t0, delays, fwdq, bwdq,
+                                extraq, lr, idx, tau, mask_key=(0,)):
+        """The faulted SGD epoch's program."""
+        return self.epoch_graph(f"faulted_sgd{tau}", self.faulted_sgd_epoch,
+                                wq, bufq, t0, delays, fwdq, bwdq, extraq, lr,
+                                idx, tau, mask_key)
+
+    def guarded_sgd_epoch_graph(self, wq, bufq, t0, delays, fwdq, bwdq,
+                                extraq, corruptq, lr, idx, tau,
+                                mask_key=(0,), guard: bool = True):
+        """The guarded SGD epoch's program."""
+        return self.epoch_graph(f"guarded_sgd{tau}_{int(bool(guard))}",
+                                self.guarded_sgd_epoch, wq, bufq, t0, delays,
+                                fwdq, bwdq, extraq, corruptq, lr, idx, tau,
+                                mask_key, guard=guard)
+
     def _run(self, loop: _StepLoop, step, steps=None) -> None:
         """Run ``step(loop.bufs)`` ``steps`` times (default once per row of
         the schedule): eagerly on the CPU; on the card the first step
         eagerly (it also builds what is made at first use: the kernel
         library, the trees' round indices), then replays of the step's
-        CUDA graph, captured at the first epoch of this kind and shape."""
+        CUDA graph, captured at the first epoch of this kind and shape.
+        Under :meth:`tracing`, one step is traced and marked."""
         if steps is None:
             steps = loop.bufs["idx"].shape[0]
+        if self._tracing:
+            if steps:
+                _mark_step(lambda: step(loop.bufs))
+            return
         if self.device.type != "cuda":
             for _ in range(steps):
                 step(loop.bufs)
@@ -748,13 +918,14 @@ class FusedEngine:
                     aux)
 
     def _run_epoch(self, algo: str, multi: bool, pipelined: bool, idx, lr,
-                   mask_key, tag="", parts=None, step_fn=None,
+                   mask_key, tag="", parts=None, step_fn=None, kind=None,
                    **carries):
         """Run one epoch of ``algo`` in the given form from ``carries``;
         returns the loop's buffers.  ``tag`` completes the loop's name
         where a carry's shape is not fixed by the engine (the ring's τ) or
         where ``parts`` and ``step_fn`` replace the algorithm's parts and
-        the fresh step (the faulted and guarded epochs)."""
+        the fresh step (the faulted and guarded epochs); ``kind`` names
+        the program :meth:`tracing` records (default: the loop's name)."""
         name = ("multi_" if multi else "") \
             + ("pipelined_" if pipelined else "") + algo + tag
         if parts is None:
@@ -768,10 +939,12 @@ class FusedEngine:
                 step_fn = self._sliced_step
         loop = self._loop(name, idx, lr, mask_key, **carries)
         if pipelined:
-            self._pipelined(loop, parts)
+            self._epoch(kind or name, loop,
+                        lambda: self._pipelined(loop, parts))
         else:
             step_fn = step_fn or self._fresh_step
-            self._run(loop, lambda b: step_fn(b, parts))
+            self._epoch(kind or name, loop, lambda: self._run(
+                loop, lambda b: step_fn(b, parts)))
         return loop.bufs
 
     def _sgd(self, multi, pipelined, wq, lr, idx, mask_key):
@@ -1043,8 +1216,10 @@ class FusedEngine:
                              guard, carries)
         tag = f"_faulted{tau}" if guard is None \
             else f"_guarded{tau}_{int(bool(guard))}"
+        kind = f"faulted_{algo}{tau}" if guard is None \
+            else f"guarded_{algo}{tau}_{int(bool(guard))}"
         b = self._run_epoch(algo, False, False, idx, lr, mask_key, tag=tag,
-                            parts=self._faulted_parts(algo),
+                            kind=kind, parts=self._faulted_parts(algo),
                             step_fn=lambda bb, parts: self._faulted_step(
                                 bb, parts, guard), **carries)
         out = ("wq", "tabq", "avgq") if algo == "saga" else ("wq",)
@@ -1332,16 +1507,16 @@ class FusedEngine:
         and ``carries``; returns the loop's buffers.  The loop's name
         carries the form, ``algo`` and the deep widths.  ``step_fn``
         replaces the fresh step (the faulted epochs')."""
-        name = "deep_" + ("multi_" if multi else "") \
-            + ("pipelined_" if pipelined else "") + algo \
-            + "_{}x{}".format(*pq[2].shape[1:])
-        loop = self._loop(name, idx, lr, mask_key, **dict(zip(_DEEP, pq)),
-                          **carries)
+        kind = "deep_" + ("multi_" if multi else "") \
+            + ("pipelined_" if pipelined else "") + algo
+        loop = self._loop(kind + "_{}x{}".format(*pq[2].shape[1:]), idx, lr,
+                          mask_key, **dict(zip(_DEEP, pq)), **carries)
         if pipelined:
-            self._deep_pipelined(loop, dk)
+            self._epoch(kind, loop, lambda: self._deep_pipelined(loop, dk))
         else:
             step_fn = step_fn or self._deep_fresh_step
-            self._run(loop, lambda b: step_fn(b, dk))
+            self._epoch(kind, loop,
+                        lambda: self._run(loop, lambda b: step_fn(b, dk)))
         return loop.bufs
 
     def _deep(self, multi, pipelined, pq, lr, idx, mask_key, snap=None,

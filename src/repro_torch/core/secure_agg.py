@@ -68,6 +68,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
 from repro_torch.core import trees as trees_lib
 
@@ -201,6 +202,11 @@ def mask_generator(seed: int, *key, device) -> torch.Generator:
 
 
 def _party_normal(shape, gen: torch.Generator, device) -> torch.Tensor:
+    """Every party's mask draw, (q, ...) from ``gen``.  Inside a ``make_fx``
+    trace (``FusedEngine.tracing``), where nothing runs, the draw leaves
+    the generator out: some torch releases cannot record one in a graph."""
+    if get_proxy_mode() is not None:
+        gen = None
     return torch.randn(shape, generator=gen, device=device,
                        dtype=torch.float32)
 
@@ -233,15 +239,23 @@ def _round_index(tree: trees_lib.ReductionTree, device: torch.device
     once per (tree, device): a per-call host-to-device copy could not be
     captured in a CUDA graph and would stall the stream on every
     aggregation.  The one copy goes from pinned memory without blocking,
-    so even the first call does not synchronise with the device."""
+    so even the first call does not synchronise with the device.  The
+    tensors are real even when the first call comes inside a ``make_fx``
+    trace over fake tensors (``FusedEngine.tracing``): a trace reads them
+    as constants and the cache is never left holding fake ones."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.fx.experimental.proxy_tensor import \
+        disable_proxy_modes_tracing
+
     def index(vals):
         t = torch.tensor(vals, dtype=torch.int64)
         if device.type == "cuda":
             t = t.pin_memory()
         return t.to(device, non_blocking=True)
 
-    return tuple((index([d for d, _ in rnd]), index([s for _, s in rnd]))
-                 for rnd in tree.rounds)
+    with unset_fake_temporarily(), disable_proxy_modes_tracing():
+        return tuple((index([d for d, _ in rnd]), index([s for _, s in rnd]))
+                     for rnd in tree.rounds)
 
 
 def secure_psum_ring(partial: torch.Tensor, gen: torch.Generator,

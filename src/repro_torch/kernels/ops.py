@@ -8,10 +8,22 @@ launch the hand-written CUDA kernel (``kernels.vfl_grad``,
 ``kernels.selective_scan``, ``kernels.flash_attention``,
 ``kernels.decode_attention``) or raise; on CPU tensors they run the plain
 version (``kernels.ref``).  Nothing falls back from one to the other.
+
+``vfl_grad``'s launch is the operator ``repro_torch::vfl_grad`` (overloads
+``forward``, ``backward`` and ``fused``, registered with
+``torch.library.Library``): the plain version for CPU tensors, the CUDA
+programs for CUDA tensors, and a shape-only one for meta and fake
+tensors.  Inside a ``make_fx`` trace the wrapper calls the operator, so a
+trace holds one ``repro_torch.vfl_grad`` node where the card makes one
+launch of a minibatch step, on either device (``repro_torch.analysis``
+counts them); an eager call runs the same implementation directly, as
+the dispatcher's call back into Python costs 6–12 host µs a launch on
+the card (``PERF.md``).
 """
 from __future__ import annotations
 
 import torch
+from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
@@ -89,22 +101,26 @@ def _forward(xb, w):
                          f"{xb.dtype}, {w.dtype}")
     if w.device != xb.device:
         raise ValueError(f"xb on {xb.device}, w on {w.device}")
-    rank1 = w.dim() == xb.dim() - 1
-    if xb.dim() == 2 and w.dim() in (1, 2):
-        x3 = xb.unsqueeze(0)
-        w3 = w.reshape(1, w.shape[0], 1 if rank1 else w.shape[1])
-    elif xb.dim() == 3 and w.dim() in (2, 3) and w.shape[0] == xb.shape[0]:
-        x3 = xb
-        w3 = w.unsqueeze(-1) if rank1 else w
-    else:
+    if not ((xb.dim() == 2 and w.dim() in (1, 2))
+            or (xb.dim() == 3 and w.dim() in (2, 3)
+                and w.shape[0] == xb.shape[0])):
         raise ValueError(f"bad shapes xb {tuple(xb.shape)}, w "
                          f"{tuple(w.shape)}: want (B, D) with (D,)/(D, M) "
                          "or (P, B, D) with (P, D)/(P, D, M)")
-    if w3.shape[1] != x3.shape[2]:
+    if w.shape[xb.dim() - 2] != xb.shape[-1]:
         raise ValueError(f"contraction mismatch: xb {tuple(xb.shape)}, w "
                          f"{tuple(w.shape)}")
-    if xb.device.type == "cpu":
-        return ref.vfl_forward_ref(xb, w)
+    return _launch("forward", xb, w)
+
+
+def _cuda_forward(xb, w):
+    rank1 = w.dim() == xb.dim() - 1
+    if xb.dim() == 2:
+        x3 = xb.unsqueeze(0)
+        w3 = w.reshape(1, w.shape[0], 1 if rank1 else w.shape[1])
+    else:
+        x3 = xb
+        w3 = w.unsqueeze(-1) if rank1 else w
     z = _vg.KERNEL.forward(x3, w3)
     if rank1:
         z = z.squeeze(-1)
@@ -126,7 +142,6 @@ def _backward(xb, w, theta, lam, denom):
         raise ValueError(f"xb and w must share a dtype in {_DTYPES}; got "
                          f"{xb.dtype}, {w.dtype}")
     lead = xb.dim() - 2                     # 0, or 1 with the party axis
-    rank1 = theta.dim() == xb.dim() - 1
     if (xb.dim() not in (2, 3) or theta.dim() not in (xb.dim() - 1, xb.dim())
             or theta.shape[:lead + 1] != xb.shape[:lead + 1]
             or (w is not None
@@ -140,8 +155,12 @@ def _backward(xb, w, theta, lam, denom):
             "θ (B,)/(B, M) and w None/(D,)/(D, M), or (P, B, D) with θ "
             "(P, B)/(P, B, M) and w None/(P, D)/(P, D, M)")
     denom = xb.shape[-2] if denom is None else int(denom)
-    if xb.device.type == "cpu":
-        return ref.vfl_backward_ref(xb, theta, w, lam, denom)
+    return _launch("backward", xb, theta, w, lam, denom)
+
+
+def _cuda_backward(xb, theta, w, lam, denom):
+    lead = xb.dim() - 2
+    rank1 = theta.dim() == xb.dim() - 1
     th3 = theta.unsqueeze(-1) if rank1 else theta
     th3 = th3.unsqueeze(0) if lead == 0 else th3
     x3 = xb.unsqueeze(0) if lead == 0 else xb
@@ -197,8 +216,16 @@ def _fused(xb, w, theta, lam, denom, split):
                          f"(Mw={mw}, Mθ={mth}); pass lam=0 and add the "
                          "regularizer outside the kernel")
     denom = nb if denom is None else int(denom)
-    if xb.device.type == "cpu":
-        return ref.vfl_fused_ref(xb, w, theta, lam, denom, split)
+    return _launch("fused", xb, w, theta, lam, denom,
+                   None if split is None else int(split))
+
+
+def _cuda_fused(xb, w, theta, lam, denom, split):
+    lead = xb.dim() - 2
+    d = xb.shape[-1]
+    w_rank1 = w.dim() == xb.dim() - 1
+    th_rank1 = theta.dim() == xb.dim() - 1
+    mw = 1 if w_rank1 else w.shape[-1]
     x3 = xb.unsqueeze(0) if lead == 0 else xb
     w3 = w.reshape(x3.shape[0], d, mw)
     th3 = theta.unsqueeze(-1) if th_rank1 else theta
@@ -212,6 +239,52 @@ def _fused(xb, w, theta, lam, denom, split):
     if th_rank1:
         g = g.squeeze(-1)
     return (z.squeeze(0), g.squeeze(0)) if lead == 0 else (z, g)
+
+
+# ---------------------------------------------------------------------------
+# the operator repro_torch::vfl_grad: one trace node per launch
+# ---------------------------------------------------------------------------
+
+def _meta_forward(xb, w):
+    rank1 = w.dim() == xb.dim() - 1
+    return xb.new_empty(xb.shape[:-1] + (() if rank1 else w.shape[-1:]),
+                        dtype=torch.float32)
+
+
+def _meta_backward(xb, theta, w, lam, denom):
+    rank1 = theta.dim() == xb.dim() - 1
+    return xb.new_empty(xb.shape[:-2] + xb.shape[-1:]
+                        + (() if rank1 else theta.shape[-1:]),
+                        dtype=torch.float32)
+
+
+def _meta_fused(xb, w, theta, lam, denom, split):
+    fwd = xb if split is None else xb[..., split:, :]
+    bwd = xb if split is None else xb[..., :split, :]
+    return _meta_forward(fwd, w), _meta_backward(bwd, theta, w, lam, denom)
+
+
+# each mode's implementations: CPU tensors, CUDA tensors, meta / fake ones
+_IMPLS = {"forward": (ref.vfl_forward_ref, _cuda_forward, _meta_forward),
+          "backward": (ref.vfl_backward_ref, _cuda_backward, _meta_backward),
+          "fused": (ref.vfl_fused_ref, _cuda_fused, _meta_fused)}
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("vfl_grad.forward(Tensor xb, Tensor w) -> Tensor")
+_LIB.define("vfl_grad.backward(Tensor xb, Tensor theta, Tensor? w, "
+            "float lam, int denom) -> Tensor")
+_LIB.define("vfl_grad.fused(Tensor xb, Tensor w, Tensor theta, float lam, "
+            "int denom, int? split) -> (Tensor, Tensor)")
+for _mode, _fns in _IMPLS.items():
+    for _key, _fn in zip(("CPU", "CUDA", "Meta"), _fns):
+        _LIB.impl(f"vfl_grad.{_mode}", _fn, _key)
+
+
+def _launch(mode: str, xb, *args):
+    """One ``vfl_grad`` launch of ``mode``: the operator inside a ``make_fx``
+    trace (one node), else its implementation for ``xb``'s device."""
+    if get_proxy_mode() is not None:
+        return getattr(torch.ops.repro_torch.vfl_grad, mode)(xb, *args)
+    return _IMPLS[mode][1 if xb.is_cuda else 0](xb, *args)
 
 
 def selective_scan(xa, dt, b_ssm, c_ssm, a_log, d_skip):

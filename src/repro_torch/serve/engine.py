@@ -58,8 +58,11 @@ Where the port differs in mechanism (not in result)
   sequence draws identical masks, so an invalidated re-serve equals a
   fresh-cache run bit for bit; against the reference the masks differ
   and results agree to float tolerance.
-* No jit, no donation: the cache tensors are updated in place; the
-  reference's jaxpr probes (``serve_*_jaxpr``) have no counterpart.
+* No jit, no donation: the cache tensors are updated in place.  The
+  reference's jaxpr probes are ``serve_full_graph``, ``serve_delta_graph``
+  and ``serve_hit_graph``: a ``make_fx`` trace of one dispatch over fake
+  tensors (``core.engine.trace_program``), the serving state as its
+  inputs, which ``repro_torch.analysis`` lints as it does the epochs.
 """
 from __future__ import annotations
 
@@ -71,7 +74,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.algorithms import last_occurrence
 from repro_torch.core.deep_vfl import DeepVFLParams
-from repro_torch.core.engine import FusedEngine, pack_features
+from repro_torch.core.engine import FusedEngine, pack_features, trace_program
 from repro_torch.core.secure_agg import mask_generator
 
 
@@ -279,6 +282,65 @@ class ServeEngine:
         self._store(ids, psum)    # scatter-then-read
         rep0 = self._req_encode(self.xs[0][idsc], w1q[0], b1q[0], w2q[0])
         return (rep0 + self._csum[ids]) @ headq[0]
+
+    # -- program probes (the analysis matrix, tests) -------------------------
+
+    def _program_graph(self, program, **inputs):
+        """Trace ``program(state)`` for a batch of ``max_batch`` zero ids:
+        the ids, the cache and the installed weights are the graph's
+        inputs (the weights party-stacked, dim 0), the serving universe
+        its private source.  Nothing runs; no state changes."""
+        self._require_weights()
+        state = {"ids": torch.zeros((self.max_batch,), dtype=torch.int64,
+                                    device=self.device),
+                 "csum": self._csum, **inputs}
+        if self.deep:
+            state.update(zip(("w1", "b1", "w2", "head"), self._pq))
+        else:
+            state["wq"] = self._wq
+            state["prev_wq"] = self._wq if self._prev_wq is None \
+                else self._prev_wq
+        saved = (self._csum, self._wq, self._prev_wq, self._pq,
+                 self._counter)
+
+        def fn(b):
+            self._csum = b["csum"]
+            if self.deep:
+                self._pq = tuple(b[k] for k in ("w1", "b1", "w2", "head"))
+            else:
+                self._wq, self._prev_wq = b["wq"], b["prev_wq"]
+            try:
+                program(b)
+            finally:
+                (self._csum, self._wq, self._prev_wq, self._pq,
+                 self._counter) = saved
+
+        return trace_program(
+            fn, state, {k: (None if k in ("ids", "csum", "stale") else 0)
+                        for k in state},
+            ((self.xs, 0, True), (self._pfq, 0, False))
+            + self.eng.party_consts())
+
+    def serve_full_graph(self):
+        """The cold/miss dispatch's program (``serve_full_jaxpr``'s
+        counterpart): the masked aggregation of the passive partials."""
+        return self._program_graph(
+            lambda b: (self._deep_full if self.deep else self._full)(
+                b["ids"]))
+
+    def serve_delta_graph(self):
+        """The stale-refresh dispatch's program: the masked aggregation
+        of the passive deltas (linear only)."""
+        if self.deep:
+            raise ValueError("delta refresh is linear-only")
+        return self._program_graph(
+            lambda b: self._delta(b["ids"], b["stale"]),
+            stale=torch.ones((self.max_batch,), device=self.device))
+
+    def serve_hit_graph(self):
+        """The cache-hit dispatch's program: dominator-local, with no
+        party-axis reduction."""
+        return self._program_graph(lambda b: self._hit(b["ids"]))
 
     # -- the serving entry point ----------------------------------------------
 

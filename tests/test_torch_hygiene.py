@@ -1,7 +1,8 @@
 """The port's boundaries: what it imports and where it runs.
 
-* no module under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
-  ``jax`` or anything of the JAX package ``repro`` (AST scan);
+* no module under ``src/repro_torch/``, not ``chip_smoke.py`` and no
+  script under ``tools/`` imports ``jax`` or anything of the JAX package
+  ``repro`` (AST scan);
 * without a card every entry point called without ``device=`` raises
   instead of running on the CPU (the fault runners and the supervisor
   among them) (``torch.cuda.is_available`` is patched
@@ -21,6 +22,8 @@ import pytest
 import torch
 
 from repro_torch import convert, resolve_device
+from repro_torch.analysis import entrypoints as lint_entrypoints
+from repro_torch.analysis import runner as lint_runner
 from repro_torch.configs.base import get_arch
 from repro_torch.core import (algorithms, async_engine, deep_vfl, engine,
                               faults, losses, staleness, supervisor)
@@ -31,7 +34,7 @@ from repro_torch.sharding.api import PartyMesh, Runtime
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
-    + [REPO / "chip_smoke.py"]
+    + [REPO / "chip_smoke.py"] + sorted((REPO / "tools").glob("*.py"))
 
 
 def _imported_modules(path):
@@ -75,7 +78,8 @@ def _cpu_engine():
     "supervised_train", "supervised_guarded_run", "run_deep_faulted_fused",
     "run_deep_guarded_fused", "run_deep_faulted_reference",
     "run_deep_guarded_reference", "supervised_guarded_run_deep",
-    "FusedEngine_mesh", "ServeEngine_mesh", "run_async", "run_sync"])
+    "FusedEngine_mesh", "ServeEngine_mesh", "run_async", "run_sync",
+    "analysis_main", "analyze_matrix"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
                                                                entry,
                                                                tmp_path):
@@ -188,6 +192,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
         "run_sync": lambda: async_engine.run_sync(
             losses.ridge(), x, np.ones(6, np.float32), lay, batch=2,
             total_epochs=1.0),
+        "analysis_main": lambda: lint_runner.main(["--quick"]),
+        "analyze_matrix": lambda: lint_entrypoints.analyze_matrix(
+            ("off",), ("sgd",)),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

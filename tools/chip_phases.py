@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Run some of ``chip_smoke.py``'s later phases alone on one card.
 
-    python3 tools/chip_phases.py 15 16 17 [--out PATH]
+    python3 tools/chip_phases.py 15 16 17 18 [--out PATH]
 
 Builds the ``vfl_grad`` kernel library, makes phase 7's resident data on
 the card (x (350000, 4096) f32 from the seed, the D4 labels) and runs the
 named phases' functions of ``chip_smoke.py`` (14: faults, 15: deep faults,
-16: the party mesh, 17: serving over the mesh and the thread simulation),
+16: the party mesh, 17: serving over the mesh and the thread simulation,
+18: the linter on the card),
 each with its kernel counters set to 0 just before it, its hard checks as
 in the script, and every log line stamped with the seconds since the
 first phase began.  It prints each phase's launches
@@ -37,7 +38,7 @@ def main() -> int:
     from repro_torch.kernels import vfl_grad as vg
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("phases", nargs="+", choices=("14", "15", "16", "17"))
+    ap.add_argument("phases", nargs="+", choices=("14", "15", "16", "17", "18"))
     ap.add_argument("--out", default="chiprun_out/phases.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -64,14 +65,16 @@ def main() -> int:
               "15": lambda: cs.deep_fault_phase(torch, dev, x, y, layout,
                                                 log),
               "16": lambda: cs.mesh_phase(torch, dev, x, y, log),
-              "17": lambda: cs.serve_async_phase(torch, dev, x, y, log)}
+              "17": lambda: cs.serve_async_phase(torch, dev, x, y, log),
+              "18": lambda: cs.lint_phase(torch, dev, x, y, layout, log)}
     out = {}
     for name in args.phases:
         t = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         cs.reset_counts()
         res, expected = phases[name]()
-        got = dict(vg.KERNEL.launches)
+        # phase 18 reads its path's counts before its dispatch timing
+        got = res.pop("launches", None) or dict(vg.KERNEL.launches)
         cs.check(got == {p: expected[p] for p in vg.PROGRAMS},
                  f"phase {name} launches {got} != {dict(expected)}")
         res["seconds"] = time.perf_counter() - t
