@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's secure serving, training and LM serving
-paths on one NVIDIA GPU.
+"""Drive the PyTorch port's secure serving, training, LM serving and LM
+training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -254,6 +254,36 @@ JAX or of the JAX package.
    distance; the kernel and reference paths' next tokens, and
    ``ring_masks``' and ``two_tree``'s, must be equal where the margin
    decides them.  Profiler windows over one prefill and one decode step.
+19. LM training at full width, the depth cut so that one card holds the
+   parameters and the optimiser state: falcon-mamba-7b with 4 of its 64
+   layers (batch 4 × 512 tokens) and gemma3-4b with 6 of its 34 (layers
+   0-4 local with the 1,024 window, layer 5 global; batch 2 × 2,048),
+   each across q = 8 parties under ``two_tree``, random f32 weights from
+   the seed, tokens from ``data.tokens.synthetic_token_batches(seed=0)``,
+   ``launch.train``'s plain routes (the sequential scan, the plain
+   chunked attention; the kernels are forward-only).  For each: every
+   parameter leaf's gradient on the first batch finite and nonzero
+   somewhere (a cut gradient fails here); a step p − η·g/‖g‖ on the same
+   batch and masks lowers the loss by at least half of its first-order
+   prediction η‖g‖, which is the larger of 0.05 and 20× the loss's change
+   under a redraw of the masks (all three printed, beside the drops at a
+   quarter and four times that step); 8 AdamW steps (lr 1e-3), every loss
+   finite and the mean of the last 3 at least 0.05 below the first
+   (``examples/train_lm.py``'s threshold); 8 ``vfb2_sgd`` steps (τ = 4,
+   lr 1e-2), every loss finite, the per-leaf delays the md5 rule over
+   ``jax.tree_util.keystr`` paths built here on their own, and the last
+   step moving each leaf by its ring's slot of step 7 − d; over both
+   runs no program of the four sources launched.  Then, under no_grad,
+   ``train_loss`` on the kernel routes against the plain routes on the
+   same parameters, batch and masks: ``selective_scan`` 4 launches
+   (falcon) or ``flash_attention`` 6 (gemma3) and nothing else, the gap
+   within layers · 2⁻⁸ · the table's RMS row norm (each layer's output
+   rounding one bf16 step apart moves a token's cross-entropy by about
+   that), both forward times printed; the final AdamW parameters saved
+   with ``save_checkpoint`` and loaded back bit-equal.  Host ms a step
+   (median of steps 2-8), tokens/s and peak memory per optimiser, and a
+   profiler window over one AdamW step.  It runs after phase 10, whose
+   weights are freed.
 
 The ``vfl_grad`` source holds five kernel programs:
 ``vfl_forward_narrow`` (M <= 4, the linear path), ``vfl_forward_wide``
@@ -284,8 +314,10 @@ just before phase 12 and after it, just before phase 13 and after it,
 just before phase 14 and after it, just before phase 15 and after it,
 just before phase 16 and after it, just before phase 17 and after it,
 just before phase 18's census epochs and after its quick lint,
-just before phase 9's serve call and after it, and just before phase
-10's serve call and after it;
+just before phase 9's serve call and after it, just before phase
+10's serve call and after it, just before phase 19's no-grad
+kernel-route forwards and after each (its training steps must launch
+nothing);
 each count must equal what the dispatch or step structure implies, every
 program of each path must have run, and no other program.  The
 ``kernels`` line has one entry per program, timed at its main-path shape
@@ -301,7 +333,7 @@ calls of each equal bit for bit, and timed at the prefill shape with
 mamba's a_log; its bound is the
 larger of its bytes over the HBM rate and its exponentials over the
 special-function units' rate (16 per clock per SM at the card's maximum
-SM clock); its launches are phase 9's serve call's.  The
+SM clock); its launches are phase 9's serve call's and phase 19's.  The
 ``flash_attention`` source holds one program (bf16 at dh 64-256 on the
 tensor cores through wgmma on TMA-fed tiles, bf16 at dh 32 through
 mma.sync, f32 on the CUDA cores), held against its plain version at
@@ -328,7 +360,8 @@ L2) and cold (the calls rotate over enough
 operand sets that each finds its bytes gone from L2, as every layer of
 the model does); the bound is held against the cold time.  Their
 ``kernels`` line entries give the local-window shape's warm time (29 of
-the 34 layers) and phase 10's serve call's launches.  Every path's
+the 34 layers) and phase 10's serve call's launches (flash attention
+adds phase 19's).  Every path's
 checks also require that no program of another path ran.  The four
 sources build in parallel.  Any failed check exits non-zero.  The last
 three lines are the card's name and power limit, the ``kernels``
@@ -338,9 +371,12 @@ JSON line and ``{"ok": true, "device": {...}}``.  Details go to
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import hashlib
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -375,6 +411,16 @@ DECODE_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # normalised output stays this close to the plain version's (P rounded to
 # bf16 gives about 2e-3 at phase 10's shapes)
 DECODE_P_TOL = 1e-4
+# phase 19: LM training at full width, depth cut so that the parameters
+# and the optimiser state fit the card: (arch, layers, q, batch, seq)
+TRAIN_LM = (("falcon_mamba_7b", 4, 8, 4, 512),
+            ("gemma3_4b", 6, 8, 2, 2048))
+TRAIN_LM_STEPS, TRAIN_LM_LR, TRAIN_LM_SGD_LR, TRAIN_LM_TAU = 8, 1e-3, 1e-2, 4
+TRAIN_LM_DROP = 0.05             # examples/train_lm.py:36's threshold
+# the descent check's first-order prediction η‖g‖: at least this, and at
+# least DESCENT_NOISE × the loss's change under a redraw of the masks
+DESCENT_FLOOR, DESCENT_NOISE = 0.05, 20.0
+BF16_ULP = 2.0 ** -8             # bf16's relative rounding step
 
 
 class SmokeFailure(RuntimeError):
@@ -1366,11 +1412,25 @@ def deep_phase(torch, dev, x, layout, count, mesh=None):
     return res, expected_launches(sv)
 
 
+def _device_kernels(prof):
+    """Device time (µs) by name of a finished torch.profiler window's
+    device activities (kernels and copies), read from its raw (kineto)
+    events: ``key_averages`` first builds a function event for every
+    event, which over a training step through the plain scan (some 10⁵
+    launches) took about a minute on the card's host."""
+    from torch.autograd import DeviceType
+    kernels = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            kernels[ev.name()] = kernels.get(ev.name(), 0.0) \
+                + ev.duration_ns() / 1e3
+    return kernels
+
+
 def profile_window(torch, dev, x, layout, chunks=200):
     """Device busy share over ``chunks`` cold two_tree dispatches and then
     the same ids again as hits, from torch.profiler (None where the
     profiler records no device time)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sv = _serve_engine(torch, dev, x, layout, "two_tree")
@@ -1386,11 +1446,7 @@ def profile_window(torch, dev, x, layout, chunks=200):
             _serve_chunks(sv, sel)
             _sync(torch, dev)
             wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = {}          # device activities only: kernels and copies
-        for ev in prof.key_averages():
-            if ev.device_type == DeviceType.CUDA:
-                kernels[ev.key] = kernels.get(ev.key, 0.0) \
-                    + ev.self_device_time_total
+        kernels = _device_kernels(prof)
         busy = sum(kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
         out[label] = dict(
@@ -3308,7 +3364,6 @@ def _thread_sim(torch, dev, x, y, log_):
     through ``run_faulted_fused``; every run's launches by the module's
     rule; a profiler window over ``ASYNC_PROFILE_ITERS`` iterations.
     Returns (record, expected launches)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import algorithms as alg
@@ -3414,11 +3469,7 @@ def _thread_sim(torch, dev, x, y, log_):
         _sync(torch, dev)
         wall_us = (time.perf_counter() - t0) * 1e6
     expected.update(_async_launches(vg, before, p, lay.q, False))
-    kernels = {}
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            kernels[ev.key] = kernels.get(ev.key, 0.0) \
-                + ev.self_device_time_total
+    kernels = _device_kernels(prof)
     busy = sum(kernels.values())
     res["profile"] = dict(
         iterations=p.iterations, wall_us=wall_us, device_busy_us=busy,
@@ -3483,7 +3534,6 @@ def epoch_profile(torch, epoch, steps):
     """Run ``epoch()`` three times: to capture its step's graph, timed
     without the profiler, and in a profiler window; returns the device
     busy time by kernel over the window's wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     epoch()                                          # capture its graph
@@ -3498,11 +3548,7 @@ def epoch_profile(torch, epoch, steps):
         epoch()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = {}
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            kernels[ev.key] = kernels.get(ev.key, 0.0) \
-                + ev.self_device_time_total
+    kernels = _device_kernels(prof)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
     return dict(steps=steps, wall_us=wall_us,
@@ -3553,7 +3599,6 @@ def _serve_metrics(torch, out, wall, batch, gen):
 def _device_profile(torch, fn):
     """Run ``fn()`` under torch.profiler: wall time, device busy time and
     the device kernels by total time (None where no device time shows)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3562,11 +3607,7 @@ def _device_profile(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = {}
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            kernels[ev.key] = kernels.get(ev.key, 0.0) \
-                + ev.self_device_time_total
+    kernels = _device_kernels(prof)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return dict(wall_us=wall_us, device_busy_us=busy,
@@ -3995,6 +4036,235 @@ def dense_phase(torch, dev, log_):
         del params, cache, step
     torch.cuda.empty_cache()
     return res, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 19: LM training
+# ---------------------------------------------------------------------------
+
+def _keystr_paths(tree, path=""):
+    """The key path of every leaf of a dict tree, as
+    ``jax.tree_util.keystr`` renders it (keys sorted), built here on its
+    own to hold the optimiser's delays to the md5 rule."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _keystr_paths(tree[k], f"{path}[{k!r}]")]
+    return [path]
+
+
+def _md5_delay(path, tau):
+    if tau == 0:
+        return 0
+    return int(hashlib.md5(path.encode()).hexdigest()[:8], 16) % (tau + 1)
+
+
+def _step_stats(times, batch, seq):
+    """Host ms a step (median over steps 2..n) and tokens/s."""
+    ms = 1e3 * float(np.median(times[1:]))
+    return dict(step_ms=ms, step_ms_all=[1e3 * t for t in times],
+                tokens_per_s=batch * seq / (ms / 1e3))
+
+
+def _train_lm_config(torch, dev, arch, layers, q, batch, seq, log_):
+    """One configuration of phase 19; returns (record, launches by
+    program of the no-grad kernel-route forward)."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.secure_agg import mask_generator
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.launch import train as lt
+    from repro_torch.models import model as lm
+    from repro_torch.optim.delayed import leaf_delays
+    from repro_torch.optim.tree import leaves, leaves_with_path, tree_map
+    from repro_torch.sharding.api import Runtime
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    name = f"phase 19 {arch}"
+    rt = lt.build_runtime(q, reduced=False)
+    kernel_rt = Runtime(model_size=q)
+    params = lm.init_params(cfg, SEED, device=dev)
+    n_params = sum(p.numel() for p in leaves(params))
+    batches = [lt.to_device_batch(b, dev) for b in synthetic_token_batches(
+        cfg.vocab, batch, seq, TRAIN_LM_STEPS, seed=SEED)]
+
+    def gen(*key):
+        return mask_generator(SEED, 19, *key, device=dev)
+
+    res = {"config": dict(arch=arch, layers=layers, of_layers=get_arch(
+        arch).n_layers, q=q, batch=batch, seq=seq, d_model=cfg.d_model,
+        vocab=cfg.vocab, padded_vocab=cfg.padded_vocab, params=n_params,
+        param_gb=4 * n_params / 1e9)}
+    log_(f"{name}: {res['config']}")
+
+    # (1) every leaf's gradient at full width, and one normalised step
+    reset_counts()
+    loss0, grads = lt.loss_and_grads(rt, cfg, params, batches[0], gen(0))
+    torch.cuda.synchronize()
+    check_idle(_libs(), f"{name}'s gradient")
+    flat = leaves_with_path(grads)
+    bad = [p for p, g in flat if not (bool(torch.isfinite(g).all())
+                                      and bool((g != 0).any()))]
+    check(not bad, f"{name}: leaves whose gradient is not finite or zero "
+          f"everywhere: {bad}")
+    gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for _, g in flat)))
+    with torch.no_grad():
+        base = float(lm.train_loss(rt, cfg, params, batches[0], gen(0)))
+        redraw = abs(float(lm.train_loss(rt, cfg, params, batches[0],
+                                         gen(1))) - base)
+        pred = max(DESCENT_FLOOR, DESCENT_NOISE * redraw)
+
+        def loss_after(p_len):
+            eta = p_len / gnorm
+            moved = tree_map(lambda p, g: p - (eta / gnorm) * g, params,
+                             grads)
+            return base - float(lm.train_loss(rt, cfg, moved, batches[0],
+                                              gen(0)))
+
+        drop = loss_after(pred)
+        res["descent"] = dict(
+            loss=float(loss0), loss_no_grad=base, grad_norm=gnorm,
+            mask_redraw_change=redraw, predicted_drop=pred, eta=pred / gnorm,
+            drop=drop, drop_at_quarter=loss_after(pred / 4),
+            drop_at_four_times=loss_after(4 * pred),
+            leaves=len(flat))
+    log_(f"{name} gradient and descent: {res['descent']}")
+    check(abs(float(loss0) - base) <= 1e-3 * base,
+          f"{name}: the loss under grad {float(loss0)} and under no_grad "
+          f"{base} differ")
+    check(drop >= pred / 2,
+          f"{name}: a step of η = {pred / gnorm} along −g/‖g‖ lowered the "
+          f"loss by {drop}, less than half the predicted {pred} (a mask "
+          f"redraw moves it by {redraw})")
+    del grads, flat
+
+    # (2) training runs: AdamW, then VFB²'s delayed SGD, from the start
+    runs = {}
+    reset_counts()                              # training path starts
+    for opt_name, lr in (("adamw", TRAIN_LM_LR),
+                         ("vfb2_sgd", TRAIN_LM_SGD_LR)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        opt, update = lt.make_optimizer(opt_name, params, lr, TRAIN_LM_TAU)
+        p, losses, times = params, [], []
+        for i, b in enumerate(batches):
+            if opt_name == "vfb2_sgd" and i == len(batches) - 1:
+                before = [x.clone() for x in leaves(p)]
+            t0 = time.perf_counter()
+            loss, p, opt = lt.train_step(rt, cfg, p, opt, b, gen(2, i),
+                                         update)
+            losses.append(float(loss))           # synchronises
+            times.append(time.perf_counter() - t0)
+        run = dict(losses=losses, **_step_stats(times, batch, seq),
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        check(all(math.isfinite(v) for v in losses),
+              f"{name} {opt_name}: a loss is not finite: {losses}")
+        if opt_name == "adamw":
+            last = float(np.mean(losses[-3:]))
+            run["drop"] = losses[0] - last
+            check(run["drop"] >= TRAIN_LM_DROP,
+                  f"{name} AdamW: the mean of the last 3 losses {last} is "
+                  f"not {TRAIN_LM_DROP} below the first {losses[0]}")
+            keep = {}
+
+            def profiled():
+                keep["out"] = lt.train_step(rt, cfg, p, opt, batches[0],
+                                            gen(3), update)
+
+            run["profile"] = _device_profile(torch, profiled)
+            _, p, opt = keep.pop("out")
+            final = p
+        else:
+            # the delays act as the md5 rule says: the last step moved
+            # each leaf by its ring's slot of step 7 − d
+            paths = _keystr_paths(params)
+            want = {path: _md5_delay(path, TRAIN_LM_TAU) for path in paths}
+            got = leaf_delays(params, TRAIN_LM_TAU)
+            check(list(got) == paths and got == want,
+                  f"{name}: per-leaf delays {got} != the md5 rule {want}")
+            t = len(batches) - 1
+            moved_ok = all(
+                torch.equal(new, (old - lr * ring[max(t - want[path], 0)
+                                                  % (TRAIN_LM_TAU + 1)]
+                                  .float()).to(old.dtype))
+                for path, old, new, ring in zip(
+                    paths, before, leaves(p), leaves(opt["buf"])))
+            check(moved_ok, f"{name} vfb2_sgd: a leaf's last update is not "
+                  "its ring slot of step 7 − d")
+            run["delays"] = dict(Counter(want.values()))
+            del before
+        runs[opt_name] = run
+        log_(f"{name} {opt_name}: {run}")
+        del opt, p
+    train_launches = {prog: n for lib in _libs()
+                      for prog, n in lib.launches.items() if n}
+    check(not train_launches, f"{name}'s training steps launched "
+          f"{train_launches}: they take the plain routes")
+    res.update(runs)
+
+    # (3) the kernels in the no-grad forward of the same train_loss
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_counts()                          # main path starts
+        t0 = time.perf_counter()
+        k_loss = float(lm.train_loss(kernel_rt, cfg, params, batches[0],
+                                     gen(0)))
+        k_s = time.perf_counter() - t0
+        launches = {prog: n for lib in _libs()  # main path ends
+                    for prog, n in lib.launches.items()}
+        t0 = time.perf_counter()
+        r_loss = float(lm.train_loss(rt, cfg, params, batches[0], gen(0)))
+        r_s = time.perf_counter() - t0
+        # tolerance: each layer's kernel output may round one bf16 step
+        # (2⁻⁸ relative) away from the plain route's, so the final hidden
+        # state h (‖h‖ = √D after the norm) moves by at most layers·2⁻⁸·√D;
+        # a token's CE moves by (p − 1̂)ᵀW δh, about ‖w‖·‖δh‖/√D for a δh
+        # unaligned with the label's row w: layers·2⁻⁸·(rms row norm of
+        # the table)
+        w_rms = float(params["embed"].float().pow(2).sum(1).mean().sqrt())
+        tol = layers * BF16_ULP * w_rms
+    prog = "selective_scan" if cfg.arch_type == "ssm" else "flash_attention"
+    res["kernel_forward"] = dict(
+        kernel_loss=k_loss, reference_loss=r_loss,
+        gap=abs(k_loss - r_loss), tolerance=tol, table_rms_row_norm=w_rms,
+        kernel_ms=1e3 * k_s, reference_ms=1e3 * r_s, launches={
+            k: v for k, v in launches.items() if v})
+    log_(f"{name} no-grad train_loss, kernel route vs plain: "
+         f"{res['kernel_forward']}")
+    check(launches[prog] == layers and sum(launches.values()) == layers,
+          f"{name}: the kernel-route train_loss launched {launches}, want "
+          f"{prog} {layers} times (once a layer) and nothing else")
+    check(abs(k_loss - r_loss) <= tol,
+          f"{name}: kernel-route loss {k_loss} vs plain {r_loss}, beyond "
+          f"{tol}")
+    del params
+
+    # (4) the final AdamW parameters through a checkpoint and back
+    ck = ROOT / "results" / f"lm_train_{arch}"
+    t0 = time.perf_counter()
+    save_checkpoint(str(ck), {"params": final}, step=TRAIN_LM_STEPS + 1)
+    back = load_checkpoint(str(ck), {"params": final})
+    same = all(np.array_equal(np.asarray(b), a.cpu().numpy())
+               for a, b in zip(leaves(final), leaves(back)))
+    shutil.rmtree(ck, ignore_errors=True)
+    res["checkpoint"] = dict(bit_equal=same,
+                             seconds=time.perf_counter() - t0)
+    log_(f"{name} checkpoint: {res['checkpoint']}")
+    check(same, f"{name}: the checkpoint did not load back bit-equal")
+    del final, back, batches
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def lm_train_phase(torch, dev, log_):
+    """Phase 19; returns (record, launches by program of the no-grad
+    kernel-route forwards, summed)."""
+    res, launches = {}, Counter()
+    for arch, layers, q, batch, seq in TRAIN_LM:
+        t0 = time.perf_counter()
+        res[arch], got = _train_lm_config(torch, dev, arch, layers, q, batch,
+                                          seq, log_)
+        res[arch]["seconds"] = time.perf_counter() - t0
+        launches.update(got)
+    return res, dict(launches)
 
 
 # ---------------------------------------------------------------------------
@@ -4476,6 +4746,10 @@ def main() -> int:
     record["dense"], dense_launches = dense_phase(torch, dev, log)
     record["dense"]["seconds"] = time.perf_counter() - t10
     log(f"phase 10: {record['dense']['seconds']:.1f} s")
+    t19 = time.perf_counter()
+    record["lm_train"], lm_train_launches = lm_train_phase(torch, dev, log)
+    record["lm_train"]["seconds"] = time.perf_counter() - t19
+    log(f"phase 19: {record['lm_train']['seconds']:.1f} s")
     record["seconds"] = time.perf_counter() - t_start
 
     # each program's line reports its own main-path shape: serving's linear
@@ -4513,7 +4787,7 @@ def main() -> int:
         "name": "selective_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
         "replaces": "src/repro/kernels/selective_scan.py:62",
-        "launches": scan_launches,
+        "launches": scan_launches + lm_train_launches["selective_scan"],
         "max_abs_err": max(r["max_abs_err"] for r in scan),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -4530,7 +4804,8 @@ def main() -> int:
         entries.append({
             "name": prog, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": tpu, "launches": dense_launches[prog],
+            "replaces": tpu,
+            "launches": dense_launches[prog] + lm_train_launches[prog],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -37,7 +37,6 @@ to the template's dtypes.  The legacy layouts — the fixed-name
 """
 from __future__ import annotations
 
-import io
 import json
 import os
 import re
@@ -123,18 +122,18 @@ def flatten_with_path(tree) -> Tuple[List[Tuple[str, Any]], str]:
     return leaves, f"PyTreeDef({_walk(tree, '', leaves)})"
 
 
-def _unflatten(template, leaves):
+def unflatten(template, leaves):
     """``template``'s structure with its leaves taken in order from the
     iterator ``leaves`` (dicts come back with their keys sorted, as JAX's
     do)."""
     if template is None:
         return None
     if _is_namedtuple(template):
-        return type(template)(*(_unflatten(v, leaves) for v in template))
+        return type(template)(*(unflatten(v, leaves) for v in template))
     if isinstance(template, dict):
-        return {k: _unflatten(template[k], leaves) for k in sorted(template)}
+        return {k: unflatten(template[k], leaves) for k in sorted(template)}
     if isinstance(template, (list, tuple)):
-        return type(template)(_unflatten(v, leaves) for v in template)
+        return type(template)(unflatten(v, leaves) for v in template)
     return next(leaves)
 
 
@@ -177,12 +176,10 @@ def save_checkpoint(path: str, tree: Any, step: int = 0,
     payload = dict(flat)
     payload[_MANIFEST_KEY] = np.frombuffer(
         json.dumps(manifest).encode(), dtype=np.uint8)
-    buf = io.BytesIO()
-    np.savez(buf, **payload)
     fd, tmp = tempfile.mkstemp(dir=path, prefix=".ckpt-", suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
-            f.write(buf.getvalue())
+            np.savez(f, **payload)          # streamed: no copy in memory
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, os.path.join(path, _step_bundle(int(step))))
@@ -274,7 +271,7 @@ def load_checkpoint(path: str, like: Any, step: Optional[int] = None) -> Any:
                 f"checkpoint shape mismatch for key {key!r}: stored "
                 f"{arr.shape} vs template {_shape(leaf)}")
         leaves.append(arr.astype(_dtype(leaf)))
-    return _unflatten(like, iter(leaves))
+    return unflatten(like, iter(leaves))
 
 
 def checkpoint_step(path: str, step: Optional[int] = None) -> int:

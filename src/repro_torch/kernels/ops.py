@@ -19,6 +19,15 @@ launch of a minibatch step, on either device (``repro_torch.analysis``
 counts them); an eager call runs the same implementation directly, as
 the dispatcher's call back into Python costs 6–12 host µs a launch on
 the card (``PERF.md``).
+
+``selective_scan``, ``flash_attention`` and ``decode_attention`` are
+forward-only, as the reference's Pallas kernels are (they define no
+gradient): under autograd (``torch.is_grad_enabled()``) with a tensor
+input that requires grad each raises ``RuntimeError``, on either device,
+so that a kernel output never silently drops its gradient.  Training
+takes the plain routes (``Runtime(scan_impl="reference",
+attn_impl="reference")``); under ``torch.no_grad()``, or with inputs that
+need no grad, the wrappers run as described above.
 """
 from __future__ import annotations
 
@@ -42,6 +51,18 @@ def _contig(t: torch.Tensor) -> torch.Tensor:
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float32 else t.float()
+
+
+def _forward_only(name: str, route: str, *inputs):
+    """Raise where autograd would need a gradient of kernel ``name``:
+    grad mode is on and an input requires grad (the module's rule)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name} is forward-only (its kernel defines no gradient, as the "
+            f"reference's does not) and an input requires grad: take the "
+            f"plain route ({route}=\"reference\") to differentiate, or call "
+            "it under torch.no_grad()")
 
 
 def vfl_grad(xb, w, theta=None, lam=0.0, *, mode="forward", denom=None,
@@ -299,6 +320,8 @@ def selective_scan(xa, dt, b_ssm, c_ssm, a_log, d_skip):
     if xa.dim() != 3 or a_log.dim() != 2:
         raise ValueError(f"want xa (B, S, C) and a_log (C, N); got xa "
                          f"{tuple(xa.shape)}, a_log {tuple(a_log.shape)}")
+    _forward_only("selective_scan", "scan_impl", xa, dt, b_ssm, c_ssm, a_log,
+                  d_skip)
     bsz, s, c = xa.shape
     n = a_log.shape[1]
     for t, name, shape in ((dt, "dt", (bsz, s, c)),
@@ -354,6 +377,7 @@ def flash_attention(q, k, v, *, causal=True, window=None):
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if window is not None and int(window) < 1:
         raise ValueError(f"window must be >= 1; got {window}")
+    _forward_only("flash_attention", "attn_impl", q, k, v)
     for t, name in ((k, "k"), (v, "v")):
         if t.device != q.device:
             raise ValueError(f"q on {q.device}, {name} on {t.device}")
@@ -397,6 +421,7 @@ def decode_attention(q, k_cache, v_cache, pos, shard_offset=0, window=None,
                          f"shards {shards}")
     if window is not None and int(window) < 1:
         raise ValueError(f"window must be >= 1; got {window}")
+    _forward_only("decode_attention", "attn_impl", q, k_cache, v_cache, pos)
     for t, name in ((k_cache, "k_cache"), (v_cache, "v_cache")):
         if t.device != q.device:
             raise ValueError(f"q on {q.device}, {name} on {t.device}")

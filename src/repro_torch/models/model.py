@@ -8,11 +8,14 @@ layer axis: {``norm1``, ``ssm``} for the SSM family, {``norm1``, ``attn``
 {``wq``, ``wk``, ``wv``, ``wo``}, ``norm2``, ``mlp`` {``w_gate``,
 ``w_up``, ``w_down``}} for the dense family.  The stack runs as a loop
 over its layers.  Tokens enter through the paper's secure vocabulary
-embedding (``vfl.embed``) and leave through the party-sharded greedy head
-(``vfl.heads``); the q parties are ``Runtime.model_size``.
+embedding (``vfl.embed``) and leave through the party-sharded heads
+(``vfl.heads``: the loss, the greedy token); the q parties are
+``Runtime.model_size``.
 
-Modes: ``prefill`` (the next token after a prompt, and the dense family's
-bf16 KV cache (L, B, S, Hkv, dh)) and ``decode_step`` (one token).  The
+Modes: ``train_loss`` (the mean next-token cross-entropy through the
+party-sharded ``vocab_parallel_loss``, differentiable on the plain routes),
+``prefill`` (the next token after a prompt, and the dense family's bf16
+KV cache (L, B, S, Hkv, dh)) and ``decode_step`` (one token).  The
 dense decode step writes the new K/V in place into the cache at ``pos``
 and attends over the cache viewed as q party shards of S/q positions,
 whose partial results are merged by log-sum-exp (Algorithm 1's partial
@@ -20,6 +23,10 @@ aggregation, unmasked at serving time).  ``Runtime.attn_impl`` routes the
 attention: ``"kernel"`` through ``ops.flash_attention`` (prefill) and
 ``ops.decode_attention`` (all shards in one launch), ``"reference"``
 through the plain ``chunked_attention`` and ``local_decode_attention``.
+The kernel routes are forward-only (``kernels.ops``): ``train_loss``
+under autograd runs on ``scan_impl="reference"`` (the sequential scan)
+and ``attn_impl="reference"`` and raises on a kernel route; under
+``torch.no_grad()`` it runs either.
 Each layer's window comes from ``layer_windows``: gemma3's local layers
 see the last 1,024 positions, its every 6th layer (and every layer of
 the other dense configs) all of them.
@@ -33,7 +40,7 @@ held against the reference).
 MoE, hybrid (period) stacks, encoder-decoder (cross attention) and the
 VLM frontend raise ``NotImplementedError`` naming ROADMAP A15, as does a
 ``Runtime`` that sets the reference's ``remat``, ``unroll_layers`` or
-``seq_parallel_norms``; ``train_loss`` comes with LM training.
+``seq_parallel_norms``.
 """
 from __future__ import annotations
 
@@ -51,16 +58,20 @@ from repro_torch.models.layers import (ACT_DTYPE, apply_mlp, init_mlp,
                                        normal_init, rms_norm)
 from repro_torch.sharding.api import Runtime
 from repro_torch.vfl.embed import secure_vocab_embed
-from repro_torch.vfl.heads import vocab_parallel_greedy
+from repro_torch.vfl.heads import vocab_parallel_greedy, vocab_parallel_loss
 
 CACHE_DTYPE = torch.bfloat16
+# the MoE terms' weights in train_loss (no layer of the ported families
+# has a router, so both terms are 0 here; ROADMAP A15b)
+AUX_LOSS_WEIGHT = 0.01
+Z_LOSS_WEIGHT = 1e-3
 
 
 def _unported(what: str):
     raise NotImplementedError(
         f"{what} is not ported yet: the port's LM stack has the SSM and "
-        "dense families (prefill and greedy decode) only; the rest is "
-        "ROADMAP A15")
+        "dense families (training, prefill and greedy decode) only; the "
+        "rest is ROADMAP A15")
 
 
 def layer_kinds(cfg: ArchConfig):
@@ -204,6 +215,24 @@ def _backbone(rt: Runtime, cfg: ArchConfig, params, x, *, kv=None):
         x = _block_fwd(rt, cfg, kind, _layer(params["stack"], i), x,
                        windows[i], None if kv is None else _layer(kv, i))
     return rms_norm(x, params["final_norm"])
+
+
+def train_loss(rt: Runtime, cfg: ArchConfig, params, batch,
+               gen: torch.Generator) -> torch.Tensor:
+    """Mean next-token cross-entropy (0-d f32) of ``batch`` = {"tokens",
+    "labels"}, each (B, S) (``repro/models/model.py:491-501``): the secure
+    embedding (masks from ``gen``), the stack without a KV cache, the
+    final norm and ``vocab_parallel_loss`` on the tied table, plus the MoE
+    auxiliary terms (0 for the SSM and dense families)."""
+    x, _, n_prefix = _prepare_inputs(rt, cfg, params, batch, gen)
+    h = _backbone(rt, cfg, params, x)
+    if n_prefix:
+        h = h[:, n_prefix:]
+    aux = {"lb_loss": 0.0, "z_loss": 0.0}
+    loss = vocab_parallel_loss(rt, params["embed"], h, batch["labels"],
+                               cfg.padded_vocab)
+    return loss + AUX_LOSS_WEIGHT * aux["lb_loss"] \
+        + Z_LOSS_WEIGHT * aux["z_loss"]
 
 
 def prefill(rt: Runtime, cfg: ArchConfig, params, batch,

@@ -99,9 +99,15 @@ class Runtime:
     (the CUDA kernels on the card), ``"reference"`` the plain
     ``chunked_attention`` and ``local_decode_attention`` per shard.
     ``attn_chunk``: the query chunk of ``chunked_attention``.
+    ``loss_chunk``: the sequence chunk of ``vfl.heads.vocab_parallel_loss``
+    (each chunk's logits are recomputed in the backward, so the (B, S, V)
+    f32 logits never exist whole).  The kernel routes are forward-only
+    (``kernels.ops``): ``train_loss`` under autograd needs
+    ``scan_impl="reference"`` and ``attn_impl="reference"``, and raises on
+    a kernel route; under ``torch.no_grad()`` both routes run.
     ``remat``, ``unroll_layers`` and ``seq_parallel_norms`` are the
-    reference's training and mesh levers; none means anything to eager
-    inference on one device, and setting one raises (ROADMAP A15)."""
+    reference's memory and mesh levers; none is ported, and setting one
+    raises (ROADMAP A15e)."""
 
     model_size: int = 1
     secure_embed: bool = True
@@ -111,6 +117,7 @@ class Runtime:
     scan_impl: str = "kernel"
     attn_impl: str = "kernel"
     attn_chunk: int = 1024
+    loss_chunk: int = 512
     remat: bool = False
     unroll_layers: Optional[int] = None
     seq_parallel_norms: bool = False
@@ -131,8 +138,11 @@ class Runtime:
         if self.attn_chunk < 1:
             raise ValueError(f"attn_chunk must be >= 1; got "
                              f"{self.attn_chunk}")
+        if self.loss_chunk < 1:
+            raise ValueError(f"loss_chunk must be >= 1; got "
+                             f"{self.loss_chunk}")
         if self.remat or self.unroll_layers is not None \
                 or self.seq_parallel_norms:
             raise NotImplementedError(
                 "remat, unroll_layers and seq_parallel_norms are not ported "
-                "(the LM stack's training and mesh levers, ROADMAP A15)")
+                "(the LM stack's memory and mesh levers, ROADMAP A15e)")

@@ -476,6 +476,7 @@ def test_attn_impls_agree(models, name):
 @pytest.mark.parametrize("kw,exc", [
     (dict(attn_impl="pallas"), ValueError),
     (dict(attn_chunk=0), ValueError),
+    (dict(loss_chunk=0), ValueError),
     (dict(remat=True), NotImplementedError),
     (dict(unroll_layers=2), NotImplementedError),
     (dict(seq_parallel_norms=True), NotImplementedError)])

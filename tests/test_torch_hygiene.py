@@ -1,8 +1,8 @@
 """The port's boundaries: what it imports and where it runs.
 
-* no module under ``src/repro_torch/``, not ``chip_smoke.py`` and no
-  script under ``tools/`` imports ``jax`` or anything of the JAX package
-  ``repro`` (AST scan);
+* no module under ``src/repro_torch/``, not ``chip_smoke.py``, no
+  script under ``tools/`` and no port example (``examples/*_torch.py``)
+  imports ``jax`` or anything of the JAX package ``repro`` (AST scan);
 * without a card every entry point called without ``device=`` raises
   instead of running on the CPU (the fault runners and the supervisor
   among them) (``torch.cuda.is_available`` is patched
@@ -24,9 +24,11 @@ import torch
 from repro_torch import convert, resolve_device
 from repro_torch.analysis import entrypoints as lint_entrypoints
 from repro_torch.analysis import runner as lint_runner
-from repro_torch.configs.base import get_arch
+from repro_torch.configs.base import ShapeConfig, get_arch
+from repro_torch.configs.inputs import make_batch
 from repro_torch.core import (algorithms, async_engine, deep_vfl, engine,
                               faults, losses, staleness, supervisor)
+from repro_torch.launch import train as lm_train
 from repro_torch.launch.serve import serve
 from repro_torch.models import model as lm_model
 from repro_torch.serve import ServeEngine
@@ -34,7 +36,8 @@ from repro_torch.sharding.api import PartyMesh, Runtime
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
-    + [REPO / "chip_smoke.py"] + sorted((REPO / "tools").glob("*.py"))
+    + [REPO / "chip_smoke.py"] + sorted((REPO / "tools").glob("*.py")) \
+    + sorted((REPO / "examples").glob("*_torch.py"))
 
 
 def _imported_modules(path):
@@ -79,7 +82,7 @@ def _cpu_engine():
     "run_deep_guarded_fused", "run_deep_faulted_reference",
     "run_deep_guarded_reference", "supervised_guarded_run_deep",
     "FusedEngine_mesh", "ServeEngine_mesh", "run_async", "run_sync",
-    "analysis_main", "analyze_matrix"])
+    "analysis_main", "analyze_matrix", "lm_train", "lm_make_train_batch"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
                                                                entry,
                                                                tmp_path):
@@ -195,6 +198,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
         "analysis_main": lambda: lint_runner.main(["--quick"]),
         "analyze_matrix": lambda: lint_entrypoints.analyze_matrix(
             ("off",), ("sgd",)),
+        "lm_train": lambda: lm_train.train("falcon_mamba_7b", 1, 1, 4, 1e-3),
+        "lm_make_train_batch": lambda: make_batch(
+            get_arch("falcon_mamba_7b").reduced(),
+            ShapeConfig("t", 4, 1, "train"), Runtime()),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -333,9 +333,11 @@ def test_make_batch_matches_jax(jx, lm):
     for k in ("conv", "h"):
         assert tuple(got["cache"][k].shape) == want["cache"][k].shape
         assert not got["cache"][k].any()
-    with pytest.raises(NotImplementedError, match="A15"):
-        make_batch(lm["cfg"], ShapeConfig("t", 4, 2, "train"), _rt(1),
-                   device="cpu")
+    shape = ShapeConfig("t", 4, 2, "train")
+    got = make_batch(lm["cfg"], shape, _rt(1), seed=7, device="cpu")
+    want = jx["inputs"].make_batch(lm["jcfg"], shape, jx["rt"], seed=7)
+    for k in ("tokens", "labels"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
 @pytest.mark.parametrize("impl", [("kernel", "pallas"),

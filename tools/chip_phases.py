@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Run some of ``chip_smoke.py``'s later phases alone on one card.
 
-    python3 tools/chip_phases.py 15 16 17 18 [--out PATH]
+    python3 tools/chip_phases.py 15 16 17 18 19 [--out PATH]
 
-Builds the ``vfl_grad`` kernel library, makes phase 7's resident data on
-the card (x (350000, 4096) f32 from the seed, the D4 labels) and runs the
-named phases' functions of ``chip_smoke.py`` (14: faults, 15: deep faults,
-16: the party mesh, 17: serving over the mesh and the thread simulation,
-18: the linter on the card),
+Builds the kernel libraries the named phases launch, makes phase 7's
+resident data on the card (x (350000, 4096) f32 from the seed, the D4
+labels) where a phase of 14-18 needs it, and runs the named phases'
+functions of ``chip_smoke.py`` (14: faults, 15: deep faults, 16: the
+party mesh, 17: serving over the mesh and the thread simulation, 18: the
+linter on the card, 19: LM training, which needs no resident data),
 each with its kernel counters set to 0 just before it, its hard checks as
 in the script, and every log line stamped with the seconds since the
 first phase began.  It prints each phase's launches
@@ -23,6 +24,7 @@ import argparse
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -38,7 +40,8 @@ def main() -> int:
     from repro_torch.kernels import vfl_grad as vg
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("phases", nargs="+", choices=("14", "15", "16", "17", "18"))
+    ap.add_argument("phases", nargs="+",
+                    choices=("14", "15", "16", "17", "18", "19"))
     ap.add_argument("--out", default="chiprun_out/phases.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -49,13 +52,27 @@ def main() -> int:
                          text=True, check=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    vfl = [p for p in args.phases if p != "19"]
+    # vfl_grad for phases 14-18; the scan and flash attention for 19
+    libs = cs._libs()
+    libs = (libs[:1] if vfl else []) \
+        + (list(libs[1:3]) if "19" in args.phases else [])
     t0 = time.perf_counter()
-    vg.KERNEL.library()
-    cs.log(f"vfl_grad build {time.perf_counter() - t0:.1f} s")
+    threads = [threading.Thread(target=lib.library) for lib in libs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for lib in libs:
+        lib.library()              # raises here if its build failed
+    cs.log(f"{[lib.source.name for lib in libs]} built in "
+           f"{time.perf_counter() - t0:.1f} s")
     layout = PartyLayout.even(cs.D, cs.Q, cs.M_ACT)
-    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    x = torch.randn((cs.N, cs.D), generator=gen, device=dev)
-    y = cs.d4_labels(torch, dev, x)
+    x = y = None
+    if vfl:
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+        x = torch.randn((cs.N, cs.D), generator=gen, device=dev)
+        y = cs.d4_labels(torch, dev, x)
     start = time.perf_counter()
 
     def log(*a):
@@ -72,6 +89,14 @@ def main() -> int:
         t = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         cs.reset_counts()
+        if name == "19":
+            # its checks (launches included) run inside the phase
+            res, launches = cs.lm_train_phase(torch, dev, log)
+            res["seconds"] = time.perf_counter() - t
+            log(f"phase 19: kernel-route launches {launches}; "
+                f"{res['seconds']:.1f} s")
+            out[name] = res
+            continue
         res, expected = phases[name]()
         # phase 18 reads its path's counts before its dispatch timing
         got = res.pop("launches", None) or dict(vg.KERNEL.launches)
