@@ -160,7 +160,7 @@ JAX or of the JAX package.
    places; deep faulted SGD under ``off`` and ``ring`` against
    ``two_tree`` (1e-4); ``run_deep_faulted_fused`` checkpointed after 1
    epoch and resumed to 2, bit-equal; ``supervised_guarded_run(deep=
-   True)`` finite; profiler windows over 1,000 deep faulted, guarded and
+   True)`` finite; profiler windows over 200 deep faulted, guarded and
    delayed SGD steps.
 16. The party mesh on one card, on phase 7's data and problem:
    ``PartyMesh(q=8, slots=4)``, ``PartyMesh(q=8, slots=2,
@@ -256,8 +256,11 @@ JAX or of the JAX package.
    decides them.  Profiler windows over one prefill and one decode step.
 19. LM training at full width, the depth cut so that one card holds the
    parameters and the optimiser state: falcon-mamba-7b with 4 of its 64
-   layers (batch 4 × 512 tokens) and gemma3-4b with 6 of its 34 (layers
-   0-4 local with the 1,024 window, layer 5 global; batch 2 × 2,048),
+   layers (batch 4 × 512 tokens), gemma3-4b with 6 of its 34 (layers
+   0-4 local with the 1,024 window, layer 5 global; batch 2 × 2,048) and
+   granite-moe-1b-a400m whole (24 layers, 32 experts top-8; batch 1 ×
+   2,048, cut from 2 so that the τ = 4 ring fits; its router's lb_loss
+   and z_loss finite and positive),
    each across q = 8 parties under ``two_tree``, random f32 weights from
    the seed, tokens from ``data.tokens.synthetic_token_batches(seed=0)``,
    ``launch.train``'s plain routes (the sequential scan, the plain
@@ -276,14 +279,44 @@ JAX or of the JAX package.
    runs no program of the four sources launched.  Then, under no_grad,
    ``train_loss`` on the kernel routes against the plain routes on the
    same parameters, batch and masks: ``selective_scan`` 4 launches
-   (falcon) or ``flash_attention`` 6 (gemma3) and nothing else, the gap
-   within layers · 2⁻⁸ · the table's RMS row norm (each layer's output
-   rounding one bf16 step apart moves a token's cross-entropy by about
-   that), both forward times printed; the final AdamW parameters saved
+   (falcon) or ``flash_attention`` 6 (gemma3) or 24 (granite-moe) and
+   nothing else, the gap within layers · 2⁻⁸ · the table's RMS row norm
+   (each layer's output rounding one bf16 step apart moves a token's
+   cross-entropy by about that; for granite-moe at least twice the
+   loss's change under a mask redraw, since a near-tie in the router can
+   flip a token's experts between the routes), both forward times
+   printed; the final AdamW parameters saved
    with ``save_checkpoint`` and loaded back bit-equal.  Host ms a step
    (median of steps 2-8), tokens/s and peak memory per optimiser, and a
    profiler window over one AdamW step.  It runs after phase 10, whose
    weights are freed.
+20. MoE serving, qwen3-moe-30b-a3b at full width with 16 of its 48
+   layers (d_model 2,048, 32 query and 4 KV heads of 128, 128 experts
+   top-8 of width 768, vocabulary 151,936; 10.3 B random f32 parameters,
+   41.1 GB) across q = 8 parties under ``two_tree``, each party owning
+   16 experts (``moe_dispatch="replicated"``): ``launch.serve.serve``
+   with batch 4, a 2,048-token prompt (8,192 tokens, 640 rows a bucket
+   at cf 1.25) and 32 generated tokens.  In that call ``flash_attention``
+   must launch 16 times and ``decode_attention`` 16 × 31, and no other
+   kernel; a second call repeats the tokens and gives the (warm) times.
+   Then 16 and 0 launches per prefill, 0 and 16 per decode step; the
+   prefill's stack walked layer by layer, every layer's attention on the
+   kernel path within atol = rtol = 5e-2 of ``attn_impl="reference"``'s
+   and its MoE layer, run under ``set_sync_debug_mode("error")``, against
+   a plain per-expert f32 oracle (route, each expert's SwiGLU on its
+   first 640 assigned rows in token order, the gate-weighted sum): a
+   token routed otherwise than by the oracle only where the oracle's
+   8th and 9th probabilities are within 1e-6, and, on every token whose
+   buckets agree with the oracle's (at least half of them), within 2e-2
+   of the oracle's largest value and 1e-2 relative L2 (the share of
+   assignments dropped recorded); at layer 0,
+   on one prompt row, ``alltoall`` against ``replicated`` at cf = E/k,
+   where nothing drops; the final hidden states no farther from the
+   reference path's than twice a mask redraw's distance, tokens equal
+   where the margin decides (also ``ring_masks`` against ``two_tree``;
+   on random weights router flips cascade over the layers, so these two
+   carry little, and the count of decided tokens is recorded).
+   Profiler windows over one prefill and one decode step.  It runs last.
 
 The ``vfl_grad`` source holds five kernel programs:
 ``vfl_forward_narrow`` (M <= 4, the linear path), ``vfl_forward_wide``
@@ -317,7 +350,7 @@ just before phase 18's census epochs and after its quick lint,
 just before phase 9's serve call and after it, just before phase
 10's serve call and after it, just before phase 19's no-grad
 kernel-route forwards and after each (its training steps must launch
-nothing);
+nothing), just before phase 20's serve call and after it;
 each count must equal what the dispatch or step structure implies, every
 program of each path must have run, and no other program.  The
 ``kernels`` line has one entry per program, timed at its main-path shape
@@ -360,8 +393,10 @@ L2) and cold (the calls rotate over enough
 operand sets that each finds its bytes gone from L2, as every layer of
 the model does); the bound is held against the cold time.  Their
 ``kernels`` line entries give the local-window shape's warm time (29 of
-the 34 layers) and phase 10's serve call's launches (flash attention
-adds phase 19's).  Every path's
+the 34 layers) and phase 10's and phase 20's serve calls' launches
+(flash attention adds phase 19's); both also run at phase 20's
+qwen3-moe shapes (flash (4, 32, 2048, 128) over 4 KV heads, decode q (4,
+32, 128) over (4, 2080, 4, 128) as 8 shards at pos 2050).  Every path's
 checks also require that no program of another path ran.  The four
 sources build in parallel.  Any failed check exits non-zero.  The last
 three lines are the card's name and power limit, the ``kernels``
@@ -412,15 +447,37 @@ DECODE_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # bf16 gives about 2e-3 at phase 10's shapes)
 DECODE_P_TOL = 1e-4
 # phase 19: LM training at full width, depth cut so that the parameters
-# and the optimiser state fit the card: (arch, layers, q, batch, seq)
+# and the optimiser state fit the card: (arch, layers, q, batch, seq).
+# granite-moe runs whole with its batch cut to 1 × 2,048: at 2 × 2,048 its
+# AdamW steps peaked at 63.5 GB and the τ = 4 ring's run ran out of the
+# 80 GB (some 1.75 GB of saved activations a layer)
 TRAIN_LM = (("falcon_mamba_7b", 4, 8, 4, 512),
-            ("gemma3_4b", 6, 8, 2, 2048))
+            ("gemma3_4b", 6, 8, 2, 2048),
+            ("granite_moe_1b_a400m", 24, 8, 1, 2048))
 TRAIN_LM_STEPS, TRAIN_LM_LR, TRAIN_LM_SGD_LR, TRAIN_LM_TAU = 8, 1e-3, 1e-2, 4
 TRAIN_LM_DROP = 0.05             # examples/train_lm.py:36's threshold
 # the descent check's first-order prediction η‖g‖: at least this, and at
 # least DESCENT_NOISE × the loss's change under a redraw of the masks
 DESCENT_FLOOR, DESCENT_NOISE = 0.05, 20.0
 BF16_ULP = 2.0 ** -8             # bf16's relative rounding step
+# phase 20: MoE serving, qwen3-moe-30b-a3b at full width, 16 of 48 layers
+MOE_ARCH, MOE_LAYERS, MOE_Q, MOE_BATCH = "qwen3_moe_30b_a3b", 16, 8, 4
+MOE_PROMPT, MOE_GEN = 2048, 32
+# the MoE layer against its f32 per-expert oracle, on the tokens whose
+# buckets agree with the oracle's: the largest error within MOE_TOL of the
+# oracle's largest value (the tests' bf16 hidden-state tolerance: the
+# layer rounds its buckets, weights, g, u, silu(g)·u and output to bf16)
+# and the relative L2 error within MOE_L2 (about two bf16 steps)
+MOE_TOL, MOE_L2 = 2e-2, 1e-2
+# the oracle and the port route the same bf16 input through the same f32
+# router: only the order of the f32 sums and of equal probabilities can
+# differ, so a token may be routed otherwise only where its k-th and
+# (k+1)-th oracle probabilities are within this margin (the tests'
+# ROUTE_MARGIN)
+MOE_ROUTE_MARGIN = 1e-6
+# at least this share of the tokens is compared: those routed otherwise,
+# and those that one of them may have moved in a bucket, are left out
+MOE_MIN_SHARE = 0.5
 
 
 class SmokeFailure(RuntimeError):
@@ -1022,8 +1079,9 @@ def flash_rows(torch, dev):
     and v as the model's transposed (B, S, H, dh) views), once global and
     once with gemma3's window of 1024; at granite-8b's and internlm2-20b's
     (H 32 and 48 over Hkv 8, dh 128, a 4,096-token prompt at B 1: the
-    plain version's f32 scores are 2-3 GB there); a ragged shape and a
-    small f32 shape.  The bound counts the FLOPs of the pairs the mask
+    plain version's f32 scores are 2-3 GB there); at phase 20's
+    qwen3-moe prefill (B 4, H 32 over Hkv 4, S 2048, dh 128); a ragged
+    shape and a small f32 shape.  The bound counts the FLOPs of the pairs the mask
     keeps (bf16 at the dense tensor peak, f32 at the f32 peak) against the
     bytes of q, k, v and o.  The library yardstick is one
     ``scaled_dot_product_attention`` call (``enable_gqa``; ``is_causal``
@@ -1039,6 +1097,8 @@ def flash_rows(torch, dev):
              ("granite", 1, 32, 8, DENSE_PROMPT, 128, True, None,
               torch.bfloat16),
              ("internlm2", 1, 48, 8, DENSE_PROMPT, 128, True, None,
+              torch.bfloat16),
+             ("qwen3_moe", MOE_BATCH, 32, 4, MOE_PROMPT, 128, True, None,
               torch.bfloat16),
              ("ragged", 1, 4, 2, 1000, 128, True, None, torch.bfloat16),
              ("small_f32", 2, 4, 2, 256, 64, True, 96, torch.float32)]
@@ -1101,7 +1161,9 @@ def decode_rows(torch, dev):
     pos 4100, once global and once with the window of 1024 (shards 0-4
     then hold no valid position), and at pos 1000 (shards 2-7 wholly in
     the future); then at granite-8b's and internlm2-20b's decode, q (4,
-    32 or 48, 128) over caches (4, 4128, 8, 128), global at pos 4100.  A
+    32 or 48, 128) over caches (4, 4128, 8, 128), global at pos 4100; and
+    at phase 20's qwen3-moe decode, q (4, 32, 128) over caches (4, 2080,
+    4, 128) as 8 shards of 260, global at pos 2050.  A
     shard with no valid position must give l = 0, o = 0 and m = −1e30.
     The bound is the bytes of the K/V positions in the window (plus q and
     the partials) against their f32 FLOPs; the library yardstick is one
@@ -1111,15 +1173,16 @@ def decode_rows(torch, dev):
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED + 40)
-    s = DENSE_PROMPT + DENSE_GEN
+    dense_s = DENSE_PROMPT + DENSE_GEN
     rows = []
-    # (name, h, hkv, dh, pos, window)
-    for name, h, hkv, dh, pos, window in (
-            ("global", 8, 4, 256, 4100, None),
-            ("local", 8, 4, 256, 4100, 1024),
-            ("future", 8, 4, 256, 1000, None),
-            ("granite", 32, 8, 128, 4100, None),
-            ("internlm2", 48, 8, 128, 4100, None)):
+    # (name, h, hkv, dh, cache positions, pos, window)
+    for name, h, hkv, dh, s, pos, window in (
+            ("global", 8, 4, 256, dense_s, 4100, None),
+            ("local", 8, 4, 256, dense_s, 4100, 1024),
+            ("future", 8, 4, 256, dense_s, 1000, None),
+            ("granite", 32, 8, 128, dense_s, 4100, None),
+            ("internlm2", 48, 8, 128, dense_s, 4100, None),
+            ("qwen3_moe", 32, 4, 128, MOE_PROMPT + MOE_GEN, 2050, None)):
         b = DENSE_BATCH
 
         def operands():
@@ -2806,9 +2869,10 @@ def fault_phase(torch, dev, x, y, layout, log_):
 DEEP_FAULT_KINDS = [(k, a) for k in ("faulted", "guarded")
                     for a in ("sgd", "svrg")]
 # steps of phase 15's float64 oracle runs: its party-loop oracles over
-# 1,000 steps took the phase to 106.5 s (measured on one H100); the
-# profiler windows keep FAULT_PREFIX steps
+# 1,000 steps took the phase to 106.5 s (measured on one H100)
 DEEP_FAULT_PREFIX = 500
+# steps of each of phase 15's three profiler windows
+DEEP_FAULT_WINDOW = 200
 
 
 def deep_fault_phase(torch, dev, x, y, layout, log_):
@@ -2828,8 +2892,8 @@ def deep_fault_phase(torch, dev, x, y, layout, log_):
     (d) ``run_deep_faulted_fused`` checkpointed after 1 epoch and resumed
     to 2, bit-equal to an uninterrupted run.  (e)
     ``supervised_guarded_run(deep=True)`` finishes finite.  (f) Profiler
-    windows over ``FAULT_PREFIX`` deep faulted, deep guarded and (phase
-    13's) deep delayed SGD steps.  Returns (record, expected launches)."""
+    windows over ``DEEP_FAULT_WINDOW`` deep faulted, deep guarded and
+    (phase 13's) deep delayed SGD steps.  Returns (record, expected launches)."""
     import tempfile
 
     from repro_torch.core import algorithms as alg
@@ -2841,7 +2905,7 @@ def deep_fault_phase(torch, dev, x, y, layout, log_):
     from repro_torch.core.supervisor import (poisoned_steps,
                                              supervised_guarded_run)
     n, d = x.shape
-    tau, pre, win = STALE_TAU, DEEP_FAULT_PREFIX, FAULT_PREFIX
+    tau, pre, win = STALE_TAU, DEEP_FAULT_PREFIX, DEEP_FAULT_WINDOW
     prob, lr, batch = logistic_l2(1e-4), TRAIN_LR, TRAIN_BATCH
     steps = n // batch
     key = (SEED, 0)
@@ -3767,10 +3831,11 @@ def lm_phase(torch, dev, log_):
                               table.reshape(vpad, -1).T).float()
         kt = vocab_parallel_greedy(rt, params["embed"], h[:, -1])
         rt_tok = vocab_parallel_greedy(rt, params["embed"], h_ref[:, -1])
+        decided = _decided_tokens_equal(torch, kt, rt_tok, logits,
+                                        "kernel vs reference prefill")
         walk.update(
             embed_elements_differing=int((x != x2).sum()),
-            decided=_decided_tokens_equal(torch, kt, rt_tok, logits,
-                                          "kernel vs reference prefill"),
+            decided=decided, decided_tokens=round(decided * MOE_BATCH),
             ring_decided=_decided_tokens_equal(
                 torch, tok_ring, tok, logits, "ring_masks vs two_tree"),
             prefill_tokens=tok.tolist(), kernel_tokens=kt.tolist(),
@@ -3830,14 +3895,14 @@ def _dense_walk(torch, cfg, params, x, x2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         orr, _ = lm._apply_attention(plain, cfg, p["attn"], hn, w)
-        xr = lm._block_fwd(plain, cfg, "attn_mlp", p, xr, w)
+        xr, _ = lm._block_fwd(plain, cfg, "attn_mlp", p, xr, w)
         torch.cuda.synchronize()
         ref_s += time.perf_counter() - t0
         err = (ok.float() - orr.float()).abs()
         worst = max(worst, float(err.max()))
         bad += int((err > LM_TOL + LM_TOL * orr.float().abs()).sum())
-        xk = lm._apply_ffn(kern, cfg, p, xk + ok)
-        xk2 = lm._block_fwd(kern, cfg, "attn_mlp", p, xk2, w)
+        xk, _ = lm._apply_ffn(kern, cfg, p, xk + ok)
+        xk2, _ = lm._block_fwd(kern, cfg, "attn_mlp", p, xk2, w)
         vs_ref.append(_rel_l2(xk, xr))
         vs_masks.append(_rel_l2(xk2, xk))
     fin = params["final_norm"]
@@ -4000,10 +4065,11 @@ def dense_phase(torch, dev, log_):
         logits = _logits(torch, params, h_ref[:, -1])
         kt = vocab_parallel_greedy(rt, params["embed"], h[:, -1])
         rt_tok = vocab_parallel_greedy(plain, params["embed"], h_ref[:, -1])
+        decided = _decided_tokens_equal(torch, kt, rt_tok, logits,
+                                        "kernel vs reference prefill")
         walk.update(
             embed_elements_differing=int((x != x2).sum()),
-            decided=_decided_tokens_equal(torch, kt, rt_tok, logits,
-                                          "kernel vs reference prefill"),
+            decided=decided, decided_tokens=round(decided * MOE_BATCH),
             ring_decided=_decided_tokens_equal(
                 torch, tok_ring, tok, logits, "ring_masks vs two_tree"),
             prefill_tokens=tok.tolist(), kernel_tokens=kt.tolist(),
@@ -4019,6 +4085,11 @@ def dense_phase(torch, dev, log_):
               f"kernel-path prefill {walk['rel_l2_vs_reference']} from the "
               "reference-attention prefill, more than twice the "
               f"{walk['rel_l2_vs_mask_redraw']} a mask redraw moves it")
+        if walk["decided_tokens"] == 0:
+            # router flips cascade over random layers: the end-to-end
+            # checks then rest on the per-layer walk above
+            log_("phase 20: no prefill token's margin decides it; the "
+                 "token check compared none")
         del x, x2, h, h_ref, h2, logits
 
         cache = lm.init_cache(rt, cfg, DENSE_BATCH, DENSE_PROMPT + DENSE_GEN,
@@ -4135,6 +4206,17 @@ def _train_lm_config(torch, dev, arch, layers, q, batch, seq, log_):
           f"loss by {drop}, less than half the predicted {pred} (a mask "
           f"redraw moves it by {redraw})")
     del grads, flat
+    if cfg.moe is not None:
+        # the router's terms, summed over the layers, in the same loss
+        with torch.no_grad():
+            aux = lm._no_aux()
+            lm._backbone(rt, cfg, params, lm._embed_tokens(
+                rt, cfg, params, batches[0]["tokens"], gen(0)), aux=aux)
+        res["aux"] = {k: float(v) for k, v in aux.items()}
+        log_(f"{name} aux terms over {layers} layers: {res['aux']}")
+        check(all(math.isfinite(v) and v > 0 for v in res["aux"].values()),
+              f"{name}: lb_loss and z_loss must be finite and positive: "
+              f"{res['aux']}")
 
     # (2) training runs: AdamW, then VFB²'s delayed SGD, from the start
     runs = {}
@@ -4221,6 +4303,12 @@ def _train_lm_config(torch, dev, arch, layers, q, batch, seq, log_):
         # the table)
         w_rms = float(params["embed"].float().pow(2).sum(1).mean().sqrt())
         tol = layers * BF16_ULP * w_rms
+        if cfg.moe is not None:
+            # a token's routing may flip between the two routes where its
+            # k-th and (k+1)-th router probabilities nearly tie, as it may
+            # under a redraw of the masks: twice the loss's change under a
+            # redraw, as phase 10 holds the hidden states
+            tol = max(tol, 2 * redraw)
     prog = "selective_scan" if cfg.arch_type == "ssm" else "flash_attention"
     res["kernel_forward"] = dict(
         kernel_loss=k_loss, reference_loss=r_loss,
@@ -4265,6 +4353,303 @@ def lm_train_phase(torch, dev, log_):
         res[arch]["seconds"] = time.perf_counter() - t0
         launches.update(got)
     return res, dict(launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 20: MoE serving
+# ---------------------------------------------------------------------------
+
+def _moe_oracle(torch, p, h, m, got):
+    """An MoE layer (``apply_moe_sharded``'s output ``got`` on the normed
+    input h (B, S, D) bf16) against the plain per-expert oracle in f32:
+    route, each expert's SwiGLU on its assigned rows (the first
+    ``capacity`` in token order; the rest dropped), the gate-weighted sum.
+    A token whose selection differs from the port's ``_route`` must be
+    undecided (its k-th and (k+1)-th oracle probabilities within
+    MOE_ROUTE_MARGIN); it moves the bucket positions of its experts'
+    later assignments, so those later tokens are left out with it.  All
+    other tokens are compared, those with dropped assignments too."""
+    from repro_torch.models import moe
+    d = h.shape[-1]
+    xt = h.reshape(-1, d).float()
+    t, e, k = xt.shape[0], m.n_experts, m.top_k
+    probs = torch.softmax(xt @ p["router"].float(), -1)
+    gates, sel = torch.topk(probs, k, -1)
+    gates = gates / gates.sum(-1, keepdim=True)
+    cap = moe.capacity(m.capacity_factor, k, t, e)
+    want = torch.zeros_like(xt)
+    kept = torch.ones(t, dtype=torch.bool, device=h.device)
+    dropped = 0
+    silu = torch.nn.functional.silu
+    for j in range(e):
+        tok, slot = (sel == j).nonzero(as_tuple=True)   # in token order
+        kept[tok[cap:]] = False
+        dropped += max(0, tok.numel() - cap)
+        tok, slot = tok[:cap], slot[:cap]
+        x = xt[tok]
+        y = (silu(x @ p["w_gate"][j]) * (x @ p["w_up"][j])) @ p["w_down"][j]
+        want.index_add_(0, tok, gates[tok, slot, None] * y)
+    mine, _, _ = moe._route(p["router"], h.reshape(-1, d), k)
+    same = (mine.sort(-1).values == sel.sort(-1).values).all(-1)
+    top = probs.topk(k + 1, -1).values
+    undecided = (top[:, k - 1] - top[:, k]) <= MOE_ROUTE_MARGIN
+    diff = (~same).nonzero().flatten()
+    moved = torch.zeros_like(same)
+    if diff.numel():
+        # each expert's first token (in token order) routed otherwise
+        first = torch.full((e,), t, dtype=torch.long, device=h.device)
+        either = torch.cat([sel[diff], mine[diff]], 1)
+        first.scatter_reduce_(0, either.flatten(),
+                              diff.repeat_interleave(2 * k), "amin")
+        moved = (torch.arange(t, device=h.device)[:, None]
+                 > first[sel]).any(-1)
+    use = same & ~moved
+    g = got.reshape(-1, d).float()
+    return dict(max_abs_err=float((g[use] - want[use]).abs().max()),
+                oracle_max=float(want[use].abs().max()),
+                rel_l2=_rel_l2(g[use], want[use]),
+                compared_share=float(use.float().mean()),
+                kept_share=float(kept.float().mean()),
+                selection_differs=int((~same).sum()),
+                selection_differs_decided=int((~same & ~undecided).sum()),
+                undecided=int(undecided.sum()),
+                dropped=dropped, assignments=t * k, capacity=cap)
+
+
+def _moe_walk(torch, cfg, params, x, x2):
+    """The prefill's stack layer by layer in three streams, as
+    ``_dense_walk``: at every layer the two attentions on the kernel
+    stream's same normed input within LM_TOL, and the MoE layer
+    (``replicated``, under no host sync) against ``_moe_oracle``; at layer
+    0, on the first prompt, ``alltoall`` against ``replicated`` at a
+    capacity where nothing drops (cf = E/k)."""
+    from repro_torch.models import model as lm
+    from repro_torch.models import moe
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.sharding.api import Runtime
+    kern, plain = Runtime(model_size=MOE_Q), Runtime(
+        model_size=MOE_Q, attn_impl="reference")
+    m = cfg.moe
+    windows = lm.layer_windows(cfg, x.shape[1])
+    worst, bad = 0.0, 0
+    layers, vs_ref, vs_masks = [], [], []
+    xk, xr, xk2 = x, x, x2
+    for i in range(cfg.n_layers):
+        p, w = lm._layer(params["stack"], i), windows[i]
+        hn = rms_norm(xk, p["norm1"])
+        ok, _ = lm._apply_attention(kern, cfg, p["attn"], hn, w)
+        orr, _ = lm._apply_attention(plain, cfg, p["attn"], hn, w)
+        err = (ok.float() - orr.float()).abs()
+        worst = max(worst, float(err.max()))
+        bad += int((err > LM_TOL + LM_TOL * orr.float().abs()).sum())
+        xa = xk + ok
+        h2 = rms_norm(xa, p["norm2"])
+        torch.cuda.synchronize()
+        with no_host_sync(torch):
+            mo, aux = moe.apply_moe_sharded(
+                kern, p["moe"], h2, top_k=m.top_k,
+                capacity_factor=m.capacity_factor)
+        torch.cuda.synchronize()
+        row = dict(_moe_oracle(torch, p["moe"], h2, m, mo),
+                   lb_loss=float(aux["lb_loss"]),
+                   z_loss=float(aux["z_loss"]))
+        if i == 0:
+            wide = dict(top_k=m.top_k, capacity_factor=m.n_experts / m.top_k)
+            one = h2[:1]
+            a2a, a2a_aux = moe.apply_moe_sharded(kern, p["moe"], one,
+                                                 dispatch="alltoall", **wide)
+            rep, _ = moe.apply_moe_sharded(kern, p["moe"], one,
+                                           dispatch="replicated", **wide)
+            single, _ = moe.apply_moe(p["moe"], one, **wide)
+            row["alltoall_vs_replicated"] = dict(
+                tokens=one.shape[1],
+                max_abs_diff=float((a2a.float() - rep.float()).abs().max()),
+                replicated_max=float(rep.float().abs().max()),
+                alltoall_equals_one_party=bool(torch.equal(a2a, single)),
+                alltoall_lb_loss=float(a2a_aux["lb_loss"]))
+            del a2a, rep, single
+        layers.append(row)
+        xk = xa + mo
+        xr, _ = lm._block_fwd(plain, cfg, "attn_moe", p, xr, w)
+        xk2, _ = lm._block_fwd(kern, cfg, "attn_moe", p, xk2, w)
+        vs_ref.append(_rel_l2(xk, xr))
+        vs_masks.append(_rel_l2(xk2, xk))
+    fin = params["final_norm"]
+    hidden = tuple(rms_norm(v, fin) for v in (xk, xr, xk2))
+    drops = sum(r["dropped"] for r in layers)
+    return dict(
+        attn_max_abs_err=worst, attn_beyond_tol=bad, depth=cfg.n_layers,
+        moe_layers=layers,
+        moe_worst_rel_err=max(r["max_abs_err"] / r["oracle_max"]
+                              for r in layers),
+        moe_worst_rel_l2=max(r["rel_l2"] for r in layers),
+        dropped_share=drops / sum(r["assignments"] for r in layers),
+        rel_l2_vs_reference=_rel_l2(hidden[0], hidden[1]),
+        rel_l2_vs_mask_redraw=_rel_l2(hidden[2], hidden[0]),
+        stream_rel_l2_vs_reference=vs_ref,
+        stream_rel_l2_vs_mask_redraw=vs_masks, hidden=hidden)
+
+
+def moe_phase(torch, dev, log_):
+    """Phase 20; returns (record, launches of the serve call by
+    program)."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.configs.inputs import make_batch
+    from repro_torch.core.secure_agg import mask_generator
+    from repro_torch.kernels import decode_attention as dak
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as lm
+    from repro_torch.models import moe
+    from repro_torch.optim.tree import leaves
+    from repro_torch.sharding.api import Runtime
+    from repro_torch.vfl.heads import vocab_parallel_greedy
+    full = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    m, layers, vpad = cfg.moe, MOE_LAYERS, cfg.padded_vocab
+    kw = dict(batch=MOE_BATCH, prompt_len=MOE_PROMPT, gen_tokens=MOE_GEN,
+              reduced=False, model_parallel=MOE_Q, seed=SEED,
+              n_layers=MOE_LAYERS)
+    res = {"config": dict(
+        arch=MOE_ARCH, layers=layers, of_layers=full.n_layers, q=MOE_Q,
+        batch=MOE_BATCH, prompt=MOE_PROMPT, generated=MOE_GEN,
+        d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv,
+        d_head=cfg.head_dim, experts=m.n_experts, top_k=m.top_k,
+        d_expert=m.d_expert, capacity_factor=m.capacity_factor,
+        capacity=moe.capacity(m.capacity_factor, m.top_k,
+                              MOE_BATCH * MOE_PROMPT, m.n_experts),
+        vocab=cfg.vocab, padded_vocab=vpad, dispatch="replicated")}
+    steps = MOE_GEN - 1
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                  # main path starts
+    t0 = time.perf_counter()
+    out = serve(MOE_ARCH, **kw)
+    wall = time.perf_counter() - t0
+    launches = {prog: n for lib in _libs()          # main path ends
+                for prog, n in lib.launches.items()}
+    res["serve_first"] = dict(
+        _serve_metrics(torch, out, wall, MOE_BATCH, MOE_GEN),
+        launches=launches, tokens_row0=out.tokens[0].tolist())
+    log_(f"phase 20 serve (first call, counted): {res['serve_first']}")
+    check(launches["flash_attention"] == layers
+          and launches["decode_attention"] == layers * steps,
+          f"serve launched flash_attention {launches['flash_attention']} "
+          f"times (want {layers}, once per layer of the prefill) and "
+          f"decode_attention {launches['decode_attention']} (want "
+          f"{layers} x {steps} decode steps)")
+    check_idle(_libs()[:2], "MoE LM serving")
+    check(out.tokens.shape == (MOE_BATCH, MOE_GEN)
+          and ((out.tokens >= 0) & (out.tokens < vpad)).all(),
+          f"generated ids outside [0, {vpad}): {out.tokens}")
+    check(all(bool(torch.isfinite(v.float()).all())
+              for v in out.cache.values()), "a KV cache leaf is not finite")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = serve(MOE_ARCH, **kw)
+    res["serve"] = _serve_metrics(torch, again, time.perf_counter() - t0,
+                                  MOE_BATCH, MOE_GEN)
+    log_(f"phase 20 serve (second call, warm): {res['serve']}")
+    check(np.array_equal(again.tokens, out.tokens),
+          "a second serve with the same seed gave other tokens")
+    del out, again
+    torch.cuda.empty_cache()
+
+    rt = Runtime(model_size=MOE_Q)
+    with torch.no_grad():
+        params = lm.init_params(cfg, SEED, device=dev)
+        n_params = sum(p.numel() for p in leaves(params))
+        res["config"].update(params=n_params, param_gb=4 * n_params / 1e9)
+        batch = make_batch(cfg, ShapeConfig("moe", MOE_PROMPT, MOE_BATCH,
+                                            "prefill"), rt, seed=SEED,
+                           device=dev)
+        gen = mask_generator(SEED, 20, device=dev)
+        reset_counts()
+        tok, kv = lm.prefill(rt, cfg, params, batch, gen)
+        torch.cuda.synchronize()
+        per_prefill = (fak.KERNEL.launches["flash_attention"],
+                       dak.KERNEL.launches["decode_attention"])
+        cache = lm.init_cache(rt, cfg, MOE_BATCH, MOE_PROMPT + MOE_GEN,
+                              device=dev)
+        for name, val in kv.items():
+            cache[name][:, :, :MOE_PROMPT].copy_(val)
+        del kv
+        reset_counts()
+        lm.decode_step(rt, cfg, params, {"token": tok, "pos": MOE_PROMPT,
+                                         "cache": cache}, gen)
+        torch.cuda.synchronize()
+        per_step = (fak.KERNEL.launches["flash_attention"],
+                    dak.KERNEL.launches["decode_attention"])
+        check(per_prefill == (layers, 0) and per_step == (0, layers),
+              f"launches (flash, decode): {per_prefill} per prefill (want "
+              f"({layers}, 0)), {per_step} per decode step (want (0, "
+              f"{layers}))")
+        step = {"token": tok, "pos": MOE_PROMPT, "cache": cache}
+
+        plain = Runtime(model_size=MOE_Q, attn_impl="reference")
+        ring = Runtime(model_size=MOE_Q, secure_mode="ring_masks")
+        tok_ring, _ = lm.prefill(ring, cfg, params, batch, gen)
+        x = lm._embed_tokens(rt, cfg, params, batch["tokens"], gen)
+        x2 = lm._embed_tokens(rt, cfg, params, batch["tokens"], gen)
+        walk = _moe_walk(torch, cfg, params, x, x2)
+        h, h_ref, h2 = walk.pop("hidden")
+        logits = _logits(torch, params, h_ref[:, -1])
+        kt = vocab_parallel_greedy(rt, params["embed"], h[:, -1])
+        rt_tok = vocab_parallel_greedy(plain, params["embed"], h_ref[:, -1])
+        decided = _decided_tokens_equal(torch, kt, rt_tok, logits,
+                                        "kernel vs reference prefill")
+        walk.update(
+            embed_elements_differing=int((x != x2).sum()),
+            decided=decided, decided_tokens=round(decided * MOE_BATCH),
+            ring_decided=_decided_tokens_equal(
+                torch, tok_ring, tok, logits, "ring_masks vs two_tree"),
+            prefill_tokens=tok.tolist(), kernel_tokens=kt.tolist(),
+            reference_tokens=rt_tok.tolist())
+        res["kernel_vs_reference"] = walk
+        log_(f"phase 20 layer walk: {walk}")
+        check(walk["attn_beyond_tol"] == 0,
+              f"kernel-path attention: {walk['attn_beyond_tol']} elements "
+              f"beyond atol = rtol = {LM_TOL} of the reference attention on "
+              f"the same input (max abs err {walk['attn_max_abs_err']})")
+        for i, r in enumerate(walk["moe_layers"]):
+            check(r["selection_differs_decided"] == 0
+                  and r["compared_share"] >= MOE_MIN_SHARE
+                  and r["max_abs_err"] <= MOE_TOL * r["oracle_max"]
+                  and r["rel_l2"] <= MOE_L2,
+                  f"MoE layer {i} against the f32 per-expert oracle: {r} "
+                  "(want no token routed otherwise where the oracle's "
+                  f"k-th/(k+1)-th margin exceeds {MOE_ROUTE_MARGIN}, and "
+                  f"max abs err <= {MOE_TOL} x the oracle's largest value "
+                  f"and relative L2 <= {MOE_L2} on the tokens whose "
+                  f"buckets agree, at least {MOE_MIN_SHARE} of them)")
+        a2a = walk["moe_layers"][0]["alltoall_vs_replicated"]
+        check(a2a["max_abs_diff"] <= MOE_TOL * a2a["replicated_max"],
+              f"alltoall against replicated where nothing drops: {a2a}")
+        check(walk["rel_l2_vs_reference"]
+              <= 2 * walk["rel_l2_vs_mask_redraw"],
+              f"kernel-path prefill {walk['rel_l2_vs_reference']} from the "
+              "reference-attention prefill, more than twice the "
+              f"{walk['rel_l2_vs_mask_redraw']} a mask redraw moves it")
+        if walk["decided_tokens"] == 0:
+            # router flips cascade over random layers: the end-to-end
+            # checks then rest on the per-layer walk above
+            log_("phase 20: no prefill token's margin decides it; the "
+                 "token check compared none")
+        del x, x2, h, h_ref, h2, logits
+
+        profiles = {
+            "prefill": lambda: lm.prefill(rt, cfg, params, batch, gen),
+            "decode_step": lambda: lm.decode_step(rt, cfg, params, step,
+                                                  gen)}
+        res["profile"] = {}
+        for name, fn in profiles.items():
+            fn()                                      # warm
+            res["profile"][name] = _device_profile(torch, fn)
+            log_(f"phase 20 profile of one {name}: {res['profile'][name]}")
+        del params, cache, step
+    torch.cuda.empty_cache()
+    return res, launches
 
 
 # ---------------------------------------------------------------------------
@@ -4750,6 +5135,10 @@ def main() -> int:
     record["lm_train"], lm_train_launches = lm_train_phase(torch, dev, log)
     record["lm_train"]["seconds"] = time.perf_counter() - t19
     log(f"phase 19: {record['lm_train']['seconds']:.1f} s")
+    t20 = time.perf_counter()
+    record["moe"], moe_launches = moe_phase(torch, dev, log)
+    record["moe"]["seconds"] = time.perf_counter() - t20
+    log(f"phase 20: {record['moe']['seconds']:.1f} s")
     record["seconds"] = time.perf_counter() - t_start
 
     # each program's line reports its own main-path shape: serving's linear
@@ -4793,7 +5182,8 @@ def main() -> int:
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None})
     # the attention programs at phase 10's local-window shape (29 of the
-    # 34 layers); launches are phase 10's serve call's
+    # 34 layers); launches are phase 10's and phase 20's serve calls' and
+    # phase 19's no-grad forwards
     for prog, key, src, tpu in (
             ("flash_attention", "flash_shapes", "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:93"),
@@ -4805,7 +5195,8 @@ def main() -> int:
             "name": prog, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": tpu,
-            "launches": dense_launches[prog] + lm_train_launches[prog],
+            "launches": dense_launches[prog] + lm_train_launches[prog]
+            + moe_launches[prog],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

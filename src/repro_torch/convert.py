@@ -15,7 +15,9 @@ arrays, done by the caller, so this module never imports JAX):
   ``final_norm`` and ``stack`` = {``norm1``, ``ssm``: {...}}) or of the
   dense family (``stack`` = {``norm1``, ``attn``: {``wq``, ``wk``,
   ``wv``, ``wo``}, ``norm2``, ``mlp``: {``w_gate``, ``w_up``,
-  ``w_down``}}), every stack leaf with its leading layer axis.
+  ``w_down``}}) or of the MoE family (the dense family's with ``moe``:
+  {``router``, ``w_gate``, ``w_up``, ``w_down``} in place of ``mlp``),
+  every stack leaf with its leading layer axis.
 
 Both keep their layout: the port packs and stacks exactly as the
 reference does.
@@ -83,6 +85,8 @@ _LM_STACKS = (
              "a_log", "d_skip", "w_out")},
     {"norm1": None, "attn": ("wq", "wk", "wv", "wo"), "norm2": None,
      "mlp": ("w_gate", "w_up", "w_down")},
+    {"norm1": None, "attn": ("wq", "wk", "wv", "wo"), "norm2": None,
+     "moe": ("router", "w_gate", "w_up", "w_down")},
 )
 
 
@@ -94,7 +98,7 @@ def _matches(stack, layout) -> bool:
 
 
 def lm_params(params, *, q: int, device="cuda"):
-    """The reference's LM parameter tree (SSM or dense family; numpy
+    """The reference's LM parameter tree (SSM, dense or MoE family; numpy
     leaves) as the port's: the same tree of f32 tensors on ``device``.
     The embedding table must split into ``q`` party vocabulary blocks."""
     dev = resolve_device(device)
@@ -103,9 +107,11 @@ def lm_params(params, *, q: int, device="cuda"):
             _matches(stack, layout) for layout in _LM_STACKS):
         raise NotImplementedError(
             "only the SSM family's parameter tree (embed, final_norm, "
-            "stack/{norm1, ssm}) and the dense family's (stack/{norm1, "
-            "attn, norm2, mlp}) are ported; the rest of the LM stack is "
-            "ROADMAP A15")
+            "stack/{norm1, ssm}), the dense family's (stack/{norm1, attn, "
+            "norm2, mlp}) and the MoE family's (stack/{norm1, attn, norm2, "
+            "moe}) are ported; period stacks (periods/..., ROADMAP A15c) "
+            "and the encoder and patch frontends (enc_*, patch_proj, "
+            "A15d) are not")
     if np.shape(params["embed"])[0] % q:
         raise ValueError(f"vocabulary {np.shape(params['embed'])[0]} does "
                          f"not split into {q} party blocks")

@@ -1,8 +1,10 @@
 """LM serving: batched prefill and greedy decode on the model stack (the
-port of ``repro.launch.serve``; the SSM and dense families).
+port of ``repro.launch.serve``; the SSM, dense and MoE families).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_4b \\
         --device cpu                          # reduced config, on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen3_moe_30b_a3b --device cpu --model-parallel 2
 
 The prompt enters through the parties' secure vocabulary embedding and
 each token leaves through the party-sharded greedy head, with fresh masks
@@ -11,15 +13,18 @@ the whole call).  A dense prefill's KV cache is put at positions
 [0, prompt_len) of a decode cache of ``prompt_len + gen_tokens``
 positions (rounded up to a multiple of the party count, so the parties'
 cache shards are equal; the positions past the last token are never
-attended), and decode step i runs at position ``prompt_len + i``.  As in
-the reference, the SSM prefill hands no state to the decode loop, which
-starts from ``init_cache``'s zeros (ROADMAP C.R3).
+attended), and decode step i runs at position ``prompt_len + i``.  An
+MoE model spreads its experts over the parties (``replicated``
+dispatch, ``Runtime``'s default).  As in the reference, the SSM prefill
+hands no state to the decode loop, which starts from ``init_cache``'s
+zeros (ROADMAP C.R3).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -48,15 +53,19 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32,
           gen_tokens: int = 16, reduced: bool = True,
           model_parallel: int = 1, seed: int = 0, *, device="cuda",
           secure_mode: str = "two_tree",
-          schedule_faithful: bool = False) -> ServeResult:
+          schedule_faithful: bool = False,
+          n_layers: Optional[int] = None) -> ServeResult:
     """Prefill a random (batch, prompt_len) prompt and decode
     ``gen_tokens`` greedy tokens (the first from the prefill) with
     random parameters from ``seed``, across ``model_parallel`` parties
-    (q, each owning a vocabulary block).  Times end at a device
-    synchronisation."""
+    (q, each owning a vocabulary block, and an MoE model's E/q experts).
+    ``n_layers``, where given, cuts the stack to its first ``n_layers``
+    layers (the widths stay).  Times end at a device synchronisation."""
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model_lib.layer_kinds(cfg)
     dev = resolve_device(device)
     rt = Runtime(model_size=model_parallel, secure_mode=secure_mode,

@@ -1,5 +1,5 @@
 """Shared building blocks of the LM stack (the port of
-``repro.models.layers``, as far as the SSM and dense families need it).
+``repro.models.layers``, as far as the SSM, dense and MoE families need it).
 
 Parameters are f32 (``PARAM_DTYPE``), activations bf16 (``ACT_DTYPE``);
 norms, rotary angles and the SiLU gate compute in f32, as the reference

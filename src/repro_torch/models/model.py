@@ -1,21 +1,27 @@
 """The decoder model with VFB²'s secure frontends (the port of
-``repro.models.model``: the SSM family, falcon-mamba, and the dense
-family, gemma3 / stablelm / granite / internlm2).
+``repro.models.model``: the SSM family, falcon-mamba; the dense family,
+gemma3 / stablelm / granite / internlm2; and the MoE family,
+granite-moe / qwen3-moe).
 
 Parameters are the reference's stacked-layer dict: ``embed`` (V_pad, D),
 ``final_norm`` (D,) and ``stack``, each block parameter with a leading
 layer axis: {``norm1``, ``ssm``} for the SSM family, {``norm1``, ``attn``
 {``wq``, ``wk``, ``wv``, ``wo``}, ``norm2``, ``mlp`` {``w_gate``,
-``w_up``, ``w_down``}} for the dense family.  The stack runs as a loop
-over its layers.  Tokens enter through the paper's secure vocabulary
+``w_up``, ``w_down``}} for the dense family, the same with ``moe``
+{``router``, ``w_gate``, ``w_up``, ``w_down``} (``models.moe``) in place
+of ``mlp`` for the MoE family.  The stack runs as a loop over its
+layers; an MoE layer's feed-forward is ``moe.apply_moe_sharded`` over the
+q parties under ``Runtime.moe_dispatch``, and its auxiliary terms
+(load balance, router z-loss) are summed over the layers into
+``train_loss``.  Tokens enter through the paper's secure vocabulary
 embedding (``vfl.embed``) and leave through the party-sharded heads
 (``vfl.heads``: the loss, the greedy token); the q parties are
 ``Runtime.model_size``.
 
 Modes: ``train_loss`` (the mean next-token cross-entropy through the
 party-sharded ``vocab_parallel_loss``, differentiable on the plain routes),
-``prefill`` (the next token after a prompt, and the dense family's bf16
-KV cache (L, B, S, Hkv, dh)) and ``decode_step`` (one token).  The
+``prefill`` (the next token after a prompt, and the dense and MoE
+families' bf16 KV cache (L, B, S, Hkv, dh)) and ``decode_step`` (one token).  The
 dense decode step writes the new K/V in place into the cache at ``pos``
 and attends over the cache viewed as q party shards of S/q positions,
 whose partial results are merged by log-sum-exp (Algorithm 1's partial
@@ -37,10 +43,10 @@ decoding starts from ``init_cache``'s zero state, so the tokens after the
 first do not see the prompt (ROADMAP C.R3, mirrored so the port can be
 held against the reference).
 
-MoE, hybrid (period) stacks, encoder-decoder (cross attention) and the
-VLM frontend raise ``NotImplementedError`` naming ROADMAP A15, as does a
-``Runtime`` that sets the reference's ``remat``, ``unroll_layers`` or
-``seq_parallel_norms``.
+Hybrid (period) stacks (ROADMAP A15c), encoder-decoder (cross
+attention) and the VLM frontend (A15d) raise ``NotImplementedError``
+naming ROADMAP A15, as does a ``Runtime`` that sets the reference's
+``remat``, ``unroll_layers`` or ``seq_parallel_norms`` (A15e).
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (ACT_DTYPE, apply_mlp, init_mlp,
                                        normal_init, rms_norm)
@@ -61,25 +68,29 @@ from repro_torch.vfl.embed import secure_vocab_embed
 from repro_torch.vfl.heads import vocab_parallel_greedy, vocab_parallel_loss
 
 CACHE_DTYPE = torch.bfloat16
-# the MoE terms' weights in train_loss (no layer of the ported families
-# has a router, so both terms are 0 here; ROADMAP A15b)
+# the MoE terms' weights in train_loss (0 terms for the SSM and dense
+# families, which have no router)
 AUX_LOSS_WEIGHT = 0.01
 Z_LOSS_WEIGHT = 1e-3
 
 
 def _unported(what: str):
     raise NotImplementedError(
-        f"{what} is not ported yet: the port's LM stack has the SSM and "
-        "dense families (training, prefill and greedy decode) only; the "
-        "rest is ROADMAP A15")
+        f"{what} is not ported yet: the port's LM stack has the SSM, "
+        "dense and MoE families (training, prefill and greedy decode) "
+        "only; the rest is ROADMAP A15 (period stacks A15c, cross "
+        "attention and the VLM frontend A15d)")
 
 
 def layer_kinds(cfg: ArchConfig):
     """Per-layer kind sequence of the decoder stack."""
-    if (cfg.arch_type not in ("ssm", "dense") or cfg.period is not None
-            or cfg.enc_dec or cfg.moe is not None):
+    if (cfg.arch_type not in ("ssm", "dense", "moe")
+            or cfg.period is not None or cfg.enc_dec):
         _unported(f"{cfg.name} ({cfg.arch_type} layers)")
-    return ("ssm" if cfg.arch_type == "ssm" else "attn_mlp",) * cfg.n_layers
+    if cfg.arch_type == "ssm":
+        return ("ssm",) * cfg.n_layers
+    ffn = "moe" if cfg.moe is not None else "mlp"
+    return (f"attn_{ffn}",) * cfg.n_layers
 
 
 def layer_windows(cfg: ArchConfig, seq_len: int) -> List[int]:
@@ -120,8 +131,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
                  "wo": normal_init(gen, (n, hd, d),
                                    scale=0.02 / math.sqrt(2 * n))},
         "norm2": torch.zeros((n, d), device=dev),
-        "mlp": init_mlp(gen, d, cfg.d_ff, lead=(n,)),
     }
+    if kinds[0] == "attn_moe":
+        m = cfg.moe
+        params["stack"]["moe"] = moe_lib.init_moe(
+            gen, d, m.d_expert, m.n_experts, lead=(n,))
+    else:
+        params["stack"]["mlp"] = init_mlp(gen, d, cfg.d_ff, lead=(n,))
     return params
 
 
@@ -183,21 +199,34 @@ def _apply_attention(rt: Runtime, cfg: ArchConfig, p, x, window: int):
     return o.reshape(b, s, h * dh) @ p["wo"].to(x.dtype), (k, v)
 
 
+def _no_aux():
+    return {"lb_loss": 0.0, "z_loss": 0.0}
+
+
 def _apply_ffn(rt: Runtime, cfg: ArchConfig, p, x):
+    """The block's feed-forward on the residual stream x (B, S, D).
+    Returns (x, aux): the MoE layer's {"lb_loss", "z_loss"} (0-d f32),
+    0 for an MLP layer."""
     if "mlp" in p:
-        return x + apply_mlp(p["mlp"], rms_norm(x, p["norm2"]))
+        return x + apply_mlp(p["mlp"], rms_norm(x, p["norm2"])), _no_aux()
     if "moe" in p:
-        _unported("the MoE feed-forward (apply_moe_sharded)")
-    return x
+        out, aux = moe_lib.apply_moe_sharded(
+            rt, p["moe"], rms_norm(x, p["norm2"]), top_k=cfg.moe.top_k,
+            capacity_factor=cfg.moe.capacity_factor,
+            dispatch=rt.moe_dispatch)
+        return x + out, aux
+    return x, _no_aux()
 
 
 def _block_fwd(rt: Runtime, cfg: ArchConfig, kind: str, p, x, window: int,
                kv_out=None):
     """One decoder block over a sequence (prefill).  ``kv_out``: the
-    layer's {"k", "v"} cache slices (B, S, Hkv, dh) to fill, or None."""
+    layer's {"k", "v"} cache slices (B, S, Hkv, dh) to fill, or None.
+    Returns (x, aux) as ``_apply_ffn``."""
     h = rms_norm(x, p["norm1"])
     if kind == "ssm":
-        return x + ssm_lib.apply_ssm(p["ssm"], h, scan_impl=rt.scan_impl)
+        return (x + ssm_lib.apply_ssm(p["ssm"], h, scan_impl=rt.scan_impl),
+                _no_aux())
     o, (k, v) = _apply_attention(rt, cfg, p["attn"], h, window)
     if kv_out is not None:
         kv_out["k"].copy_(k)
@@ -205,15 +234,22 @@ def _block_fwd(rt: Runtime, cfg: ArchConfig, kind: str, p, x, window: int,
     return _apply_ffn(rt, cfg, p, x + o)
 
 
-def _backbone(rt: Runtime, cfg: ArchConfig, params, x, *, kv=None):
+def _backbone(rt: Runtime, cfg: ArchConfig, params, x, *, kv=None,
+              aux=None):
     """The stack, layer by layer, and the final norm: (B, S, D) → the
     normed hidden states (B, S, D).  Each layer's window is
     ``layer_windows(cfg, S)``'s; ``kv``, where given, is the stacked
-    {"k", "v"} cache (L, B, S, Hkv, dh) the layers fill."""
+    {"k", "v"} cache (L, B, S, Hkv, dh) the layers fill; ``aux``, where
+    given, is a {"lb_loss", "z_loss"} dict each layer's terms are added
+    to."""
     windows = layer_windows(cfg, x.shape[1])
     for i, kind in enumerate(layer_kinds(cfg)):
-        x = _block_fwd(rt, cfg, kind, _layer(params["stack"], i), x,
-                       windows[i], None if kv is None else _layer(kv, i))
+        x, layer_aux = _block_fwd(rt, cfg, kind, _layer(params["stack"], i),
+                                  x, windows[i],
+                                  None if kv is None else _layer(kv, i))
+        if aux is not None:
+            for k in aux:
+                aux[k] = aux[k] + layer_aux[k]
     return rms_norm(x, params["final_norm"])
 
 
@@ -223,12 +259,13 @@ def train_loss(rt: Runtime, cfg: ArchConfig, params, batch,
     "labels"}, each (B, S) (``repro/models/model.py:491-501``): the secure
     embedding (masks from ``gen``), the stack without a KV cache, the
     final norm and ``vocab_parallel_loss`` on the tied table, plus the MoE
-    auxiliary terms (0 for the SSM and dense families)."""
+    auxiliary terms summed over the layers (0 for the SSM and dense
+    families)."""
     x, _, n_prefix = _prepare_inputs(rt, cfg, params, batch, gen)
-    h = _backbone(rt, cfg, params, x)
+    aux = _no_aux()
+    h = _backbone(rt, cfg, params, x, aux=aux)
     if n_prefix:
         h = h[:, n_prefix:]
-    aux = {"lb_loss": 0.0, "z_loss": 0.0}
     loss = vocab_parallel_loss(rt, params["embed"], h, batch["labels"],
                                cfg.padded_vocab)
     return loss + AUX_LOSS_WEIGHT * aux["lb_loss"] \
@@ -238,7 +275,8 @@ def train_loss(rt: Runtime, cfg: ArchConfig, params, batch,
 def prefill(rt: Runtime, cfg: ArchConfig, params, batch,
             gen: torch.Generator):
     """Forward over the prompt ``batch["tokens"]`` (B, S); returns
-    (next_token (B,), cache).  The dense family's cache is {"k", "v"},
+    (next_token (B,), cache).  The dense and MoE families' cache is
+    {"k", "v"},
     each (L, B, S, Hkv, dh) bf16 with rotary positions applied to k; the
     SSM family's is ``None``, as in the reference (C.R3)."""
     x, _, _ = _prepare_inputs(rt, cfg, params, batch, gen)
@@ -316,7 +354,8 @@ def _block_decode(rt: Runtime, cfg: ArchConfig, kind: str, p, x, cache,
         return x + o, new
     x = x + _decode_attention(rt, cfg, p["attn"], h, cache["k"], cache["v"],
                               pos, pos_t, window)
-    return _apply_ffn(rt, cfg, p, x[:, None])[:, 0], cache
+    x, _ = _apply_ffn(rt, cfg, p, x[:, None])     # decode drops the aux
+    return x[:, 0], cache
 
 
 def decode_step(rt: Runtime, cfg: ArchConfig, params, batch,

@@ -1,6 +1,6 @@
 """The party mesh of the fused engine and the LM stack's runtime settings:
 the port of ``repro.sharding.api``'s ``PartyMesh`` and of its ``Runtime``
-(the fields the SSM and dense serving paths read).
+(the fields the SSM, dense and MoE paths read).
 
 ``PartyMesh`` factors the q logical parties as slots × parties per slot,
 plus a sample-parallel data axis; the port runs it on one device
@@ -82,6 +82,7 @@ class PartyMesh:
         return self.parties_per_slot > 1
 SCAN_IMPLS = ("kernel", "reference")
 ATTN_IMPLS = ("kernel", "reference")
+MOE_DISPATCHES = ("replicated", "alltoall")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +106,13 @@ class Runtime:
     (``kernels.ops``): ``train_loss`` under autograd needs
     ``scan_impl="reference"`` and ``attn_impl="reference"``, and raises on
     a kernel route; under ``torch.no_grad()`` both routes run.
+    ``moe_dispatch``: how ``models.moe.apply_moe_sharded`` spreads an MoE
+    layer over the parties, ``"replicated"`` (each party routes every
+    token and computes its E/q experts; the partial outputs are summed)
+    or ``"alltoall"`` (each party routes its 1/q token slice and its
+    buckets travel to the experts' parties and back).  The reference's
+    ``moe_capacity_data_sharded`` is read nowhere in the reference, so it
+    is not ported.
     ``remat``, ``unroll_layers`` and ``seq_parallel_norms`` are the
     reference's memory and mesh levers; none is ported, and setting one
     raises (ROADMAP A15e)."""
@@ -118,6 +126,7 @@ class Runtime:
     attn_impl: str = "kernel"
     attn_chunk: int = 1024
     loss_chunk: int = 512
+    moe_dispatch: str = "replicated"
     remat: bool = False
     unroll_layers: Optional[int] = None
     seq_parallel_norms: bool = False
@@ -141,6 +150,9 @@ class Runtime:
         if self.loss_chunk < 1:
             raise ValueError(f"loss_chunk must be >= 1; got "
                              f"{self.loss_chunk}")
+        if self.moe_dispatch not in MOE_DISPATCHES:
+            raise ValueError(f"moe_dispatch must be one of "
+                             f"{MOE_DISPATCHES}; got {self.moe_dispatch!r}")
         if self.remat or self.unroll_layers is not None \
                 or self.seq_parallel_norms:
             raise NotImplementedError(

@@ -82,7 +82,9 @@ def _cpu_engine():
     "run_deep_guarded_fused", "run_deep_faulted_reference",
     "run_deep_guarded_reference", "supervised_guarded_run_deep",
     "FusedEngine_mesh", "ServeEngine_mesh", "run_async", "run_sync",
-    "analysis_main", "analyze_matrix", "lm_train", "lm_make_train_batch"])
+    "analysis_main", "analyze_matrix", "lm_train", "lm_make_train_batch",
+    "serve_granite_moe", "serve_qwen3_moe", "lm_init_params_moe",
+    "lm_init_cache_moe", "lm_params_moe", "lm_train_moe"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
                                                                entry,
                                                                tmp_path):
@@ -202,6 +204,21 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
         "lm_make_train_batch": lambda: make_batch(
             get_arch("falcon_mamba_7b").reduced(),
             ShapeConfig("t", 4, 1, "train"), Runtime()),
+        # models/moe.py takes tensors and a generator and follows their
+        # device; the MoE family's card-defaulting entry points are these
+        "serve_granite_moe": lambda: serve("granite_moe_1b_a400m", batch=1,
+                                           prompt_len=2, gen_tokens=1),
+        "serve_qwen3_moe": lambda: serve("qwen3_moe_30b_a3b", batch=1,
+                                         prompt_len=2, gen_tokens=1),
+        "lm_init_params_moe": lambda: lm_model.init_params(
+            get_arch("qwen3_moe_30b_a3b").reduced()),
+        "lm_init_cache_moe": lambda: lm_model.init_cache(
+            Runtime(), get_arch("granite_moe_1b_a400m").reduced(), 1, 4),
+        "lm_params_moe": lambda: convert.lm_params(
+            lm_model.init_params(get_arch("granite_moe_1b_a400m").reduced(),
+                                 device="cpu"), q=1),
+        "lm_train_moe": lambda: lm_train.train("granite_moe_1b_a400m", 1, 1,
+                                               4, 1e-3),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
