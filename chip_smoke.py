@@ -316,7 +316,31 @@ JAX or of the JAX package.
    where the margin decides (also ``ring_masks`` against ``two_tree``;
    on random weights router flips cascade over the layers, so these two
    carry little, and the count of decided tokens is recorded).
-   Profiler windows over one prefill and one decode step.  It runs last.
+   Profiler windows over one prefill and one decode step.
+21. Hybrid serving, jamba-v0.1-52b at full width with one whole period,
+   8 of its 32 layers (d_model 4,096; 7 mamba mixers, d_inner 8,192,
+   N = 16, and 1 attention mixer, 32 query and 8 KV heads of 128; 4 MLP
+   and 4 MoE feed-forwards, 16 experts top-2 of width 14,336;
+   vocabulary 65,536; 13.0 B random f32 parameters, 52.1 GB) across
+   q = 8 parties under ``two_tree`` (``replicated``, 2 experts a party):
+   ``launch.serve.serve`` with batch 4, a 2,048-token prompt (8,192
+   tokens, 1,280 rows a bucket at cf 1.25) and 32 generated tokens.  In
+   that call ``selective_scan`` must launch 7 times, ``flash_attention``
+   once and ``decode_attention`` 31 times, and no other kernel; its
+   decode starts from zeros, as the reference's (ROADMAP C.R6).  A second
+   call repeats the tokens and gives the (warm) times.  Then one more
+   decode step on the cache the first call left, layer by layer: the
+   attention layer's ``decode_attention`` route within atol = rtol =
+   5e-2 of the plain route on the same input and cache, every mamba
+   layer's new state finite; the first 16 prompt tokens decoded one at a
+   time from zeros against the full forward's greedy tokens (≥ 95% of
+   the positions the margin decides, their count recorded; the MoE
+   layers at cf = E/k there); the prefill walked layer by layer in the
+   period's order as in phase 20 (each mamba mixer against the oracle
+   scan, the attention mixer against the plain chunked attention, each
+   MoE layer against its f32 per-expert oracle, the dropped share
+   recorded), end to end as phase 20.  Profiler windows over one prefill
+   and one decode step.  It runs last.
 
 The ``vfl_grad`` source holds five kernel programs:
 ``vfl_forward_narrow`` (M <= 4, the linear path), ``vfl_forward_wide``
@@ -350,7 +374,8 @@ just before phase 18's census epochs and after its quick lint,
 just before phase 9's serve call and after it, just before phase
 10's serve call and after it, just before phase 19's no-grad
 kernel-route forwards and after each (its training steps must launch
-nothing), just before phase 20's serve call and after it;
+nothing), just before phase 20's serve call and after it, just before
+phase 21's serve call and after it;
 each count must equal what the dispatch or step structure implies, every
 program of each path must have run, and no other program.  The
 ``kernels`` line has one entry per program, timed at its main-path shape
@@ -366,7 +391,8 @@ calls of each equal bit for bit, and timed at the prefill shape with
 mamba's a_log; its bound is the
 larger of its bytes over the HBM rate and its exponentials over the
 special-function units' rate (16 per clock per SM at the card's maximum
-SM clock); its launches are phase 9's serve call's and phase 19's.  The
+SM clock); its launches are phase 9's and 21's serve calls' and phase
+19's.  The
 ``flash_attention`` source holds one program (bf16 at dh 64-256 on the
 tensor cores through wgmma on TMA-fed tiles, bf16 at dh 32 through
 mma.sync, f32 on the CUDA cores), held against its plain version at
@@ -393,10 +419,11 @@ L2) and cold (the calls rotate over enough
 operand sets that each finds its bytes gone from L2, as every layer of
 the model does); the bound is held against the cold time.  Their
 ``kernels`` line entries give the local-window shape's warm time (29 of
-the 34 layers) and phase 10's and phase 20's serve calls' launches
+the 34 layers) and phase 10's, 20's and 21's serve calls' launches
 (flash attention adds phase 19's); both also run at phase 20's
 qwen3-moe shapes (flash (4, 32, 2048, 128) over 4 KV heads, decode q (4,
-32, 128) over (4, 2080, 4, 128) as 8 shards at pos 2050).  Every path's
+32, 128) over (4, 2080, 4, 128) as 8 shards at pos 2050) and at phase
+21's jamba shapes (the same over 8 KV heads).  Every path's
 checks also require that no program of another path ran.  The four
 sources build in parallel.  Any failed check exits non-zero.  The last
 three lines are the card's name and power limit, the ``kernels``
@@ -478,6 +505,10 @@ MOE_ROUTE_MARGIN = 1e-6
 # at least this share of the tokens is compared: those routed otherwise,
 # and those that one of them may have moved in a bucket, are left out
 MOE_MIN_SHARE = 0.5
+# phase 21: hybrid serving, jamba-v0.1-52b at full width, one whole period
+# (8 of 32 layers); 16 teacher-forced decode positions from zeros
+HYBRID_ARCH, HYBRID_LAYERS, HYBRID_Q, HYBRID_BATCH = "jamba_v0_1_52b", 8, 8, 4
+HYBRID_PROMPT, HYBRID_GEN, HYBRID_TEACHER = 2048, 32, 16
 
 
 class SmokeFailure(RuntimeError):
@@ -1085,7 +1116,9 @@ def flash_rows(torch, dev):
     keeps (bf16 at the dense tensor peak, f32 at the f32 peak) against the
     bytes of q, k, v and o.  The library yardstick is one
     ``scaled_dot_product_attention`` call (``enable_gqa``; ``is_causal``
-    or a boolean window mask).  Warm and cold times as ``_timed_row``."""
+    or a boolean window mask).  Warm and cold times as ``_timed_row``;
+    the rows at S ≥ 2,048 with its fewer repeats (the plain version takes
+    14-20 ms a call there)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED + 30)
@@ -1099,6 +1132,8 @@ def flash_rows(torch, dev):
              ("internlm2", 1, 48, 8, DENSE_PROMPT, 128, True, None,
               torch.bfloat16),
              ("qwen3_moe", MOE_BATCH, 32, 4, MOE_PROMPT, 128, True, None,
+              torch.bfloat16),
+             ("jamba", HYBRID_BATCH, 32, 8, HYBRID_PROMPT, 128, True, None,
               torch.bfloat16),
              ("ragged", 1, 4, 2, 1000, 128, True, None, torch.bfloat16),
              ("small_f32", 2, 4, 2, 256, 64, True, 96, torch.float32)]
@@ -1147,7 +1182,7 @@ def flash_rows(torch, dev):
             [lambda q=q, k=k, v=v: library(q, k, v) for q, k, v in sets],
             nbytes, 4.0 * b * h * dh * pairs,
             BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S,
-            err, big=s >= DENSE_PROMPT))
+            err, big=s >= MOE_PROMPT))
         rows[-1]["valid_pairs"] = pairs
         del q, k, v, first, sets, got, mask
         torch.cuda.empty_cache()
@@ -1182,7 +1217,8 @@ def decode_rows(torch, dev):
             ("future", 8, 4, 256, dense_s, 1000, None),
             ("granite", 32, 8, 128, dense_s, 4100, None),
             ("internlm2", 48, 8, 128, dense_s, 4100, None),
-            ("qwen3_moe", 32, 4, 128, MOE_PROMPT + MOE_GEN, 2050, None)):
+            ("qwen3_moe", 32, 4, 128, MOE_PROMPT + MOE_GEN, 2050, None),
+            ("jamba", 32, 8, 128, HYBRID_PROMPT + HYBRID_GEN, 2050, None)):
         b = DENSE_BATCH
 
         def operands():
@@ -3693,53 +3729,250 @@ def _rel_l2(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def _layer_walk(torch, rt, cfg, params, x, x2):
-    """The prefill's stack layer by layer in three streams: the kernel
-    path from ``x``, the oracle-scan path from ``x`` and the kernel path
-    from ``x2`` (the same prompt embedded under another mask draw).  At
-    every layer the kernel block and the oracle block run on the kernel
-    stream's same input and must agree within LM_TOL; the streams' relative
-    L2 distances are recorded after each layer."""
+def _mixer_step(torch, kern, plain, cfg, kind, p, hn, window):
+    """One layer's mixer (``kind``: attention for a kind starting "attn",
+    else the SSM) on the kernel routes (``kern``: ``selective_scan``,
+    ``flash_attention``) and on the plain ones (``plain``: the sequential
+    scan, the chunked attention) on the same normed input hn.  Returns the
+    kernel route's output and, against the plain one, the largest
+    absolute error and the count of elements beyond atol = rtol =
+    LM_TOL."""
     from repro_torch.models import model as lm
     from repro_torch.models import ssm as ssm_lib
+    if kind.startswith("attn"):
+        ok, _ = lm._apply_attention(kern, cfg, p["attn"], hn, window)
+        orr, _ = lm._apply_attention(plain, cfg, p["attn"], hn, window)
+    else:
+        ok = ssm_lib.apply_ssm(p["ssm"], hn, scan_impl=kern.scan_impl)
+        orr = ssm_lib.apply_ssm(p["ssm"], hn, scan_impl=plain.scan_impl)
+    err = (ok.float() - orr.float()).abs()
+    return ok, float(err.max()), int(
+        (err > LM_TOL + LM_TOL * orr.float().abs()).sum())
+
+
+def _moe_step(torch, kern, cfg, p, xa, first):
+    """One MoE layer's feed-forward on the residual stream xa: the layer
+    (``replicated``, under no host sync) against ``_moe_oracle`` on the
+    same normed input, with its aux terms; at the ``first`` MoE layer of
+    the stack, on the first prompt row, ``alltoall`` against
+    ``replicated`` at a capacity where nothing drops (cf = E/k).  Returns
+    (xa + the layer's output, its record)."""
+    from repro_torch.models import moe
     from repro_torch.models.layers import rms_norm
-    worst, bad, ref_s = 0.0, 0, 0.0
-    vs_oracle, vs_masks = [], []
+    m = cfg.moe
+    h2 = rms_norm(xa, p["norm2"])
+    torch.cuda.synchronize()
+    with no_host_sync(torch):
+        mo, aux = moe.apply_moe_sharded(kern, p["moe"], h2, top_k=m.top_k,
+                                        capacity_factor=m.capacity_factor)
+    torch.cuda.synchronize()
+    row = dict(_moe_oracle(torch, p["moe"], h2, m, mo),
+               lb_loss=float(aux["lb_loss"]), z_loss=float(aux["z_loss"]))
+    if first:
+        wide = dict(top_k=m.top_k, capacity_factor=m.n_experts / m.top_k)
+        one = h2[:1]
+        a2a, a2a_aux = moe.apply_moe_sharded(kern, p["moe"], one,
+                                             dispatch="alltoall", **wide)
+        rep, _ = moe.apply_moe_sharded(kern, p["moe"], one,
+                                       dispatch="replicated", **wide)
+        single, _ = moe.apply_moe(p["moe"], one, **wide)
+        row["alltoall_vs_replicated"] = dict(
+            tokens=one.shape[1],
+            max_abs_diff=float((a2a.float() - rep.float()).abs().max()),
+            replicated_max=float(rep.float().abs().max()),
+            alltoall_equals_one_party=bool(torch.equal(a2a, single)),
+            alltoall_lb_loss=float(a2a_aux["lb_loss"]))
+    return xa + mo, row
+
+
+def _walk(torch, cfg, params, x, x2, q):
+    """The prefill's stack layer by layer (``models.model._blocks``: a
+    period stack period by period) in three streams: the kernel routes
+    from ``x``, the plain routes (``scan_impl`` and ``attn_impl``
+    "reference") from ``x`` and the kernel routes from ``x2`` (the same
+    prompt embedded under another mask draw), across q parties.  At
+    every layer ``_mixer_step`` holds the kernel mixer against the plain
+    one on the kernel stream's normed input, and an MoE layer's
+    feed-forward goes through ``_moe_step``; the streams' relative L2
+    distances are recorded after each layer."""
+    from repro_torch.models import model as lm
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.sharding.api import Runtime
+    kern = Runtime(model_size=q)
+    plain = Runtime(model_size=q, scan_impl="reference",
+                    attn_impl="reference")
+    windows = lm.layer_windows(cfg, x.shape[1])
+    worst, bad, plain_s = 0.0, 0, 0.0
+    moe_layers, vs_ref, vs_masks = [], [], []
     xk, xr, xk2 = x, x, x2
-    for i in range(cfg.n_layers):
-        p = lm._layer(params["stack"], i)
-        hn = rms_norm(xk, p["norm1"])
-        ok = ssm_lib.apply_ssm(p["ssm"], hn, scan_impl="kernel")
+    for i, kind, p in lm._blocks(cfg, params):
+        w = windows[i]
+        ok, err, beyond = _mixer_step(torch, kern, plain, cfg, kind, p,
+                                      rms_norm(xk, p["norm1"]), w)
+        worst, bad = max(worst, err), bad + beyond
+        if "moe" in p:
+            xk, row = _moe_step(torch, kern, cfg, p, xk + ok,
+                                first=not moe_layers)
+            moe_layers.append(dict(row, layer=i, kind=kind))
+        else:
+            xk, _ = lm._apply_ffn(kern, cfg, p, xk + ok)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        orr = ssm_lib.apply_ssm(p["ssm"], hn, scan_impl="reference")
-        xr = xr + ssm_lib.apply_ssm(p["ssm"], rms_norm(xr, p["norm1"]),
-                                    scan_impl="reference")
+        xr, _ = lm._block_fwd(plain, cfg, kind, p, xr, w)
         torch.cuda.synchronize()
-        ref_s += time.perf_counter() - t0
-        err = (ok.float() - orr.float()).abs()
-        worst = max(worst, float(err.max()))
-        bad += int((err > LM_TOL + LM_TOL * orr.float().abs()).sum())
-        xk = xk + ok
-        xk2 = xk2 + ssm_lib.apply_ssm(p["ssm"], rms_norm(xk2, p["norm1"]),
-                                      scan_impl="kernel")
-        vs_oracle.append(_rel_l2(xk, xr))
+        plain_s += time.perf_counter() - t0
+        xk2, _ = lm._block_fwd(kern, cfg, kind, p, xk2, w)
+        vs_ref.append(_rel_l2(xk, xr))
         vs_masks.append(_rel_l2(xk2, xk))
     fin = params["final_norm"]
     hidden = tuple(rms_norm(v, fin) for v in (xk, xr, xk2))
-    at = [1, 2, 4, 8, 16, 32, 64]
-    return dict(
-        block_max_abs_err=worst, block_beyond_tol=bad, oracle_scan_s=ref_s,
+    res = dict(
+        mixer_max_abs_err=worst, mixer_beyond_tol=bad, plain_path_s=plain_s,
         depth=cfg.n_layers,
-        rel_l2_vs_oracle=_rel_l2(hidden[0], hidden[1]),
+        rel_l2_vs_reference=_rel_l2(hidden[0], hidden[1]),
         rel_l2_vs_mask_redraw=_rel_l2(hidden[2], hidden[0]),
-        max_abs_err_vs_oracle=float((hidden[0].float()
-                                     - hidden[1].float()).abs().max()),
-        stream_rel_l2_vs_oracle={n: vs_oracle[n - 1] for n in at
-                                 if n <= cfg.n_layers},
-        stream_rel_l2_vs_mask_redraw={n: vs_masks[n - 1] for n in at
-                                      if n <= cfg.n_layers},
-        hidden=hidden)
+        max_abs_err_vs_reference=float((hidden[0].float()
+                                        - hidden[1].float()).abs().max()),
+        stream_rel_l2_vs_reference=vs_ref,
+        stream_rel_l2_vs_mask_redraw=vs_masks, hidden=hidden)
+    if moe_layers:
+        res.update(
+            moe_layers=moe_layers,
+            moe_worst_rel_err=max(r["max_abs_err"] / r["oracle_max"]
+                                  for r in moe_layers),
+            moe_worst_rel_l2=max(r["rel_l2"] for r in moe_layers),
+            dropped_share=sum(r["dropped"] for r in moe_layers)
+            / sum(r["assignments"] for r in moe_layers))
+    return res
+
+
+def _check_walk(walk, what):
+    """``_walk``'s hard checks: every mixer within LM_TOL of the plain
+    route's, every MoE layer within phase 20's rules of its f32 oracle
+    (and ``alltoall`` within MOE_TOL of ``replicated`` where nothing
+    drops), and the kernel path's final hidden states no farther from the
+    plain path's than twice a mask redraw's distance."""
+    check(walk["mixer_beyond_tol"] == 0,
+          f"{what}: {walk['mixer_beyond_tol']} elements of the kernel-path "
+          f"mixers beyond atol = rtol = {LM_TOL} of the plain route's on "
+          f"the same input (max abs err {walk['mixer_max_abs_err']})")
+    for r in walk.get("moe_layers", []):
+        check(r["selection_differs_decided"] == 0
+              and r["compared_share"] >= MOE_MIN_SHARE
+              and r["max_abs_err"] <= MOE_TOL * r["oracle_max"]
+              and r["rel_l2"] <= MOE_L2,
+              f"{what}: MoE layer {r['layer']} against the f32 per-expert "
+              f"oracle: {r} (want no token routed otherwise where the "
+              f"oracle's k-th/(k+1)-th margin exceeds {MOE_ROUTE_MARGIN}, "
+              f"and max abs err <= {MOE_TOL} x the oracle's largest value "
+              f"and relative L2 <= {MOE_L2} on the tokens whose buckets "
+              f"agree, at least {MOE_MIN_SHARE} of them)")
+        a2a = r.get("alltoall_vs_replicated")
+        check(a2a is None
+              or a2a["max_abs_diff"] <= MOE_TOL * a2a["replicated_max"],
+              f"{what}: alltoall against replicated where nothing drops: "
+              f"{a2a}")
+    check(walk["rel_l2_vs_reference"] <= 2 * walk["rel_l2_vs_mask_redraw"],
+          f"{what}: kernel-path prefill {walk['rel_l2_vs_reference']} from "
+          "the plain-route prefill, more than twice the "
+          f"{walk['rel_l2_vs_mask_redraw']} a mask redraw moves it")
+
+
+def _serve_twice(torch, arch, kw, phase, log_):
+    """A phase's two ``serve`` calls.  The first is counted: every
+    program's launch count is set to 0 just before it and read just
+    after; its ids must lie in [0, padded vocabulary) and every leaf of
+    its decode state be finite.  The second, warm, gives the reported
+    numbers and must repeat the first call's tokens.  Returns (record,
+    launches of the first call by program, its result)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.optim.tree import leaves
+    b, g = kw["batch"], kw["gen_tokens"]
+    vpad = get_arch(arch).padded_vocab
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                  # main path starts
+    t0 = time.perf_counter()
+    out = serve(arch, **kw)
+    wall = time.perf_counter() - t0
+    launches = {prog: n for lib in _libs()          # main path ends
+                for prog, n in lib.launches.items()}
+    res = {"serve_first": dict(_serve_metrics(torch, out, wall, b, g),
+                               launches=launches,
+                               tokens_row0=out.tokens[0].tolist())}
+    log_(f"phase {phase} serve (first call, counted): {res['serve_first']}")
+    check(out.tokens.shape == (b, g)
+          and ((out.tokens >= 0) & (out.tokens < vpad)).all(),
+          f"phase {phase}: generated ids outside [0, {vpad}): {out.tokens}")
+    check(all(bool(torch.isfinite(v.float()).all())
+              for v in leaves(out.cache)),
+          f"phase {phase}: a decode-state leaf is not finite")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = serve(arch, **kw)
+    res["serve"] = _serve_metrics(torch, again, time.perf_counter() - t0,
+                                  b, g)
+    log_(f"phase {phase} serve (second call, warm): {res['serve']}")
+    check(np.array_equal(again.tokens, out.tokens),
+          f"phase {phase}: a second serve with the same seed gave other "
+          "tokens")
+    return res, launches, out
+
+
+def _prefill_walk(torch, cfg, params, batch, gen, tok, q, phase, log_):
+    """The prefill through ``_walk`` (its checks included), then end to
+    end: the kernel path's next tokens against the plain path's, and a
+    ``ring_masks`` prefill's against ``tok`` (``two_tree``'s), equal
+    wherever the plain path's top-two margin decides them (on random
+    weights router flips may leave none decided: logged).  Returns the
+    walk's record."""
+    from repro_torch.models import model as lm
+    from repro_torch.sharding.api import Runtime
+    from repro_torch.vfl.heads import vocab_parallel_greedy
+    rt = Runtime(model_size=q)
+    tok_ring, _ = lm.prefill(Runtime(model_size=q, secure_mode="ring_masks"),
+                             cfg, params, batch, gen)
+    x = lm._embed_tokens(rt, cfg, params, batch["tokens"], gen)
+    x2 = lm._embed_tokens(rt, cfg, params, batch["tokens"], gen)
+    walk = _walk(torch, cfg, params, x, x2, q)
+    h, h_ref, _ = walk.pop("hidden")
+    logits = _logits(torch, params, h_ref[:, -1])
+    kt = vocab_parallel_greedy(rt, params["embed"], h[:, -1])
+    rt_tok = vocab_parallel_greedy(rt, params["embed"], h_ref[:, -1])
+    decided = _decided_tokens_equal(torch, kt, rt_tok, logits,
+                                    "kernel vs reference prefill")
+    walk.update(
+        embed_elements_differing=int((x != x2).sum()),
+        decided=decided, decided_tokens=round(decided * len(tok)),
+        ring_decided=_decided_tokens_equal(
+            torch, tok_ring, tok, logits, "ring_masks vs two_tree"),
+        prefill_tokens=tok.tolist(), kernel_tokens=kt.tolist(),
+        reference_tokens=rt_tok.tolist())
+    log_(f"phase {phase} layer walk: {walk}")
+    _check_walk(walk, f"phase {phase}")
+    if walk["decided_tokens"] == 0:
+        log_(f"phase {phase}: no prefill token's margin decides it; the "
+             "token check compared none")
+    return walk
+
+
+def _profile_windows(torch, fns, phase, log_):
+    """A profiler window (``_device_profile``) over one warm call of each
+    of ``fns`` (name → callable)."""
+    out = {}
+    for name, fn in fns.items():
+        fn()                                          # warm
+        out[name] = _device_profile(torch, fn)
+        log_(f"phase {phase} profile of one {name}: {out[name]}")
+    return out
+
+
+def _logits(torch, params, h):
+    """The greedy head's bf16 logits of hidden states h (..., D), read
+    as f32 (the party blocks, concatenated, are the whole table)."""
+    table = params["embed"].to(torch.bfloat16)
+    return torch.matmul(h.to(torch.bfloat16), table.T).float()
 
 
 def lm_phase(torch, dev, log_):
@@ -3749,54 +3982,23 @@ def lm_phase(torch, dev, log_):
     from repro_torch.configs.inputs import make_batch
     from repro_torch.core.secure_agg import mask_generator
     from repro_torch.kernels import selective_scan as ssk
-    from repro_torch.launch.serve import serve
     from repro_torch.models import model as lm
     from repro_torch.sharding.api import Runtime
-    from repro_torch.vfl.embed import party_blocks
-    from repro_torch.vfl.heads import vocab_parallel_greedy
     cfg = get_arch(LM_ARCH)
-    vpad, layers = cfg.padded_vocab, cfg.n_layers
+    layers = cfg.n_layers
     kw = dict(batch=LM_BATCH, prompt_len=LM_PROMPT, gen_tokens=LM_GEN,
               reduced=False, model_parallel=LM_Q, seed=SEED)
     res = {"config": dict(arch=LM_ARCH, q=LM_Q, batch=LM_BATCH,
                           prompt=LM_PROMPT, generated=LM_GEN,
                           layers=layers, d_model=cfg.d_model,
-                          vocab=cfg.vocab, padded_vocab=vpad)}
-
-    def serve_metrics(out, wall):
-        return _serve_metrics(torch, out, wall, LM_BATCH, LM_GEN)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()                                  # main path starts
-    t0 = time.perf_counter()
-    out = serve(LM_ARCH, **kw)
-    wall = time.perf_counter() - t0
-    launches = ssk.KERNEL.launches["selective_scan"]  # main path ends
+                          vocab=cfg.vocab, padded_vocab=cfg.padded_vocab)}
+    calls, launches, _ = _serve_twice(torch, LM_ARCH, kw, 9, log_)
+    res.update(calls)
+    launches = launches["selective_scan"]
     check_idle([lib for lib in _libs() if lib is not ssk.KERNEL],
                "SSM serving")
-    res["serve_first"] = dict(serve_metrics(out, wall),
-                              selective_scan_launches=launches,
-                              tokens_row0=out.tokens[0].tolist())
-    log_(f"phase 9 serve (first call, counted): {res['serve_first']}")
     check(launches == layers, f"serve launched selective_scan {launches} "
           f"times, not once per layer of the prefill ({layers})")
-    check(out.tokens.shape == (LM_BATCH, LM_GEN)
-          and ((out.tokens >= 0) & (out.tokens < vpad)).all(),
-          f"generated ids outside [0, {vpad}): {out.tokens}")
-    check(all(bool(torch.isfinite(v.float()).all())
-              for v in out.cache.values()), "a decode-state leaf is not "
-          "finite")
-    # the second call, warm, gives the reported numbers and must repeat
-    # the first call's tokens
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    again = serve(LM_ARCH, **kw)
-    res["serve"] = serve_metrics(again, time.perf_counter() - t0)
-    log_(f"phase 9 serve (second call, warm): {res['serve']}")
-    check(np.array_equal(again.tokens, out.tokens),
-          "a second serve with the same seed gave other tokens")
-    del out, again
 
     rt = Runtime(model_size=LM_Q)
     with torch.no_grad():
@@ -3818,50 +4020,12 @@ def lm_phase(torch, dev, log_):
         check(per_prefill == layers and per_step == 0,
               f"selective_scan launches: {per_prefill} per prefill (want "
               f"{layers}), {per_step} per decode step (want 0)")
-
-        ring = Runtime(model_size=LM_Q, secure_mode="ring_masks")
-        tok_ring, _ = lm.prefill(ring, cfg, params, batch, gen)
-
-        x = lm._embed_tokens(rt, cfg, params, batch["tokens"], gen)
-        x2 = lm._embed_tokens(rt, cfg, params, batch["tokens"], gen)
-        walk = _layer_walk(torch, rt, cfg, params, x, x2)
-        h, h_ref, h2 = walk.pop("hidden")
-        table = party_blocks(params["embed"], LM_Q).to(torch.bfloat16)
-        logits = torch.matmul(h_ref[:, -1].to(torch.bfloat16),
-                              table.reshape(vpad, -1).T).float()
-        kt = vocab_parallel_greedy(rt, params["embed"], h[:, -1])
-        rt_tok = vocab_parallel_greedy(rt, params["embed"], h_ref[:, -1])
-        decided = _decided_tokens_equal(torch, kt, rt_tok, logits,
-                                        "kernel vs reference prefill")
-        walk.update(
-            embed_elements_differing=int((x != x2).sum()),
-            decided=decided, decided_tokens=round(decided * MOE_BATCH),
-            ring_decided=_decided_tokens_equal(
-                torch, tok_ring, tok, logits, "ring_masks vs two_tree"),
-            prefill_tokens=tok.tolist(), kernel_tokens=kt.tolist(),
-            oracle_tokens=rt_tok.tolist())
-        res["kernel_vs_reference"] = walk
-        log_(f"phase 9 kernel-path vs oracle-scan prefill: {walk}")
-        check(walk["block_beyond_tol"] == 0,
-              f"kernel-path blocks: {walk['block_beyond_tol']} elements "
-              f"beyond atol = rtol = {LM_TOL} of the oracle scan's block "
-              f"on the same input (max abs err {walk['block_max_abs_err']})")
-        check(walk["rel_l2_vs_oracle"]
-              <= 2 * walk["rel_l2_vs_mask_redraw"],
-              f"kernel-path prefill {walk['rel_l2_vs_oracle']} from the "
-              "oracle-scan prefill, more than twice the "
-              f"{walk['rel_l2_vs_mask_redraw']} a mask redraw moves it")
-        del x, x2, h, h_ref, h2, table
-
-        windows = {
+        res["kernel_vs_reference"] = _prefill_walk(
+            torch, cfg, params, batch, gen, tok, LM_Q, 9, log_)
+        res["profile"] = _profile_windows(torch, {
             "prefill": lambda: lm.prefill(rt, cfg, params, batch, gen),
             "decode_step": lambda: lm.decode_step(rt, cfg, params, step,
-                                                  gen)}
-        res["profile"] = {}
-        for name, fn in windows.items():
-            fn()                                      # warm
-            res["profile"][name] = _device_profile(torch, fn)
-            log_(f"phase 9 profile of one {name}: {res['profile'][name]}")
+                                                  gen)}, 9, log_)
         del params
     torch.cuda.empty_cache()
     return res, launches
@@ -3871,62 +4035,24 @@ def lm_phase(torch, dev, log_):
 # phase 10: dense LM serving
 # ---------------------------------------------------------------------------
 
-def _dense_walk(torch, cfg, params, x, x2):
-    """The prefill's stack layer by layer in three streams: the kernel
-    path (``attn_impl="kernel"``) from ``x``, the reference path
-    (``"reference"``: the plain chunked attention) from ``x`` and the
-    kernel path from ``x2`` (the same prompt embedded under another mask
-    draw).  At every layer the two attentions run on the kernel stream's
-    same normed input and must agree within LM_TOL; the streams' relative
-    L2 distances are recorded after each layer."""
-    from repro_torch.models import model as lm
-    from repro_torch.models.layers import rms_norm
-    from repro_torch.sharding.api import Runtime
-    kern, plain = Runtime(model_size=DENSE_Q), Runtime(
-        model_size=DENSE_Q, attn_impl="reference")
-    windows = lm.layer_windows(cfg, x.shape[1])
-    worst, bad, ref_s = 0.0, 0, 0.0
-    vs_ref, vs_masks = [], []
-    xk, xr, xk2 = x, x, x2
-    for i in range(cfg.n_layers):
-        p, w = lm._layer(params["stack"], i), windows[i]
-        hn = rms_norm(xk, p["norm1"])
-        ok, _ = lm._apply_attention(kern, cfg, p["attn"], hn, w)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        orr, _ = lm._apply_attention(plain, cfg, p["attn"], hn, w)
-        xr, _ = lm._block_fwd(plain, cfg, "attn_mlp", p, xr, w)
-        torch.cuda.synchronize()
-        ref_s += time.perf_counter() - t0
-        err = (ok.float() - orr.float()).abs()
-        worst = max(worst, float(err.max()))
-        bad += int((err > LM_TOL + LM_TOL * orr.float().abs()).sum())
-        xk, _ = lm._apply_ffn(kern, cfg, p, xk + ok)
-        xk2, _ = lm._block_fwd(kern, cfg, "attn_mlp", p, xk2, w)
-        vs_ref.append(_rel_l2(xk, xr))
-        vs_masks.append(_rel_l2(xk2, xk))
-    fin = params["final_norm"]
-    hidden = tuple(rms_norm(v, fin) for v in (xk, xr, xk2))
-    at = [1, 2, 4, 6, 12, 18, 24, 34]
-    return dict(
-        attn_max_abs_err=worst, attn_beyond_tol=bad, reference_attn_s=ref_s,
-        depth=cfg.n_layers,
-        rel_l2_vs_reference=_rel_l2(hidden[0], hidden[1]),
-        rel_l2_vs_mask_redraw=_rel_l2(hidden[2], hidden[0]),
-        max_abs_err_vs_reference=float((hidden[0].float()
-                                        - hidden[1].float()).abs().max()),
-        stream_rel_l2_vs_reference={n: vs_ref[n - 1] for n in at
-                                    if n <= cfg.n_layers},
-        stream_rel_l2_vs_mask_redraw={n: vs_masks[n - 1] for n in at
-                                      if n <= cfg.n_layers},
-        hidden=hidden)
-
-
-def _logits(torch, params, h):
-    """The greedy head's bf16 logits of hidden states h (..., D), read
-    as f32 (the party blocks, concatenated, are the whole table)."""
-    table = params["embed"].to(torch.bfloat16)
-    return torch.matmul(h.to(torch.bfloat16), table.T).float()
+def _decode_vs_forward(torch, rt, cfg, params, dec, hf):
+    """Greedy tokens ``dec`` (B, S) of teacher-forced decode steps
+    against the full forward's at the same positions, from its normed
+    hidden states hf (B, S, D): equal in the positions whose top-two
+    logit margin exceeds LM_TOL of the top logit
+    (``tests/test_decode_consistency.py``'s check; ``agreement`` None
+    where none is decided)."""
+    from repro_torch.vfl.heads import vocab_parallel_greedy
+    b = dec.shape[0]
+    fwd = vocab_parallel_greedy(rt, params["embed"],
+                                hf.reshape(-1, cfg.d_model)).view(b, -1)
+    top = torch.topk(_logits(torch, params, hf), 2, dim=-1).values
+    decided = (top[..., 0] - top[..., 1]) > LM_TOL * top[..., 0].abs()
+    agree = float((dec == fwd)[decided].float().mean()) \
+        if decided.any() else None
+    return dict(positions=int(decided.numel()), decided=int(decided.sum()),
+                agreement=agree,
+                all_positions_agreement=float((dec == fwd).float().mean()))
 
 
 def dense_phase(torch, dev, log_):
@@ -3937,12 +4063,10 @@ def dense_phase(torch, dev, log_):
     from repro_torch.core.secure_agg import mask_generator
     from repro_torch.kernels import decode_attention as dak
     from repro_torch.kernels import flash_attention as fak
-    from repro_torch.launch.serve import serve
     from repro_torch.models import model as lm
     from repro_torch.sharding.api import Runtime
-    from repro_torch.vfl.heads import vocab_parallel_greedy
     cfg = get_arch(DENSE_ARCH)
-    vpad, layers = cfg.padded_vocab, cfg.n_layers
+    layers = cfg.n_layers
     kw = dict(batch=DENSE_BATCH, prompt_len=DENSE_PROMPT,
               gen_tokens=DENSE_GEN, reduced=False, model_parallel=DENSE_Q,
               seed=SEED)
@@ -3951,24 +4075,13 @@ def dense_phase(torch, dev, log_):
         arch=DENSE_ARCH, q=DENSE_Q, batch=DENSE_BATCH, prompt=DENSE_PROMPT,
         generated=DENSE_GEN, layers=layers, d_model=cfg.d_model,
         heads=cfg.n_heads, kv_heads=cfg.n_kv, d_head=cfg.head_dim,
-        d_ff=cfg.d_ff, vocab=cfg.vocab, padded_vocab=vpad,
+        d_ff=cfg.d_ff, vocab=cfg.vocab, padded_vocab=cfg.padded_vocab,
         window=cfg.window,
         global_layers=[i for i, w in enumerate(windows)
                        if w == DENSE_PROMPT])}
     steps = DENSE_GEN - 1
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()                                  # main path starts
-    t0 = time.perf_counter()
-    out = serve(DENSE_ARCH, **kw)
-    wall = time.perf_counter() - t0
-    launches = {prog: n for lib in _libs()          # main path ends
-                for prog, n in lib.launches.items()}
-    res["serve_first"] = dict(
-        _serve_metrics(torch, out, wall, DENSE_BATCH, DENSE_GEN),
-        launches=launches, tokens_row0=out.tokens[0].tolist())
-    log_(f"phase 10 serve (first call, counted): {res['serve_first']}")
+    calls, launches, _ = _serve_twice(torch, DENSE_ARCH, kw, 10, log_)
+    res.update(calls)
     check(launches["flash_attention"] == layers
           and launches["decode_attention"] == layers * steps,
           f"serve launched flash_attention {launches['flash_attention']} "
@@ -3976,20 +4089,6 @@ def dense_phase(torch, dev, log_):
           f"decode_attention {launches['decode_attention']} (want "
           f"{layers} x {steps} decode steps)")
     check_idle(_libs()[:2], "dense LM serving")
-    check(out.tokens.shape == (DENSE_BATCH, DENSE_GEN)
-          and ((out.tokens >= 0) & (out.tokens < vpad)).all(),
-          f"generated ids outside [0, {vpad}): {out.tokens}")
-    check(all(bool(torch.isfinite(v.float()).all())
-              for v in out.cache.values()), "a KV cache leaf is not finite")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    again = serve(DENSE_ARCH, **kw)
-    res["serve"] = _serve_metrics(torch, again, time.perf_counter() - t0,
-                                  DENSE_BATCH, DENSE_GEN)
-    log_(f"phase 10 serve (second call, warm): {res['serve']}")
-    check(np.array_equal(again.tokens, out.tokens),
-          "a second serve with the same seed gave other tokens")
-    del out, again
     torch.cuda.empty_cache()
 
     rt = Runtime(model_size=DENSE_Q)
@@ -4035,76 +4134,25 @@ def dense_phase(torch, dev, log_):
         xf = lm._embed_tokens(rt, cfg, params, full_tokens, gen)
         hf = lm._backbone(rt, cfg, params, xf)[:, DENSE_PROMPT - 1:]
         del xf
-        fwd = vocab_parallel_greedy(rt, params["embed"],
-                                    hf.reshape(-1, cfg.d_model)).view(
-                                        DENSE_BATCH, -1)
-        top = torch.topk(_logits(torch, params, hf), 2, dim=-1).values
-        decided = (top[..., 0] - top[..., 1]) > LM_TOL * top[..., 0].abs()
-        dec = torch.stack(dec, 1)
-        agree = float((dec == fwd)[decided].float().mean()) \
-            if decided.any() else 0.0
-        res["decode_vs_forward"] = dict(
-            positions=int(decided.numel()), decided=int(decided.sum()),
-            agreement=agree, all_positions_agreement=float(
-                (dec == fwd).float().mean()))
-        log_(f"phase 10 decode vs forward: {res['decode_vs_forward']}")
-        check(decided.any() and agree >= 0.95,
-              f"decode against the forward pass: {agree} of "
-              f"{int(decided.sum())} decided positions agree (want >= "
-              "0.95)")
-        del hf, top, decided, cache
+        tf = res["decode_vs_forward"] = _decode_vs_forward(
+            torch, rt, cfg, params, torch.stack(dec, 1), hf)
+        log_(f"phase 10 decode vs forward: {tf}")
+        check(tf["decided"] and tf["agreement"] >= 0.95,
+              f"decode against the forward pass: {tf['agreement']} of "
+              f"{tf['decided']} decided positions agree (want >= 0.95)")
+        del hf, cache
         torch.cuda.empty_cache()
 
-        plain = Runtime(model_size=DENSE_Q, attn_impl="reference")
-        ring = Runtime(model_size=DENSE_Q, secure_mode="ring_masks")
-        tok_ring, _ = lm.prefill(ring, cfg, params, batch, gen)
-        x = lm._embed_tokens(rt, cfg, params, batch["tokens"], gen)
-        x2 = lm._embed_tokens(rt, cfg, params, batch["tokens"], gen)
-        walk = _dense_walk(torch, cfg, params, x, x2)
-        h, h_ref, h2 = walk.pop("hidden")
-        logits = _logits(torch, params, h_ref[:, -1])
-        kt = vocab_parallel_greedy(rt, params["embed"], h[:, -1])
-        rt_tok = vocab_parallel_greedy(plain, params["embed"], h_ref[:, -1])
-        decided = _decided_tokens_equal(torch, kt, rt_tok, logits,
-                                        "kernel vs reference prefill")
-        walk.update(
-            embed_elements_differing=int((x != x2).sum()),
-            decided=decided, decided_tokens=round(decided * MOE_BATCH),
-            ring_decided=_decided_tokens_equal(
-                torch, tok_ring, tok, logits, "ring_masks vs two_tree"),
-            prefill_tokens=tok.tolist(), kernel_tokens=kt.tolist(),
-            reference_tokens=rt_tok.tolist())
-        res["kernel_vs_reference"] = walk
-        log_(f"phase 10 kernel-path vs reference-attention prefill: {walk}")
-        check(walk["attn_beyond_tol"] == 0,
-              f"kernel-path attention: {walk['attn_beyond_tol']} elements "
-              f"beyond atol = rtol = {LM_TOL} of the reference attention on "
-              f"the same input (max abs err {walk['attn_max_abs_err']})")
-        check(walk["rel_l2_vs_reference"]
-              <= 2 * walk["rel_l2_vs_mask_redraw"],
-              f"kernel-path prefill {walk['rel_l2_vs_reference']} from the "
-              "reference-attention prefill, more than twice the "
-              f"{walk['rel_l2_vs_mask_redraw']} a mask redraw moves it")
-        if walk["decided_tokens"] == 0:
-            # router flips cascade over random layers: the end-to-end
-            # checks then rest on the per-layer walk above
-            log_("phase 20: no prefill token's margin decides it; the "
-                 "token check compared none")
-        del x, x2, h, h_ref, h2, logits
-
-        cache = lm.init_cache(rt, cfg, DENSE_BATCH, DENSE_PROMPT + DENSE_GEN,
-                              device=dev)
-        step = {"token": tok, "pos": DENSE_PROMPT, "cache": cache}
-        profiles = {
+        res["kernel_vs_reference"] = _prefill_walk(
+            torch, cfg, params, batch, gen, tok, DENSE_Q, 10, log_)
+        step = {"token": tok, "pos": DENSE_PROMPT,
+                "cache": lm.init_cache(rt, cfg, DENSE_BATCH,
+                                       DENSE_PROMPT + DENSE_GEN, device=dev)}
+        res["profile"] = _profile_windows(torch, {
             "prefill": lambda: lm.prefill(rt, cfg, params, batch, gen),
             "decode_step": lambda: lm.decode_step(rt, cfg, params, step,
-                                                  gen)}
-        res["profile"] = {}
-        for name, fn in profiles.items():
-            fn()                                      # warm
-            res["profile"][name] = _device_profile(torch, fn)
-            log_(f"phase 10 profile of one {name}: {res['profile'][name]}")
-        del params, cache, step
+                                                  gen)}, 10, log_)
+        del params, step
     torch.cuda.empty_cache()
     return res, launches
 
@@ -4416,80 +4464,6 @@ def _moe_oracle(torch, p, h, m, got):
                 dropped=dropped, assignments=t * k, capacity=cap)
 
 
-def _moe_walk(torch, cfg, params, x, x2):
-    """The prefill's stack layer by layer in three streams, as
-    ``_dense_walk``: at every layer the two attentions on the kernel
-    stream's same normed input within LM_TOL, and the MoE layer
-    (``replicated``, under no host sync) against ``_moe_oracle``; at layer
-    0, on the first prompt, ``alltoall`` against ``replicated`` at a
-    capacity where nothing drops (cf = E/k)."""
-    from repro_torch.models import model as lm
-    from repro_torch.models import moe
-    from repro_torch.models.layers import rms_norm
-    from repro_torch.sharding.api import Runtime
-    kern, plain = Runtime(model_size=MOE_Q), Runtime(
-        model_size=MOE_Q, attn_impl="reference")
-    m = cfg.moe
-    windows = lm.layer_windows(cfg, x.shape[1])
-    worst, bad = 0.0, 0
-    layers, vs_ref, vs_masks = [], [], []
-    xk, xr, xk2 = x, x, x2
-    for i in range(cfg.n_layers):
-        p, w = lm._layer(params["stack"], i), windows[i]
-        hn = rms_norm(xk, p["norm1"])
-        ok, _ = lm._apply_attention(kern, cfg, p["attn"], hn, w)
-        orr, _ = lm._apply_attention(plain, cfg, p["attn"], hn, w)
-        err = (ok.float() - orr.float()).abs()
-        worst = max(worst, float(err.max()))
-        bad += int((err > LM_TOL + LM_TOL * orr.float().abs()).sum())
-        xa = xk + ok
-        h2 = rms_norm(xa, p["norm2"])
-        torch.cuda.synchronize()
-        with no_host_sync(torch):
-            mo, aux = moe.apply_moe_sharded(
-                kern, p["moe"], h2, top_k=m.top_k,
-                capacity_factor=m.capacity_factor)
-        torch.cuda.synchronize()
-        row = dict(_moe_oracle(torch, p["moe"], h2, m, mo),
-                   lb_loss=float(aux["lb_loss"]),
-                   z_loss=float(aux["z_loss"]))
-        if i == 0:
-            wide = dict(top_k=m.top_k, capacity_factor=m.n_experts / m.top_k)
-            one = h2[:1]
-            a2a, a2a_aux = moe.apply_moe_sharded(kern, p["moe"], one,
-                                                 dispatch="alltoall", **wide)
-            rep, _ = moe.apply_moe_sharded(kern, p["moe"], one,
-                                           dispatch="replicated", **wide)
-            single, _ = moe.apply_moe(p["moe"], one, **wide)
-            row["alltoall_vs_replicated"] = dict(
-                tokens=one.shape[1],
-                max_abs_diff=float((a2a.float() - rep.float()).abs().max()),
-                replicated_max=float(rep.float().abs().max()),
-                alltoall_equals_one_party=bool(torch.equal(a2a, single)),
-                alltoall_lb_loss=float(a2a_aux["lb_loss"]))
-            del a2a, rep, single
-        layers.append(row)
-        xk = xa + mo
-        xr, _ = lm._block_fwd(plain, cfg, "attn_moe", p, xr, w)
-        xk2, _ = lm._block_fwd(kern, cfg, "attn_moe", p, xk2, w)
-        vs_ref.append(_rel_l2(xk, xr))
-        vs_masks.append(_rel_l2(xk2, xk))
-    fin = params["final_norm"]
-    hidden = tuple(rms_norm(v, fin) for v in (xk, xr, xk2))
-    drops = sum(r["dropped"] for r in layers)
-    return dict(
-        attn_max_abs_err=worst, attn_beyond_tol=bad, depth=cfg.n_layers,
-        moe_layers=layers,
-        moe_worst_rel_err=max(r["max_abs_err"] / r["oracle_max"]
-                              for r in layers),
-        moe_worst_rel_l2=max(r["rel_l2"] for r in layers),
-        dropped_share=drops / sum(r["assignments"] for r in layers),
-        rel_l2_vs_reference=_rel_l2(hidden[0], hidden[1]),
-        rel_l2_vs_mask_redraw=_rel_l2(hidden[2], hidden[0]),
-        stream_rel_l2_vs_reference=vs_ref,
-        stream_rel_l2_vs_mask_redraw=vs_masks, hidden=hidden)
-
-
 def moe_phase(torch, dev, log_):
     """Phase 20; returns (record, launches of the serve call by
     program)."""
@@ -4498,15 +4472,13 @@ def moe_phase(torch, dev, log_):
     from repro_torch.core.secure_agg import mask_generator
     from repro_torch.kernels import decode_attention as dak
     from repro_torch.kernels import flash_attention as fak
-    from repro_torch.launch.serve import serve
     from repro_torch.models import model as lm
     from repro_torch.models import moe
     from repro_torch.optim.tree import leaves
     from repro_torch.sharding.api import Runtime
-    from repro_torch.vfl.heads import vocab_parallel_greedy
     full = get_arch(MOE_ARCH)
     cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
-    m, layers, vpad = cfg.moe, MOE_LAYERS, cfg.padded_vocab
+    m, layers = cfg.moe, MOE_LAYERS
     kw = dict(batch=MOE_BATCH, prompt_len=MOE_PROMPT, gen_tokens=MOE_GEN,
               reduced=False, model_parallel=MOE_Q, seed=SEED,
               n_layers=MOE_LAYERS)
@@ -4518,21 +4490,11 @@ def moe_phase(torch, dev, log_):
         d_expert=m.d_expert, capacity_factor=m.capacity_factor,
         capacity=moe.capacity(m.capacity_factor, m.top_k,
                               MOE_BATCH * MOE_PROMPT, m.n_experts),
-        vocab=cfg.vocab, padded_vocab=vpad, dispatch="replicated")}
+        vocab=cfg.vocab, padded_vocab=cfg.padded_vocab,
+        dispatch="replicated")}
     steps = MOE_GEN - 1
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()                                  # main path starts
-    t0 = time.perf_counter()
-    out = serve(MOE_ARCH, **kw)
-    wall = time.perf_counter() - t0
-    launches = {prog: n for lib in _libs()          # main path ends
-                for prog, n in lib.launches.items()}
-    res["serve_first"] = dict(
-        _serve_metrics(torch, out, wall, MOE_BATCH, MOE_GEN),
-        launches=launches, tokens_row0=out.tokens[0].tolist())
-    log_(f"phase 20 serve (first call, counted): {res['serve_first']}")
+    calls, launches, _ = _serve_twice(torch, MOE_ARCH, kw, 20, log_)
+    res.update(calls)
     check(launches["flash_attention"] == layers
           and launches["decode_attention"] == layers * steps,
           f"serve launched flash_attention {launches['flash_attention']} "
@@ -4540,20 +4502,6 @@ def moe_phase(torch, dev, log_):
           f"decode_attention {launches['decode_attention']} (want "
           f"{layers} x {steps} decode steps)")
     check_idle(_libs()[:2], "MoE LM serving")
-    check(out.tokens.shape == (MOE_BATCH, MOE_GEN)
-          and ((out.tokens >= 0) & (out.tokens < vpad)).all(),
-          f"generated ids outside [0, {vpad}): {out.tokens}")
-    check(all(bool(torch.isfinite(v.float()).all())
-              for v in out.cache.values()), "a KV cache leaf is not finite")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    again = serve(MOE_ARCH, **kw)
-    res["serve"] = _serve_metrics(torch, again, time.perf_counter() - t0,
-                                  MOE_BATCH, MOE_GEN)
-    log_(f"phase 20 serve (second call, warm): {res['serve']}")
-    check(np.array_equal(again.tokens, out.tokens),
-          "a second serve with the same seed gave other tokens")
-    del out, again
     torch.cuda.empty_cache()
 
     rt = Runtime(model_size=MOE_Q)
@@ -4575,9 +4523,9 @@ def moe_phase(torch, dev, log_):
         for name, val in kv.items():
             cache[name][:, :, :MOE_PROMPT].copy_(val)
         del kv
+        step = {"token": tok, "pos": MOE_PROMPT, "cache": cache}
         reset_counts()
-        lm.decode_step(rt, cfg, params, {"token": tok, "pos": MOE_PROMPT,
-                                         "cache": cache}, gen)
+        lm.decode_step(rt, cfg, params, step, gen)
         torch.cuda.synchronize()
         per_step = (fak.KERNEL.launches["flash_attention"],
                     dak.KERNEL.launches["decode_attention"])
@@ -4585,69 +4533,183 @@ def moe_phase(torch, dev, log_):
               f"launches (flash, decode): {per_prefill} per prefill (want "
               f"({layers}, 0)), {per_step} per decode step (want (0, "
               f"{layers}))")
-        step = {"token": tok, "pos": MOE_PROMPT, "cache": cache}
-
-        plain = Runtime(model_size=MOE_Q, attn_impl="reference")
-        ring = Runtime(model_size=MOE_Q, secure_mode="ring_masks")
-        tok_ring, _ = lm.prefill(ring, cfg, params, batch, gen)
-        x = lm._embed_tokens(rt, cfg, params, batch["tokens"], gen)
-        x2 = lm._embed_tokens(rt, cfg, params, batch["tokens"], gen)
-        walk = _moe_walk(torch, cfg, params, x, x2)
-        h, h_ref, h2 = walk.pop("hidden")
-        logits = _logits(torch, params, h_ref[:, -1])
-        kt = vocab_parallel_greedy(rt, params["embed"], h[:, -1])
-        rt_tok = vocab_parallel_greedy(plain, params["embed"], h_ref[:, -1])
-        decided = _decided_tokens_equal(torch, kt, rt_tok, logits,
-                                        "kernel vs reference prefill")
-        walk.update(
-            embed_elements_differing=int((x != x2).sum()),
-            decided=decided, decided_tokens=round(decided * MOE_BATCH),
-            ring_decided=_decided_tokens_equal(
-                torch, tok_ring, tok, logits, "ring_masks vs two_tree"),
-            prefill_tokens=tok.tolist(), kernel_tokens=kt.tolist(),
-            reference_tokens=rt_tok.tolist())
-        res["kernel_vs_reference"] = walk
-        log_(f"phase 20 layer walk: {walk}")
-        check(walk["attn_beyond_tol"] == 0,
-              f"kernel-path attention: {walk['attn_beyond_tol']} elements "
-              f"beyond atol = rtol = {LM_TOL} of the reference attention on "
-              f"the same input (max abs err {walk['attn_max_abs_err']})")
-        for i, r in enumerate(walk["moe_layers"]):
-            check(r["selection_differs_decided"] == 0
-                  and r["compared_share"] >= MOE_MIN_SHARE
-                  and r["max_abs_err"] <= MOE_TOL * r["oracle_max"]
-                  and r["rel_l2"] <= MOE_L2,
-                  f"MoE layer {i} against the f32 per-expert oracle: {r} "
-                  "(want no token routed otherwise where the oracle's "
-                  f"k-th/(k+1)-th margin exceeds {MOE_ROUTE_MARGIN}, and "
-                  f"max abs err <= {MOE_TOL} x the oracle's largest value "
-                  f"and relative L2 <= {MOE_L2} on the tokens whose "
-                  f"buckets agree, at least {MOE_MIN_SHARE} of them)")
-        a2a = walk["moe_layers"][0]["alltoall_vs_replicated"]
-        check(a2a["max_abs_diff"] <= MOE_TOL * a2a["replicated_max"],
-              f"alltoall against replicated where nothing drops: {a2a}")
-        check(walk["rel_l2_vs_reference"]
-              <= 2 * walk["rel_l2_vs_mask_redraw"],
-              f"kernel-path prefill {walk['rel_l2_vs_reference']} from the "
-              "reference-attention prefill, more than twice the "
-              f"{walk['rel_l2_vs_mask_redraw']} a mask redraw moves it")
-        if walk["decided_tokens"] == 0:
-            # router flips cascade over random layers: the end-to-end
-            # checks then rest on the per-layer walk above
-            log_("phase 20: no prefill token's margin decides it; the "
-                 "token check compared none")
-        del x, x2, h, h_ref, h2, logits
-
-        profiles = {
+        res["kernel_vs_reference"] = _prefill_walk(
+            torch, cfg, params, batch, gen, tok, MOE_Q, 20, log_)
+        res["profile"] = _profile_windows(torch, {
             "prefill": lambda: lm.prefill(rt, cfg, params, batch, gen),
             "decode_step": lambda: lm.decode_step(rt, cfg, params, step,
-                                                  gen)}
-        res["profile"] = {}
-        for name, fn in profiles.items():
-            fn()                                      # warm
-            res["profile"][name] = _device_profile(torch, fn)
-            log_(f"phase 20 profile of one {name}: {res['profile'][name]}")
+                                                  gen)}, 20, log_)
         del params, cache, step
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 21: hybrid (period stack) serving
+# ---------------------------------------------------------------------------
+
+def _decode_walk(torch, cfg, params, cache, token, pos, q, gen):
+    """One decode step at ``pos`` layer by layer on ``cache`` (as a serve
+    call left it): at the attention layer the kernel route
+    (``decode_attention`` over q shards) against the plain one on the
+    same input and on copies of the same cache; every SSM layer's new
+    state finite.  The stream advances on the kernel routes, writing the
+    cache in place as ``decode_step`` does."""
+    from repro_torch.models import model as lm
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.sharding.api import Runtime
+    kern = Runtime(model_size=q)
+    plain = Runtime(model_size=q, attn_impl="reference")
+    caches, kinds, _ = lm._stacks(cfg, cache)
+    s_cache = next(c["k"].shape[2] for c in caches if "k" in c)
+    pos_t = torch.full((), pos, dtype=torch.int32, device=token.device)
+    x = lm._embed_tokens(kern, cfg, params, token[:, None], gen)[:, 0]
+    rows = []
+    for i, kind, p in lm._blocks(cfg, params):
+        c = lm._layer(caches[i % len(kinds)], i // len(kinds))
+        if kind.startswith("attn"):
+            h = rms_norm(x, p["norm1"])
+            outs = []
+            for rt in (kern, plain):
+                kc, vc = c["k"].clone(), c["v"].clone()
+                outs.append(lm._decode_attention(rt, cfg, p["attn"], h, kc,
+                                                 vc, pos, pos_t, s_cache))
+            err = (outs[0].float() - outs[1].float()).abs()
+            rows.append(dict(
+                layer=i, kind=kind, max_abs_err=float(err.max()),
+                beyond_tol=int((err > LM_TOL + LM_TOL
+                                * outs[1].float().abs()).sum())))
+        x, new = lm._block_decode(kern, cfg, kind, p, x, c, pos, pos_t,
+                                  s_cache)
+        if not kind.startswith("attn"):
+            rows.append(dict(layer=i, kind=kind, state_finite=all(
+                bool(torch.isfinite(v.float()).all()) for v in new.values())))
+    torch.cuda.synchronize()
+    return rows
+
+
+def _teacher_forced(torch, cfg, params, tokens, q, gen):
+    """The first ``tokens.shape[1]`` prompt tokens decoded one at a time
+    from ``init_cache``'s zeros (a cache of the serve call's length) on
+    the kernel routes, against the full forward over them
+    (``_decode_vs_forward``), the MoE layers at cf = E/k (capacity = the
+    tokens: the forward's buckets drop nothing that a decode step would
+    keep)."""
+    from repro_torch.models import model as lm
+    from repro_torch.sharding.api import Runtime
+    m = cfg.moe
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    rt = Runtime(model_size=q)
+    cache = lm.init_cache(rt, cfg, tokens.shape[0],
+                          HYBRID_PROMPT + HYBRID_GEN, device=tokens.device)
+    dec = []
+    for t in range(tokens.shape[1]):
+        tok, cache = lm.decode_step(rt, cfg, params, {
+            "token": tokens[:, t], "pos": t, "cache": cache}, gen)
+        dec.append(tok)
+    hf = lm._backbone(rt, cfg, params,
+                      lm._embed_tokens(rt, cfg, params, tokens, gen))
+    return _decode_vs_forward(torch, rt, cfg, params, torch.stack(dec, 1),
+                              hf)
+
+
+def hybrid_phase(torch, dev, log_):
+    """Phase 21; returns (record, launches of the serve call by
+    program)."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.configs.inputs import make_batch
+    from repro_torch.core.secure_agg import mask_generator
+    from repro_torch.models import model as lm
+    from repro_torch.models import moe
+    from repro_torch.optim.tree import leaves
+    from repro_torch.sharding.api import Runtime
+    full = get_arch(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, n_layers=HYBRID_LAYERS)
+    m = cfg.moe
+    kinds = lm.layer_kinds(cfg)
+    n_attn = sum(k.startswith("attn") for k in kinds)
+    steps = HYBRID_GEN - 1
+    kw = dict(batch=HYBRID_BATCH, prompt_len=HYBRID_PROMPT,
+              gen_tokens=HYBRID_GEN, reduced=False, model_parallel=HYBRID_Q,
+              seed=SEED, n_layers=HYBRID_LAYERS)
+    res = {"config": dict(
+        arch=HYBRID_ARCH, layers=HYBRID_LAYERS, of_layers=full.n_layers,
+        period=list(cfg.period), q=HYBRID_Q, batch=HYBRID_BATCH,
+        prompt=HYBRID_PROMPT, generated=HYBRID_GEN, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv, d_head=cfg.head_dim,
+        d_ff=cfg.d_ff, experts=m.n_experts, top_k=m.top_k,
+        d_expert=m.d_expert, capacity_factor=m.capacity_factor,
+        capacity=moe.capacity(m.capacity_factor, m.top_k,
+                              HYBRID_BATCH * HYBRID_PROMPT, m.n_experts),
+        d_state=cfg.ssm.d_state, d_inner=cfg.ssm.expand * cfg.d_model,
+        vocab=cfg.vocab, padded_vocab=cfg.padded_vocab,
+        dispatch="replicated")}
+    want = {"selective_scan": len(kinds) - n_attn, "flash_attention": n_attn,
+            "decode_attention": n_attn * steps}
+    calls, launches, out = _serve_twice(torch, HYBRID_ARCH, kw, 21, log_)
+    res.update(calls)
+    check({p: n for p, n in launches.items() if n} == want,
+          f"serve launched {launches}; want exactly {want} (the scan once "
+          "per SSM layer of the prefill, flash attention once per "
+          "attention layer of the prefill, decode attention once per "
+          f"attention layer of each of the {steps} decode steps)")
+    check_idle(_libs()[:1], "hybrid LM serving")
+    check(isinstance(out.cache, list), "the period stack's decode state "
+          "is not the reference's list")
+    serve_cache = out.cache
+    last = torch.as_tensor(out.tokens[:, -1], device=dev)
+    del out
+    torch.cuda.empty_cache()
+
+    rt = Runtime(model_size=HYBRID_Q)
+    with torch.no_grad():
+        params = lm.init_params(cfg, SEED, device=dev)
+        n_params = sum(p.numel() for p in leaves(params))
+        res["config"].update(params=n_params, param_gb=4 * n_params / 1e9)
+        batch = make_batch(cfg, ShapeConfig("hybrid", HYBRID_PROMPT,
+                                            HYBRID_BATCH, "prefill"), rt,
+                           seed=SEED, device=dev)
+        gen = mask_generator(SEED, 21, device=dev)
+
+        # one decode step after the serve call's 31, layer by layer
+        res["decode_walk"] = _decode_walk(
+            torch, cfg, params, serve_cache, last,
+            HYBRID_PROMPT + HYBRID_GEN - 1, HYBRID_Q, gen)
+        log_(f"phase 21 decode step layer by layer: {res['decode_walk']}")
+        for r in res["decode_walk"]:
+            check(r.get("beyond_tol", 0) == 0 and r.get("state_finite", True),
+                  f"phase 21 decode layer {r}: want the kernel route's "
+                  f"attention within atol = rtol = {LM_TOL} of the plain "
+                  "route's on the same input and cache, and every SSM "
+                  "state finite")
+        del serve_cache
+
+        tf = res["decode_vs_forward"] = _teacher_forced(
+            torch, cfg, params, batch["tokens"][:, :HYBRID_TEACHER],
+            HYBRID_Q, gen)
+        log_(f"phase 21 teacher-forced decode vs forward: {tf}")
+        if tf["decided"] == 0:
+            log_("phase 21: no teacher-forced position's margin decides "
+                 "it; the decode-vs-forward check compared none")
+        check(tf["agreement"] is None or tf["agreement"] >= 0.95,
+              f"decode against the forward pass: {tf['agreement']} of "
+              f"{tf['decided']} decided positions agree (want >= 0.95)")
+
+        tok, cache = lm.prefill(rt, cfg, params, batch, gen)
+        check(cache is None, "the period stack's prefill returned a cache "
+              "(C.R6)")
+        res["kernel_vs_reference"] = _prefill_walk(
+            torch, cfg, params, batch, gen, tok, HYBRID_Q, 21, log_)
+        step = {"token": tok, "pos": HYBRID_PROMPT,
+                "cache": lm.init_cache(rt, cfg, HYBRID_BATCH,
+                                       HYBRID_PROMPT + HYBRID_GEN,
+                                       device=dev)}
+        res["profile"] = _profile_windows(torch, {
+            "prefill": lambda: lm.prefill(rt, cfg, params, batch, gen),
+            "decode_step": lambda: lm.decode_step(rt, cfg, params, step,
+                                                  gen)}, 21, log_)
+        del params, step
     torch.cuda.empty_cache()
     return res, launches
 
@@ -5139,6 +5201,10 @@ def main() -> int:
     record["moe"], moe_launches = moe_phase(torch, dev, log)
     record["moe"]["seconds"] = time.perf_counter() - t20
     log(f"phase 20: {record['moe']['seconds']:.1f} s")
+    t21 = time.perf_counter()
+    record["hybrid"], hybrid_launches = hybrid_phase(torch, dev, log)
+    record["hybrid"]["seconds"] = time.perf_counter() - t21
+    log(f"phase 21: {record['hybrid']['seconds']:.1f} s")
     record["seconds"] = time.perf_counter() - t_start
 
     # each program's line reports its own main-path shape: serving's linear
@@ -5176,13 +5242,14 @@ def main() -> int:
         "name": "selective_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
         "replaces": "src/repro/kernels/selective_scan.py:62",
-        "launches": scan_launches + lm_train_launches["selective_scan"],
+        "launches": scan_launches + lm_train_launches["selective_scan"]
+        + hybrid_launches["selective_scan"],
         "max_abs_err": max(r["max_abs_err"] for r in scan),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None})
     # the attention programs at phase 10's local-window shape (29 of the
-    # 34 layers); launches are phase 10's and phase 20's serve calls' and
+    # 34 layers); launches are phase 10's, 20's and 21's serve calls' and
     # phase 19's no-grad forwards
     for prog, key, src, tpu in (
             ("flash_attention", "flash_shapes", "flash_attention.cu",
@@ -5196,7 +5263,7 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": tpu,
             "launches": dense_launches[prog] + lm_train_launches[prog]
-            + moe_launches[prog],
+            + moe_launches[prog] + hybrid_launches[prog],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

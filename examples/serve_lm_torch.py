@@ -7,6 +7,8 @@ card::
     PYTHONPATH=src python examples/serve_lm_torch.py
     PYTHONPATH=src python examples/serve_lm_torch.py --arch gemma3_4b \\
         --model-parallel 4 --device cuda
+    PYTHONPATH=src python examples/serve_lm_torch.py \\
+        --arch jamba_v0_1_52b          # the reduced period stack (jamba)
 """
 import argparse
 

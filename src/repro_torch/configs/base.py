@@ -3,10 +3,11 @@
 
 Every architecture is a frozen ``ArchConfig``, one module per architecture
 under ``repro_torch.configs``.  ``reduced()`` gives the CPU smoke-test
-variant (≤ 2 layers, d_model ≤ 128, ≤ 4 experts) of the same family.  Only
-the families whose model path is ported (SSM, dense, MoE) have a module
-here: asking for another raises ``NotImplementedError`` naming ROADMAP
-A15.
+variant (≤ 2 layers, or one 4-layer period, d_model ≤ 128, ≤ 4 experts)
+of the same family.  Only the families whose model path is ported (SSM,
+dense, MoE and the hybrid period stack) have a module here: asking for
+another (the audio and VLM families) raises ``NotImplementedError``
+naming ROADMAP A15d.
 """
 from __future__ import annotations
 
@@ -127,7 +128,8 @@ ARCH_IDS = [
     "falcon_mamba_7b",
 ]
 PORTED = ("falcon_mamba_7b", "gemma3_4b", "stablelm_1_6b", "granite_8b",
-          "internlm2_20b", "granite_moe_1b_a400m", "qwen3_moe_30b_a3b")
+          "internlm2_20b", "granite_moe_1b_a400m", "qwen3_moe_30b_a3b",
+          "jamba_v0_1_52b")
 
 
 def get_arch(arch_id: str) -> ArchConfig:
@@ -137,7 +139,7 @@ def get_arch(arch_id: str) -> ArchConfig:
                          f"{ARCH_IDS}")
     if arch_id not in PORTED:
         raise NotImplementedError(
-            f"{arch_id} is not ported yet: the port has the SSM, dense and "
-            f"MoE families ({', '.join(PORTED)}); the hybrid (A15c), "
-            "audio and VLM (A15d) stacks are ROADMAP A15")
+            f"{arch_id} is not ported yet: the port has the SSM, dense, "
+            f"MoE and hybrid families ({', '.join(PORTED)}); the audio and "
+            "VLM stacks are ROADMAP A15d")
     return importlib.import_module(f"repro_torch.configs.{arch_id}").CONFIG

@@ -17,7 +17,10 @@ arrays, done by the caller, so this module never imports JAX):
   ``wv``, ``wo``}, ``norm2``, ``mlp``: {``w_gate``, ``w_up``,
   ``w_down``}}) or of the MoE family (the dense family's with ``moe``:
   {``router``, ``w_gate``, ``w_up``, ``w_down``} in place of ``mlp``),
-  every stack leaf with its leading layer axis.
+  every stack leaf with its leading layer axis; or a period stack's
+  (jamba: ``periods``, a list with one stacked tree per period position,
+  each a mixer, {``norm1``, ``ssm``} or {``norm1``, ``attn``}, with a
+  feed-forward, {``norm2``, ``mlp``} or {``norm2``, ``moe``}).
 
 Both keep their layout: the port packs and stacks exactly as the
 reference does.
@@ -78,15 +81,18 @@ def deep_params(params, *, device="cuda"):
                          _tensor(params.head, dev))
 
 
-# the ported families' stack trees: each subtree's leaf names
+# the ported blocks' trees: each subtree's leaf names
+_SSM = ("w_in", "conv_w", "conv_b", "w_x_dbc", "w_dt", "dt_bias", "a_log",
+        "d_skip", "w_out")
+_ATTN = ("wq", "wk", "wv", "wo")
+_MLP = ("w_gate", "w_up", "w_down")
+_MOE = ("router", "w_gate", "w_up", "w_down")
 _LM_STACKS = (
-    {"norm1": None,
-     "ssm": ("w_in", "conv_w", "conv_b", "w_x_dbc", "w_dt", "dt_bias",
-             "a_log", "d_skip", "w_out")},
-    {"norm1": None, "attn": ("wq", "wk", "wv", "wo"), "norm2": None,
-     "mlp": ("w_gate", "w_up", "w_down")},
-    {"norm1": None, "attn": ("wq", "wk", "wv", "wo"), "norm2": None,
-     "moe": ("router", "w_gate", "w_up", "w_down")},
+    {"norm1": None, "ssm": _SSM},
+    {"norm1": None, "attn": _ATTN, "norm2": None, "mlp": _MLP},
+    {"norm1": None, "attn": _ATTN, "norm2": None, "moe": _MOE},
+    {"norm1": None, "ssm": _SSM, "norm2": None, "mlp": _MLP},
+    {"norm1": None, "ssm": _SSM, "norm2": None, "moe": _MOE},
 )
 
 
@@ -98,19 +104,26 @@ def _matches(stack, layout) -> bool:
 
 
 def lm_params(params, *, q: int, device="cuda"):
-    """The reference's LM parameter tree (SSM, dense or MoE family; numpy
-    leaves) as the port's: the same tree of f32 tensors on ``device``.
-    The embedding table must split into ``q`` party vocabulary blocks."""
+    """The reference's LM parameter tree (SSM, dense, MoE or period
+    stack; numpy leaves) as the port's: the same tree of f32 tensors on
+    ``device``.  The embedding table must split into ``q`` party
+    vocabulary blocks."""
     dev = resolve_device(device)
-    stack = params.get("stack", {})
-    if set(params) != {"embed", "final_norm", "stack"} or not any(
-            _matches(stack, layout) for layout in _LM_STACKS):
+    stacks = params.get("periods", params.get("stack"))
+    if not isinstance(stacks, list):
+        stacks = [stacks]
+    if not (set(params) in ({"embed", "final_norm", "stack"},
+                            {"embed", "final_norm", "periods"})
+            and stacks and all(any(_matches(s, layout)
+                                   for layout in _LM_STACKS)
+                               for s in stacks)):
         raise NotImplementedError(
             "only the SSM family's parameter tree (embed, final_norm, "
             "stack/{norm1, ssm}), the dense family's (stack/{norm1, attn, "
-            "norm2, mlp}) and the MoE family's (stack/{norm1, attn, norm2, "
-            "moe}) are ported; period stacks (periods/..., ROADMAP A15c) "
-            "and the encoder and patch frontends (enc_*, patch_proj, "
+            "norm2, mlp}), the MoE family's (stack/{norm1, attn, norm2, "
+            "moe}) and a period stack's (periods: a list of such blocks, "
+            "an SSM mixer with norm2 and mlp or moe included) are ported; "
+            "the encoder and patch frontends (enc_*, patch_proj, ROADMAP "
             "A15d) are not")
     if np.shape(params["embed"])[0] % q:
         raise ValueError(f"vocabulary {np.shape(params['embed'])[0]} does "
@@ -119,6 +132,8 @@ def lm_params(params, *, q: int, device="cuda"):
     def convert(tree):
         if isinstance(tree, dict):
             return {k: convert(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [convert(v) for v in tree]
         return _tensor(tree, dev)
 
     return convert(params)

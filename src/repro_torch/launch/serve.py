@@ -1,10 +1,12 @@
 """LM serving: batched prefill and greedy decode on the model stack (the
-port of ``repro.launch.serve``; the SSM, dense and MoE families).
+port of ``repro.launch.serve``; the SSM, dense, MoE and hybrid families).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_4b \\
         --device cpu                          # reduced config, on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch qwen3_moe_30b_a3b --device cpu --model-parallel 2
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba_v0_1_52b --device cpu   # the reduced period stack
 
 The prompt enters through the parties' secure vocabulary embedding and
 each token leaves through the party-sharded greedy head, with fresh masks
@@ -17,14 +19,17 @@ attended), and decode step i runs at position ``prompt_len + i``.  An
 MoE model spreads its experts over the parties (``replicated``
 dispatch, ``Runtime``'s default).  As in the reference, the SSM prefill
 hands no state to the decode loop, which starts from ``init_cache``'s
-zeros (ROADMAP C.R3).
+zeros (ROADMAP C.R3), and so does a period stack's (jamba) for every
+layer: its decode starts from zero SSM states and a zero KV cache, whose
+``prompt_len`` zero keys its attention layers still attend over (C.R6).
+A period stack's ``n_layers`` must be a whole number of periods.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import List, NamedTuple, Optional
+from typing import Any, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -41,7 +46,8 @@ class ServeResult(NamedTuple):
     tokens: np.ndarray          # (batch, gen_tokens) int64
     prefill_seconds: float      # prefill and the decode cache's set-up
     step_seconds: List[float]   # each of the gen_tokens - 1 decode steps
-    cache: dict                 # the decode state after the last step
+    cache: Any                  # the decode state after the last step
+    #                             (a dict, or a period stack's list)
 
 
 def _sync(dev: torch.device) -> None:
@@ -60,7 +66,8 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32,
     random parameters from ``seed``, across ``model_parallel`` parties
     (q, each owning a vocabulary block, and an MoE model's E/q experts).
     ``n_layers``, where given, cuts the stack to its first ``n_layers``
-    layers (the widths stay).  Times end at a device synchronisation."""
+    layers (the widths stay; a period stack's to whole periods, else
+    ``ValueError``).  Times end at a device synchronisation."""
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -82,8 +89,8 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32,
         _sync(dev)
         t0 = time.perf_counter()
         tok, kv = model_lib.prefill(rt, cfg, params, pre_batch, gen)
-        # the reference re-homes only attention caches; SSM decoding
-        # starts from zeros (C.R3)
+        # the reference re-homes only a uniform stack's attention cache;
+        # SSM and period-stack decoding start from zeros (C.R3, C.R6)
         cache = model_lib.init_cache(rt, cfg, batch, max_len, device=dev)
         if kv is not None:
             for name, val in kv.items():

@@ -1,5 +1,5 @@
-"""LM training (the port of ``repro.launch.train``; the SSM, dense and
-MoE families).
+"""LM training (the port of ``repro.launch.train``; the SSM, dense, MoE
+and hybrid families).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm_1_6b \\
         --steps 20 --device cpu                 # reduced config, on the CPU

@@ -1,7 +1,7 @@
 """The decoder model with VFB²'s secure frontends (the port of
 ``repro.models.model``: the SSM family, falcon-mamba; the dense family,
-gemma3 / stablelm / granite / internlm2; and the MoE family,
-granite-moe / qwen3-moe).
+gemma3 / stablelm / granite / internlm2; the MoE family, granite-moe /
+qwen3-moe; and the hybrid period stack, jamba).
 
 Parameters are the reference's stacked-layer dict: ``embed`` (V_pad, D),
 ``final_norm`` (D,) and ``stack``, each block parameter with a leading
@@ -9,11 +9,18 @@ layer axis: {``norm1``, ``ssm``} for the SSM family, {``norm1``, ``attn``
 {``wq``, ``wk``, ``wv``, ``wo``}, ``norm2``, ``mlp`` {``w_gate``,
 ``w_up``, ``w_down``}} for the dense family, the same with ``moe``
 {``router``, ``w_gate``, ``w_up``, ``w_down``} (``models.moe``) in place
-of ``mlp`` for the MoE family.  The stack runs as a loop over its
-layers; an MoE layer's feed-forward is ``moe.apply_moe_sharded`` over the
-q parties under ``Runtime.moe_dispatch``, and its auxiliary terms
-(load balance, router z-loss) are summed over the layers into
-``train_loss``.  Tokens enter through the paper's secure vocabulary
+of ``mlp`` for the MoE family.  A period stack (``cfg.period``, jamba's
+8 kinds) keeps ``periods`` in place of ``stack``: a list with one stacked
+tree per period position, each with a leading axis of n_per =
+n_layers / len(period), its block a mixer ({``norm1``, ``ssm``} or
+{``norm1``, ``attn``}) and a feed-forward ({``norm2``, ``mlp``} or
+{``norm2``, ``moe``}) as the position's kind (``"ssm_moe"``,
+``"attn_mlp"``, ...) says.  Layer i·len(period) + pos is
+``periods[pos][i]``: the stack runs period by period, the positions in
+order within each.  The stack runs as a loop over its layers; an MoE
+layer's feed-forward is ``moe.apply_moe_sharded`` over the q parties
+under ``Runtime.moe_dispatch``, and its auxiliary terms (load balance,
+router z-loss) are summed over the layers into ``train_loss``.  Tokens enter through the paper's secure vocabulary
 embedding (``vfl.embed``) and leave through the party-sharded heads
 (``vfl.heads``: the loss, the greedy token); the q parties are
 ``Runtime.model_size``.
@@ -41,17 +48,24 @@ As in the reference, ``prefill`` collects no state for the SSM family
 and returns ``None`` as its cache (``repro/models/model.py:508``):
 decoding starts from ``init_cache``'s zero state, so the tokens after the
 first do not see the prompt (ROADMAP C.R3, mirrored so the port can be
-held against the reference).
+held against the reference).  The same holds for a period stack, for
+every layer (C.R6): its prefill returns ``None``, so decoding starts from
+zero SSM states and a zero KV cache, and the attention layers attend
+over ``prompt_len`` zero keys with zero values, which still count in
+their softmax.  A period stack's decode cache is the reference's list of
+one entry per period position (leading axis n_per): {``"k"``, ``"v"``}
+for an attention position, {``"conv"``, ``"h"``} for an SSM position;
+its attention sees every cached position up to ``pos`` (no window).
 
-Hybrid (period) stacks (ROADMAP A15c), encoder-decoder (cross
-attention) and the VLM frontend (A15d) raise ``NotImplementedError``
-naming ROADMAP A15, as does a ``Runtime`` that sets the reference's
-``remat``, ``unroll_layers`` or ``seq_parallel_norms`` (A15e).
+Encoder-decoder (cross attention) and the VLM frontend (ROADMAP A15d)
+raise ``NotImplementedError`` naming ROADMAP A15, as does a ``Runtime``
+that sets the reference's ``remat``, ``unroll_layers`` or
+``seq_parallel_norms`` (A15e).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List
+from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
 
@@ -77,18 +91,24 @@ Z_LOSS_WEIGHT = 1e-3
 def _unported(what: str):
     raise NotImplementedError(
         f"{what} is not ported yet: the port's LM stack has the SSM, "
-        "dense and MoE families (training, prefill and greedy decode) "
-        "only; the rest is ROADMAP A15 (period stacks A15c, cross "
-        "attention and the VLM frontend A15d)")
+        "dense, MoE and hybrid (period) families (training, prefill and "
+        "greedy decode) only; cross attention and the VLM frontend are "
+        "ROADMAP A15d")
 
 
 def layer_kinds(cfg: ArchConfig):
-    """Per-layer kind sequence of the decoder stack."""
-    if (cfg.arch_type not in ("ssm", "dense", "moe")
-            or cfg.period is not None or cfg.enc_dec):
+    """Per-layer kind sequence of the decoder stack: a period stack's
+    period repeated n_layers / len(period) times."""
+    if cfg.arch_type not in ("ssm", "dense", "moe", "hybrid") or cfg.enc_dec:
         _unported(f"{cfg.name} ({cfg.arch_type} layers)")
     if cfg.arch_type == "ssm":
         return ("ssm",) * cfg.n_layers
+    if cfg.period is not None:
+        if cfg.n_layers % len(cfg.period):
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not a "
+                             f"whole number of {len(cfg.period)}-layer "
+                             "periods")
+        return tuple(cfg.period) * (cfg.n_layers // len(cfg.period))
     ffn = "moe" if cfg.moe is not None else "mlp"
     return (f"attn_{ffn}",) * cfg.n_layers
 
@@ -105,39 +125,54 @@ def layer_windows(cfg: ArchConfig, seq_len: int) -> List[int]:
     return win
 
 
+def _init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, n: int):
+    """``n`` stacked blocks of ``kind`` (leading axis n), each tensor
+    drawn whole: ``norm1`` and the mixer (``ssm``, or ``attn`` for a kind
+    starting "attn"), then, for a kind ending "mlp" or "moe", ``norm2``
+    and that feed-forward (``repro/models/model.py:84-103``)."""
+    d, dev = cfg.d_model, gen.device
+    block = {"norm1": torch.zeros((n, d), device=dev)}
+    if kind.startswith("attn"):
+        hd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv * cfg.head_dim
+        block["attn"] = {
+            "wq": normal_init(gen, (n, d, hd)),
+            "wk": normal_init(gen, (n, d, kvd)),
+            "wv": normal_init(gen, (n, d, kvd)),
+            "wo": normal_init(gen, (n, hd, d),
+                              scale=0.02 / math.sqrt(2 * cfg.n_layers))}
+    else:
+        s = cfg.ssm
+        block["ssm"] = ssm_lib.init_ssm(gen, d, s.d_state, s.d_conv,
+                                        s.expand, lead=(n,))
+    if kind.endswith(("mlp", "moe")):
+        block["norm2"] = torch.zeros((n, d), device=dev)
+    if kind.endswith("mlp"):
+        block["mlp"] = init_mlp(gen, d, cfg.d_ff, lead=(n,))
+    elif kind.endswith("moe"):
+        m = cfg.moe
+        block["moe"] = moe_lib.init_moe(gen, d, m.d_expert, m.n_experts,
+                                        lead=(n,))
+    return block
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, *,
                 device="cuda") -> Dict[str, Any]:
     """Random parameters from a generator on ``device`` seeded with
-    ``seed``, each stacked tensor drawn whole (no per-layer copies)."""
+    ``seed``, each stacked tensor drawn whole (no per-layer copies): the
+    uniform ``stack``, or a period stack's ``periods``, one stacked tree
+    per period position."""
     kinds = layer_kinds(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
-    n, d = cfg.n_layers, cfg.d_model
+    d = cfg.d_model
     params = {"embed": normal_init(gen, (cfg.padded_vocab, d)),
               "final_norm": torch.zeros((d,), device=dev)}
-    if kinds[0] == "ssm":
-        s = cfg.ssm
-        params["stack"] = {
-            "norm1": torch.zeros((n, d), device=dev),
-            "ssm": ssm_lib.init_ssm(gen, d, s.d_state, s.d_conv, s.expand,
-                                    lead=(n,))}
-        return params
-    hd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv * cfg.head_dim
-    params["stack"] = {
-        "norm1": torch.zeros((n, d), device=dev),
-        "attn": {"wq": normal_init(gen, (n, d, hd)),
-                 "wk": normal_init(gen, (n, d, kvd)),
-                 "wv": normal_init(gen, (n, d, kvd)),
-                 "wo": normal_init(gen, (n, hd, d),
-                                   scale=0.02 / math.sqrt(2 * n))},
-        "norm2": torch.zeros((n, d), device=dev),
-    }
-    if kinds[0] == "attn_moe":
-        m = cfg.moe
-        params["stack"]["moe"] = moe_lib.init_moe(
-            gen, d, m.d_expert, m.n_experts, lead=(n,))
+    if cfg.period is None:
+        params["stack"] = _init_block(gen, cfg, kinds[0], cfg.n_layers)
     else:
-        params["stack"]["mlp"] = init_mlp(gen, d, cfg.d_ff, lead=(n,))
+        n_per = cfg.n_layers // len(cfg.period)
+        params["periods"] = [_init_block(gen, cfg, kind, n_per)
+                             for kind in cfg.period]
     return params
 
 
@@ -146,6 +181,26 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _stacks(cfg: ArchConfig, tree):
+    """A params or cache tree's stacks, one per period position (the
+    uniform stack is a period of one kind), with their kinds and the
+    layers each holds."""
+    if cfg.period is None:
+        return [tree], layer_kinds(cfg)[:1], cfg.n_layers
+    return tree, tuple(cfg.period), cfg.n_layers // len(cfg.period)
+
+
+def _blocks(cfg: ArchConfig, params) -> Iterator[Tuple[int, str, Any]]:
+    """(layer, kind, block parameters) of every layer in the stack's
+    order: period by period, the positions in order within each (layer
+    i·len(period) + pos is ``periods[pos][i]``)."""
+    stacks, kinds, n = _stacks(cfg, params["stack"] if cfg.period is None
+                               else params["periods"])
+    for i in range(n):
+        for pos, kind in enumerate(kinds):
+            yield i * len(kinds) + pos, kind, _layer(stacks[pos], i)
 
 
 def _embed_tokens(rt: Runtime, cfg: ArchConfig, params, tokens,
@@ -220,17 +275,19 @@ def _apply_ffn(rt: Runtime, cfg: ArchConfig, p, x):
 
 def _block_fwd(rt: Runtime, cfg: ArchConfig, kind: str, p, x, window: int,
                kv_out=None):
-    """One decoder block over a sequence (prefill).  ``kv_out``: the
-    layer's {"k", "v"} cache slices (B, S, Hkv, dh) to fill, or None.
-    Returns (x, aux) as ``_apply_ffn``."""
+    """One decoder block over a sequence (prefill): the mixer (attention
+    for a kind starting "attn", else the SSM), then the block's
+    feed-forward, if it has one.  ``kv_out``: an attention layer's
+    {"k", "v"} cache slices (B, S, Hkv, dh) to fill, or None.  Returns
+    (x, aux) as ``_apply_ffn``."""
     h = rms_norm(x, p["norm1"])
-    if kind == "ssm":
-        return (x + ssm_lib.apply_ssm(p["ssm"], h, scan_impl=rt.scan_impl),
-                _no_aux())
-    o, (k, v) = _apply_attention(rt, cfg, p["attn"], h, window)
-    if kv_out is not None:
-        kv_out["k"].copy_(k)
-        kv_out["v"].copy_(v)
+    if kind.startswith("attn"):
+        o, (k, v) = _apply_attention(rt, cfg, p["attn"], h, window)
+        if kv_out is not None:
+            kv_out["k"].copy_(k)
+            kv_out["v"].copy_(v)
+    else:
+        o = ssm_lib.apply_ssm(p["ssm"], h, scan_impl=rt.scan_impl)
     return _apply_ffn(rt, cfg, p, x + o)
 
 
@@ -238,14 +295,13 @@ def _backbone(rt: Runtime, cfg: ArchConfig, params, x, *, kv=None,
               aux=None):
     """The stack, layer by layer, and the final norm: (B, S, D) → the
     normed hidden states (B, S, D).  Each layer's window is
-    ``layer_windows(cfg, S)``'s; ``kv``, where given, is the stacked
-    {"k", "v"} cache (L, B, S, Hkv, dh) the layers fill; ``aux``, where
-    given, is a {"lb_loss", "z_loss"} dict each layer's terms are added
-    to."""
+    ``layer_windows(cfg, S)``'s (every layer of a period stack: S);
+    ``kv``, where given, is a uniform stack's {"k", "v"} cache (L, B, S,
+    Hkv, dh) the layers fill; ``aux``, where given, is a {"lb_loss",
+    "z_loss"} dict each layer's terms are added to."""
     windows = layer_windows(cfg, x.shape[1])
-    for i, kind in enumerate(layer_kinds(cfg)):
-        x, layer_aux = _block_fwd(rt, cfg, kind, _layer(params["stack"], i),
-                                  x, windows[i],
+    for i, kind, p in _blocks(cfg, params):
+        x, layer_aux = _block_fwd(rt, cfg, kind, p, x, windows[i],
                                   None if kv is None else _layer(kv, i))
         if aux is not None:
             for k in aux:
@@ -278,10 +334,11 @@ def prefill(rt: Runtime, cfg: ArchConfig, params, batch,
     (next_token (B,), cache).  The dense and MoE families' cache is
     {"k", "v"},
     each (L, B, S, Hkv, dh) bf16 with rotary positions applied to k; the
-    SSM family's is ``None``, as in the reference (C.R3)."""
+    SSM family's and a period stack's is ``None``, as in the reference
+    (C.R3, C.R6)."""
     x, _, _ = _prepare_inputs(rt, cfg, params, batch, gen)
     kv = None
-    if layer_kinds(cfg)[0] != "ssm":
+    if cfg.period is None and layer_kinds(cfg)[0] != "ssm":
         shape = (cfg.n_layers,) + tuple(x.shape[:2]) \
             + (cfg.n_kv, cfg.head_dim)
         kv = {n: torch.empty(shape, dtype=CACHE_DTYPE, device=x.device)
@@ -300,16 +357,23 @@ def init_cache(rt: Runtime, cfg: ArchConfig, batch: int, seq_len: int, *,
     (L, B, seq_len, Hkv, dh) bf16, its sequence axis split over the q
     parties (so q must divide seq_len to decode).  SSM: conv (L, B, K−1,
     Ci) bf16 and h (L, B, Ci, N) f32 (``seq_len`` does not size an SSM
-    state)."""
-    if layer_kinds(cfg)[0] != "ssm":
-        dev = resolve_device(device)
-        shape = (cfg.n_layers, batch, seq_len, cfg.n_kv, cfg.head_dim)
-        return {n: torch.zeros(shape, dtype=CACHE_DTYPE, device=dev)
-                for n in ("k", "v")}
-    s = cfg.ssm
-    return ssm_lib.init_ssm_cache(batch, cfg.d_model, s.d_state, s.d_conv,
-                                  s.expand, lead=(cfg.n_layers,),
-                                  device=device)
+    state).  A period stack: the list of one such entry per period
+    position, each with leading axis n_per in place of L."""
+    _, kinds, n = _stacks(cfg, None)
+    dev = resolve_device(device)
+
+    def entry(kind):
+        if kind.startswith("attn"):
+            shape = (n, batch, seq_len, cfg.n_kv, cfg.head_dim)
+            return {name: torch.zeros(shape, dtype=CACHE_DTYPE, device=dev)
+                    for name in ("k", "v")}
+        s = cfg.ssm
+        return ssm_lib.init_ssm_cache(batch, cfg.d_model, s.d_state,
+                                      s.d_conv, s.expand, lead=(n,),
+                                      device=dev)
+
+    cache = [entry(kind) for kind in kinds]
+    return cache if cfg.period is not None else cache[0]
 
 
 def _decode_attention(rt: Runtime, cfg: ArchConfig, p, x, kc, vc, pos: int,
@@ -346,39 +410,45 @@ def _decode_attention(rt: Runtime, cfg: ArchConfig, p, x, kc, vc, pos: int,
 
 def _block_decode(rt: Runtime, cfg: ArchConfig, kind: str, p, x, cache,
                   pos: int, pos_t, window: int):
-    """One block, one token.  x: (B, D).  Returns (x, new_cache): a new
-    SSM state, or the layer's KV cache itself, written in place."""
+    """One block, one token: the mixer, then the block's feed-forward, if
+    it has one.  x: (B, D).  Returns (x, new_cache): a new SSM state, or
+    the layer's KV cache itself, written in place."""
     h = rms_norm(x, p["norm1"])
-    if kind == "ssm":
-        o, new = ssm_lib.apply_ssm_decode(p["ssm"], h, cache)
-        return x + o, new
-    x = x + _decode_attention(rt, cfg, p["attn"], h, cache["k"], cache["v"],
+    if kind.startswith("attn"):
+        o = _decode_attention(rt, cfg, p["attn"], h, cache["k"], cache["v"],
                               pos, pos_t, window)
-    x, _ = _apply_ffn(rt, cfg, p, x[:, None])     # decode drops the aux
-    return x[:, 0], cache
+        new = cache
+    else:
+        o, new = ssm_lib.apply_ssm_decode(p["ssm"], h, cache)
+    x, _ = _apply_ffn(rt, cfg, p, (x + o)[:, None])   # decode drops the aux
+    return x[:, 0], new
 
 
 def decode_step(rt: Runtime, cfg: ArchConfig, params, batch,
                 gen: torch.Generator):
     """batch: {"token": (B,), "pos": int, "cache": the decode state}.
-    Returns (next_token (B,), new_cache).  The dense family's new cache is
-    the given one, written in place at ``pos``; the SSM family's is a new
-    state."""
+    Returns (next_token (B,), new_cache).  An attention layer's cache is
+    the given one, written in place at ``pos``; an SSM layer's state is
+    new, re-stacked per period position.  A period stack's attention sees
+    every cached position up to ``pos`` (the reference passes no window,
+    ``repro/models/model.py:641``)."""
     token, pos, cache = batch["token"], int(batch["pos"]), batch["cache"]
     x = _embed_tokens(rt, cfg, params, token[:, None], gen)[:, 0]
-    kinds = layer_kinds(cfg)
-    if kinds[0] == "ssm":
-        new = []
-        for i, kind in enumerate(kinds):
-            x, nc = _block_decode(rt, cfg, kind, _layer(params["stack"], i),
-                                  x, _layer(cache, i), pos, None, 0)
-            new.append(nc)
-        cache = {k: torch.stack([nc[k] for nc in new]) for k in cache}
-    else:
-        windows = layer_windows(cfg, cache["k"].shape[2])
-        pos_t = torch.full((), pos, dtype=torch.int32, device=x.device)
-        for i, kind in enumerate(kinds):
-            x, _ = _block_decode(rt, cfg, kind, _layer(params["stack"], i),
-                                 x, _layer(cache, i), pos, pos_t, windows[i])
+    caches, kinds, _ = _stacks(cfg, cache)
+    s_cache = next((c["k"].shape[2] for c in caches if "k" in c), 0)
+    windows = layer_windows(cfg, s_cache)
+    pos_t = torch.full((), pos, dtype=torch.int32, device=x.device) \
+        if s_cache else None
+    states = [[] for _ in kinds]
+    for i, kind, p in _blocks(cfg, params):
+        j = i % len(kinds)
+        x, nc = _block_decode(rt, cfg, kind, p, x,
+                              _layer(caches[j], i // len(kinds)), pos,
+                              pos_t, windows[i])
+        states[j].append(nc)
+    new = [c if kind.startswith("attn")
+           else {k: torch.stack([nc[k] for nc in states[j]]) for k in c}
+           for j, (kind, c) in enumerate(zip(kinds, caches))]
     h = rms_norm(x, params["final_norm"])
-    return vocab_parallel_greedy(rt, params["embed"], h), cache
+    return (vocab_parallel_greedy(rt, params["embed"], h),
+            new if cfg.period is not None else new[0])

@@ -40,7 +40,7 @@ import pytest
 import torch
 
 from repro_torch import convert
-from repro_torch.configs.base import MoESpec, ShapeConfig, get_arch
+from repro_torch.configs.base import MoESpec, ShapeConfig, SSMSpec, get_arch
 from repro_torch.configs.inputs import make_batch
 from repro_torch.core.bum import secure_vfl_reduce
 from repro_torch.core.secure_agg import mask_generator
@@ -501,10 +501,11 @@ def test_decode_matches_forward(lm, q):
                                   "pixtral_12b", "hybrid", "audio", "vlm",
                                   "moe", "dense"])
 def test_other_families_raise_naming_a15(lm, arch):
-    """Hybrid, audio and VLM configurations are not ported: their configs,
-    serving and model entry points raise naming A15 (the SSM, dense and
-    MoE families are ported, and an ``MoESpec`` config builds)."""
-    if arch.endswith(("_52b", "_tiny", "_12b")):
+    """Audio and VLM configurations are not ported: their configs,
+    serving and model entry points raise naming A15 (the SSM, dense, MoE
+    and hybrid families are ported: an ``MoESpec`` config builds, and a
+    period config builds its ``periods`` and its list cache)."""
+    if arch.endswith(("_tiny", "_12b")):
         with pytest.raises(NotImplementedError, match="A15"):
             get_arch(arch)
         with pytest.raises(NotImplementedError, match="A15"):
@@ -517,7 +518,8 @@ def test_other_families_raise_naming_a15(lm, arch):
                        **base),
         "hybrid": cfg_cls(name="hybrid", arch_type="hybrid",
                           period=("ssm_mlp", "attn_mlp"),
-                          **dict(base, n_layers=2)),
+                          ssm=SSMSpec(4, 4, 2), **dict(base, n_layers=4)),
+        "jamba_v0_1_52b": get_arch("jamba_v0_1_52b").reduced(),
         "audio": cfg_cls(name="audio", arch_type="audio", enc_dec=True,
                          enc_layers=1, enc_seq=4, **base),
         "vlm": cfg_cls(name="vlm", arch_type="vlm", n_patches=2, d_patch=4,
@@ -535,6 +537,22 @@ def test_other_families_raise_naming_a15(lm, arch):
         assert get_arch("qwen3_moe_30b_a3b").arch_type == "moe"
         with pytest.raises(ValueError):
             get_arch("no_such_model")
+        return
+    if cfg.period is not None:
+        assert get_arch("jamba_v0_1_52b").arch_type == "hybrid"
+        n_per = cfg.n_layers // len(cfg.period)
+        assert tm.layer_kinds(cfg) == tuple(cfg.period) * n_per
+        params = tm.init_params(cfg, device="cpu")
+        assert "stack" not in params and len(params["periods"]) \
+            == len(cfg.period)
+        cache = tm.init_cache(_rt(1), cfg, 1, 4, device="cpu")
+        assert isinstance(cache, list) and len(cache) == len(cfg.period)
+        for kind, block, entry in zip(cfg.period, params["periods"], cache):
+            mixer = "attn" if kind.startswith("attn") else "ssm"
+            assert mixer in block and block["norm1"].shape[0] == n_per
+            assert set(entry) == ({"k", "v"} if mixer == "attn"
+                                  else {"conv", "h"})
+            assert all(v.shape[0] == n_per for v in entry.values())
         return
     with pytest.raises(NotImplementedError, match="A15"):
         tm.init_params(cfg, device="cpu")
