@@ -98,7 +98,7 @@ JAX or of the JAX package.
    multi-dominator, pipelined, multi-dominator pipelined}; SVRG with its
    ``deep_full_gradient`` μ), run twice (the second timed and equal to
    the first bit for bit), each under no host sync, finite and below its
-   starting objective; each kind's first 1,000 steps (their own loop
+   starting objective; each kind's first 500 steps (their own loop
    shape) against the port's float64 oracle ``train_deep_vfl`` on the
    same schedule (every leaf within ‖·−·₆₄‖/‖·₆₄‖ ≤ 1e-4, the objective
    within a relative 1e-5); deep SGD under ``off`` and ``ring`` against
@@ -107,7 +107,7 @@ JAX or of the JAX package.
    engine="fused")`` for one SGD epoch, which must give the engine-driven
    iterate bit for bit.  Samples/s and host µs a step per kind,
    ``deep_full_gradient``'s time beside its bytes bound (X read twice),
-   and profiler windows over 1,000 deep SGD and 1,000 pipelined deep SGD
+   and profiler windows over 500 deep SGD and 500 pipelined deep SGD
    steps.  It runs after phase 11 and before phase 13.
 13. Bounded-delay deep training on phase 12's universe and start, τ = 4,
    phase 11's seed-0 delays: one full epoch of each of the 4 deep
@@ -115,7 +115,7 @@ JAX or of the JAX package.
    ``deep_pipelined_delayed``, ``deep_multi_pipelined_delayed`` SGD)
    under ``two_tree``, run twice (the second timed and equal to the
    first bit for bit), each under no host sync, finite and below its
-   start's objective; each kind's first 1,000 steps against the port's
+   start's objective; each kind's first 500 steps against the port's
    float64 staleness oracle (``train_deep_delayed`` /
    ``train_deep_multi_delayed``) on the same schedule and delays (every
    leaf and every ring slot within 1e-4 relative, the objective within
@@ -124,10 +124,10 @@ JAX or of the JAX package.
    form, and at τ = 0 lies within 1e-6 of it.  Deep delayed SGD under
    ``off`` and ``ring`` against ``two_tree`` (1e-4); a second full epoch
    chained on the first (the counter reaches 2 × steps) and a chained
-   1,000-step prefix against the chained oracle; ``run_deep_delayed_fused``
+   500-step prefix against the chained oracle; ``run_deep_delayed_fused``
    and ``run_deep_multi_delayed_fused(pipelined=True)`` bit-equal to
    their epochs.  Samples/s and host µs a step per kind, and profiler
-   windows over 1,000 delayed and multi delayed deep SGD steps.  It runs
+   windows over 500 delayed and multi delayed deep SGD steps.  It runs
    after phase 12 and before phase 14.
 14. Faults, guards, checkpoints and the supervisor on phase 7's resident
    data and problem, τ = 4, phase 11's seed-0 delays: one full epoch
@@ -135,7 +135,7 @@ JAX or of the JAX package.
    ``random_trace`` of crashes, rejoins, straggles and dropped broadcasts,
    and of each guarded kind on a trace with NaN and Inf corruptions added,
    under ``two_tree``, run twice (the second timed and equal to the first
-   bit for bit), each under no host sync; each kind's first 1,000 steps
+   bit for bit), each under no host sync; each kind's first 500 steps
    against the port's float64 faulted or guarded oracle (iterate and ring
    within 1e-4 relative; guarded: ``finite``/``alive`` equal, the norms
    within 1e-4); guarded with ``guard=True`` finite with no poisoned step,
@@ -145,7 +145,7 @@ JAX or of the JAX package.
    checkpointed after 1 epoch and resumed to 2, bit-equal to an
    uninterrupted 2-epoch run; ``train(supervise=True)`` on ridge at a
    divergent learning rate, finite after at least one heal; profiler
-   windows over 1,000 faulted, guarded and delayed SGD steps.  It runs
+   windows over 500 faulted, guarded and delayed SGD steps.  It runs
    after phase 13 and before phase 15.
 15. Deep faults and guards on phase 12's universe and start, τ = 4,
    phase 11's seed-0 delays and phase 14's traces: one full epoch of deep
@@ -153,7 +153,7 @@ JAX or of the JAX package.
    trace) under ``two_tree``, run twice (the second timed and equal to
    the first bit for bit, NaN for NaN in the telemetry), each under no
    host sync, each step's graph launching 4 ``vfl_grad`` programs (SVRG
-   6); each kind's first 500 steps against the port's float64 deep
+   6); each kind's first 250 steps against the port's float64 deep
    oracle (every leaf and ring slot within 1e-4 relative; guarded:
    ``finite``/``alive`` equal, the norms within 1e-4); guarded finite
    with no poisoned step, with ``guard=False`` NaN in the oracle's
@@ -169,10 +169,10 @@ JAX or of the JAX package.
    one SGD and one SVRG epoch each in every secure mode under no host
    sync, ``off`` bit-equal to the flat epoch where packed (1e-4 over the
    data axis), ``two_tree``/``ring`` within 1e-4 of the flat ``two_tree``
-   iterate, a 1,000-step ``two_tree`` prefix within 1e-4 of the float64
+   iterate, a 500-step ``two_tree`` prefix within 1e-4 of the float64
    oracle; host µs a step beside the flat step;
    ``run_faulted_fused(mesh=PartyMesh(q=8, slots=2))`` within 1e-4 of the
-   flat runner; profiler windows over 1,000 packed and flat SGD steps.
+   flat runner; profiler windows over 500 packed and flat SGD steps.
    It runs before phase 9.
 17. Serving over the mesh and the thread simulation, on phase 7's data
    and problem.  (a) ``ServeEngine`` over ``PartyMesh(q=64, slots=8)``:
@@ -340,7 +340,38 @@ JAX or of the JAX package.
    scan, the attention mixer against the plain chunked attention, each
    MoE layer against its f32 per-expert oracle, the dropped share
    recorded), end to end as phase 20.  Profiler windows over one prefill
-   and one decode step.  It runs last.
+   and one decode step.
+22. Cross attention and the secure frontends, each model whole at full
+   width across q = 8 parties under ``two_tree``, random f32 weights
+   from the seed, the frames and patches the reference's random stubs:
+   whisper-tiny (4 encoder layers over 1,500 frames of width 768, 96
+   features a party; 4 decoder blocks of self and cross attention and,
+   as the reference builds them, no feed-forward, ROADMAP C.R7; d_model
+   384, 6 heads over 6 of 64; vocabulary 51,865) with batch 4, a
+   224-token prompt and 32 generated tokens, its cross cache padded to
+   1,504 positions (8 shards of 188); and pixtral-12b (40 layers,
+   d_model 5,120, 32 heads over 8 of 128, d_ff 14,336, vocabulary
+   131,072, rope θ 10⁶; 1,024 patches of width 1,024, 128 features a
+   party, as a prefix) with batch 4, 1,024 patches + 1,024 text tokens
+   and 32 generated tokens.  In each counted ``serve`` call
+   ``flash_attention`` must launch once per attention of the prefill
+   (whisper 4 encoder + 4 self + 4 cross, non-causal where not self;
+   pixtral 40) and ``decode_attention`` once per decoder attention of
+   each of the 31 steps (whisper 8, pixtral 40), and no other kernel;
+   whisper's decoding never writes the cross cache's padding.  A second
+   call repeats the tokens and gives the (warm) times.  Then: the
+   parties' secure projection of the frames or patches within two bf16
+   steps of the unmasked f32 product of the same bf16 operands; one
+   prefill and 8 teacher-forced decode steps on the prefill's caches
+   (the cross cache read at enc_seq − 1) against the forward over the
+   prompt and those tokens (≥ 95% of the positions the margin decides,
+   at least one decided); one more decode step layer by layer, every
+   self and cross attention's ``decode_attention`` route within atol =
+   rtol = 5e-2 of the plain route on the same input and cache; the
+   prefill walked layer by layer (whisper's encoder first), every
+   encoder, self and cross attention within 5e-2 of the plain chunked
+   attention, end to end as phase 10.  Profiler windows over one
+   prefill and one decode step.  It runs last.
 
 The ``vfl_grad`` source holds five kernel programs:
 ``vfl_forward_narrow`` (M <= 4, the linear path), ``vfl_forward_wide``
@@ -375,7 +406,8 @@ just before phase 9's serve call and after it, just before phase
 10's serve call and after it, just before phase 19's no-grad
 kernel-route forwards and after each (its training steps must launch
 nothing), just before phase 20's serve call and after it, just before
-phase 21's serve call and after it;
+phase 21's serve call and after it, just before each of phase 22's two
+counted serve calls and after it;
 each count must equal what the dispatch or step structure implies, every
 program of each path must have run, and no other program.  The
 ``kernels`` line has one entry per program, timed at its main-path shape
@@ -419,11 +451,14 @@ L2) and cold (the calls rotate over enough
 operand sets that each finds its bytes gone from L2, as every layer of
 the model does); the bound is held against the cold time.  Their
 ``kernels`` line entries give the local-window shape's warm time (29 of
-the 34 layers) and phase 10's, 20's and 21's serve calls' launches
-(flash attention adds phase 19's); both also run at phase 20's
+the 34 layers) and phase 10's, 20's, 21's and 22's serve calls'
+launches (flash attention adds phase 19's); both also run at phase 20's
 qwen3-moe shapes (flash (4, 32, 2048, 128) over 4 KV heads, decode q (4,
-32, 128) over (4, 2080, 4, 128) as 8 shards at pos 2050) and at phase
-21's jamba shapes (the same over 8 KV heads).  Every path's
+32, 128) over (4, 2080, 4, 128) as 8 shards at pos 2050), at phase
+21's jamba shapes (the same over 8 KV heads) and at phase 22's whisper
+shapes (flash non-causal (4, 6, 1500, 64) and 224 queries over 1,500
+keys; decode q (4, 6, 64) over (4, 1504, 6, 64) as 8 shards at pos
+1499).  Every path's
 checks also require that no program of another path ran.  The four
 sources build in parallel.  Any failed check exits non-zero.  The last
 three lines are the card's name and power limit, the ``kernels``
@@ -509,6 +544,16 @@ MOE_MIN_SHARE = 0.5
 # (8 of 32 layers); 16 teacher-forced decode positions from zeros
 HYBRID_ARCH, HYBRID_LAYERS, HYBRID_Q, HYBRID_BATCH = "jamba_v0_1_52b", 8, 8, 4
 HYBRID_PROMPT, HYBRID_GEN, HYBRID_TEACHER = 2048, 32, 16
+# phase 22: cross attention and the continuous frontends, each model whole
+# at full width across q = 8 parties: (arch, batch, prompt positions: a
+# VLM's count its patches); 32 generated tokens, 8 teacher-forced steps
+FRONTENDS = (("whisper_tiny", 4, 224), ("pixtral_12b", 4, 2048))
+FRONTEND_Q, FRONTEND_GEN, FRONTEND_TEACHER = 8, 32, 8
+# the secure projection against the unmasked f32 product of the same bf16
+# operands: each party's bf16 partial rounds once and the f32 mask residue
+# may tip one more rounding (tests/test_torch_frontends.py): two bf16
+# steps of the largest value
+PROJ_TOL = 2 * 2.0 ** -7
 
 
 class SmokeFailure(RuntimeError):
@@ -1111,41 +1156,52 @@ def flash_rows(torch, dev):
     once with gemma3's window of 1024; at granite-8b's and internlm2-20b's
     (H 32 and 48 over Hkv 8, dh 128, a 4,096-token prompt at B 1: the
     plain version's f32 scores are 2-3 GB there); at phase 20's
-    qwen3-moe prefill (B 4, H 32 over Hkv 4, S 2048, dh 128); a ragged
-    shape and a small f32 shape.  The bound counts the FLOPs of the pairs the mask
-    keeps (bf16 at the dense tensor peak, f32 at the f32 peak) against the
+    qwen3-moe prefill (B 4, H 32 over Hkv 4, S 2048, dh 128) and phase
+    21's jamba prefill (over Hkv 8); at phase 22's whisper-tiny shapes,
+    non-causal at dh 64 in groups of 1 (B 4, H 6 over 6): the encoder's
+    self attention over 1,500 frames and the decoder's cross attention,
+    224 queries over the 1,500 encoder keys; a ragged shape and a small
+    f32 shape.  The bound counts the FLOPs of the pairs the mask keeps
+    (bf16 at the dense tensor peak, f32 at the f32 peak) against the
     bytes of q, k, v and o.  The library yardstick is one
-    ``scaled_dot_product_attention`` call (``enable_gqa``; ``is_causal``
-    or a boolean window mask).  Warm and cold times as ``_timed_row``;
+    ``scaled_dot_product_attention`` call (``enable_gqa``; ``is_causal``,
+    a boolean window mask, or no mask where non-causal).  Warm and cold times as ``_timed_row``;
     the rows at S ≥ 2,048 with its fewer repeats (the plain version takes
     14-20 ms a call there)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED + 30)
-    # (name, b, h, hkv, s, dh, causal, window, dtype)
-    cases = [("global", DENSE_BATCH, 8, 4, DENSE_PROMPT, 256, True, None,
+    # (name, b, h, hkv, s (query positions), key positions, dh, causal,
+    # window, dtype)
+    wb, wenc, wdec = FRONTENDS[0][1], 1500, FRONTENDS[0][2]
+    cases = [("global", DENSE_BATCH, 8, 4, DENSE_PROMPT, DENSE_PROMPT, 256,
+              True, None, torch.bfloat16),
+             ("local", DENSE_BATCH, 8, 4, DENSE_PROMPT, DENSE_PROMPT, 256,
+              True, 1024, torch.bfloat16),
+             ("granite", 1, 32, 8, DENSE_PROMPT, DENSE_PROMPT, 128, True,
+              None, torch.bfloat16),
+             ("internlm2", 1, 48, 8, DENSE_PROMPT, DENSE_PROMPT, 128, True,
+              None, torch.bfloat16),
+             ("qwen3_moe", MOE_BATCH, 32, 4, MOE_PROMPT, MOE_PROMPT, 128,
+              True, None, torch.bfloat16),
+             ("jamba", HYBRID_BATCH, 32, 8, HYBRID_PROMPT, HYBRID_PROMPT,
+              128, True, None, torch.bfloat16),
+             ("whisper_enc", wb, 6, 6, wenc, wenc, 64, False, None,
               torch.bfloat16),
-             ("local", DENSE_BATCH, 8, 4, DENSE_PROMPT, 256, True, 1024,
+             ("whisper_cross", wb, 6, 6, wdec, wenc, 64, False, None,
               torch.bfloat16),
-             ("granite", 1, 32, 8, DENSE_PROMPT, 128, True, None,
+             ("ragged", 1, 4, 2, 1000, 1000, 128, True, None,
               torch.bfloat16),
-             ("internlm2", 1, 48, 8, DENSE_PROMPT, 128, True, None,
-              torch.bfloat16),
-             ("qwen3_moe", MOE_BATCH, 32, 4, MOE_PROMPT, 128, True, None,
-              torch.bfloat16),
-             ("jamba", HYBRID_BATCH, 32, 8, HYBRID_PROMPT, 128, True, None,
-              torch.bfloat16),
-             ("ragged", 1, 4, 2, 1000, 128, True, None, torch.bfloat16),
-             ("small_f32", 2, 4, 2, 256, 64, True, 96, torch.float32)]
+             ("small_f32", 2, 4, 2, 256, 256, 64, True, 96, torch.float32)]
     rows = []
-    for name, b, h, hkv, s, dh, causal, window, dtype in cases:
+    for name, b, h, hkv, s, skv, dh, causal, window, dtype in cases:
         def randn(*shape):
             return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
         def operands():
             return (randn(b, s, h, dh).transpose(1, 2),
-                    randn(b, s, hkv, dh).transpose(1, 2),
-                    randn(b, s, hkv, dh).transpose(1, 2))
+                    randn(b, skv, hkv, dh).transpose(1, 2),
+                    randn(b, skv, hkv, dh).transpose(1, 2))
         q, k, v = first = operands()
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.attention_ref(q, k, v, causal=causal, window=window)
@@ -1172,7 +1228,7 @@ def flash_rows(torch, dev):
             return F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, is_causal=causal and mask is None,
                 enable_gqa=True)
-        pairs = _valid_pairs(s, s, causal, window)
+        pairs = _valid_pairs(s, skv, causal, window)
         rows.append(_timed_row(
             torch, name, "flash_attention", dtype, q.shape,
             [lambda q=q, k=k, v=v: ops.flash_attention(
@@ -1183,7 +1239,8 @@ def flash_rows(torch, dev):
             nbytes, 4.0 * b * h * dh * pairs,
             BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S,
             err, big=s >= MOE_PROMPT))
-        rows[-1]["valid_pairs"] = pairs
+        rows[-1].update(valid_pairs=pairs, key_positions=skv,
+                        causal=causal)
         del q, k, v, first, sets, got, mask
         torch.cuda.empty_cache()
     return rows
@@ -1198,7 +1255,10 @@ def decode_rows(torch, dev):
     the future); then at granite-8b's and internlm2-20b's decode, q (4,
     32 or 48, 128) over caches (4, 4128, 8, 128), global at pos 4100; and
     at phase 20's qwen3-moe decode, q (4, 32, 128) over caches (4, 2080,
-    4, 128) as 8 shards of 260, global at pos 2050.  A
+    4, 128) as 8 shards of 260, global at pos 2050 (and phase 21's jamba,
+    over 8 KV heads); and at phase 22's whisper-tiny cross attention, q
+    (4, 6, 64) over the padded cross cache (4, 1504, 6, 64) as 8 shards
+    of 188 at pos 1499 (enc_seq − 1: the padding never attended).  A
     shard with no valid position must give l = 0, o = 0 and m = −1e30.
     The bound is the bytes of the K/V positions in the window (plus q and
     the partials) against their f32 FLOPs; the library yardstick is one
@@ -1218,7 +1278,8 @@ def decode_rows(torch, dev):
             ("granite", 32, 8, 128, dense_s, 4100, None),
             ("internlm2", 48, 8, 128, dense_s, 4100, None),
             ("qwen3_moe", 32, 4, 128, MOE_PROMPT + MOE_GEN, 2050, None),
-            ("jamba", 32, 8, 128, HYBRID_PROMPT + HYBRID_GEN, 2050, None)):
+            ("jamba", 32, 8, 128, HYBRID_PROMPT + HYBRID_GEN, 2050, None),
+            ("whisper_cross", 6, 6, 64, 1504, 1499, None)):
         b = DENSE_BATCH
 
         def operands():
@@ -2120,7 +2181,7 @@ def stale_phase(torch, dev, x, y, layout, first_sgd, fresh, log_):
     return res, expected
 
 
-DEEP_PREFIX = 1000               # steps of the oracle and profiler runs
+DEEP_PREFIX = 500                # steps of the oracle and profiler runs
 # deep kind -> (multi-dominator, pipelined)
 DEEP_KINDS = {"fresh": (False, False), "multi": (True, False),
               "pipelined": (False, True), "multi_pipelined": (True, True)}
@@ -2589,7 +2650,7 @@ def deep_stale_phase(torch, dev, x, y, layout, fresh, log_):
     return res, expected
 
 
-FAULT_PREFIX = 1000              # steps of the oracle and profiler runs
+FAULT_PREFIX = 500               # steps of the oracle and profiler runs
 FAULT_ALGOS = ("sgd", "svrg", "saga")
 FAULT_P_CORRUPT = 0.002          # a NaN or Inf partial per party and step
 # ridge SGD on phase 7's data diverges at lr = 0.1 and at 0.01 and holds at
@@ -2904,9 +2965,9 @@ def fault_phase(torch, dev, x, y, layout, log_):
 
 DEEP_FAULT_KINDS = [(k, a) for k in ("faulted", "guarded")
                     for a in ("sgd", "svrg")]
-# steps of phase 15's float64 oracle runs: its party-loop oracles over
-# 1,000 steps took the phase to 106.5 s (measured on one H100)
-DEEP_FAULT_PREFIX = 500
+# steps of phase 15's float64 oracle runs: its party-loop oracles take
+# 9-14 ms a step on one H100
+DEEP_FAULT_PREFIX = 250
 # steps of each of phase 15's three profiler windows
 DEEP_FAULT_WINDOW = 200
 
@@ -3729,19 +3790,24 @@ def _rel_l2(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def _mixer_step(torch, kern, plain, cfg, kind, p, hn, window):
+def _mixer_step(torch, kern, plain, cfg, kind, p, hn, window, *,
+                causal=True, kv_src=None):
     """One layer's mixer (``kind``: attention for a kind starting "attn",
-    else the SSM) on the kernel routes (``kern``: ``selective_scan``,
-    ``flash_attention``) and on the plain ones (``plain``: the sequential
-    scan, the chunked attention) on the same normed input hn.  Returns the
-    kernel route's output and, against the plain one, the largest
-    absolute error and the count of elements beyond atol = rtol =
-    LM_TOL."""
+    ``causal`` or not, the block's cross attention ``xattn`` over
+    ``kv_src`` where that is given, else the SSM) on the kernel routes
+    (``kern``: ``selective_scan``, ``flash_attention``) and on the plain
+    ones (``plain``: the sequential scan, the chunked attention) on the
+    same normed input hn.  Returns the kernel route's output and, against
+    the plain one, the largest absolute error and the count of elements
+    beyond atol = rtol = LM_TOL."""
     from repro_torch.models import model as lm
     from repro_torch.models import ssm as ssm_lib
     if kind.startswith("attn"):
-        ok, _ = lm._apply_attention(kern, cfg, p["attn"], hn, window)
-        orr, _ = lm._apply_attention(plain, cfg, p["attn"], hn, window)
+        pa = p["attn"] if kv_src is None else p["xattn"]
+        ok, _ = lm._apply_attention(kern, cfg, pa, hn, window,
+                                    causal=causal, kv_src=kv_src)
+        orr, _ = lm._apply_attention(plain, cfg, pa, hn, window,
+                                     causal=causal, kv_src=kv_src)
     else:
         ok = ssm_lib.apply_ssm(p["ssm"], hn, scan_impl=kern.scan_impl)
         orr = ssm_lib.apply_ssm(p["ssm"], hn, scan_impl=plain.scan_impl)
@@ -3785,7 +3851,7 @@ def _moe_step(torch, kern, cfg, p, xa, first):
     return xa + mo, row
 
 
-def _walk(torch, cfg, params, x, x2, q):
+def _walk(torch, cfg, params, x, x2, q, frames=None):
     """The prefill's stack layer by layer (``models.model._blocks``: a
     period stack period by period) in three streams: the kernel routes
     from ``x``, the plain routes (``scan_impl`` and ``attn_impl``
@@ -3794,7 +3860,12 @@ def _walk(torch, cfg, params, x, x2, q):
     every layer ``_mixer_step`` holds the kernel mixer against the plain
     one on the kernel stream's normed input, and an MoE layer's
     feed-forward goes through ``_moe_step``; the streams' relative L2
-    distances are recorded after each layer."""
+    distances are recorded after each layer.  An encoder-decoder's
+    ``frames`` (the projected frames of the two mask draws) first go
+    through the encoder layer by layer in the same three streams, each
+    non-causal self attention held in the same way, and each decoder
+    block's cross attention over its stream's encoder output is held
+    too; ``mixers`` records each kind of mixer's worst error."""
     from repro_torch.models import model as lm
     from repro_torch.models.layers import rms_norm
     from repro_torch.sharding.api import Runtime
@@ -3803,13 +3874,42 @@ def _walk(torch, cfg, params, x, x2, q):
                     attn_impl="reference")
     windows = lm.layer_windows(cfg, x.shape[1])
     worst, bad, plain_s = 0.0, 0, 0.0
-    moe_layers, vs_ref, vs_masks = [], [], []
+    moe_layers, vs_ref, vs_masks, mixers = [], [], [], {}
+
+    def mix(name, kind, p, hn, window, **kw):
+        nonlocal worst, bad
+        out, err, beyond = _mixer_step(torch, kern, plain, cfg, kind, p, hn,
+                                       window, **kw)
+        worst, bad = max(worst, err), bad + beyond
+        row = mixers.setdefault(name, dict(layers=0, max_abs_err=0.0,
+                                           beyond_tol=0))
+        row.update(layers=row["layers"] + 1,
+                   max_abs_err=max(row["max_abs_err"], err),
+                   beyond_tol=row["beyond_tol"] + beyond)
+        return out
+
+    enc = (None,) * 3
+    if frames is not None:
+        ek, er, ek2 = frames[0], frames[0], frames[1]
+        for i in range(cfg.enc_layers):
+            p = lm._layer(params["enc_stack"], i)
+            ok = mix("encoder_self", "attn_mlp", p, rms_norm(ek, p["norm1"]),
+                     None, causal=False)
+            ek, _ = lm._apply_ffn(kern, cfg, p, ek + ok)
+            er, _ = lm._block_fwd(plain, cfg, "attn_mlp", p, er, None,
+                                  causal=False)
+            ek2, _ = lm._block_fwd(kern, cfg, "attn_mlp", p, ek2, None,
+                                   causal=False)
+        enc = tuple(rms_norm(v, params["enc_norm"]) for v in (ek, er, ek2))
     xk, xr, xk2 = x, x, x2
     for i, kind, p in lm._blocks(cfg, params):
         w = windows[i]
-        ok, err, beyond = _mixer_step(torch, kern, plain, cfg, kind, p,
-                                      rms_norm(xk, p["norm1"]), w)
-        worst, bad = max(worst, err), bad + beyond
+        ok = mix("self" if kind.startswith("attn") else "ssm", kind, p,
+                 rms_norm(xk, p["norm1"]), w)
+        if "xattn" in p:
+            xk = xk + ok
+            ok = mix("cross", kind, p, rms_norm(xk, p["norm_x"]), None,
+                     causal=False, kv_src=enc[0])
         if "moe" in p:
             xk, row = _moe_step(torch, kern, cfg, p, xk + ok,
                                 first=not moe_layers)
@@ -3818,16 +3918,17 @@ def _walk(torch, cfg, params, x, x2, q):
             xk, _ = lm._apply_ffn(kern, cfg, p, xk + ok)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        xr, _ = lm._block_fwd(plain, cfg, kind, p, xr, w)
+        xr, _ = lm._block_fwd(plain, cfg, kind, p, xr, w, enc_out=enc[1])
         torch.cuda.synchronize()
         plain_s += time.perf_counter() - t0
-        xk2, _ = lm._block_fwd(kern, cfg, kind, p, xk2, w)
+        xk2, _ = lm._block_fwd(kern, cfg, kind, p, xk2, w, enc_out=enc[2])
         vs_ref.append(_rel_l2(xk, xr))
         vs_masks.append(_rel_l2(xk2, xk))
     fin = params["final_norm"]
     hidden = tuple(rms_norm(v, fin) for v in (xk, xr, xk2))
     res = dict(
-        mixer_max_abs_err=worst, mixer_beyond_tol=bad, plain_path_s=plain_s,
+        mixer_max_abs_err=worst, mixer_beyond_tol=bad, mixers=mixers,
+        plain_path_s=plain_s,
         depth=cfg.n_layers,
         rel_l2_vs_reference=_rel_l2(hidden[0], hidden[1]),
         rel_l2_vs_mask_redraw=_rel_l2(hidden[2], hidden[0]),
@@ -3925,17 +4026,29 @@ def _prefill_walk(torch, cfg, params, batch, gen, tok, q, phase, log_):
     end: the kernel path's next tokens against the plain path's, and a
     ``ring_masks`` prefill's against ``tok`` (``two_tree``'s), equal
     wherever the plain path's top-two margin decides them (on random
-    weights router flips may leave none decided: logged).  Returns the
-    walk's record."""
+    weights router flips may leave none decided: logged).  The streams
+    start from the secure frontends: the embedded tokens (after a VLM's
+    projected patches), and an encoder-decoder's projected frames.
+    Returns the walk's record."""
     from repro_torch.models import model as lm
     from repro_torch.sharding.api import Runtime
     from repro_torch.vfl.heads import vocab_parallel_greedy
     rt = Runtime(model_size=q)
     tok_ring, _ = lm.prefill(Runtime(model_size=q, secure_mode="ring_masks"),
                              cfg, params, batch, gen)
-    x = lm._embed_tokens(rt, cfg, params, batch["tokens"], gen)
-    x2 = lm._embed_tokens(rt, cfg, params, batch["tokens"], gen)
-    walk = _walk(torch, cfg, params, x, x2, q)
+    streams = []
+    for _ in range(2):                      # two mask draws
+        if cfg.enc_dec:
+            streams.append((lm._embed_tokens(rt, cfg, params,
+                                             batch["tokens"], gen),
+                            lm._project_features(rt, params["enc_proj"],
+                                                 batch["frames"], gen)))
+        else:
+            streams.append((lm._prepare_inputs(rt, cfg, params, batch,
+                                               gen)[0], None))
+    (x, f), (x2, f2) = streams
+    walk = _walk(torch, cfg, params, x, x2, q,
+                 frames=(f, f2) if cfg.enc_dec else None)
     h, h_ref, _ = walk.pop("hidden")
     logits = _logits(torch, params, h_ref[:, -1])
     kt = vocab_parallel_greedy(rt, params["embed"], h[:, -1])
@@ -4202,8 +4315,9 @@ def _train_lm_config(torch, dev, arch, layers, q, batch, seq, log_):
     kernel_rt = Runtime(model_size=q)
     params = lm.init_params(cfg, SEED, device=dev)
     n_params = sum(p.numel() for p in leaves(params))
-    batches = [lt.to_device_batch(b, dev) for b in synthetic_token_batches(
-        cfg.vocab, batch, seq, TRAIN_LM_STEPS, seed=SEED)]
+    batches = [lt.to_device_batch(b, dev, cfg)
+               for b in synthetic_token_batches(cfg.vocab, batch, seq,
+                                                TRAIN_LM_STEPS, seed=SEED)]
 
     def gen(*key):
         return mask_generator(SEED, 19, *key, device=dev)
@@ -4550,11 +4664,13 @@ def moe_phase(torch, dev, log_):
 
 def _decode_walk(torch, cfg, params, cache, token, pos, q, gen):
     """One decode step at ``pos`` layer by layer on ``cache`` (as a serve
-    call left it): at the attention layer the kernel route
+    call left it): at each attention layer the kernel route
     (``decode_attention`` over q shards) against the plain one on the
-    same input and on copies of the same cache; every SSM layer's new
-    state finite.  The stream advances on the kernel routes, writing the
-    cache in place as ``decode_step`` does."""
+    same input and on copies of the same cache, and so for an
+    encoder-decoder's cross attention over its read-only cross cache at
+    enc_seq − 1; every SSM layer's new state finite.  The stream advances
+    on the kernel routes, writing the cache in place as ``decode_step``
+    does."""
     from repro_torch.models import model as lm
     from repro_torch.models.layers import rms_norm
     from repro_torch.sharding.api import Runtime
@@ -4563,8 +4679,18 @@ def _decode_walk(torch, cfg, params, cache, token, pos, q, gen):
     caches, kinds, _ = lm._stacks(cfg, cache)
     s_cache = next(c["k"].shape[2] for c in caches if "k" in c)
     pos_t = torch.full((), pos, dtype=torch.int32, device=token.device)
+    xpos_t = torch.full((), cfg.enc_seq - 1, dtype=torch.int32,
+                        device=token.device)
     x = lm._embed_tokens(kern, cfg, params, token[:, None], gen)[:, 0]
     rows = []
+
+    def held(i, kind, mixer, outs):
+        err = (outs[0].float() - outs[1].float()).abs()
+        rows.append(dict(
+            layer=i, kind=kind, mixer=mixer, max_abs_err=float(err.max()),
+            beyond_tol=int((err > LM_TOL + LM_TOL
+                            * outs[1].float().abs()).sum())))
+
     for i, kind, p in lm._blocks(cfg, params):
         c = lm._layer(caches[i % len(kinds)], i // len(kinds))
         if kind.startswith("attn"):
@@ -4574,13 +4700,15 @@ def _decode_walk(torch, cfg, params, cache, token, pos, q, gen):
                 kc, vc = c["k"].clone(), c["v"].clone()
                 outs.append(lm._decode_attention(rt, cfg, p["attn"], h, kc,
                                                  vc, pos, pos_t, s_cache))
-            err = (outs[0].float() - outs[1].float()).abs()
-            rows.append(dict(
-                layer=i, kind=kind, max_abs_err=float(err.max()),
-                beyond_tol=int((err > LM_TOL + LM_TOL
-                                * outs[1].float().abs()).sum())))
+            held(i, kind, "self", outs)
+            if "xattn" in p:
+                hx = rms_norm(x + outs[0], p["norm_x"])
+                held(i, kind, "cross", [lm._decode_attention(
+                    rt, cfg, p["xattn"], hx, c["xk"], c["xv"],
+                    cfg.enc_seq - 1, xpos_t, None, cross=True)
+                    for rt in (kern, plain)])
         x, new = lm._block_decode(kern, cfg, kind, p, x, c, pos, pos_t,
-                                  s_cache)
+                                  s_cache, xpos_t)
         if not kind.startswith("attn"):
             rows.append(dict(layer=i, kind=kind, state_finite=all(
                 bool(torch.isfinite(v.float()).all()) for v in new.values())))
@@ -4712,6 +4840,165 @@ def hybrid_phase(torch, dev, log_):
         del params, step
     torch.cuda.empty_cache()
     return res, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 22: cross attention and the secure frontends
+# ---------------------------------------------------------------------------
+
+def _frontend_model(torch, dev, arch, batch, prompt, log_):
+    """One model of phase 22; returns (record, launches of the counted
+    serve call by program)."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.configs.inputs import make_batch
+    from repro_torch.core.secure_agg import mask_generator
+    from repro_torch.kernels import decode_attention as dak
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.models import model as lm
+    from repro_torch.optim.tree import leaves
+    from repro_torch.sharding.api import Runtime
+    from repro_torch.vfl.embed import secure_feature_project
+    cfg, q = get_arch(arch), FRONTEND_Q
+    name = f"phase 22 {arch}"
+    # flash attention: each encoder layer, and each decoder layer's self
+    # (and cross) attention, once a prefill; decode attention each decoder
+    # layer's self (and cross) attention once a step
+    per_step = cfg.n_layers * (2 if cfg.enc_dec else 1)
+    per_prefill = per_step + cfg.enc_layers
+    steps = FRONTEND_GEN - 1
+    kw = dict(batch=batch, prompt_len=prompt, gen_tokens=FRONTEND_GEN,
+              reduced=False, model_parallel=q, seed=SEED)
+    res = {"config": dict(
+        arch=arch, q=q, batch=batch, prompt=prompt, generated=FRONTEND_GEN,
+        layers=cfg.n_layers, encoder_layers=cfg.enc_layers,
+        encoder_positions=cfg.enc_seq, patches=cfg.n_patches,
+        text_tokens=prompt - cfg.n_patches, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv, d_head=cfg.head_dim,
+        d_ff=cfg.d_ff, vocab=cfg.vocab, padded_vocab=cfg.padded_vocab)}
+    want = {"flash_attention": per_prefill,
+            "decode_attention": per_step * steps}
+    calls, launches, out = _serve_twice(torch, arch, kw, f"22 {arch}", log_)
+    res.update(calls)
+    check({p: n for p, n in launches.items() if n} == want,
+          f"{name}: serve launched {launches}; want exactly {want} (flash "
+          "attention once per attention of the prefill, decode attention "
+          f"once per decoder attention of each of the {steps} steps)")
+    check_idle(_libs()[:2], f"{name} serving")
+    if cfg.enc_dec:
+        pad = [out.cache[n][:, :, cfg.enc_seq:] for n in ("xk", "xv")]
+        check(all(not bool(t.any()) for t in pad),
+              f"{name}: decoding wrote into the cross cache's padding")
+    del out
+    torch.cuda.empty_cache()
+
+    rt = Runtime(model_size=q)
+    with torch.no_grad():
+        params = lm.init_params(cfg, SEED, device=dev)
+        n_params = sum(p.numel() for p in leaves(params))
+        res["config"].update(params=n_params, param_gb=4 * n_params / 1e9)
+        inputs = make_batch(cfg, ShapeConfig("frontend", prompt, batch,
+                                             "prefill"), rt, seed=SEED,
+                            device=dev)
+        gen = mask_generator(SEED, 22, device=dev)
+
+        # (1) the parties' secure projection against the unmasked f32
+        # product of the same bf16 operands
+        proj, feat = ("enc_proj", "frames") if cfg.enc_dec \
+            else ("patch_proj", "patches")
+        got = secure_feature_project(rt, params[proj], inputs[feat], gen)
+        want_p = inputs[feat].float() @ params[proj].to(torch.bfloat16).float()
+        err = float((got.float() - want_p).abs().max())
+        res["projection"] = dict(
+            shape=list(got.shape), max_abs_err=err,
+            ref_max=float(want_p.abs().max()),
+            rel_l2=_rel_l2(got, want_p), tolerance=PROJ_TOL)
+        log_(f"{name} secure projection: {res['projection']}")
+        check(err <= PROJ_TOL * res["projection"]["ref_max"],
+              f"{name}: the secure projection {res['projection']}")
+        del got, want_p
+
+        # (2) launches per prefill and per decode step; teacher-forced
+        # decode after the prefill against the forward over the prompt and
+        # the teacher tokens (the same frames or patches)
+        reset_counts()
+        tok, kv = lm.prefill(rt, cfg, params, inputs, gen)
+        torch.cuda.synchronize()
+        counted = [(fak.KERNEL.launches["flash_attention"],
+                    dak.KERNEL.launches["decode_attention"])]
+        cache = lm.init_cache(rt, cfg, batch, prompt + FRONTEND_GEN,
+                              device=dev)
+        for n, val in kv.items():
+            cache[n][:, :, :val.shape[2]].copy_(val)
+        del kv
+        teacher = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+            0, cfg.vocab, (batch, FRONTEND_TEACHER)), device=dev)
+        dec = [tok]
+        reset_counts()
+        for i in range(FRONTEND_TEACHER):
+            t, cache = lm.decode_step(
+                rt, cfg, params, {"token": teacher[:, i], "pos": prompt + i,
+                                  "cache": cache}, gen)
+            dec.append(t)
+        torch.cuda.synchronize()
+        counted.append((fak.KERNEL.launches["flash_attention"],
+                        dak.KERNEL.launches["decode_attention"]))
+        check(counted == [(per_prefill, 0), (0, per_step * FRONTEND_TEACHER)],
+              f"{name}: launches (flash, decode) {counted}, want "
+              f"({per_prefill}, 0) a prefill and (0, {per_step}) a decode "
+              f"step over {FRONTEND_TEACHER} steps")
+        full = dict(inputs, tokens=torch.cat([inputs["tokens"], teacher], 1))
+        x, enc_out, _ = lm._prepare_inputs(rt, cfg, params, full, gen)
+        hf = lm._backbone(rt, cfg, params, x, enc_out=enc_out)[:, prompt - 1:]
+        del x, enc_out
+        tf = res["decode_vs_forward"] = _decode_vs_forward(
+            torch, rt, cfg, params, torch.stack(dec, 1), hf)
+        log_(f"{name} teacher-forced decode vs forward: {tf}")
+        check(tf["decided"] and tf["agreement"] >= 0.95,
+              f"{name}: decode against the forward pass: {tf['agreement']} "
+              f"of {tf['decided']} decided positions agree (want >= 0.95)")
+        del hf
+
+        # (3) one more decode step layer by layer on that cache: each
+        # self and cross attention's kernel route against the plain one
+        res["decode_walk"] = _decode_walk(
+            torch, cfg, params, cache, dec[-1], prompt + FRONTEND_TEACHER,
+            q, gen)
+        log_(f"{name} decode step layer by layer: {res['decode_walk']}")
+        for r in res["decode_walk"]:
+            check(r["beyond_tol"] == 0,
+                  f"{name} decode layer {r}: want the kernel route within "
+                  f"atol = rtol = {LM_TOL} of the plain route's on the same "
+                  "input and cache")
+        del cache
+        torch.cuda.empty_cache()
+
+        # (4) the prefill walked layer by layer, end to end
+        res["kernel_vs_reference"] = _prefill_walk(
+            torch, cfg, params, inputs, gen, tok, q, f"22 {arch}", log_)
+        step = {"token": tok, "pos": prompt,
+                "cache": lm.init_cache(rt, cfg, batch, prompt + FRONTEND_GEN,
+                                       device=dev)}
+        res["profile"] = _profile_windows(torch, {
+            "prefill": lambda: lm.prefill(rt, cfg, params, inputs, gen),
+            "decode_step": lambda: lm.decode_step(rt, cfg, params, step,
+                                                  gen)}, f"22 {arch}", log_)
+        del params, step
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def frontend_phase(torch, dev, log_):
+    """Phase 22; returns (record, launches of its serve calls by program,
+    summed)."""
+    res, launches = {}, Counter()
+    for arch, batch, prompt in FRONTENDS:
+        t0 = time.perf_counter()
+        res[arch], got = _frontend_model(torch, dev, arch, batch, prompt,
+                                         log_)
+        res[arch]["seconds"] = time.perf_counter() - t0
+        log_(f"phase 22 {arch}: {res[arch]['seconds']:.1f} s")
+        launches.update(got)
+    return res, dict(launches)
 
 
 # ---------------------------------------------------------------------------
@@ -5205,6 +5492,10 @@ def main() -> int:
     record["hybrid"], hybrid_launches = hybrid_phase(torch, dev, log)
     record["hybrid"]["seconds"] = time.perf_counter() - t21
     log(f"phase 21: {record['hybrid']['seconds']:.1f} s")
+    t22 = time.perf_counter()
+    record["frontends"], frontend_launches = frontend_phase(torch, dev, log)
+    record["frontends"]["seconds"] = time.perf_counter() - t22
+    log(f"phase 22: {record['frontends']['seconds']:.1f} s")
     record["seconds"] = time.perf_counter() - t_start
 
     # each program's line reports its own main-path shape: serving's linear
@@ -5249,8 +5540,8 @@ def main() -> int:
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None})
     # the attention programs at phase 10's local-window shape (29 of the
-    # 34 layers); launches are phase 10's, 20's and 21's serve calls' and
-    # phase 19's no-grad forwards
+    # 34 layers); launches are phase 10's, 20's, 21's and 22's serve
+    # calls' and phase 19's no-grad forwards
     for prog, key, src, tpu in (
             ("flash_attention", "flash_shapes", "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:93"),
@@ -5263,7 +5554,8 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": tpu,
             "launches": dense_launches[prog] + lm_train_launches[prog]
-            + moe_launches[prog] + hybrid_launches[prog],
+            + moe_launches[prog] + hybrid_launches[prog]
+            + frontend_launches[prog],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -9,6 +9,10 @@ card::
         --model-parallel 4 --device cuda
     PYTHONPATH=src python examples/serve_lm_torch.py \\
         --arch jamba_v0_1_52b          # the reduced period stack (jamba)
+    PYTHONPATH=src python examples/serve_lm_torch.py \
+        --arch whisper_tiny            # the reduced encoder-decoder
+    PYTHONPATH=src python examples/serve_lm_torch.py \
+        --arch pixtral_12b             # 8 patches + 24 text tokens
 """
 import argparse
 

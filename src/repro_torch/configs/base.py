@@ -4,10 +4,8 @@
 Every architecture is a frozen ``ArchConfig``, one module per architecture
 under ``repro_torch.configs``.  ``reduced()`` gives the CPU smoke-test
 variant (≤ 2 layers, or one 4-layer period, d_model ≤ 128, ≤ 4 experts)
-of the same family.  Only the families whose model path is ported (SSM,
-dense, MoE and the hybrid period stack) have a module here: asking for
-another (the audio and VLM families) raises ``NotImplementedError``
-naming ROADMAP A15d.
+of the same family.  Every id in ``ARCH_IDS`` has one: the SSM, dense,
+MoE, hybrid (period stack), audio (encoder-decoder) and VLM families.
 """
 from __future__ import annotations
 
@@ -127,9 +125,6 @@ ARCH_IDS = [
     "pixtral_12b",
     "falcon_mamba_7b",
 ]
-PORTED = ("falcon_mamba_7b", "gemma3_4b", "stablelm_1_6b", "granite_8b",
-          "internlm2_20b", "granite_moe_1b_a400m", "qwen3_moe_30b_a3b",
-          "jamba_v0_1_52b")
 
 
 def get_arch(arch_id: str) -> ArchConfig:
@@ -137,9 +132,4 @@ def get_arch(arch_id: str) -> ArchConfig:
     if arch_id not in ARCH_IDS:
         raise ValueError(f"unknown architecture {arch_id!r}; known: "
                          f"{ARCH_IDS}")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"{arch_id} is not ported yet: the port has the SSM, dense, "
-            f"MoE and hybrid families ({', '.join(PORTED)}); the audio and "
-            "VLM stacks are ROADMAP A15d")
     return importlib.import_module(f"repro_torch.configs.{arch_id}").CONFIG

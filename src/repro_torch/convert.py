@@ -20,7 +20,11 @@ arrays, done by the caller, so this module never imports JAX):
   every stack leaf with its leading layer axis; or a period stack's
   (jamba: ``periods``, a list with one stacked tree per period position,
   each a mixer, {``norm1``, ``ssm``} or {``norm1``, ``attn``}, with a
-  feed-forward, {``norm2``, ``mlp``} or {``norm2``, ``moe``}).
+  feed-forward, {``norm2``, ``mlp``} or {``norm2``, ``moe``}); or an
+  encoder-decoder's (whisper: ``stack`` = {``norm1``, ``attn``,
+  ``norm_x``, ``xattn``}, ``xattn`` as ``attn``, beside ``enc_proj``,
+  ``enc_stack``, a dense stack, and ``enc_norm``); or a VLM's (pixtral:
+  the dense family's with ``patch_proj``).
 
 Both keep their layout: the port packs and stacks exactly as the
 reference does.
@@ -87,13 +91,22 @@ _SSM = ("w_in", "conv_w", "conv_b", "w_x_dbc", "w_dt", "dt_bias", "a_log",
 _ATTN = ("wq", "wk", "wv", "wo")
 _MLP = ("w_gate", "w_up", "w_down")
 _MOE = ("router", "w_gate", "w_up", "w_down")
+_DENSE = {"norm1": None, "attn": _ATTN, "norm2": None, "mlp": _MLP}
+# the reference's decoder block of an encoder-decoder has no feed-forward
+_CROSS = {"norm1": None, "attn": _ATTN, "norm_x": None, "xattn": _ATTN}
 _LM_STACKS = (
     {"norm1": None, "ssm": _SSM},
-    {"norm1": None, "attn": _ATTN, "norm2": None, "mlp": _MLP},
+    _DENSE,
     {"norm1": None, "attn": _ATTN, "norm2": None, "moe": _MOE},
     {"norm1": None, "ssm": _SSM, "norm2": None, "mlp": _MLP},
     {"norm1": None, "ssm": _SSM, "norm2": None, "moe": _MOE},
 )
+# the trees' top-level keys: a decoder (uniform or period stack), an
+# encoder-decoder's (its decoder stack of _CROSS blocks) or a VLM's
+_TOPS = ({"embed", "final_norm", "stack"}, {"embed", "final_norm", "periods"},
+         {"embed", "final_norm", "stack", "enc_proj", "enc_stack",
+          "enc_norm"},
+         {"embed", "final_norm", "stack", "patch_proj"})
 
 
 def _matches(stack, layout) -> bool:
@@ -103,28 +116,39 @@ def _matches(stack, layout) -> bool:
                     for k, leaves in layout.items()))
 
 
-def lm_params(params, *, q: int, device="cuda"):
-    """The reference's LM parameter tree (SSM, dense, MoE or period
-    stack; numpy leaves) as the port's: the same tree of f32 tensors on
-    ``device``.  The embedding table must split into ``q`` party
-    vocabulary blocks."""
-    dev = resolve_device(device)
+def _lm_tree_ok(params) -> bool:
+    top = set(params)
+    if top not in _TOPS:
+        return False
+    if "enc_stack" in top:
+        return _matches(params["stack"], _CROSS) \
+            and _matches(params["enc_stack"], _DENSE)
+    if "patch_proj" in top:
+        return _matches(params["stack"], _DENSE)
     stacks = params.get("periods", params.get("stack"))
     if not isinstance(stacks, list):
         stacks = [stacks]
-    if not (set(params) in ({"embed", "final_norm", "stack"},
-                            {"embed", "final_norm", "periods"})
-            and stacks and all(any(_matches(s, layout)
-                                   for layout in _LM_STACKS)
-                               for s in stacks)):
-        raise NotImplementedError(
-            "only the SSM family's parameter tree (embed, final_norm, "
-            "stack/{norm1, ssm}), the dense family's (stack/{norm1, attn, "
-            "norm2, mlp}), the MoE family's (stack/{norm1, attn, norm2, "
-            "moe}) and a period stack's (periods: a list of such blocks, "
-            "an SSM mixer with norm2 and mlp or moe included) are ported; "
-            "the encoder and patch frontends (enc_*, patch_proj, ROADMAP "
-            "A15d) are not")
+    return bool(stacks) and all(any(_matches(s, layout)
+                                    for layout in _LM_STACKS)
+                                for s in stacks)
+
+
+def lm_params(params, *, q: int, device="cuda"):
+    """The reference's LM parameter tree (SSM, dense, MoE, period stack,
+    encoder-decoder or VLM; numpy leaves) as the port's: the same tree of
+    f32 tensors on ``device``.  The embedding table must split into ``q``
+    party vocabulary blocks."""
+    dev = resolve_device(device)
+    if not _lm_tree_ok(params):
+        raise ValueError(
+            "not an LM parameter tree of the reference: want embed, "
+            "final_norm and a stack of {norm1, ssm}, {norm1, attn, norm2, "
+            "mlp} or {norm1, attn, norm2, moe} blocks; or periods, a list "
+            "of such blocks (an SSM mixer with norm2 and mlp or moe "
+            "included); or an encoder-decoder's stack of {norm1, attn, "
+            "norm_x, xattn} blocks with enc_proj, a dense "
+            "enc_stack and enc_norm; or a dense stack with patch_proj; got "
+            f"{sorted(params)}")
     if np.shape(params["embed"])[0] % q:
         raise ValueError(f"vocabulary {np.shape(params['embed'])[0]} does "
                          f"not split into {q} party blocks")

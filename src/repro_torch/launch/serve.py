@@ -1,5 +1,6 @@
 """LM serving: batched prefill and greedy decode on the model stack (the
-port of ``repro.launch.serve``; the SSM, dense, MoE and hybrid families).
+port of ``repro.launch.serve``; the SSM, dense, MoE, hybrid, audio and
+VLM families).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_4b \\
         --device cpu                          # reduced config, on the CPU
@@ -7,6 +8,8 @@ port of ``repro.launch.serve``; the SSM, dense, MoE and hybrid families).
         --arch qwen3_moe_30b_a3b --device cpu --model-parallel 2
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch jamba_v0_1_52b --device cpu   # the reduced period stack
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper_tiny --device cpu     # the reduced encoder-decoder
 
 The prompt enters through the parties' secure vocabulary embedding and
 each token leaves through the party-sharded greedy head, with fresh masks
@@ -15,7 +18,13 @@ the whole call).  A dense prefill's KV cache is put at positions
 [0, prompt_len) of a decode cache of ``prompt_len + gen_tokens``
 positions (rounded up to a multiple of the party count, so the parties'
 cache shards are equal; the positions past the last token are never
-attended), and decode step i runs at position ``prompt_len + i``.  An
+attended), and decode step i runs at position ``prompt_len + i``.
+An encoder-decoder's prefill also gives the cross attention's K/V of the
+encoder output (enc_seq positions), put at the start of the decode
+cache's ``xk``/``xv`` (enc_seq rounded up to a multiple of q), which
+decoding reads and never writes.  A VLM's ``prompt_len`` counts its
+``n_patches`` patch positions, as the reference's does: the prompt is the
+patches and ``prompt_len − n_patches`` text tokens.  An
 MoE model spreads its experts over the parties (``replicated``
 dispatch, ``Runtime``'s default).  As in the reference, the SSM prefill
 hands no state to the decode loop, which starts from ``init_cache``'s
@@ -74,6 +83,9 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32,
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model_lib.layer_kinds(cfg)
+    if cfg.arch_type == "vlm" and prompt_len <= cfg.n_patches:
+        raise ValueError(f"{cfg.name}'s prompt_len {prompt_len} counts its "
+                         f"{cfg.n_patches} patches and must exceed it")
     dev = resolve_device(device)
     rt = Runtime(model_size=model_parallel, secure_mode=secure_mode,
                  schedule_faithful=schedule_faithful,
@@ -89,12 +101,14 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32,
         _sync(dev)
         t0 = time.perf_counter()
         tok, kv = model_lib.prefill(rt, cfg, params, pre_batch, gen)
-        # the reference re-homes only a uniform stack's attention cache;
-        # SSM and period-stack decoding start from zeros (C.R3, C.R6)
+        # the reference re-homes only a uniform stack's attention cache,
+        # each entry at the start of its decode entry (repro/launch/
+        # serve.py:50-56); SSM and period-stack decoding start from zeros
+        # (C.R3, C.R6)
         cache = model_lib.init_cache(rt, cfg, batch, max_len, device=dev)
         if kv is not None:
             for name, val in kv.items():
-                cache[name][:, :, :prompt_len].copy_(val)
+                cache[name][:, :, :val.shape[2]].copy_(val)
             del kv
         _sync(dev)
         t_pre = time.perf_counter() - t0

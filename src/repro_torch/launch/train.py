@@ -1,5 +1,5 @@
-"""LM training (the port of ``repro.launch.train``; the SSM, dense, MoE
-and hybrid families).
+"""LM training (the port of ``repro.launch.train``; the SSM, dense, MoE,
+hybrid, audio and VLM families).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm_1_6b \\
         --steps 20 --device cpu                 # reduced config, on the CPU
@@ -17,6 +17,8 @@ applies the optimiser.  Tokens come from ``data.tokens``'
 ``synthetic_token_batches``; the masks of the secure embedding come from
 a generator seeded per step from (SEED, step), so they are not the
 reference's threefry bits and the two packages agree to the mask residue.
+An encoder-decoder's batches carry zero frames and a VLM's zero patches,
+as the reference's do (``repro/launch/train.py:72-77``).
 """
 from __future__ import annotations
 
@@ -83,10 +85,21 @@ def train_step(rt: Runtime, cfg: ArchConfig, params, opt, batch,
     return loss, params, opt
 
 
-def to_device_batch(batch, dev: torch.device):
-    """A numpy batch {"tokens", "labels"} as int64 tensors on ``dev``."""
-    return {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
-            for k, v in batch.items()}
+def to_device_batch(batch, dev: torch.device, cfg: ArchConfig):
+    """A numpy batch {"tokens", "labels"} as int64 tensors on ``dev``;
+    for ``cfg``'s encoder-decoder zero bf16 "frames" (B, enc_seq,
+    2·d_model) beside them, for its VLM zero bf16 "patches" (B,
+    n_patches, d_patch)."""
+    out = {k: torch.as_tensor(v, dtype=torch.int64, device=dev)
+           for k, v in batch.items()}
+    b = out["tokens"].shape[0]
+    if cfg.enc_dec:
+        out["frames"] = torch.zeros((b, cfg.enc_seq, 2 * cfg.d_model),
+                                    dtype=torch.bfloat16, device=dev)
+    if cfg.arch_type == "vlm":
+        out["patches"] = torch.zeros((b, cfg.n_patches, cfg.d_patch),
+                                     dtype=torch.bfloat16, device=dev)
+    return out
 
 
 def train(arch: str, steps: int, batch: int, seq: int, lr: float,
@@ -111,7 +124,7 @@ def train(arch: str, steps: int, batch: int, seq: int, lr: float,
     data = synthetic_token_batches(cfg.vocab, batch, seq, steps, seed=SEED)
     for i, b in enumerate(data):
         loss, params, opt = train_step(rt, cfg, params, opt,
-                                       to_device_batch(b, dev),
+                                       to_device_batch(b, dev, cfg),
                                        mask_generator(SEED, i, device=dev),
                                        update)
         losses.append(float(loss))

@@ -293,7 +293,7 @@ def test_lm_params_takes_period_trees_only_whole(models):
     tree = dict(models(4)["np"])
     tree["periods"] = list(tree["periods"])
     tree["periods"][1] = {"norm1": 0, "ssm": {}}
-    with pytest.raises(NotImplementedError, match="A15d"):
+    with pytest.raises(ValueError, match="not an LM parameter tree"):
         convert.lm_params(tree, q=1, device="cpu")
     with pytest.raises(ValueError):
         convert.lm_params(models(4)["np"], q=3, device="cpu")

@@ -501,15 +501,20 @@ def test_decode_matches_forward(lm, q):
                                   "pixtral_12b", "hybrid", "audio", "vlm",
                                   "moe", "dense"])
 def test_other_families_raise_naming_a15(lm, arch):
-    """Audio and VLM configurations are not ported: their configs,
-    serving and model entry points raise naming A15 (the SSM, dense, MoE
-    and hybrid families are ported: an ``MoESpec`` config builds, and a
-    period config builds its ``periods`` and its list cache)."""
+    """Every family is ported (the name is historical): an ``MoESpec``
+    config builds, a period config builds its ``periods`` and its list
+    cache, an encoder-decoder config (whisper-tiny's, or a one-layer
+    "audio" one) its encoder tree and a cache with the cross K/V padded
+    to a multiple of q, a VLM config (pixtral-12b's, or a small "vlm"
+    one) its ``patch_proj``; unknown ids still raise."""
     if arch.endswith(("_tiny", "_12b")):
-        with pytest.raises(NotImplementedError, match="A15"):
-            get_arch(arch)
-        with pytest.raises(NotImplementedError, match="A15"):
-            serve(arch, device="cpu")
+        cfg = get_arch(arch).reduced()
+        assert cfg.arch_type == ("audio" if arch == "whisper_tiny"
+                                 else "vlm")
+        res = serve(arch, batch=1, prompt_len=12, gen_tokens=2,
+                    model_parallel=2, device="cpu")
+        assert res.tokens.shape == (1, 2)
+        assert ("xk" in res.cache) == cfg.enc_dec
         return
     cfg_cls, base = type(lm["cfg"]), dict(n_layers=1, d_model=8, n_heads=2,
                                           n_kv=1, d_ff=16, vocab=256)
@@ -554,17 +559,26 @@ def test_other_families_raise_naming_a15(lm, arch):
                                   else {"conv", "h"})
             assert all(v.shape[0] == n_per for v in entry.values())
         return
-    with pytest.raises(NotImplementedError, match="A15"):
-        tm.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        tm.init_cache(_rt(1), cfg, 1, 4, device="cpu")
+    assert tm.layer_kinds(cfg) == ("attn_mlp",)
+    params = tm.init_params(cfg, device="cpu")
+    cache = tm.init_cache(_rt(3), cfg, 1, 6, device="cpu")
+    if arch == "audio":
+        assert set(params["stack"]) == {"norm1", "attn", "norm_x", "xattn"}
+        assert params["enc_proj"].shape == (16, 8)
+        assert params["enc_stack"]["norm1"].shape == (1, 8)
+        assert params["enc_norm"].shape == (8,)
+        assert cache["xk"].shape == cache["xv"].shape == (1, 1, 6, 1, 4)
+    else:
+        assert params["patch_proj"].shape == (4, 8)
+        assert "mlp" in params["stack"] and set(cache) == {"k", "v"}
+    assert cache["k"].shape == (1, 1, 6, 1, 4)
 
 
 def test_lm_params_rejects_other_trees(lm):
     with pytest.raises(ValueError):
         convert.lm_params(lm["np"], q=3, device="cpu")
     tree = dict(lm["np"], stack={"norm1": 0, "attn": {}})
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(ValueError, match="not an LM parameter tree"):
         convert.lm_params(tree, q=1, device="cpu")
 
 
