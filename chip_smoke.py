@@ -254,17 +254,23 @@ JAX or of the JAX package.
    distance; the kernel and reference paths' next tokens, and
    ``ring_masks``' and ``two_tree``'s, must be equal where the margin
    decides them.  Profiler windows over one prefill and one decode step.
+   Then ``Runtime(unroll_layers=6)`` on the full tree against the tree
+   cut to 6 layers with ``n_layers=6``: a prefill, its normed hidden
+   states and one decode step on a 34-layer cache must give the bits of
+   the cut tree's (tokens, caches, hidden states), ``flash_attention``
+   launching 6 times a prefill or forward and ``decode_attention`` 6
+   times a step, counted on their own.
 19. LM training at full width, the depth cut so that one card holds the
    parameters and the optimiser state: falcon-mamba-7b with 4 of its 64
    layers (batch 4 × 512 tokens), gemma3-4b with 6 of its 34 (layers
    0-4 local with the 1,024 window, layer 5 global; batch 2 × 2,048) and
-   granite-moe-1b-a400m whole (24 layers, 32 experts top-8; batch 1 ×
-   2,048, cut from 2 so that the τ = 4 ring fits; its router's lb_loss
-   and z_loss finite and positive),
+   granite-moe-1b-a400m whole (24 layers, 32 experts top-8; batch 2 ×
+   2,048; its router's lb_loss and z_loss finite and positive),
    each across q = 8 parties under ``two_tree``, random f32 weights from
    the seed, tokens from ``data.tokens.synthetic_token_batches(seed=0)``,
    ``launch.train``'s plain routes (the sequential scan, the plain
-   chunked attention; the kernels are forward-only).  For each: every
+   chunked attention; the kernels are forward-only) with its default
+   ``remat=True`` (each block recomputed in the backward).  For each: every
    parameter leaf's gradient on the first batch finite and nonzero
    somewhere (a cut gradient fails here); a step p − η·g/‖g‖ on the same
    batch and masks lowers the loss by at least half of its first-order
@@ -285,11 +291,15 @@ JAX or of the JAX package.
    cross-entropy by about that; for granite-moe at least twice the
    loss's change under a mask redraw, since a near-tie in the router can
    flip a token's experts between the routes), both forward times
-   printed; the final AdamW parameters saved
+   printed; falcon's final AdamW parameters saved
    with ``save_checkpoint`` and loaded back bit-equal.  Host ms a step
    (median of steps 2-8), tokens/s and peak memory per optimiser, and a
-   profiler window over one AdamW step.  It runs after phase 10, whose
-   weights are freed.
+   profiler window over one AdamW step; the peak memory of the first
+   gradient.  gemma3 takes that gradient once more and runs its 8 AdamW
+   steps once more with ``remat=False`` on the same parameters and
+   batches (every loss finite, the first within 1e-4 of the remat
+   run's), with the same numbers, beside the remat run's.  It runs after
+   phase 10, whose weights are freed.
 20. MoE serving, qwen3-moe-30b-a3b at full width with 16 of its 48
    layers (d_model 2,048, 32 query and 4 KV heads of 128, 128 experts
    top-8 of width 768, vocabulary 151,936; 10.3 B random f32 parameters,
@@ -371,7 +381,9 @@ JAX or of the JAX package.
    prefill walked layer by layer (whisper's encoder first), every
    encoder, self and cross attention within 5e-2 of the plain chunked
    attention, end to end as phase 10.  Profiler windows over one
-   prefill and one decode step.  It runs last.
+   prefill and one decode step.  whisper then holds
+   ``Runtime(unroll_layers=2)`` on the full tree to the tree cut to 2
+   encoder and 2 decoder layers, as phase 10 does.  It runs last.
 
 The ``vfl_grad`` source holds five kernel programs:
 ``vfl_forward_narrow`` (M <= 4, the linear path), ``vfl_forward_wide``
@@ -510,12 +522,18 @@ DECODE_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 DECODE_P_TOL = 1e-4
 # phase 19: LM training at full width, depth cut so that the parameters
 # and the optimiser state fit the card: (arch, layers, q, batch, seq).
-# granite-moe runs whole with its batch cut to 1 × 2,048: at 2 × 2,048 its
-# AdamW steps peaked at 63.5 GB and the τ = 4 ring's run ran out of the
-# 80 GB (some 1.75 GB of saved activations a layer)
+# granite-moe runs whole at 2 × 2,048 under remat (without it the τ = 4
+# ring's run ran out of the 80 GB: some 1.75 GB of saved activations a
+# layer)
 TRAIN_LM = (("falcon_mamba_7b", 4, 8, 4, 512),
             ("gemma3_4b", 6, 8, 2, 2048),
-            ("granite_moe_1b_a400m", 24, 8, 1, 2048))
+            ("granite_moe_1b_a400m", 24, 8, 2, 2048))
+# the configuration whose AdamW steps also run with remat=False, and the
+# one whose final parameters go through a checkpoint and back
+TRAIN_LM_NO_REMAT, TRAIN_LM_CKPT = "gemma3_4b", "falcon_mamba_7b"
+# the first AdamW loss of the remat=False run against the remat run's
+# (the same forward; the tolerance allows the card's f32 reductions)
+NO_REMAT_TOL = 1e-4
 TRAIN_LM_STEPS, TRAIN_LM_LR, TRAIN_LM_SGD_LR, TRAIN_LM_TAU = 8, 1e-3, 1e-2, 4
 TRAIN_LM_DROP = 0.05             # examples/train_lm.py:36's threshold
 # the descent check's first-order prediction η‖g‖: at least this, and at
@@ -544,6 +562,9 @@ MOE_MIN_SHARE = 0.5
 # (8 of 32 layers); 16 teacher-forced decode positions from zeros
 HYBRID_ARCH, HYBRID_LAYERS, HYBRID_Q, HYBRID_BATCH = "jamba_v0_1_52b", 8, 8, 4
 HYBRID_PROMPT, HYBRID_GEN, HYBRID_TEACHER = 2048, 32, 16
+# the unroll checks: unroll_layers=n on the full tree against the tree cut
+# to n layers, phase 10's gemma3 and phase 22's whisper
+DENSE_UNROLL, FRONTEND_UNROLL = 6, 2
 # phase 22: cross attention and the continuous frontends, each model whole
 # at full width across q = 8 parties: (arch, batch, prompt positions: a
 # VLM's count its patches); 32 generated tokens, 8 teacher-forced steps
@@ -4168,6 +4189,78 @@ def _decode_vs_forward(torch, rt, cfg, params, dec, hf):
                 all_positions_agreement=float((dec == fwd).float().mean()))
 
 
+def _cut_layers(tree, n):
+    """A stacked tree's first n layers (views)."""
+    if isinstance(tree, dict):
+        return {k: _cut_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def _unroll_check(torch, dev, cfg, params, batch, q, n, prompt, phase,
+                  log_):
+    """``Runtime(unroll_layers=n)`` on the full tree against the tree cut
+    to its first n layers (an encoder's too) with ``n_layers=n``: a
+    prefill, the normed hidden states of the same forward and one decode
+    step on a full-depth cache must give the same bits (tokens, caches,
+    hidden states).  The launches of these calls are counted on their
+    own (the kernel routes: flash attention once per attention of a
+    prefill or forward, decode attention once per decoder attention of a
+    step).  Returns the record."""
+    from repro_torch.core.secure_agg import mask_generator
+    from repro_torch.models import model as lm
+    from repro_torch.sharding.api import Runtime
+    cut_cfg = dataclasses.replace(cfg, n_layers=n,
+                                  enc_layers=min(n, cfg.enc_layers))
+    cut = dict(params, stack=_cut_layers(params["stack"], n))
+    if cfg.enc_dec:
+        cut["enc_stack"] = _cut_layers(params["enc_stack"], n)
+    b = batch["tokens"].shape[0]
+    s_cache = prompt + q                # a multiple of q past the prompt
+    outs = []
+    reset_counts()
+    for rt, c, p in ((Runtime(model_size=q, unroll_layers=n), cfg, params),
+                     (Runtime(model_size=q), cut_cfg, cut)):
+        tok, kv = lm.prefill(rt, c, p, batch, mask_generator(SEED, 1, 0,
+                                                             device=dev))
+        x, enc_out, _ = lm._prepare_inputs(
+            rt, c, p, batch, mask_generator(SEED, 1, 0, device=dev))
+        h = lm._backbone(rt, c, p, x, enc_out=enc_out)
+        del x, enc_out
+        # the full tree's decode reads the first n layers of a full cache
+        cache = lm.init_cache(rt, c, b, s_cache, device=dev)
+        for k, v in kv.items():
+            cache[k][:n, :, :v.shape[2]].copy_(v)
+        tok2, nxt = lm.decode_step(rt, c, p, {"token": tok, "pos": prompt,
+                                              "cache": cache},
+                                   mask_generator(SEED, 1, 1, device=dev))
+        outs.append(dict(tok=tok, kv=kv, h=h, tok2=tok2, cache=nxt))
+        del cache
+    torch.cuda.synchronize()
+    launches = {prog: k for lib in _libs()
+                for prog, k in lib.launches.items() if k}
+    per_pass = n * (3 if cfg.enc_dec else 1)    # encoder, self, cross
+    per_step = n * (2 if cfg.enc_dec else 1)
+    want = {"flash_attention": 2 * 2 * per_pass,
+            "decode_attention": 2 * per_step}
+    full, short = outs
+    same = {name: bool(torch.equal(full[name], short[name]))
+            for name in ("tok", "h", "tok2")}
+    for name in ("kv", "cache"):
+        same[name] = list(full[name]) == list(short[name]) and all(
+            full[name][k].shape[0] == n
+            and bool(torch.equal(full[name][k], short[name][k]))
+            for k in full[name])
+    res = dict(n=n, of_layers=cfg.n_layers, bit_equal=same,
+               launches=launches, want_launches=want)
+    log_(f"phase {phase} unroll_layers={n} vs the cut tree: {res}")
+    check(launches == want,
+          f"phase {phase} unroll check: launches {launches}, want {want}")
+    check(all(same.values()),
+          f"phase {phase}: unroll_layers={n} on the full tree is not the "
+          f"cut tree's bits: {same}")
+    return res
+
+
 def dense_phase(torch, dev, log_):
     """Phase 10; returns (record, launches of the serve call by
     program)."""
@@ -4265,7 +4358,12 @@ def dense_phase(torch, dev, log_):
             "prefill": lambda: lm.prefill(rt, cfg, params, batch, gen),
             "decode_step": lambda: lm.decode_step(rt, cfg, params, step,
                                                   gen)}, 10, log_)
-        del params, step
+        del step
+        torch.cuda.empty_cache()
+        res["unroll"] = _unroll_check(torch, dev, cfg, params, batch,
+                                      DENSE_Q, DENSE_UNROLL, DENSE_PROMPT,
+                                      10, log_)
+        del params
     torch.cuda.empty_cache()
     return res, launches
 
@@ -4330,8 +4428,11 @@ def _train_lm_config(torch, dev, arch, layers, q, batch, seq, log_):
 
     # (1) every leaf's gradient at full width, and one normalised step
     reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     loss0, grads = lt.loss_and_grads(rt, cfg, params, batches[0], gen(0))
     torch.cuda.synchronize()
+    grad_peak = {"remat": torch.cuda.max_memory_allocated() / 1e9}
     check_idle(_libs(), f"{name}'s gradient")
     flat = leaves_with_path(grads)
     bad = [p for p, g in flat if not (bool(torch.isfinite(g).all())
@@ -4368,6 +4469,19 @@ def _train_lm_config(torch, dev, arch, layers, q, batch, seq, log_):
           f"loss by {drop}, less than half the predicted {pred} (a mask "
           f"redraw moves it by {redraw})")
     del grads, flat
+    if arch == TRAIN_LM_NO_REMAT:
+        # the same gradient keeping every activation: what remat saves
+        torch.cuda.reset_peak_memory_stats()
+        loss1, grads = lt.loss_and_grads(dataclasses.replace(rt, remat=False),
+                                         cfg, params, batches[0], gen(0))
+        torch.cuda.synchronize()
+        grad_peak["no_remat"] = torch.cuda.max_memory_allocated() / 1e9
+        check(abs(float(loss1) - float(loss0)) <= NO_REMAT_TOL * base,
+              f"{name}: the loss without remat {float(loss1)} is not the "
+              f"remat gradient's {float(loss0)}")
+        del grads
+    res["gradient_peak_gb"] = grad_peak
+    log_(f"{name} peak memory of one gradient: {grad_peak} GB")
     if cfg.moe is not None:
         # the router's terms, summed over the layers, in the same loss
         with torch.no_grad():
@@ -4381,10 +4495,15 @@ def _train_lm_config(torch, dev, arch, layers, q, batch, seq, log_):
               f"{res['aux']}")
 
     # (2) training runs: AdamW, then VFB²'s delayed SGD, from the start
+    # (for TRAIN_LM_NO_REMAT AdamW once more, without remat)
     runs = {}
+    specs = [("adamw", "adamw", TRAIN_LM_LR, rt),
+             ("vfb2_sgd", "vfb2_sgd", TRAIN_LM_SGD_LR, rt)]
+    if arch == TRAIN_LM_NO_REMAT:
+        specs.append(("adamw_no_remat", "adamw", TRAIN_LM_LR,
+                      dataclasses.replace(rt, remat=False)))
     reset_counts()                              # training path starts
-    for opt_name, lr in (("adamw", TRAIN_LM_LR),
-                         ("vfb2_sgd", TRAIN_LM_SGD_LR)):
+    for run_name, opt_name, lr, run_rt in specs:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         opt, update = lt.make_optimizer(opt_name, params, lr, TRAIN_LM_TAU)
@@ -4393,29 +4512,39 @@ def _train_lm_config(torch, dev, arch, layers, q, batch, seq, log_):
             if opt_name == "vfb2_sgd" and i == len(batches) - 1:
                 before = [x.clone() for x in leaves(p)]
             t0 = time.perf_counter()
-            loss, p, opt = lt.train_step(rt, cfg, p, opt, b, gen(2, i),
+            loss, p, opt = lt.train_step(run_rt, cfg, p, opt, b, gen(2, i),
                                          update)
             losses.append(float(loss))           # synchronises
             times.append(time.perf_counter() - t0)
-        run = dict(losses=losses, **_step_stats(times, batch, seq),
+        run = dict(remat=run_rt.remat, losses=losses,
+                   **_step_stats(times, batch, seq),
                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
         check(all(math.isfinite(v) for v in losses),
-              f"{name} {opt_name}: a loss is not finite: {losses}")
+              f"{name} {run_name}: a loss is not finite: {losses}")
         if opt_name == "adamw":
             last = float(np.mean(losses[-3:]))
             run["drop"] = losses[0] - last
             check(run["drop"] >= TRAIN_LM_DROP,
-                  f"{name} AdamW: the mean of the last 3 losses {last} is "
-                  f"not {TRAIN_LM_DROP} below the first {losses[0]}")
+                  f"{name} {run_name}: the mean of the last 3 losses "
+                  f"{last} is not {TRAIN_LM_DROP} below the first "
+                  f"{losses[0]}")
             keep = {}
 
             def profiled():
-                keep["out"] = lt.train_step(rt, cfg, p, opt, batches[0],
+                keep["out"] = lt.train_step(run_rt, cfg, p, opt, batches[0],
                                             gen(3), update)
 
             run["profile"] = _device_profile(torch, profiled)
             _, p, opt = keep.pop("out")
-            final = p
+            if run_name == "adamw":
+                # kept for the checkpoint round trip only
+                final = p if arch == TRAIN_LM_CKPT else None
+            else:
+                first = runs["adamw"]["losses"][0]
+                run["first_loss_gap"] = abs(losses[0] - first)
+                check(run["first_loss_gap"] <= NO_REMAT_TOL * abs(first),
+                      f"{name}: the first loss without remat {losses[0]} "
+                      f"is not the remat run's {first}")
         else:
             # the delays act as the md5 rule says: the last step moved
             # each leaf by its ring's slot of step 7 − d
@@ -4435,8 +4564,8 @@ def _train_lm_config(torch, dev, arch, layers, q, batch, seq, log_):
                   "its ring slot of step 7 − d")
             run["delays"] = dict(Counter(want.values()))
             del before
-        runs[opt_name] = run
-        log_(f"{name} {opt_name}: {run}")
+        runs[run_name] = run
+        log_(f"{name} {run_name}: {run}")
         del opt, p
     train_launches = {prog: n for lib in _libs()
                       for prog, n in lib.launches.items() if n}
@@ -4487,7 +4616,12 @@ def _train_lm_config(torch, dev, arch, layers, q, batch, seq, log_):
           f"{tol}")
     del params
 
-    # (4) the final AdamW parameters through a checkpoint and back
+    # (4) TRAIN_LM_CKPT's final AdamW parameters through a checkpoint and
+    # back
+    if final is None:
+        del batches
+        torch.cuda.empty_cache()
+        return res, launches
     ck = ROOT / "results" / f"lm_train_{arch}"
     t0 = time.perf_counter()
     save_checkpoint(str(ck), {"params": final}, step=TRAIN_LM_STEPS + 1)
@@ -4982,7 +5116,13 @@ def _frontend_model(torch, dev, arch, batch, prompt, log_):
             "prefill": lambda: lm.prefill(rt, cfg, params, inputs, gen),
             "decode_step": lambda: lm.decode_step(rt, cfg, params, step,
                                                   gen)}, f"22 {arch}", log_)
-        del params, step
+        del step
+        if cfg.enc_dec:
+            torch.cuda.empty_cache()
+            res["unroll"] = _unroll_check(torch, dev, cfg, params, inputs,
+                                          q, FRONTEND_UNROLL, prompt,
+                                          f"22 {arch}", log_)
+        del params
     torch.cuda.empty_cache()
     return res, launches
 

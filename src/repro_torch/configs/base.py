@@ -127,9 +127,13 @@ ARCH_IDS = [
 ]
 
 
+# the paper's own linear workload, a config beside the LM architectures
+LINEAR_IDS = ["paper_logreg"]
+
+
 def get_arch(arch_id: str) -> ArchConfig:
     arch_id = arch_id.replace("-", "_").replace(".", "_")
-    if arch_id not in ARCH_IDS:
+    if arch_id not in ARCH_IDS + LINEAR_IDS:
         raise ValueError(f"unknown architecture {arch_id!r}; known: "
-                         f"{ARCH_IDS}")
+                         f"{ARCH_IDS + LINEAR_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch_id}").CONFIG

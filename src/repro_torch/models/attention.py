@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import apply_rope
 
@@ -45,6 +46,17 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
     return mask
 
 
+def _chunk_attention(qc: torch.Tensor, kf: torch.Tensor, v: torch.Tensor,
+                     qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+                     window: Optional[int], scale: float) -> torch.Tensor:
+    """One query chunk qc (B, chunk, Hkv, rep, dh) against the f32 keys
+    kf and the values v: its scores, mask, softmax and p·v."""
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qc.float() * scale, kf)
+    s = s.masked_fill(~_mask(qpos, kpos, causal, window), NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bgrqk,bkgd->bqgrd", p.to(v.dtype), v)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
                       q_offset: int = 0, chunk: int = 1024) -> torch.Tensor:
@@ -54,7 +66,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``window``: query t attends to keys in (t − window, t].  ``q_offset``:
     the absolute position of q[0].  Scores and softmax in f32; the
     probabilities are cast to v's dtype before the product with v, as in
-    the reference (``repro/models/attention.py:76``)."""
+    the reference (``repro/models/attention.py:76``).  Under autograd each
+    chunk runs under ``torch.utils.checkpoint`` and is recomputed in the
+    backward, as the reference's ``jax.checkpoint`` of its chunk body
+    (``:78-81``): no chunk's (chunk × Skv) probabilities are kept."""
     b, sq, h, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if h % hkv:
@@ -67,13 +82,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.float()
     kpos = torch.arange(skv, device=q.device)
     qr = q.reshape(b, sq // chunk, chunk, hkv, rep, dh)
+    grad = torch.is_grad_enabled()
     out = []
     for i in range(sq // chunk):
         qpos = q_offset + i * chunk + torch.arange(chunk, device=q.device)
-        s = torch.einsum("bqgrd,bkgd->bgrqk", qr[:, i].float() * scale, kf)
-        s = s.masked_fill(~_mask(qpos, kpos, causal, window), NEG_INF)
-        p = torch.softmax(s, dim=-1)
-        out.append(torch.einsum("bgrqk,bkgd->bqgrd", p.to(v.dtype), v))
+        args = (qr[:, i], kf, v, qpos, kpos, causal, window, scale)
+        out.append(checkpoint(_chunk_attention, *args, use_reentrant=False,
+                              preserve_rng_state=False) if grad
+                   else _chunk_attention(*args))
     return torch.stack(out, 1).reshape(b, sq, h, dh)
 
 

@@ -76,8 +76,26 @@ one entry per period position (leading axis n_per): {``"k"``, ``"v"``}
 for an attention position, {``"conv"``, ``"h"``} for an SSM position;
 its attention sees every cached position up to ``pos`` (no window).
 
-A ``Runtime`` that sets the reference's ``remat``, ``unroll_layers`` or
-``seq_parallel_norms`` raises ``NotImplementedError`` naming ROADMAP A15e.
+The reference's three ``Runtime`` levers act as there.  ``remat`` (the
+default): under autograd, where no cache is filled, each block runs
+under ``torch.utils.checkpoint`` and is recomputed in the backward, at
+the reference's granularity: a uniform stack's every layer, a period
+stack's every whole period, the encoder's every block
+(``repro/models/model.py:333-334, 377-378, 438``).  The blocks draw no
+random numbers (the masks are drawn in the frontends, outside them), so
+the recomputation saves no generator state.  ``unroll_layers=n`` runs
+the first min(n, ·) layers of a full-depth tree: a uniform stack's
+layers, a period stack's whole periods, the encoder's layers
+(``:336-345, 381-390, 439-444``); the aux terms are summed over the
+layers that ran, the prefill's cache holds only those, and a decode step
+reads the first min(n, ·) layers of the cache it is given and returns a
+cache of only those (views of the attention caches written in place, the
+SSM states re-stacked).  As in the reference's ``_decode_unrolled``
+(``:678-688``), an unrolled period stack's decode runs position-major,
+each period position's layers over the periods in turn, where the
+prefill and the decode without the lever run period by period (ROADMAP
+C.R8).  ``seq_parallel_norms`` is a sharding annotation in the reference
+(``:283-289``) and changes nothing on one device.
 """
 from __future__ import annotations
 
@@ -85,6 +103,7 @@ import math
 from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -223,15 +242,40 @@ def _stacks(cfg: ArchConfig, tree):
     return tree, kinds, cfg.n_layers // len(cfg.period)
 
 
-def _blocks(cfg: ArchConfig, params) -> Iterator[Tuple[int, str, Any]]:
-    """(layer, kind, block parameters) of every layer in the stack's
-    order: period by period, the positions in order within each (layer
-    i·len(period) + pos is ``periods[pos][i]``)."""
+def _depth(rt: Runtime, n: int) -> int:
+    """How many of a stack's ``n`` layers (or periods) run:
+    min(``rt.unroll_layers``, n), all of them without the lever."""
+    return n if rt.unroll_layers is None else min(rt.unroll_layers, n)
+
+
+def _periods(cfg: ArchConfig, params, n_run=None) -> Iterator[list]:
+    """Each of the stack's first ``n_run`` periods (all where None) as a
+    list of (layer, kind, block parameters) in order: a uniform stack's
+    period is one layer; layer i·len(period) + pos is
+    ``periods[pos][i]``."""
     stacks, kinds, n = _stacks(cfg, params["stack"] if cfg.period is None
                                else params["periods"])
-    for i in range(n):
-        for pos, kind in enumerate(kinds):
-            yield i * len(kinds) + pos, kind, _layer(stacks[pos], i)
+    for i in range(n if n_run is None else n_run):
+        yield [(i * len(kinds) + pos, kind, _layer(stacks[pos], i))
+               for pos, kind in enumerate(kinds)]
+
+
+def _blocks(cfg: ArchConfig, params) -> Iterator[Tuple[int, str, Any]]:
+    """(layer, kind, block parameters) of every layer in the stack's
+    order: period by period, the positions in order within each."""
+    for period in _periods(cfg, params):
+        yield from period
+
+
+def _remat(on: bool, fn, *args, **kw):
+    """``fn(*args, **kw)``; where ``on`` and autograd records, under
+    ``torch.utils.checkpoint``: only the inputs are kept and ``fn`` runs
+    again in the backward.  ``fn`` must draw no random numbers and write
+    nothing in place."""
+    if on and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return fn(*args, **kw)
 
 
 def _embed_tokens(rt: Runtime, cfg: ArchConfig, params, tokens,
@@ -255,11 +299,12 @@ def _encode_frames(rt: Runtime, cfg: ArchConfig, params, frames,
     """The encoder over the stub frame embeddings (B, enc_seq, 2·D): the
     secure projection, enc_layers non-causal ``"attn_mlp"`` blocks (their
     rotary at positions 0..enc_seq−1, no window), then ``enc_norm``
-    (``repro/models/model.py:414-434``)."""
+    (``repro/models/model.py:414-434``); the first min(unroll_layers,
+    enc_layers) blocks, each checkpointed under ``rt.remat``."""
     x = _project_features(rt, params["enc_proj"], frames, gen)
-    for i in range(cfg.enc_layers):
-        x, _ = _block_fwd(rt, cfg, "attn_mlp", _layer(params["enc_stack"], i),
-                          x, None, causal=False)
+    for i in range(_depth(rt, cfg.enc_layers)):
+        x, _ = _remat(rt.remat, _block_fwd, rt, cfg, "attn_mlp",
+                      _layer(params["enc_stack"], i), x, None, causal=False)
     return rms_norm(x, params["enc_norm"])
 
 
@@ -373,24 +418,38 @@ def _block_fwd(rt: Runtime, cfg: ArchConfig, kind: str, p, x, window,
     return _apply_ffn(rt, cfg, p, x + o)
 
 
+def _period_fwd(rt: Runtime, cfg: ArchConfig, blocks, x, windows, kv, aux,
+                enc_out):
+    """One period's blocks (``_periods``' list) over x; returns (x, aux
+    with each block's terms added)."""
+    for i, kind, p in blocks:
+        x, layer_aux = _block_fwd(rt, cfg, kind, p, x, windows[i],
+                                  None if kv is None else _layer(kv, i),
+                                  enc_out=enc_out)
+        aux = {k: aux[k] + layer_aux[k] for k in aux}
+    return x, aux
+
+
 def _backbone(rt: Runtime, cfg: ArchConfig, params, x, *, kv=None,
               aux=None, enc_out=None):
     """The stack, layer by layer, and the final norm: (B, S, D) → the
     normed hidden states (B, S, D).  Each layer's window is
     ``layer_windows(cfg, S)``'s (every layer of a period stack: S);
     ``kv``, where given, is a uniform stack's {"k", "v"} cache (L, B, S,
-    Hkv, dh) the layers fill (an encoder-decoder's also {"xk", "xv"});
-    ``aux``, where given, is a {"lb_loss", "z_loss"} dict each layer's
-    terms are added to; ``enc_out`` is an encoder-decoder's encoder
-    output."""
+    Hkv, dh) the layers fill (an encoder-decoder's also {"xk", "xv"}),
+    L the layers that run; ``aux``, where given, is a {"lb_loss",
+    "z_loss"} dict each layer's terms are added to; ``enc_out`` is an
+    encoder-decoder's encoder output.  The first
+    ``_depth(rt, ·)`` periods run (a uniform stack's period is a layer),
+    each checkpointed under ``rt.remat`` where no cache is filled."""
     windows = layer_windows(cfg, x.shape[1])
-    for i, kind, p in _blocks(cfg, params):
-        x, layer_aux = _block_fwd(rt, cfg, kind, p, x, windows[i],
-                                  None if kv is None else _layer(kv, i),
-                                  enc_out=enc_out)
-        if aux is not None:
-            for k in aux:
-                aux[k] = aux[k] + layer_aux[k]
+    run = {} if aux is None else dict(aux)
+    for blocks in _periods(cfg, params,
+                           _depth(rt, _stacks(cfg, None)[2])):
+        x, run = _remat(rt.remat and kv is None, _period_fwd, rt, cfg,
+                        blocks, x, windows, kv, run, enc_out)
+    if aux is not None:
+        aux.update(run)
     return rms_norm(x, params["final_norm"])
 
 
@@ -423,11 +482,12 @@ def prefill(rt: Runtime, cfg: ArchConfig, params, batch,
     encoder-decoder's adds {"xk", "xv"} (L, B, enc_seq, Hkv, dh), the
     cross attention's K/V of the encoder output
     (``repro/models/model.py:504-522``).  The SSM family's and a period
-    stack's is ``None``, as in the reference (C.R3, C.R6)."""
+    stack's is ``None``, as in the reference (C.R3, C.R6).  Under
+    ``rt.unroll_layers`` the cache's L is the layers that ran."""
     x, enc_out, _ = _prepare_inputs(rt, cfg, params, batch, gen)
     kv = None
     if cfg.period is None and layer_kinds(cfg)[0] != "ssm":
-        lead = (cfg.n_layers, x.shape[0])
+        lead = (_depth(rt, cfg.n_layers), x.shape[0])
         tail = (cfg.n_kv, cfg.head_dim)
         kv = {n: torch.empty(lead + (x.shape[1],) + tail,
                              dtype=CACHE_DTYPE, device=x.device)
@@ -553,24 +613,39 @@ def decode_step(rt: Runtime, cfg: ArchConfig, params, batch,
     cross cache is only read); an SSM layer's state is new, re-stacked
     per period position.  A period stack's attention sees every cached
     position up to ``pos`` (the reference passes no window,
-    ``repro/models/model.py:641``)."""
+    ``repro/models/model.py:641``).
+
+    Under ``rt.unroll_layers`` the first min(n, ·) layers (a period
+    stack's periods) of the given cache are read and the returned cache
+    holds only those: an attention cache's first layers as views of the
+    given one.  An unrolled period stack runs position-major, as the
+    reference's ``_decode_unrolled`` (``:678-688``) does: each period
+    position over the periods that run, then the next position (ROADMAP
+    C.R8)."""
     token, pos, cache = batch["token"], int(batch["pos"]), batch["cache"]
     x = _embed_tokens(rt, cfg, params, token[:, None], gen)[:, 0]
-    caches, kinds, _ = _stacks(cfg, cache)
+    caches, kinds, n = _stacks(cfg, cache)
     s_cache = next((c["k"].shape[2] for c in caches if "k" in c), 0)
     windows = layer_windows(cfg, s_cache)
     pos_t = torch.full((), pos, dtype=torch.int32, device=x.device) \
         if s_cache else None
     xpos_t = torch.full((), cfg.enc_seq - 1, dtype=torch.int32,
                         device=x.device) if cfg.enc_dec else None
+    n_run = _depth(rt, n)
+    blocks = [b for period in _periods(cfg, params, n_run) for b in period]
+    if rt.unroll_layers is not None:
+        # position-major (C.R8); a uniform stack's order is the same
+        blocks.sort(key=lambda b: b[0] % len(kinds))
     states = [[] for _ in kinds]
-    for i, kind, p in _blocks(cfg, params):
+    for i, kind, p in blocks:
         j = i % len(kinds)
         x, nc = _block_decode(rt, cfg, kind, p, x,
                               _layer(caches[j], i // len(kinds)), pos,
                               pos_t, windows[i], xpos_t)
         states[j].append(nc)
-    new = [c if kind.startswith("attn")
+    new = [({k: v[:n_run] for k, v in c.items()}
+            if rt.unroll_layers is not None else c)
+           if kind.startswith("attn")
            else {k: torch.stack([nc[k] for nc in states[j]]) for k in c}
            for j, (kind, c) in enumerate(zip(kinds, caches))]
     h = rms_norm(x, params["final_norm"])

@@ -113,9 +113,19 @@ class Runtime:
     buckets travel to the experts' parties and back).  The reference's
     ``moe_capacity_data_sharded`` is read nowhere in the reference, so it
     is not ported.
-    ``remat``, ``unroll_layers`` and ``seq_parallel_norms`` are the
-    reference's memory and mesh levers; none is ported, and setting one
-    raises (ROADMAP A15e)."""
+    ``remat`` (on by default, as in the reference): under autograd,
+    ``train_loss`` keeps only each block's input and recomputes the
+    block in the backward (``torch.utils.checkpoint``), a uniform stack's
+    every layer, a period stack's every whole period and the encoder's
+    every block; prefill and decode, which fill a cache or run without
+    grad, are never checkpointed.  ``unroll_layers``: None (every layer)
+    or n >= 1, run only the first min(n, ·) layers of a full-depth tree:
+    a uniform stack's layers, a period stack's whole periods, an
+    encoder's layers; ``prefill``'s cache and ``decode_step``'s returned
+    cache hold only those layers.  ``seq_parallel_norms``: the
+    reference's sharding annotation of the residual stream over the
+    party axis; on one device there is nothing to shard, so it changes
+    no value."""
 
     model_size: int = 1
     secure_embed: bool = True
@@ -127,7 +137,7 @@ class Runtime:
     attn_chunk: int = 1024
     loss_chunk: int = 512
     moe_dispatch: str = "replicated"
-    remat: bool = False
+    remat: bool = True
     unroll_layers: Optional[int] = None
     seq_parallel_norms: bool = False
 
@@ -153,8 +163,8 @@ class Runtime:
         if self.moe_dispatch not in MOE_DISPATCHES:
             raise ValueError(f"moe_dispatch must be one of "
                              f"{MOE_DISPATCHES}; got {self.moe_dispatch!r}")
-        if self.remat or self.unroll_layers is not None \
-                or self.seq_parallel_norms:
-            raise NotImplementedError(
-                "remat, unroll_layers and seq_parallel_norms are not ported "
-                "(the LM stack's memory and mesh levers, ROADMAP A15e)")
+        if self.unroll_layers is not None and (
+                not isinstance(self.unroll_layers, int)
+                or self.unroll_layers < 1):
+            raise ValueError(f"unroll_layers must be None or an int >= 1; "
+                             f"got {self.unroll_layers!r}")

@@ -476,13 +476,9 @@ def test_attn_impls_agree(models, name):
 @pytest.mark.parametrize("kw,exc", [
     (dict(attn_impl="pallas"), ValueError),
     (dict(attn_chunk=0), ValueError),
-    (dict(loss_chunk=0), ValueError),
-    (dict(remat=True), NotImplementedError),
-    (dict(unroll_layers=2), NotImplementedError),
-    (dict(seq_parallel_norms=True), NotImplementedError)])
+    (dict(loss_chunk=0), ValueError)])
 def test_runtime_rejects_unknown_and_unported_settings(kw, exc):
-    with pytest.raises(exc, match="A15" if exc is NotImplementedError
-                       else next(iter(kw))):
+    with pytest.raises(exc, match=next(iter(kw))):
         Runtime(**kw)
 
 

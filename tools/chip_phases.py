@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run some of ``chip_smoke.py``'s later phases alone on one card.
 
-    python3 tools/chip_phases.py 15 16 17 18 19 20 21 22 [--out PATH]
+    python3 tools/chip_phases.py 10 15 16 17 18 19 20 21 22 [--out PATH]
 
 Builds the kernel libraries the named phases launch, makes phase 7's
 resident data on the card (x (350000, 4096) f32 from the seed, the D4
@@ -13,7 +13,8 @@ serving, 22: cross attention and the secure frontends; 19-22 need no
 resident data),
 each with its kernel counters set to 0 just before it, its hard checks as
 in the script, and every log line stamped with the seconds since the
-first phase began.  It prints each phase's launches
+first phase began.  Phase 10 (dense serving, gemma3-4b whole) runs too,
+needing no resident data either.  It prints each phase's launches
 beside what its steps imply, its seconds and its peak device memory, and
 writes the phases' records to ``--out``.  A phase's checks here are the
 script's; its time here is that of the phase alone, without the phases
@@ -43,8 +44,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("phases", nargs="+",
-                    choices=("14", "15", "16", "17", "18", "19", "20",
-                             "21", "22"))
+                    choices=("10", "14", "15", "16", "17", "18", "19",
+                             "20", "21", "22"))
     ap.add_argument("--out", default="chiprun_out/phases.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -55,15 +56,15 @@ def main() -> int:
                          text=True, check=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    lm = {"19", "20", "21", "22"}
+    lm = {"10", "19", "20", "21", "22"}
     vfl = [p for p in args.phases if p not in lm]
     # vfl_grad for phases 14-18; the scan and flash attention for 19; both
-    # attention kernels for 20 and 22; all three LM kernels for 21
+    # attention kernels for 10, 20 and 22; all three LM kernels for 21
     libs = cs._libs()
     libs = (libs[:1] if vfl else []) \
         + (list(libs[1:2]) if {"19", "21"} & set(args.phases) else []) \
         + (list(libs[2:3]) if lm & set(args.phases) else []) \
-        + (list(libs[3:]) if {"20", "21", "22"} & set(args.phases)
+        + (list(libs[3:]) if {"10", "20", "21", "22"} & set(args.phases)
            else [])
     t0 = time.perf_counter()
     threads = [threading.Thread(target=lib.library) for lib in libs]
@@ -99,7 +100,8 @@ def main() -> int:
         cs.reset_counts()
         if name in lm:
             # their checks (launches included) run inside the phase
-            run = {"19": cs.lm_train_phase, "20": cs.moe_phase,
+            run = {"10": cs.dense_phase, "19": cs.lm_train_phase,
+                   "20": cs.moe_phase,
                    "21": cs.hybrid_phase, "22": cs.frontend_phase}[name]
             res, launches = run(torch, dev, log)
             res["seconds"] = time.perf_counter() - t
