@@ -383,7 +383,23 @@ JAX or of the JAX package.
    attention, end to end as phase 10.  Profiler windows over one
    prefill and one decode step.  whisper then holds
    ``Runtime(unroll_layers=2)`` on the full tree to the tree cut to 2
-   encoder and 2 decoder layers, as phase 10 does.  It runs last.
+   encoder and 2 decoder layers, as phase 10 does.
+23. The dry run against the card (``launch/dryrun.py``): phase 19's four
+   AdamW steps (falcon-mamba-7b ×4 at 4 × 512, gemma3-4b ×6 at 2 × 2,048
+   with and without remat, granite-moe-1b-a400m whole at 2 × 2,048) and
+   a prefill and a decode step at phase 10's gemma3-4b shape (batch 4, a
+   4,096-token prompt; decode on the 4,128-position cache) and phase
+   21's jamba period (batch 4, 2,048; decode on 2,080), each predicted
+   over fake tensors in a pool of three host processes (started with the
+   phase, after every timed phase has ended) while the main process runs
+   the same step once on the card from the same seed under
+   ``FlopCounterMode``.  Each predicted peak must lie within 10% of the
+   card's ``max_memory_allocated`` over the step (less what the process
+   held before the step's arguments were made), the training steps'
+   predicted aten FLOPs must equal the card's ``FlopCounterMode`` total,
+   and the fake route's launches the kernels' counted launches (flash 34
+   and decode 34 for gemma3, scan 7, flash 1 and decode 1 for jamba,
+   none for training); each ratio is printed.  It runs last.
 
 The ``vfl_grad`` source holds five kernel programs:
 ``vfl_forward_narrow`` (M <= 4, the linear path), ``vfl_forward_wide``
@@ -419,7 +435,8 @@ just before phase 9's serve call and after it, just before phase
 kernel-route forwards and after each (its training steps must launch
 nothing), just before phase 20's serve call and after it, just before
 phase 21's serve call and after it, just before each of phase 22's two
-counted serve calls and after it;
+counted serve calls and after it, just before each of phase 23's steps on
+the card and after it;
 each count must equal what the dispatch or step structure implies, every
 program of each path must have run, and no other program.  The
 ``kernels`` line has one entry per program, timed at its main-path shape
@@ -435,8 +452,8 @@ calls of each equal bit for bit, and timed at the prefill shape with
 mamba's a_log; its bound is the
 larger of its bytes over the HBM rate and its exponentials over the
 special-function units' rate (16 per clock per SM at the card's maximum
-SM clock); its launches are phase 9's and 21's serve calls' and phase
-19's.  The
+SM clock); its launches are phase 9's and 21's serve calls', phase
+19's and phase 23's.  The
 ``flash_attention`` source holds one program (bf16 at dh 64-256 on the
 tensor cores through wgmma on TMA-fed tiles, bf16 at dh 32 through
 mma.sync, f32 on the CUDA cores), held against its plain version at
@@ -464,7 +481,8 @@ operand sets that each finds its bytes gone from L2, as every layer of
 the model does); the bound is held against the cold time.  Their
 ``kernels`` line entries give the local-window shape's warm time (29 of
 the 34 layers) and phase 10's, 20's, 21's and 22's serve calls'
-launches (flash attention adds phase 19's); both also run at phase 20's
+launches and phase 23's (flash attention adds phase 19's); both also
+run at phase 20's
 qwen3-moe shapes (flash (4, 32, 2048, 128) over 4 KV heads, decode q (4,
 32, 128) over (4, 2080, 4, 128) as 8 shards at pos 2050), at phase
 21's jamba shapes (the same over 8 KV heads) and at phase 22's whisper
@@ -496,8 +514,12 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
-F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+sys.path.insert(0, str(ROOT / "src"))
+# the card's data-sheet figures (an H100 SXM 80GB HBM3 at 700 W): the HBM
+# rate, the f32 peak outside the tensor cores, the dense bf16 tensor peak
+from repro_torch.launch.hlo_analysis import (BF16_FLOP_PER_S,  # noqa: E402
+                                             F32_FLOP_PER_S,
+                                             HBM_BYTES_PER_S)
 L2_BYTES = 50e6                  # H100 SXM L2 cache (data sheet)
 SEED = 0
 BATCH = 64                       # max_batch: requests per dispatch
@@ -509,7 +531,6 @@ SFU_EXP_PER_CLOCK_PER_SM = 16    # Hopper's special-function units (ex2)
 LM_ARCH, LM_Q, LM_BATCH, LM_PROMPT, LM_GEN = "falcon_mamba_7b", 8, 4, 2048, 32
 LM_TOL = 5e-2                    # the reference's bf16 scan tolerance
 SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
-BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor peak
 DENSE_ARCH, DENSE_Q, DENSE_BATCH = "gemma3_4b", 8, 4
 DENSE_PROMPT, DENSE_GEN, DENSE_TEACHER = 4096, 32, 8
 # tests/test_kernels.py's tolerances: flash 2e-6 (f32) / 2e-2 (bf16);
@@ -5142,6 +5163,153 @@ def frontend_phase(torch, dev, log_):
 
 
 # ---------------------------------------------------------------------------
+# phase 23: the dry run against the card
+# ---------------------------------------------------------------------------
+
+# each predicted peak within DRY_TOL of the card's max_memory_allocated
+# over the same step (less what the process held before the step's
+# arguments were made)
+DRY_TOL = 0.10
+# host processes for the fake passes: falcon's (its plain scan's some
+# 7·10⁵ fake operations, about two minutes of a host core) in one, the
+# other cases in the others.  They start with phase 23, after the last
+# timed phase, and run beside its steps on the card, which time nothing
+DRY_POOL = 3
+
+
+def _dry_cases():
+    """Phase 23's steps: (name, arch, layers or None for the whole model,
+    q, batch, seq, mode, remat).  Phase 19's AdamW steps (gemma3 also
+    without remat), and a prefill and a decode step at phase 10's gemma3
+    and phase 21's jamba shapes (decode on the serve call's cache length,
+    prompt + generated tokens)."""
+    cases = [(f"train {a} x{n}", a, n, q, b, s, "train", True)
+             for a, n, q, b, s in TRAIN_LM]
+    cases += [(f"train {a} x{n} no remat", a, n, q, b, s, "train", False)
+              for a, n, q, b, s in TRAIN_LM if a == TRAIN_LM_NO_REMAT]
+    for arch, layers, q, b, prompt, gen in (
+            (DENSE_ARCH, None, DENSE_Q, DENSE_BATCH, DENSE_PROMPT, DENSE_GEN),
+            (HYBRID_ARCH, HYBRID_LAYERS, HYBRID_Q, HYBRID_BATCH,
+             HYBRID_PROMPT, HYBRID_GEN)):
+        cases.append((f"prefill {arch}", arch, layers, q, b, prompt,
+                       "prefill", True))
+        cases.append((f"decode {arch}", arch, layers, q, b, prompt + gen,
+                       "decode", True))
+    return cases
+
+
+def _dry_step(case, device):
+    """(step, args) of a phase 23 case on ``device``, through
+    ``launch.dryrun.build_step``: ``launch.train``'s runtime for a train
+    step (the plain routes), the kernel routes for serving."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as lt
+    from repro_torch.sharding.api import Runtime
+    name, arch, layers, q, b, s, mode, remat = case
+    cfg = get_arch(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    rt = lt.build_runtime(q, reduced=False) if mode == "train" \
+        else Runtime(model_size=q)
+    rt = dataclasses.replace(rt, remat=remat)
+    return dryrun.build_step(cfg, ShapeConfig(name, s, b, mode), rt,
+                             device=torch.device(device))
+
+
+def _dry_fake(case):
+    """A phase 23 case's prediction over fake tensors (in a host process
+    of its own, one torch thread)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        cost = dryrun.measure(*_dry_step(case, "cpu"))
+    return dict(dataclasses.asdict(cost), seconds=time.perf_counter() - t0)
+
+
+def _dry_card(torch, dev, case):
+    """The same step on the card, once, under ``FlopCounterMode``: the
+    caching allocator's peak, the launches counted and the aten FLOPs."""
+    from torch.utils.flop_counter import FlopCounterMode
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    step, args = _dry_step(case, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                               # phase 23 path starts
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        step(*args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {prog: n for lib in _libs()      # phase 23 path ends
+                for prog, n in lib.launches.items() if n}
+    peak = torch.cuda.max_memory_allocated()
+    del step, args
+    torch.cuda.empty_cache()
+    return dict(held_bytes=held, max_memory_allocated=peak,
+                step_peak_bytes=peak - held, aten_flops=fc.get_total_flops(),
+                launches=launches, seconds=seconds)
+
+
+def dry_phase(torch, dev, log_):
+    """Phase 23: the fake passes in ``DRY_POOL`` spawned host processes
+    while the card runs the same steps; returns (record, launches by
+    program of its serving steps on the card).  The pool is stopped on
+    the way out."""
+    import multiprocessing
+    cases = _dry_cases()
+    res, launches = {}, Counter()
+    pool = multiprocessing.get_context("spawn").Pool(DRY_POOL)
+    try:
+        pending = pool.map_async(_dry_fake, cases, chunksize=1)
+        cards = [_dry_card(torch, dev, case) for case in cases]
+        t0 = time.perf_counter()
+        fakes = pending.get(timeout=900)
+        res["waited_for_fakes_s"] = time.perf_counter() - t0
+    finally:
+        pool.terminate()
+        pool.join()
+    log_(f"phase 23: the card's steps done, then {res['waited_for_fakes_s']:.1f}"
+         " s waiting for the fake passes")
+    for case, fake, card in zip(cases, fakes, cards):
+        name, mode = case[0], case[6]
+        ratio = fake["peak_bytes"] / card["step_peak_bytes"]
+        row = dict(case=list(case[1:]), predicted=fake, card=card,
+                   peak_ratio=ratio,
+                   aten_flops_equal=fake["aten_flops"] == card["aten_flops"],
+                   launches_equal=fake["kernel_launches"] == card["launches"])
+        res[name] = row
+        log_(f"phase 23 {name}: predicted peak {fake['peak_bytes'] / 1e9:.3f}"
+             f" GB, card {card['step_peak_bytes'] / 1e9:.3f} GB (held before "
+             f"{card['held_bytes'] / 1e9:.3f}), ratio {ratio:.4f}; aten FLOPs "
+             f"predicted {fake['aten_flops']:.6e}, card "
+             f"{card['aten_flops']:.6e}; kernel launches predicted "
+             f"{fake['kernel_launches']}, card {card['launches']}; fake pass "
+             f"{fake['seconds']:.1f} s, card step {card['seconds']:.1f} s")
+        check(abs(ratio - 1) <= DRY_TOL,
+              f"phase 23 {name}: predicted peak {fake['peak_bytes']} bytes "
+              f"against the card's {card['step_peak_bytes']}: ratio {ratio}"
+              f" beyond 1 ± {DRY_TOL}")
+        check(row["launches_equal"],
+              f"phase 23 {name}: the fake route's launches "
+              f"{fake['kernel_launches']} != the card's {card['launches']}")
+        if mode == "train":
+            check(row["aten_flops_equal"],
+                  f"phase 23 {name}: predicted aten FLOPs "
+                  f"{fake['aten_flops']} != the card's "
+                  f"{card['aten_flops']}")
+        else:
+            launches.update(card["launches"])
+    return res, dict(launches)
+
+
+# ---------------------------------------------------------------------------
 # the linter on the card
 # ---------------------------------------------------------------------------
 
@@ -5314,7 +5482,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a machine with an NVIDIA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.algorithms import PartyLayout
     from repro_torch.kernels import vfl_grad as vg
 
@@ -5636,6 +5803,10 @@ def main() -> int:
     record["frontends"], frontend_launches = frontend_phase(torch, dev, log)
     record["frontends"]["seconds"] = time.perf_counter() - t22
     log(f"phase 22: {record['frontends']['seconds']:.1f} s")
+    t23 = time.perf_counter()
+    record["dry_run"], dry_launches = dry_phase(torch, dev, log)
+    record["dry_run"]["seconds"] = time.perf_counter() - t23
+    log(f"phase 23: {record['dry_run']['seconds']:.1f} s")
     record["seconds"] = time.perf_counter() - t_start
 
     # each program's line reports its own main-path shape: serving's linear
@@ -5674,7 +5845,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
         "replaces": "src/repro/kernels/selective_scan.py:62",
         "launches": scan_launches + lm_train_launches["selective_scan"]
-        + hybrid_launches["selective_scan"],
+        + hybrid_launches["selective_scan"]
+        + dry_launches.get("selective_scan", 0),
         "max_abs_err": max(r["max_abs_err"] for r in scan),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -5695,7 +5867,7 @@ def main() -> int:
             "replaces": tpu,
             "launches": dense_launches[prog] + lm_train_launches[prog]
             + moe_launches[prog] + hybrid_launches[prog]
-            + frontend_launches[prog],
+            + frontend_launches[prog] + dry_launches.get(prog, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -113,6 +113,16 @@ class ShapeConfig:
     mode: str                        # train | prefill | decode
 
 
+# the reference's four production shapes (``repro/configs/base.py:114-119``):
+# each global batch is the 256-chip mesh's; ``launch.dryrun`` takes one
+# data shard of it on one card
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 ARCH_IDS = [
     "granite_moe_1b_a400m",
     "internlm2_20b",

@@ -26,6 +26,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels.build import SUFFIX, CudaLibrary
 
@@ -39,11 +40,20 @@ _PTR, _I64 = ctypes.c_void_p, ctypes.c_longlong
 ARGTYPES = {"flash_attention": [_PTR] * 4 + [_I64] * 20 + [_PTR]}
 
 
+def _base(t: torch.Tensor) -> int:
+    """t's first element's address for the alignment test: ``data_ptr``,
+    or for a fake tensor (which has none) its byte offset into its
+    storage, whose allocation the caching allocator aligns to 512 bytes."""
+    if isinstance(t, FakeTensor):
+        return t.storage_offset() * t.element_size()
+    return t.data_ptr()
+
+
 def strided_ok(t: torch.Tensor) -> bool:
     """dh contiguous, every other stride a multiple of 8 elements and the
     base 16-byte aligned: what the kernels' vector loads need."""
     return (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1])
-            and t.data_ptr() % 16 == 0)
+            and _base(t) % 16 == 0)
 
 
 def tma_ok(t: torch.Tensor) -> bool:

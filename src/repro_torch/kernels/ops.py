@@ -28,10 +28,32 @@ so that a kernel output never silently drops its gradient.  Training
 takes the plain routes (``Runtime(scan_impl="reference",
 attn_impl="reference")``); under ``torch.no_grad()``, or with inputs that
 need no grad, the wrappers run as described above.
+
+Inside ``fake_kernels()`` (the dry run of ``launch.dryrun``), fake
+tensors (``torch._subclasses.fake_tensor.FakeTensor``) outside a
+``make_fx`` trace take a third route, the CUDA route's shape-only twin:
+each wrapper makes the copies the CUDA route makes, then ``_FakeKernels``
+returns the kernel's outputs as empty tensors of its shapes, dtypes and
+stride order and takes the workspaces the CUDA kernel takes from
+PyTorch's allocator (decode's chunk partials, the backward's per-chunk
+partials), and runs neither version.  Each fake launch adds one to the
+context's ``FakeTally`` count of its program, where the card's counter
+would add one, and its analytic FLOPs and bytes (the counts the kernel
+rows' bounds use) to the tally, since ``torch.utils.flop_counter`` sees
+nothing inside an empty.  Everywhere else a fake tensor goes by its
+device as a real one does, so a fake trace (``make_fx(tracing_mode=
+"fake")``, ``torch.export``) records the plain version on the CPU.
+Real tensors go where they went: a CPU tensor runs the plain version, a
+CUDA tensor the kernel, any other device raises.
 """
 from __future__ import annotations
 
+import contextlib
+from collections import Counter
+
+import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
 from repro_torch.kernels import decode_attention as _da
@@ -41,6 +63,159 @@ from repro_torch.kernels import selective_scan as _ss
 from repro_torch.kernels import vfl_grad as _vg
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# the tally of the open ``fake_kernels()`` context, None outside one
+_TALLY = None
+
+
+def _fake_route(t) -> bool:
+    """Whether ``t`` takes the fake route: a fake tensor inside
+    ``fake_kernels()``, and no ``make_fx`` trace recording."""
+    return _TALLY is not None and isinstance(t, FakeTensor) \
+        and get_proxy_mode() is None
+
+
+def _nbytes(*tensors) -> int:
+    """Bytes the tensors cover: an ``expand`` view (a shared θ) once."""
+    return sum(t.untyped_storage().nbytes() if t.dim() and t.stride(0) == 0
+               else t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+class FakeTally:
+    """What the fake route's launches would have done on the card, by
+    program: ``launches``, ``flops`` (analytic) and ``bytes`` (each input
+    read once, each output written once)."""
+
+    def __init__(self):
+        self.launches, self.flops, self.bytes = Counter(), Counter(), Counter()
+
+    def add(self, prog: str, flops: float, nbytes: int) -> None:
+        self.launches[prog] += 1
+        self.flops[prog] += float(flops)
+        self.bytes[prog] += int(nbytes)
+
+
+@contextlib.contextmanager
+def fake_kernels():
+    """Route fake tensors to the kernels' shape-only twins while open;
+    yields the ``FakeTally`` of the launches they make."""
+    global _TALLY
+    outer, _TALLY = _TALLY, FakeTally()
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = outer
+
+
+def _valid_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """The (query, key) pairs the mask keeps: query t sees keys <= t
+    (``causal``) and > t - ``window``."""
+    t = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(skv, t + 1) if causal else np.full(sq, skv)
+    lo = np.zeros(sq, np.int64) if window is None \
+        else np.maximum(0, t - int(window) + 1)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+class _FakeKernels:
+    """The CUDA kernel objects' shape-only twins (``kernels.vfl_grad``,
+    ``selective_scan``, ``flash_attention``, ``decode_attention``): the
+    same outputs and workspaces, allocated and left empty, and each
+    launch tallied in the open ``fake_kernels()`` tally."""
+
+    @staticmethod
+    def forward(x, w):
+        p, b, d = x.shape
+        m = w.shape[2]
+        z = torch.empty((p, b, m), dtype=torch.float32, device=x.device)
+        if z.numel():
+            _TALLY.add(_vg.PROGRAMS[0] if m <= _vg.NARROW_MAX_M
+                       else _vg.PROGRAMS[1], 2.0 * p * b * d * m,
+                       _nbytes(x, w, z))
+        return z
+
+    @staticmethod
+    def _reduce(ws, w, g):
+        chunks, p, d, m = ws.shape
+        _TALLY.add("vfl_backward_reduce", float(chunks * p * d * m),
+                   _nbytes(ws, w, g))
+
+    def backward(self, x, theta, w, lam, denom):
+        p, b, d = x.shape
+        m = theta.shape[2]
+        g = torch.empty((p, d, m), dtype=torch.float32, device=x.device)
+        if g.numel() == 0:
+            return g
+        chunks = -(-b // _vg.BWD_CHUNK_ROWS)
+        out = g if chunks == 1 else torch.empty(
+            (chunks, p, d, m), dtype=torch.float32, device=x.device)
+        _TALLY.add("vfl_backward_rows", 2.0 * p * b * d * m,
+                   _nbytes(x, theta, w, out))
+        if chunks > 1:
+            self._reduce(out, w, g)
+        return g
+
+    def fused(self, x, w, theta, lam, denom, split):
+        p, b, d = x.shape
+        mw, nb, mth = w.shape[2], theta.shape[1], theta.shape[2]
+        f0 = 0 if split is None else split
+        z = torch.empty((p, b - f0, mw), dtype=torch.float32,
+                        device=x.device)
+        g = torch.empty((p, d, mth), dtype=torch.float32, device=x.device)
+        chunks = -(-nb // _vg.BWD_CHUNK_ROWS)
+        out = g if chunks == 1 else torch.empty(
+            (chunks, p, d, mth), dtype=torch.float32, device=x.device)
+        _TALLY.add("vfl_fused_split",
+                   2.0 * p * (b - f0) * d * mw + 2.0 * p * nb * d * mth,
+                   _nbytes(x, w, theta, z, out))
+        if chunks > 1:
+            self._reduce(out, w if lam != 0.0 else None, g)
+        return z, g
+
+    @staticmethod
+    def scan(xa, dt, b_ssm, c_ssm, a_log, d_skip):
+        y = torch.empty_like(xa)
+        if y.numel():
+            bsz, s, c = xa.shape
+            n = a_log.shape[-1]
+            _TALLY.add("selective_scan",
+                       5.0 * bsz * s * c * n + 3.0 * bsz * s * c,
+                       _nbytes(xa, dt, b_ssm, c_ssm, a_log, d_skip, y))
+        return y
+
+    @staticmethod
+    def attend(q, k, v, causal, window):
+        o = torch.empty_like(q)
+        if o.numel():
+            b, h, sq, dh = q.shape
+            pairs = _valid_pairs(sq, k.shape[2], causal, window)
+            _TALLY.add("flash_attention", 4.0 * b * h * dh * pairs,
+                       _nbytes(q, k, v, o))
+        return o
+
+    @staticmethod
+    def partials(q, k_cache, v_cache, pos, shards, offset, window,
+                 value):
+        b, h, dh = q.shape
+        s, hkv = k_cache.shape[1], k_cache.shape[2]
+        o = torch.empty((shards, b, h, dh), dtype=torch.float32,
+                        device=q.device)
+        m = torch.empty((shards, b, h), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+        if o.numel() == 0:
+            return o, m, l
+        chunks, _ = _da.chunk_plan(s // shards)
+        torch.empty((shards, chunks, b, h, dh + 2), dtype=torch.float32,
+                    device=q.device)                 # the chunk partials
+        lo = max(offset, 0 if window is None else value - int(window) + 1)
+        valid = max(0, min(offset + s, value + 1) - lo)
+        kv_bytes = 2 * b * valid * hkv * dh * k_cache.element_size()
+        _TALLY.add("decode_attention", 4.0 * b * h * dh * valid,
+                   _nbytes(q, o, m, l) + kv_bytes)
+        return o, m, l
+
+
+FAKE_KERNELS = _FakeKernels()
 
 
 def _contig(t: torch.Tensor) -> torch.Tensor:
@@ -134,7 +309,7 @@ def _forward(xb, w):
     return _launch("forward", xb, w)
 
 
-def _cuda_forward(xb, w):
+def _cuda_forward(xb, w, kern=None):
     rank1 = w.dim() == xb.dim() - 1
     if xb.dim() == 2:
         x3 = xb.unsqueeze(0)
@@ -142,7 +317,7 @@ def _cuda_forward(xb, w):
     else:
         x3 = xb
         w3 = w.unsqueeze(-1) if rank1 else w
-    z = _vg.KERNEL.forward(x3, w3)
+    z = (kern or _vg.KERNEL).forward(x3, w3)
     if rank1:
         z = z.squeeze(-1)
     return z.squeeze(0) if xb.dim() == 2 else z
@@ -179,7 +354,7 @@ def _backward(xb, w, theta, lam, denom):
     return _launch("backward", xb, theta, w, lam, denom)
 
 
-def _cuda_backward(xb, theta, w, lam, denom):
+def _cuda_backward(xb, theta, w, lam, denom, kern=None):
     lead = xb.dim() - 2
     rank1 = theta.dim() == xb.dim() - 1
     th3 = theta.unsqueeze(-1) if rank1 else theta
@@ -192,7 +367,8 @@ def _cuda_backward(xb, theta, w, lam, denom):
     th3 = _f32(th3)
     if not (th3.stride(0) == 0 and th3[0].is_contiguous()):
         th3 = _contig(th3)                  # not a shared (expanded) θ
-    g = _vg.KERNEL.backward(_contig(x3), th3, w3, lam, float(denom))
+    g = (kern or _vg.KERNEL).backward(_contig(x3), th3, w3, lam,
+                                      float(denom))
     if rank1:
         g = g.squeeze(-1)
     return g.squeeze(0) if lead == 0 else g
@@ -241,7 +417,7 @@ def _fused(xb, w, theta, lam, denom, split):
                    None if split is None else int(split))
 
 
-def _cuda_fused(xb, w, theta, lam, denom, split):
+def _cuda_fused(xb, w, theta, lam, denom, split, kern=None):
     lead = xb.dim() - 2
     d = xb.shape[-1]
     w_rank1 = w.dim() == xb.dim() - 1
@@ -253,8 +429,8 @@ def _cuda_fused(xb, w, theta, lam, denom, split):
     th3 = _f32(th3.unsqueeze(0) if lead == 0 else th3)
     if not (th3.stride(0) == 0 and th3[0].is_contiguous()):
         th3 = _contig(th3)                  # not a shared (expanded) θ
-    z, g = _vg.KERNEL.fused(_contig(x3), _contig(w3), th3, lam,
-                            float(denom), split)
+    z, g = (kern or _vg.KERNEL).fused(_contig(x3), _contig(w3), th3, lam,
+                                      float(denom), split)
     if w_rank1:
         z = z.squeeze(-1)
     if th_rank1:
@@ -302,9 +478,12 @@ for _mode, _fns in _IMPLS.items():
 
 def _launch(mode: str, xb, *args):
     """One ``vfl_grad`` launch of ``mode``: the operator inside a ``make_fx``
-    trace (one node), else its implementation for ``xb``'s device."""
+    trace (one node), else its implementation for ``xb``'s device (the
+    CUDA route with ``FAKE_KERNELS`` on the fake route)."""
     if get_proxy_mode() is not None:
         return getattr(torch.ops.repro_torch.vfl_grad, mode)(xb, *args)
+    if _fake_route(xb):
+        return _IMPLS[mode][1](xb, *args, kern=FAKE_KERNELS)
     return _IMPLS[mode][1 if xb.is_cuda else 0](xb, *args)
 
 
@@ -332,19 +511,26 @@ def selective_scan(xa, dt, b_ssm, c_ssm, a_log, d_skip):
             raise ValueError(f"{name} must be {shape}; got {tuple(t.shape)}")
         if t.device != xa.device:
             raise ValueError(f"xa on {xa.device}, {name} on {t.device}")
-    if xa.device.type == "cpu":
+    kind = _device_kind(xa, "selective_scan")
+    if kind == "cpu":
         return ref.selective_scan(xa, dt, b_ssm, c_ssm, a_log, d_skip)
-    if xa.device.type != "cuda":
-        raise ValueError(f"selective_scan runs on cpu or cuda, not "
-                         f"{xa.device}")
-    return _ss.KERNEL.scan(xa.contiguous(), *(
+    return _kernel(kind, _ss).scan(xa.contiguous(), *(
         t.float().contiguous() for t in (dt, b_ssm, c_ssm, a_log, d_skip)))
 
 
 def _device_kind(t: torch.Tensor, name: str) -> str:
+    """"fake" on the fake route, else "cpu" or "cuda"; any other device
+    raises."""
+    if _fake_route(t):
+        return "fake"
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
     return t.device.type
+
+
+def _kernel(kind: str, module):
+    """The kernel object of ``module`` on the card, its twin for fakes."""
+    return FAKE_KERNELS if kind == "fake" else module.KERNEL
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -381,15 +567,16 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     for t, name in ((k, "k"), (v, "v")):
         if t.device != q.device:
             raise ValueError(f"q on {q.device}, {name} on {t.device}")
-    if _device_kind(q, "flash_attention") == "cpu":
+    kind = _device_kind(q, "flash_attention")
+    if kind == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     if q.dtype != torch.bfloat16 or q.shape[3] not in _fa.WGMMA_HEAD_DIMS:
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    return _fa.KERNEL.attend(q, k, v, causal, window)
+    return _kernel(kind, _fa).attend(q, k, v, causal, window)
 
 
 def decode_attention(q, k_cache, v_cache, pos, shard_offset=0, window=None,
-                     *, shards=None):
+                     *, shards=None, pos_value=None):
     """Flash-decoding partials, ready for a log-sum-exp merge across
     shards: q (B, H, dh); caches (B, S, Hkv, dh) of q's dtype holding
     absolute positions [shard_offset, shard_offset + S); the token at
@@ -402,7 +589,9 @@ def decode_attention(q, k_cache, v_cache, pos, shard_offset=0, window=None,
     (the q parties' shards) and every result gains a leading shard axis,
     from one launch on the card.  There dh must be one of
     ``flash_attention.HEAD_DIMS`` and H/Hkv at most
-    ``decode_attention.MAX_REP``; any S/shards is taken."""
+    ``decode_attention.MAX_REP``; any S/shards is taken.  ``pos_value``:
+    ``pos``'s int where ``pos`` is a tensor, read only on the fake route
+    (for its FLOP tally: a fake tensor holds no value)."""
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
             or v_cache.dtype != q.dtype:
         raise ValueError(f"q and the caches must share a dtype in "
@@ -425,14 +614,21 @@ def decode_attention(q, k_cache, v_cache, pos, shard_offset=0, window=None,
     for t, name in ((k_cache, "k_cache"), (v_cache, "v_cache")):
         if t.device != q.device:
             raise ValueError(f"q on {q.device}, {name} on {t.device}")
-    if _device_kind(q, "decode_attention") == "cpu":
+    kind = _device_kind(q, "decode_attention")
+    if kind == "cpu":
         return ref.decode_attention_ref(q, k_cache, v_cache, pos,
                                         shard_offset, window, shards)
     if isinstance(pos, torch.Tensor):
         pos_t = pos.to(device=q.device, dtype=torch.int32).reshape(())
     else:
         pos_t = torch.full((), int(pos), dtype=torch.int32, device=q.device)
-    o, m, l = _da.KERNEL.partials(_aligned(q), _aligned(k_cache),
-                                  _aligned(v_cache), pos_t, n,
-                                  int(shard_offset), window)
+    extra = {}
+    if kind == "fake":
+        if isinstance(pos, torch.Tensor) and pos_value is None:
+            raise ValueError("decode_attention's fake route needs the "
+                             "position's value: pass an int, or pos_value")
+        extra["value"] = int(pos if pos_value is None else pos_value)
+    o, m, l = _kernel(kind, _da).partials(_aligned(q), _aligned(k_cache),
+                                          _aligned(v_cache), pos_t, n,
+                                          int(shard_offset), window, **extra)
     return (o, m, l) if shards is not None else (o[0], m[0], l[0])

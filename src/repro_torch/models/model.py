@@ -572,7 +572,7 @@ def _decode_attention(rt: Runtime, cfg: ArchConfig, p, x, kc, vc, pos: int,
     q = q[:, 0]
     if rt.attn_impl == "kernel":
         o, m, l = ops.decode_attention(q, kc, vc, pos_t, 0, window,
-                                       shards=q_par)
+                                       shards=q_par, pos_value=pos)
     else:
         o, m, l = attn_lib.shard_partials(q, kc, vc, pos, q_par,
                                           window=window)

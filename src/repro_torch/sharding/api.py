@@ -35,7 +35,9 @@ class PartyMesh:
     SGD and SVRG minibatch into that many disjoint slices, each
     aggregated with its own mask draw.  The axis names are the
     reference's and are checked as there; nothing on one device reads
-    them.
+    them.  ``pods`` is the width of the reference's inter-pod axis,
+    "pod" (``launch.mesh``'s multi-pod production mesh), None where the
+    mesh has none; nothing on one device reads it either.
 
     ``mesh`` is the reference's device mesh.  The port has none, so
     ``mesh=None`` is the only form it runs: any other value raises
@@ -49,21 +51,24 @@ class PartyMesh:
     party_axis: str = "party"       # inner (packed parties) axis name
     data_shards: int = 1            # sample-parallel width
     data_axis: str = "data"         # batch axis name
+    pods: Optional[int] = None      # "pod" axis width; None: no pod axis
 
     def __post_init__(self):
-        if self.q < 1 or self.slots < 1 or self.data_shards < 1:
+        if self.q < 1 or self.slots < 1 or self.data_shards < 1 or (
+                self.pods is not None and self.pods < 1):
             raise ValueError(
                 f"PartyMesh sizes must be >= 1; got q={self.q}, "
-                f"slots={self.slots}, data_shards={self.data_shards}")
+                f"slots={self.slots}, data_shards={self.data_shards}, "
+                f"pods={self.pods}")
         if self.q % self.slots != 0:
             raise ValueError(
                 f"q={self.q} must divide evenly into slots={self.slots} "
                 f"islands (got remainder {self.q % self.slots})")
-        if self.axis == self.party_axis or self.data_axis in (
-                self.axis, self.party_axis):
+        names = (self.axis, self.party_axis, self.data_axis, "pod")
+        if len(set(names)) != len(names):
             raise ValueError(
-                f"axis names must be distinct; got axis={self.axis!r}, "
-                f"party_axis={self.party_axis!r}, "
+                f"axis names must be distinct (and not 'pod'); got "
+                f"axis={self.axis!r}, party_axis={self.party_axis!r}, "
                 f"data_axis={self.data_axis!r}")
         if self.mesh is not None:
             raise NotImplementedError(
@@ -80,6 +85,20 @@ class PartyMesh:
         """More than one logical party per slot (the two-level
         aggregation)."""
         return self.parties_per_slot > 1
+
+    @property
+    def axis_names(self):
+        """The reference device mesh's axis names: (pod,) data, model."""
+        pod = () if self.pods is None else ("pod",)
+        return pod + (self.data_axis, self.axis)
+
+    @property
+    def shape(self):
+        """Axis name -> size, as the reference's ``Mesh.shape``; the model
+        axis is the slots."""
+        sizes = (() if self.pods is None else (self.pods,)) \
+            + (self.data_shards, self.slots)
+        return dict(zip(self.axis_names, sizes))
 SCAN_IMPLS = ("kernel", "reference")
 ATTN_IMPLS = ("kernel", "reference")
 MOE_DISPATCHES = ("replicated", "alltoall")

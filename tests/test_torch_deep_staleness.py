@@ -60,6 +60,17 @@ CASES = [("q4m2", kind) for kind in KINDS] \
 IDS = ["-".join(c) for c in CASES]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    the suite runs several test processes on one machine's cores, where
+    more threads a process only contend.  The count is put back after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def ds():
     return classification_dataset("deep_sched", N, D, seed=5, noise=0.4)

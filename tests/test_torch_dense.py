@@ -70,6 +70,17 @@ def _cache_t(jcache, jnp):
             .to(torch.bfloat16) for k, v in jcache.items()}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    the suite runs several test processes on one machine's cores, where
+    more threads a process only contend.  The count is put back after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jx():
     import jax
