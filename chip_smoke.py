@@ -385,7 +385,7 @@ JAX or of the JAX package.
    ``Runtime(unroll_layers=2)`` on the full tree to the tree cut to 2
    encoder and 2 decoder layers, as phase 10 does.
 23. The dry run against the card (``launch/dryrun.py``): phase 19's four
-   AdamW steps (falcon-mamba-7b ×4 at 4 × 512, gemma3-4b ×6 at 2 × 2,048
+   AdamW steps (falcon-mamba-7b ×1 at 4 × 512, gemma3-4b ×6 at 2 × 2,048
    with and without remat, granite-moe-1b-a400m whole at 2 × 2,048) and
    a prefill and a decode step at phase 10's gemma3-4b shape (batch 4, a
    4,096-token prompt; decode on the 4,128-position cache) and phase
@@ -399,7 +399,24 @@ JAX or of the JAX package.
    predicted aten FLOPs must equal the card's ``FlopCounterMode`` total,
    and the fake route's launches the kernels' counted launches (flash 34
    and decode 34 for gemma3, scan 7, flash 1 and decode 1 for jamba,
-   none for training); each ratio is printed.  It runs last.
+   none for training); each ratio is printed.
+24. The party mesh on a ``torch.distributed`` device mesh
+   (``PartyMesh(mesh=DeviceMesh)``), in spawned ranks after the kernels
+   are built.  (a) ``PartyMesh(q=8, slots=cards)`` over NCCL, one rank a
+   card (one on this machine), on phase 7's data: SGD, SVRG and SAGA
+   epochs of 2,000 steps of phase 7's schedule under ``off``,
+   ``two_tree`` and ``ring``, each step a replay of a CUDA graph that
+   holds its collectives, under no host sync, against the same epochs of
+   the ``mesh=None`` engine: bit for bit under ``off`` at one rank, within
+   1e-5 under the masked modes; a timed SGD epoch of each engine; a
+   ``ServeEngine`` over the mesh answering full, hit and delta requests
+   against one over the ``mesh=None`` engine; the launches equal to the
+   ``mesh=None`` engine's.  (b) Four gloo ranks sharing the card, q = 4:
+   SGD epochs of 300 steps under ``two_tree`` and ``ring``, eager (gloo is
+   never captured), within 1e-5 of the ``mesh=None`` epoch, each rank's
+   ``vfl_grad`` launches one forward and one backward a step; the tree
+   replay (``schedule_faithful``) is held in the CPU tests, since gloo's
+   sends take host tensors, and the phase says so.  It runs last.
 
 The ``vfl_grad`` source holds five kernel programs:
 ``vfl_forward_narrow`` (M <= 4, the linear path), ``vfl_forward_wide``
@@ -436,13 +453,14 @@ kernel-route forwards and after each (its training steps must launch
 nothing), just before phase 20's serve call and after it, just before
 phase 21's serve call and after it, just before each of phase 22's two
 counted serve calls and after it, just before each of phase 23's steps on
-the card and after it;
+the card and after it, and in each rank of phase 24 around its
+device-mesh engines' calls (a new process starts at 0);
 each count must equal what the dispatch or step structure implies, every
 program of each path must have run, and no other program.  The
 ``kernels`` line has one entry per program, timed at its main-path shape
 (serving: the linear full dispatch and deep layer 1; training: the SGD
 step, the full-dataset reduce and the pipelined SGD step), with its
-launches summed over every path (phases 3-8 and 11-18).  The
+launches summed over every path (phases 3-8, 11-18 and 24).  The
 ``selective_scan`` source holds one program, held against its plain
 version at the reference's sweep shapes, a ragged shape and phase 9's
 prefill shape (4, 2048, 8192), N = 16, bf16 (1e-4 for f32 xa, 5e-2 for
@@ -5170,23 +5188,30 @@ def frontend_phase(torch, dev, log_):
 # over the same step (less what the process held before the step's
 # arguments were made)
 DRY_TOL = 0.10
-# host processes for the fake passes: falcon's (its plain scan's some
-# 7·10⁵ fake operations, about two minutes of a host core) in one, the
-# other cases in the others.  They start with phase 23, after the last
-# timed phase, and run beside its steps on the card, which time nothing
+# host processes for the fake passes: falcon's (its plain scan's fake
+# operations, about half a minute of a host core at one layer) in one,
+# the other cases in the others.  They start with phase 23, after the
+# last timed phase, and run beside its steps on the card, which time
+# nothing
 DRY_POOL = 3
+# phase 23 runs phase 19's training configurations with these depths cut
+# further: falcon's four layers took its fake pass 106-140 s, one a
+# quarter of that, and the checks are the same at any depth
+DRY_LAYERS = {"falcon_mamba_7b": 1}
 
 
 def _dry_cases():
     """Phase 23's steps: (name, arch, layers or None for the whole model,
     q, batch, seq, mode, remat).  Phase 19's AdamW steps (gemma3 also
-    without remat), and a prefill and a decode step at phase 10's gemma3
-    and phase 21's jamba shapes (decode on the serve call's cache length,
-    prompt + generated tokens)."""
-    cases = [(f"train {a} x{n}", a, n, q, b, s, "train", True)
+    without remat; falcon at ``DRY_LAYERS``' depth), and a prefill and a
+    decode step at phase 10's gemma3 and phase 21's jamba shapes (decode
+    on the serve call's cache length, prompt + generated tokens)."""
+    train = [(a, DRY_LAYERS.get(a, n), q, b, s)
              for a, n, q, b, s in TRAIN_LM]
+    cases = [(f"train {a} x{n}", a, n, q, b, s, "train", True)
+             for a, n, q, b, s in train]
     cases += [(f"train {a} x{n} no remat", a, n, q, b, s, "train", False)
-              for a, n, q, b, s in TRAIN_LM if a == TRAIN_LM_NO_REMAT]
+              for a, n, q, b, s in train if a == TRAIN_LM_NO_REMAT]
     for arch, layers, q, b, prompt, gen in (
             (DENSE_ARCH, None, DENSE_Q, DENSE_BATCH, DENSE_PROMPT, DENSE_GEN),
             (HYBRID_ARCH, HYBRID_LAYERS, HYBRID_Q, HYBRID_BATCH,
@@ -5306,6 +5331,327 @@ def dry_phase(torch, dev, log_):
                   f"{card['aten_flops']}")
         else:
             launches.update(card["launches"])
+    return res, dict(launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the device party mesh
+# ---------------------------------------------------------------------------
+
+# 24(a): PartyMesh(q=8, slots=cards) over NCCL, one rank a card, on phase
+# 7's data; each epoch runs this prefix of phase 7's schedule, and the
+# masked modes are held to the mesh=None engine within DIST_TOL
+DIST_STEPS, DIST_TOL = 2000, 1e-5
+DIST_PROFILE_STEPS = 500         # 24(a)'s profiler windows, each engine
+DIST_SERVE_IDS = 4 * BATCH       # requests of 24(a)'s serve calls
+# 24(b): four gloo ranks sharing the card, one party each, eager steps
+DIST_GLOO_RANKS, DIST_GLOO_STEPS = 4, 300
+DIST_TIMEOUT = 300               # seconds a world may take
+
+
+def _dist_world(rank, world, backend, base, part):
+    """One rank of a phase 24 world (spawned): its card, the process group
+    over a file store in ``base``, the part's cases; its record goes to
+    ``base/rank<rank>.json``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group(backend, init_method=f"file://{base}/store",
+                            rank=rank, world_size=world)
+    try:
+        res = (_dist_nccl if part == "a" else _dist_gloo)(torch, dev)
+        Path(base, f"rank{rank}.json").write_text(json.dumps(res))
+        dist.barrier()              # no rank leaves while another sends
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_data(torch, dev):
+    """Phase 7's resident data: x (N, D) from the seed, the D4 labels."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((N, D), generator=gen, device=dev)
+    return x, d4_labels(torch, dev, x)
+
+
+def _dist_epoch(torch, e, algo, idx, key):
+    """``algo``'s epoch from w = 0 (SVRG from its full gradient, SAGA
+    from its ``saga_init``); the whole (q, dp) iterate, gathered."""
+    w0 = e.pack_w(torch.zeros(D, device=e.device))
+    lr = TRAIN_LR
+    if algo == "sgd":
+        w = e.sgd_epoch(w0, lr, idx, key)
+    elif algo == "svrg":
+        w = e.svrg_epoch(w0, w0, e.full_gradient(w0, key), lr, idx, key)
+    else:
+        tab, avg = e.saga_init(w0, key)
+        w = e.saga_epoch(w0, tab, avg, lr, idx, key)[0]
+    return e.gather(w)
+
+
+def _counted(vg, fn):
+    """``fn()`` and the vfl_grad launches it made."""
+    before = dict(vg.KERNEL.launches)
+    out = fn()
+    return out, {p: vg.KERNEL.launches[p] - before[p] for p in before}
+
+
+def _timed_step_ms(torch, fn, steps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def _dist_nccl(torch, dev):
+    """24(a), in each rank: for ``off``, ``two_tree`` and ``ring`` the
+    SGD, SVRG and SAGA epochs (``DIST_STEPS`` steps of phase 7's
+    schedule) on ``PartyMesh(q=8, slots=world)`` over NCCL, under no host
+    sync, each step a replay of a CUDA graph that holds its collectives,
+    against the same epochs of the ``mesh=None`` engine on the card: bit
+    for bit under ``off`` at one rank, within ``DIST_TOL`` otherwise; a
+    timed SGD epoch of each; serving (full, hit, delta) against a
+    ``ServeEngine`` over the ``mesh=None`` engine; profiler windows over
+    ``DIST_PROFILE_STEPS`` masked SGD steps of each engine.  Returns the
+    rank's record, its device-mesh launches apart."""
+    import torch.distributed as dist
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.algorithms import PartyLayout
+    from repro_torch.core.engine import EngineConfig, FusedEngine, unpack_vec
+    from repro_torch.core.losses import logistic_l2
+    from repro_torch.kernels import vfl_grad as vg
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.serve.engine import ServeEngine
+    world = dist.get_world_size()
+    x, y = _dist_data(torch, dev)
+    pm = make_device_mesh(world, q=Q)
+    lay, prob = PartyLayout.even(D, Q, M_ACT), logistic_l2(1e-4)
+    idx = alg.epoch_indices(SEED, 0, N, TRAIN_BATCH, DIST_STEPS, dev)
+    key = (SEED, 24)
+    res = {"world": world, "backend": pm.backend, "slot": pm.slot,
+           "parties": list(pm.parties), "modes": {}}
+    mesh_launches, flat_launches = Counter(), Counter()
+    torch.cuda.reset_peak_memory_stats()
+    for mode in ("off", "two_tree", "ring"):
+        cfg = EngineConfig(secure=mode)
+        e = FusedEngine(prob, x, y, lay, cfg, mesh=pm, device=dev)
+        flat = FusedEngine(prob, x, y, lay, cfg, device=dev)
+        rec, iterates = {}, {}
+        for algo in ("sgd", "svrg", "saga"):
+            with no_host_sync(torch):
+                got, n_mesh = _counted(vg, lambda: _dist_epoch(
+                    torch, e, algo, idx, key))
+                want, n_flat = _counted(vg, lambda: _dist_epoch(
+                    torch, flat, algo, idx, key))
+            mesh_launches.update(n_mesh)
+            flat_launches.update(n_flat)
+            iterates[algo] = got
+            err = float((got - want).abs().max())
+            rec[f"{algo}_max_abs_err"] = err
+            if mode == "off" and world == 1:
+                rec[f"{algo}_bit_equal"] = bool(torch.equal(got, want))
+                check(rec[f"{algo}_bit_equal"], f"phase 24(a) {algo} off: "
+                      f"not the mesh=None epoch's bits ({err:.3e})")
+            else:
+                check(err <= DIST_TOL, f"phase 24(a) {algo} {mode}: {err:.3e}"
+                      f" from the mesh=None epoch")
+        graphs = [lp.graph for lp in e._loops.values()]
+        check(graphs and all(g is not None for g in graphs),
+              f"phase 24(a) {mode}: an epoch ran uncaptured")
+        # a step of each engine: its SGD epoch once more, graph replays
+        for name, eng, tally in (("mesh", e, mesh_launches),
+                                 ("flat", flat, flat_launches)):
+            w0 = eng.pack_w(torch.zeros(D, device=dev))
+            rec[f"{name}_step_ms"], n = _counted(vg, lambda: _timed_step_ms(
+                torch, lambda: eng.sgd_epoch(w0, TRAIN_LR, idx, key),
+                DIST_STEPS))
+            tally.update(n)
+            if mode != "off":       # where a masked step's time goes
+                pre = idx[:DIST_PROFILE_STEPS]
+                rec[f"{name}_profile"], n = _counted(vg, lambda: epoch_profile(
+                    torch, lambda: eng.sgd_epoch(w0, TRAIN_LR, pre, key),
+                    DIST_PROFILE_STEPS))
+                tally.update(n)
+        if mode == "two_tree":
+            w = torch.from_numpy(unpack_vec(iterates["sgd"], lay)).to(dev)
+            ids = (np.arange(DIST_SERVE_IDS) * 997) % N
+            answers = []
+            for eng, tally in ((e, mesh_launches), (flat, flat_launches)):
+                sv = ServeEngine(eng, max_batch=BATCH, device=dev)
+                out = []
+                for scale in (1.0, None, 1.01):
+                    if scale is not None:
+                        sv.set_weights(w * scale)
+                    got, n = _counted(vg, lambda: sv.serve(ids))
+                    tally.update(n)
+                    out.append(got)
+                answers.append((out, dataclasses.asdict(sv.stats)))
+                del sv
+            (mine, stats), (ref, ref_stats) = answers
+            check(stats == ref_stats and stats["full_dispatches"] and
+                  stats["hit_dispatches"] and stats["delta_dispatches"],
+                  f"phase 24(a) serving stats {stats} != {ref_stats}")
+            rec["serve_max_abs_err"] = err = max(
+                float(np.abs(a - b).max()) for a, b in zip(mine, ref))
+            scale = max(1.0, max(float(np.abs(b).max()) for b in ref))
+            check(err <= DIST_TOL * scale, f"phase 24(a) serving {err:.3e} "
+                  "from the mesh=None ServeEngine")
+            rec["serve_stats"] = stats
+        res["modes"][mode] = rec
+        del e, flat, eng
+    res["launches"] = dict(mesh_launches)
+    res["flat_launches"] = dict(flat_launches)
+    res["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def _dist_gloo(torch, dev):
+    """24(b), in each of four ranks sharing the card: SGD epochs of
+    ``DIST_GLOO_STEPS`` steps on ``PartyMesh(q=4, slots=4)`` over gloo
+    under ``two_tree`` and ``ring``, eagerly (gloo is never captured);
+    rank 0 holds the gathered iterate (every rank gathers the same) to
+    the ``mesh=None`` engine's on the card within ``DIST_TOL``.  Every
+    rank launches ``vfl_grad`` on the card for its own party."""
+    import torch.distributed as dist
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.algorithms import PartyLayout
+    from repro_torch.core.engine import EngineConfig, FusedEngine
+    from repro_torch.core.losses import logistic_l2
+    from repro_torch.kernels import vfl_grad as vg
+    from repro_torch.launch.mesh import make_device_mesh
+    world = dist.get_world_size()
+    x, y = _dist_data(torch, dev)
+    pm = make_device_mesh(world, backend="gloo")
+    lay, prob = PartyLayout.even(D, world, M_ACT), logistic_l2(1e-4)
+    idx = alg.epoch_indices(SEED, 0, N, TRAIN_BATCH, DIST_GLOO_STEPS, dev)
+    key = (SEED, 24)
+    res = {"world": world, "backend": pm.backend, "slot": pm.slot,
+           "modes": {}}
+    launches = Counter()
+    torch.cuda.reset_peak_memory_stats()
+    for mode in ("two_tree", "ring"):
+        cfg = EngineConfig(secure=mode)
+        e = FusedEngine(prob, x, y, lay, cfg, mesh=pm, device=dev)
+        check(tuple(e.xs.shape) == (1, N, D // world),
+              f"phase 24(b): rank {pm.slot} holds {tuple(e.xs.shape)}")
+        w0 = e.pack_w(torch.zeros(D, device=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, n = _counted(vg, lambda: e.sgd_epoch(w0, TRAIN_LR, idx, key))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / DIST_GLOO_STEPS * 1e3
+        launches.update(n)
+        check(not e._loops[("sgd", tuple(idx.shape))].graph,
+              "phase 24(b): a gloo epoch was captured")
+        got = e.gather(got)
+        res["modes"][mode] = {"eager_step_ms": step_ms}
+        if pm.slot == 0:
+            flat = FusedEngine(prob, x, y, lay, cfg, device=dev)
+            want = flat.sgd_epoch(flat.pack_w(torch.zeros(D, device=dev)),
+                                  TRAIN_LR, idx, key)
+            err = float((got - want).abs().max())
+            check(err <= DIST_TOL, f"phase 24(b) {mode}: {err:.3e} from "
+                  "the mesh=None epoch")
+            res["modes"][mode]["max_abs_err"] = err
+            del flat
+        del e
+    res["launches"] = dict(launches)
+    res["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def _dist_run(torch, world, backend, part):
+    """Spawn ``world`` ranks of ``_dist_world`` and return their records;
+    any rank's failure, or a world past ``DIST_TIMEOUT``, fails the
+    phase, and every rank is stopped on the way out."""
+    import tempfile
+    import torch.multiprocessing as mp
+    base = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        ctx = mp.start_processes(_dist_world,
+                                 args=(world, backend, base, part),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + DIST_TIMEOUT
+        try:
+            while not ctx.join(timeout=2):
+                check(time.monotonic() < deadline,
+                      f"phase 24({part}) did not finish in {DIST_TIMEOUT} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        return [json.loads(Path(base, f"rank{r}.json").read_text())
+                for r in range(world)]
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def dist_phase(torch, dev, log_):
+    """Phase 24: the party mesh on a ``torch.distributed`` device mesh, in
+    spawned ranks (the kernels are built before they start, so a rank
+    only loads the libraries).  (a) ``PartyMesh(q=8, slots=cards)`` over
+    NCCL, one rank a card (``_dist_nccl``); (b) four gloo ranks sharing
+    the card, q = 4 (``_dist_gloo``).  Returns (record, the vfl_grad
+    launches of the device-mesh engines, summed over the ranks)."""
+    from repro_torch.kernels import vfl_grad as vg
+    vg.KERNEL.library()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    res, launches = {}, Counter()
+    t0 = time.perf_counter()
+    ranks = _dist_run(torch, cards, "nccl", "a")
+    res["a"] = {"seconds": time.perf_counter() - t0, "ranks": ranks}
+    for r in ranks:
+        launches.update(r["launches"])
+        check(all(r["launches"][p] for p in ("vfl_forward_narrow",
+                                             "vfl_backward_rows",
+                                             "vfl_backward_reduce")),
+              f"a kernel of the phase 24(a) path was never launched: "
+              f"{r['launches']}")
+        check(cards > 1 or r["launches"] == r["flat_launches"],
+              f"phase 24(a): launches {r['launches']} against the "
+              f"mesh=None engine's {r['flat_launches']}")
+        for mode, rec in r["modes"].items():
+            log_(f"phase 24(a) rank {r['slot']} of {cards} ({r['backend']}, "
+                 f"parties {r['parties'][0]}-{r['parties'][-1]}) {mode}: "
+                 f"{ {k: v for k, v in rec.items() if 'profile' not in k} }")
+            for name in ("mesh", "flat"):
+                prof = rec.get(f"{name}_profile")
+                if prof:
+                    log_(f"phase 24(a) {mode} {name} profile of "
+                         f"{prof['steps']} SGD steps: wall "
+                         f"{prof['wall_us']:.0f} µs, device busy "
+                         f"{prof['device_busy_share']}, top "
+                         f"{prof['top_device_us'][:6]}")
+        log_(f"phase 24(a) rank {r['slot']}: vfl_grad launches "
+             f"{r['launches']}, the mesh=None engine's "
+             f"{r['flat_launches']}; max_memory_allocated "
+             f"{r['max_memory_allocated_gb']:.2f} GB")
+    log_("phase 24(b): schedule_faithful (the tree rounds' point-to-point "
+         "sends) is held in the CPU tests (tests/test_torch_dist_mesh.py), "
+         "not here: gloo's send of a CUDA tensor fails (writev: Bad "
+         "address), and tree_psum_dist refuses it")
+    t0 = time.perf_counter()
+    ranks = _dist_run(torch, DIST_GLOO_RANKS, "gloo", "b")
+    res["b"] = {"seconds": time.perf_counter() - t0, "ranks": ranks}
+    for r in ranks:
+        launches.update(r["launches"])
+        check(r["launches"]["vfl_forward_narrow"] == 2 * DIST_GLOO_STEPS
+              and r["launches"]["vfl_backward_rows"] == 2 * DIST_GLOO_STEPS,
+              f"phase 24(b) rank {r['slot']}: launches {r['launches']} != "
+              f"one forward and one backward a step")
+        log_(f"phase 24(b) rank {r['slot']} of {DIST_GLOO_RANKS} "
+             f"({r['backend']}): {r['modes']}; vfl_grad launches "
+             f"{r['launches']}; max_memory_allocated "
+             f"{r['max_memory_allocated_gb']:.2f} GB")
     return res, dict(launches)
 
 
@@ -5807,6 +6153,10 @@ def main() -> int:
     record["dry_run"], dry_launches = dry_phase(torch, dev, log)
     record["dry_run"]["seconds"] = time.perf_counter() - t23
     log(f"phase 23: {record['dry_run']['seconds']:.1f} s")
+    t24 = time.perf_counter()
+    record["dist"], dist_launches = dist_phase(torch, dev, log)
+    record["dist"]["seconds"] = time.perf_counter() - t24
+    log(f"phase 24: {record['dist']['seconds']:.1f} s")
     record["seconds"] = time.perf_counter() - t_start
 
     # each program's line reports its own main-path shape: serving's linear
@@ -5832,7 +6182,7 @@ def main() -> int:
             + deep_launches[prog] + deep_stale_launches[prog]
             + fault_launches[prog] + deep_fault_launches[prog]
             + mesh_launches[prog] + serve_async_launches[prog]
-            + lint_launches[prog],
+            + lint_launches[prog] + dist_launches.get(prog, 0),
             "max_abs_err": max(r["max_abs_err"] for r in shapes
                                if prog in r["programs"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -61,6 +61,23 @@ identity in ``gm.meta``; ``repro_torch.analysis`` reads them.  The
 ``ops.vfl_grad`` call is one ``repro_torch.vfl_grad`` node, so a step's
 nodes count its launches on the card.
 
+Device mesh.  Given ``PartyMesh(mesh=DeviceMesh)`` each rank holds one
+slot of parties (``PartyMesh.parties``): ``xs`` is its (pps, n, dp)
+slice and an iterate its (pps, dp) rows, as ``shard_map`` binds
+``P("model")``; ``y``, ϑ and the schedule are replicated, as ``P()``.
+Every cross-party aggregation is a collective over the mesh's model group
+(``secure_agg``'s ``*_dist`` forms), each rank drawing only its own
+parties' masks (``secure_agg.PartyStreams``).  On a data axis a fresh SGD
+or SVRG step takes the rank's slice of the minibatch, with mask streams
+of its own, and sums the gradient over the data group.  The fresh linear
+epochs run there — SGD, SVRG and SAGA in their single-dominator,
+multi-dominator and pipelined forms, ``full_gradient``, ``saga_init``
+and ``objective`` — and every other entry point raises
+``NotImplementedError`` (ROADMAP A17b).  Under NCCL an epoch is captured
+with its collectives as on one card; gloo is never captured: its steps
+run eagerly (its collectives on CUDA tensors go through the host), as
+the mesh's backend decides.  Every rank calls every entry point.
+
 Device rule: ``FusedEngine`` defaults to ``device="cuda"`` and raises
 without a card; tests pass ``device="cpu"``.
 """
@@ -78,18 +95,23 @@ from repro_torch.core.algorithms import PartyLayout, last_occurrence
 from repro_torch.core.deep_vfl import DeepVFLParams
 from repro_torch.core.faults import HealthStats, apply_corruption
 from repro_torch.core.losses import Problem
-from repro_torch.core.secure_agg import (secure_psum, secure_psum_hier,
+from repro_torch.core.secure_agg import (PartyStreams, mask_generator,
+                                         psum_dist, secure_psum,
+                                         secure_psum_dist, secure_psum_hier,
+                                         secure_psum_hier_dist,
                                          secure_psum_hier_members,
                                          secure_psum_members,
                                          secure_psum_ring,
+                                         secure_psum_ring_dist,
                                          secure_psum_ring_members,
                                          seed_generator)
 from repro_torch.kernels import ops
 from repro_torch.kernels import vfl_grad as _vg
 from repro_torch.sharding.api import PartyMesh
 
-# mask-stream tags, one per entry point (the reference's fold_in constants)
-_TAG_STEPS, _TAG_FULL, _TAG_SAGA_INIT = 0x5EC, 0xF, 0xA
+# mask-stream tags, one per entry point (the reference's fold_in constants),
+# and the data shard's (the reference's _dkey)
+_TAG_STEPS, _TAG_FULL, _TAG_SAGA_INIT, _TAG_DATA = 0x5EC, 0xF, 0xA, 0xDA7A
 # the deep parameter leaves, as the loops' buffers name them
 _DEEP = ("w1", "b1", "w2", "head")
 # the party dimension of a loop buffer where it is not dim 0: the schedule,
@@ -127,27 +149,38 @@ def party_widths(layout: PartyLayout) -> np.ndarray:
     return np.asarray([hi - lo for lo, hi in layout.bounds], np.int64)
 
 
-def pack_features(x, layout: PartyLayout, device) -> torch.Tensor:
+def _parties(layout: PartyLayout, parties):
+    return range(layout.q) if parties is None else parties
+
+
+def pack_features(x, layout: PartyLayout, device,
+                  parties=None) -> torch.Tensor:
     """Stack per-party feature blocks, zero-padded to the widest block.
 
     ``x`` is an (n, d) numpy array or tensor; a tensor already on
-    ``device`` is packed there without a host copy."""
+    ``device`` is packed there without a host copy.  ``parties`` (default
+    all q) packs only those parties' blocks, in their order."""
     xt = torch.as_tensor(x, dtype=torch.float32, device=device)
     n = xt.shape[0]
     dp = int(party_widths(layout).max())
-    xs = torch.zeros((layout.q, n, dp), dtype=torch.float32, device=device)
-    for p, (lo, hi) in enumerate(layout.bounds):
-        xs[p, :, : hi - lo] = xt[:, lo:hi]
+    ps = _parties(layout, parties)
+    xs = torch.zeros((len(ps), n, dp), dtype=torch.float32, device=device)
+    for i, p in enumerate(ps):
+        lo, hi = layout.bounds[p]
+        xs[i, :, : hi - lo] = xt[:, lo:hi]
     return xs
 
 
-def pack_vec(v, layout: PartyLayout, device) -> torch.Tensor:
-    """(d,) coordinate vector -> (q, dp) party-stacked, zero-padded."""
+def pack_vec(v, layout: PartyLayout, device, parties=None) -> torch.Tensor:
+    """(d,) coordinate vector -> (q, dp) party-stacked, zero-padded; only
+    the rows of ``parties`` where given."""
     vt = torch.as_tensor(v, dtype=torch.float32, device=device)
     dp = int(party_widths(layout).max())
-    out = torch.zeros((layout.q, dp), dtype=torch.float32, device=device)
-    for p, (lo, hi) in enumerate(layout.bounds):
-        out[p, : hi - lo] = vt[lo:hi]
+    ps = _parties(layout, parties)
+    out = torch.zeros((len(ps), dp), dtype=torch.float32, device=device)
+    for i, p in enumerate(ps):
+        lo, hi = layout.bounds[p]
+        out[i, : hi - lo] = vt[lo:hi]
     return out
 
 
@@ -187,10 +220,12 @@ def _seg_contract(rows: torch.Tensor, cots: torch.Tensor,
 
 
 def pack_mask(layout: PartyLayout, active_only: bool = False,
-              device="cpu") -> torch.Tensor:
-    """(q, dp) update mask: layout's trainable blocks minus the padding."""
+              device="cpu", parties=None) -> torch.Tensor:
+    """(q, dp) update mask: layout's trainable blocks minus the padding
+    (the rows of ``parties`` where given)."""
     d = layout.bounds[-1][1]
-    return pack_vec(layout.update_mask(d, active_only), layout, device)
+    return pack_vec(layout.update_mask(d, active_only), layout, device,
+                    parties)
 
 
 def unpack_vec(vq, layout: PartyLayout) -> np.ndarray:
@@ -351,11 +386,15 @@ class FusedEngine:
     ``active_only`` freezes the passive encoders too (``trainq``).
 
     ``mesh`` is a :class:`~repro_torch.sharding.api.PartyMesh` (or None,
-    the flat layout) on this one device: a packed mesh routes every
-    masked aggregation through the two-level forms (under ``off`` the
-    plain sum stays, so a packed ``off`` epoch is the flat one bit for
-    bit), and ``data_shards > 1`` slices the fresh SGD and SVRG
-    minibatches (:meth:`_sliced_step`).
+    the flat layout).  Without a device mesh it runs on this one device:
+    a packed mesh routes every masked aggregation through the two-level
+    forms (under ``off`` the plain sum stays, so a packed ``off`` epoch is
+    the flat one bit for bit), and ``data_shards > 1`` slices the fresh
+    SGD and SVRG minibatches (:meth:`_sliced_step`).  With one, each rank
+    holds its slot's ``qloc`` parties (see the module's "Device mesh"):
+    the iterates, ``tabq`` and ``avgq`` are the rank's rows,
+    :meth:`pack_w` makes them and :meth:`unpack_w` gathers the whole
+    iterate.
     """
 
     def __init__(self, problem: Problem, x, y, layout: PartyLayout,
@@ -368,38 +407,114 @@ class FusedEngine:
             if not isinstance(mesh, PartyMesh):
                 raise TypeError(
                     f"mesh must be a PartyMesh or None; got "
-                    f"{type(mesh).__name__} (a device mesh is the "
-                    "multi-device port, which this one is not)")
+                    f"{type(mesh).__name__}")
             if mesh.q != layout.q:
                 raise ValueError(
                     f"PartyMesh.q={mesh.q} != layout.q={layout.q}")
         self.device = resolve_device(device)
+        # the device mesh's PartyMesh, or None on one device
+        self._dist = mesh if mesh is not None and mesh.mesh is not None \
+            else None
+        if self._dist is not None \
+                and self._dist.mesh.device_type != self.device.type:
+            raise ValueError(f"a {self._dist.mesh.device_type} device mesh "
+                             f"with an engine on {self.device}")
         self._slots = mesh.slots if mesh is not None else layout.q
         self._ddp = mesh.data_shards if mesh is not None else 1
         self.problem = problem
         self.layout = layout
         self.cfg = cfg
         self.q = layout.q
-        self.xs = pack_features(x, layout, self.device)      # (q, n, dp)
+        # this rank's logical parties (all q on one device) and their count
+        self.parties = range(layout.q) if self._dist is None \
+            else self._dist.parties
+        self.qloc = len(self.parties)
+        self.xs = pack_features(x, layout, self.device,
+                                self.parties)         # (qloc, n, dp)
         self.n = int(self.xs.shape[1])
         self.dp = int(self.xs.shape[2])
         self.y = torch.as_tensor(y, dtype=torch.float32, device=self.device)
-        self.maskq = pack_mask(layout, active_only, self.device)
+        self.maskq = pack_mask(layout, active_only, self.device,
+                               self.parties)
         # (q,) trainability of the deep encoders' b1 and w2 (no coordinate
         # rows for maskq to act on): active_only freezes the passive ones
         self.trainq = torch.tensor(
             [1.0 if (not active_only or p < layout.m) else 0.0
-             for p in range(layout.q)], device=self.device)
+             for p in self.parties], device=self.device)
         # party p's sample i is row p*n + i of xs viewed as (q*n, dp)
-        self._row0 = torch.arange(self.q, device=self.device)[:, None] \
+        self._row0 = torch.arange(self.qloc, device=self.device)[:, None] \
             * self.n
         self._pair_rows = torch.arange(2, device=self.device)
         # every epoch's masks: one generator, re-seeded per call, which the
-        # step graphs register so that each replay draws fresh masks
-        self._gen = torch.Generator(device=self.device)
+        # step graphs register so that each replay draws fresh masks; on a
+        # device mesh the rank's own parties' streams instead
+        if self._dist is None:
+            self._gen = torch.Generator(device=self.device)
+            self._capturable = self.device.type == "cuda"
+        else:
+            self._gen = self._streams()
+            self._mgroup = self._dist.model_group
+            self._dgroup = self._dist.data_group
+            self._didx = self._dist.data_index
+            self._capturable = self.device.type == "cuda" \
+                and self._dist.backend == "nccl"
+            # the groups' first collectives, outside any capture
+            for grp in (self._mgroup, self._dgroup):
+                psum_dist(torch.zeros(1, device=self.device), grp)
         self._loops = {}
         self._tracing = False
         self._programs = {}
+
+    # -- the device mesh -------------------------------------------------------
+
+    def _streams(self) -> PartyStreams:
+        """A new set of this rank's mask streams (unseeded)."""
+        pm = self._dist
+        return PartyStreams(self.parties, pm.slot, self.q, self._slots,
+                            self.cfg.secure == "ring", self.device)
+
+    def mask_streams(self, *key):
+        """The masks of one aggregation keyed by ``key``: a generator
+        seeded from it on one device; on a device mesh this rank's
+        :class:`~repro_torch.core.secure_agg.PartyStreams`, each seeded
+        from ``key`` and its party or slot."""
+        if self._dist is None:
+            return mask_generator(*key, device=self.device)
+        return self._streams().seed(*key)
+
+    def _reseed(self, *key):
+        """Re-seed the epochs' mask streams from ``key``; returns them."""
+        if self._dist is None:
+            return seed_generator(self._gen, *key)
+        return self._gen.seed(*key)
+
+    def _generators(self):
+        return [self._gen] if self._dist is None else self._gen.generators()
+
+    def _local_only(self, what: str) -> None:
+        """Raise for an entry point that has no device-mesh form yet."""
+        if self._dist is not None:
+            raise NotImplementedError(
+                f"{what} on a device mesh is not ported (ROADMAP A17b); "
+                "run it on one device (PartyMesh without mesh=)")
+
+    def _dsum(self, g):
+        """Sum a rank's gradient over its data group (the reference's
+        ``_dsum``); the data shards share a party's trust domain, so the
+        sum is plain."""
+        return psum_dist(g, self._dgroup) if self._ddp > 1 else g
+
+    def gather(self, tq) -> torch.Tensor:
+        """The whole party-stacked (q, ...) tensor of every rank's rows
+        ``tq`` (qloc, ...) over the model group; ``tq`` itself on one
+        device.  Every rank of the group calls it."""
+        if self._dist is None:
+            return tq
+        import torch.distributed as dist
+        tq = tq.contiguous()
+        parts = [torch.empty_like(tq) for _ in range(self._slots)]
+        dist.all_gather(parts, tq, group=self._mgroup)
+        return torch.cat(parts, 0)
 
     # -- X-block contractions (the vfl_grad kernel) ---------------------------
 
@@ -473,13 +588,17 @@ class FusedEngine:
     def _share(self, theta):
         """The dominator's ϑ (B,) or (B, M), broadcast to every party: a
         party-stride-0 view, the stand-in for sending it to each party."""
-        return theta.expand(self.q, *theta.shape)
+        return theta.expand(self.qloc, *theta.shape)
 
     def _agg(self, z, gen: torch.Generator):
         """Masked secure aggregation of the party-stacked partials z
         (q, ...) over the party axis -> the aggregate (...).  A packed
-        ``PartyMesh``: the two-level form (``secure_psum_hier``)."""
+        ``PartyMesh``: the two-level form (``secure_psum_hier``).  On a
+        device mesh ``gen`` is the rank's ``PartyStreams`` and z its
+        parties' partials: :meth:`_agg_dist`."""
         cfg = self.cfg
+        if self._dist is not None:
+            return self._agg_dist(z, gen)
         if cfg.secure == "off":
             return z.sum(0)
         if self._slots < self.q:
@@ -490,6 +609,25 @@ class FusedEngine:
             return secure_psum_ring(z, gen, mask_scale=cfg.mask_scale)
         return secure_psum(z, gen, mask_scale=cfg.mask_scale,
                            schedule_faithful=cfg.schedule_faithful)
+
+    def _agg_dist(self, z, streams: PartyStreams):
+        """:meth:`_agg` over the model group: the rank's (qloc, ...)
+        partials summed (``off``), masked with their own streams and
+        aggregated across the slots (flat), or aggregated two-level
+        (packed); the aggregate, on every rank."""
+        cfg, grp = self.cfg, self._mgroup
+        if cfg.secure == "off":
+            return psum_dist(z.sum(0), grp)
+        if self._slots < self.q:
+            return secure_psum_hier_dist(
+                z, streams, grp, mode=cfg.secure, mask_scale=cfg.mask_scale,
+                schedule_faithful=cfg.schedule_faithful)
+        if cfg.secure == "ring":
+            return secure_psum_ring_dist(z[0], streams.own[0], streams.prev,
+                                         grp, mask_scale=cfg.mask_scale)
+        return secure_psum_dist(z[0], streams.own[0], grp,
+                                mask_scale=cfg.mask_scale,
+                                schedule_faithful=cfg.schedule_faithful)
 
     def _agg_members(self, z, gen: torch.Generator, alive):
         """Survivor-aware masked aggregation (the faulted epochs'
@@ -539,7 +677,7 @@ class FusedEngine:
         b["idx"].copy_(idx)
         b["t"].zero_()
         b["lr"].fill_(float(lr))
-        seed_generator(self._gen, *mask_key, _TAG_STEPS)
+        self._reseed(*mask_key, _TAG_STEPS)
         return loop
 
     def _carry(self, v) -> torch.Tensor:
@@ -559,6 +697,7 @@ class FusedEngine:
         """Within this context an epoch call records its kind's program
         (:meth:`party_program`) instead of running: its loop is loaded,
         nothing else changes, and it returns the loaded state."""
+        self._local_only("tracing (the linter's party programs)")
         prev, self._tracing = self._tracing, True
         try:
             yield self
@@ -648,7 +787,8 @@ class FusedEngine:
 
     def _run(self, loop: _StepLoop, step, steps=None) -> None:
         """Run ``step(loop.bufs)`` ``steps`` times (default once per row of
-        the schedule): eagerly on the CPU; on the card the first step
+        the schedule): eagerly on the CPU and over gloo; on the card (over
+        NCCL on a device mesh) the first step
         eagerly (it also builds what is made at first use: the kernel
         library, the trees' round indices), then replays of the step's
         CUDA graph, captured at the first epoch of this kind and shape.
@@ -659,7 +799,7 @@ class FusedEngine:
             if steps:
                 _mark_step(lambda: step(loop.bufs))
             return
-        if self.device.type != "cuda":
+        if not self._capturable:
             for _ in range(steps):
                 step(loop.bufs)
             return
@@ -682,7 +822,8 @@ class FusedEngine:
         set back: the graph's replays are counted as they are made."""
         before = dict(_vg.KERNEL.launches)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self._gen)
+        for gen in self._generators():
+            graph.register_generator_state(gen)
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
@@ -705,14 +846,19 @@ class FusedEngine:
         PERF.md)."""
         rows = (self._row0 + ib).view(-1)
         return self.xs.view(-1, self.dp).index_select(0, rows) \
-            .view(self.q, -1, self.dp)
+            .view(self.qloc, -1, self.dp)
+
+    def _row(self, b):
+        """The row of the schedule at the device counter, which moves on."""
+        ib = b["idx"].index_select(0, b["t"]).squeeze(0)
+        b["t"].add_(1)
+        return ib
 
     def _batch(self, b):
         """This step's minibatch: the row of the schedule at the device
         counter (which moves on), its party-stacked feature block
         (q, B, dp) and its labels."""
-        ib = b["idx"].index_select(0, b["t"]).squeeze(0)
-        b["t"].add_(1)
+        ib = self._row(b)
         return ib, self._gather(ib), self.y.index_select(0, ib)
 
     def _pair(self, b):
@@ -731,7 +877,7 @@ class FusedEngine:
         """∇f(w) of every party's block, (q, dp): one masked aggregation
         and one backward pass over all n samples."""
         prob = self.problem
-        gen = seed_generator(self._gen, *mask_key, _TAG_FULL)
+        gen = self._reseed(*mask_key, _TAG_FULL)
         z = self._fwd(self.xs, wq)                                # (q, n)
         theta = prob.theta(self._agg(z, gen), self.y)
         return self._bwd(self.xs, self._share(theta), self.n) \
@@ -741,11 +887,11 @@ class FusedEngine:
         """ϑ̃ table (q, n) + per-party running average (q, dp): Alg. 6
         step 2's pass over all n samples."""
         prob = self.problem
-        gen = seed_generator(self._gen, *mask_key, _TAG_SAGA_INIT)
+        gen = self._reseed(*mask_key, _TAG_SAGA_INIT)
         z = self._fwd(self.xs, wq)
         theta = prob.theta(self._agg(z, gen), self.y)
         avgq = self._bwd(self.xs, self._share(theta), self.n)
-        return theta.repeat(self.q, 1), avgq
+        return theta.repeat(self.qloc, 1), avgq
 
     # -- the epochs (Algorithms 2–7) ------------------------------------------
     #
@@ -874,13 +1020,32 @@ class FusedEngine:
         The data shards share each party's trust domain, so their
         gradients meet unmasked: one backward launch over the whole batch
         is the slices' XᵀΘ summed, each denominated by the full batch B.
-        The forward is one launch too (a row's partial is its own)."""
+        The forward is one launch too (a row's partial is its own).
+        On a device mesh: :meth:`_sliced_step_dist`."""
+        if self._dist is not None:
+            self._sliced_step_dist(b, parts)
+            return
         ib, xb, yb = self._batch(b)
         z = self._fwd(xb, parts.cols(b))
         agg = torch.cat([self._agg(zs, self._gen)
                          for zs in z.chunk(self._ddp, 1)], 0)
         th, denom, aux = parts.theta(b, agg, ib, yb)
         parts.apply(b, self._step_bwd(parts, xb, th, denom), aux)
+
+    def _sliced_step_dist(self, b, parts: _Parts):
+        """:meth:`_sliced_step` on a device mesh: this rank takes its data
+        shard's slice of the minibatch, aggregates its partials over the
+        model group with the shard's own mask streams (seeded in
+        :meth:`_run_epoch`), and sums the backward, denominated by the
+        whole batch, over the data group."""
+        ib = self._row(b)
+        bs = ib.shape[0] // self._ddp
+        ibs = ib.narrow(0, self._didx * bs, bs)
+        xb = self._gather(ibs)
+        agg = self._agg(self._fwd(xb, parts.cols(b)), self._gen)
+        th, denom, aux = parts.theta(b, agg, ibs, self.y.index_select(0, ibs))
+        parts.apply(b, self._dsum(self._step_bwd(parts, xb, th,
+                                                 denom * self._ddp)), aux)
 
     def _pipe_step(self, b, parts: _Parts):
         """An interior pipelined step: round t's ϑ from the carried
@@ -937,6 +1102,8 @@ class FusedEngine:
                     raise ValueError(f"batch={batch} must divide "
                                      f"data_shards={self._ddp}")
                 step_fn = self._sliced_step
+                if self._dist is not None:     # the shard's own streams
+                    mask_key = (*mask_key, _TAG_DATA + self._didx)
         loop = self._loop(name, idx, lr, mask_key, **carries)
         if pipelined:
             self._epoch(kind or name, loop,
@@ -962,6 +1129,7 @@ class FusedEngine:
 
     def _delayed(self, multi, pipelined, wq, bufq, t0, delays, lr, idx, tau,
                  mask_key):
+        self._local_only("the bounded-delay epochs")
         if bufq.shape[1] != tau + 1:
             raise ValueError(f"bufq holds {bufq.shape[1]} ring slots; "
                              f"tau={tau} needs {tau + 1}")
@@ -1209,6 +1377,7 @@ class FusedEngine:
         returns the state, the counter as a 0-d int64 device tensor, and
         (guarded) the epoch's ``HealthStats`` of (q, steps) device
         tensors."""
+        self._local_only("the faulted and guarded epochs")
         if carries["bufq"].shape[1] != tau + 1:
             raise ValueError(f"bufq holds {carries['bufq'].shape[1]} ring "
                              f"slots; tau={tau} needs {tau + 1}")
@@ -1507,6 +1676,7 @@ class FusedEngine:
         and ``carries``; returns the loop's buffers.  The loop's name
         carries the form, ``algo`` and the deep widths.  ``step_fn``
         replaces the fresh step (the faulted epochs')."""
+        self._local_only("the deep epochs")
         kind = "deep_" + ("multi_" if multi else "") \
             + ("pipelined_" if pipelined else "") + algo
         loop = self._loop(kind + "_{}x{}".format(*pq[2].shape[1:]), idx, lr,
@@ -1538,6 +1708,7 @@ class FusedEngine:
 
     def _deep_delayed(self, multi, pipelined, pq, bufq, t0, delays, lr, idx,
                       tau, mask_key):
+        self._local_only("the deep bounded-delay epochs")
         if bufq[0].shape[1] != tau + 1:
             raise ValueError(f"bufq holds {bufq[0].shape[1]} ring slots; "
                              f"tau={tau} needs {tau + 1}")
@@ -1716,6 +1887,7 @@ class FusedEngine:
                       muq=None):
         """Run one deep faulted (``guard`` None) or guarded epoch; returns
         ``(pq, bufq, t0 + steps)`` and, guarded, the ``HealthStats``."""
+        self._local_only("the deep faulted and guarded epochs")
         if bufq[0].shape[1] != tau + 1:
             raise ValueError(f"bufq holds {bufq[0].shape[1]} ring slots; "
                              f"tau={tau} needs {tau + 1}")
@@ -1788,6 +1960,7 @@ class FusedEngine:
         """The full-dataset deep BUM gradient at ``pq`` (SVRG's μ), every
         leaf party-stacked as ``pq`` is: one masked aggregation and the
         two layers' forward and backward over all n samples."""
+        self._local_only("deep_full_gradient")
         prob = self.problem
         b = dict(zip(_DEEP, (self._carry(a) for a in pq)))
         gen = seed_generator(self._gen, *mask_key, _TAG_FULL)
@@ -1803,6 +1976,7 @@ class FusedEngine:
         padded w1 rows are zero and every shipped regulariser maps 0 → 0,
         so summing ``reg`` over the padded stack is exact; the replicated
         head counts once."""
+        self._local_only("deep_objective")
         prob = self.problem
         w1q, b1q, w2q, headq = pq
         h = torch.tanh(self._fwd(self.xs, w1q) + b1q[:, None])
@@ -1814,22 +1988,32 @@ class FusedEngine:
         """Full objective (one device sync; for per-epoch telemetry).
 
         The padded coordinates are zero and every shipped regularizer maps
-        0 → 0, so summing ``reg`` over the padded stack is exact."""
+        0 → 0, so summing ``reg`` over the padded stack is exact.  On a
+        device mesh the partial sums and the regulariser add up over the
+        model group."""
         prob = self.problem
         agg = self._fwd(self.xs, wq).sum(0)
-        return float(torch.mean(prob.loss(agg, self.y))
-                     + prob.lam * torch.sum(prob.reg(wq)))
+        reg = torch.sum(prob.reg(wq))
+        if self._dist is not None:
+            agg, reg = psum_dist(agg, self._mgroup), psum_dist(reg,
+                                                               self._mgroup)
+        return float(torch.mean(prob.loss(agg, self.y)) + prob.lam * reg)
 
     # -- boundary helpers ----------------------------------------------------
 
     def pack_w(self, w) -> torch.Tensor:
-        return pack_vec(w, self.layout, self.device)
+        """(d,) -> this engine's (qloc, dp) party-stacked rows."""
+        return pack_vec(w, self.layout, self.device, self.parties)
 
     def unpack_w(self, wq) -> np.ndarray:
-        return unpack_vec(wq, self.layout)
+        """(qloc, dp) rows -> the whole (d,) iterate (on a device mesh,
+        gathered over the model group)."""
+        return unpack_vec(self.gather(wq), self.layout)
 
     def pack_deep(self, params: DeepVFLParams):
+        self._local_only("the deep parameters")
         return pack_deep_params(params, self.layout, self.device)
 
     def unpack_deep(self, pq) -> DeepVFLParams:
+        self._local_only("the deep parameters")
         return unpack_deep_params(pq, self.layout)

@@ -50,6 +50,17 @@ The two-level forms (``secure_psum_hier``, ``secure_psum_hier_members``)
 run the flat forms within each slot of a packed ``PartyMesh``, then
 across the slots' sums.
 
+The ``*_dist`` forms run over a ``torch.distributed`` process group, one
+member a slot of a device mesh (``PartyMesh(mesh=...)``): each member
+holds its own partial and draws only its own logical parties' masks, from
+the generators of a :class:`PartyStreams` seeded per party — the
+counterpart of the reference's ``fold_in(key, axis_index)``.  A ``psum``
+is an ``all_reduce``, a tree round a ``batch_isend_irecv`` of its pairs.
+The ring's r_prev, the mask of the party before, comes from that party's
+stream: the one stream a member holds that is not its own.  The ring's
+membership form picks its predecessor by the survivors, a choice made on
+the device, so it has no process-group form here.
+
 Re-keying: the reference folds the alive-set fingerprint
 (``_alive_fingerprint``) into the step's threefry key, so that no mask
 stream of one membership set is reused under another.  The port cannot
@@ -289,7 +300,6 @@ def secure_psum(partial: torch.Tensor, gen: torch.Generator,
     sums over the party dimension (the production fast path — security
     rests on the masks and on distinct schedules, not on the summation
     order)."""
-    q = partial.shape[0]
     out_dtype = partial.dtype
     # Mask arithmetic in f32: masking/unmasking must cancel exactly enough
     # that the aggregate is lossless (bf16 partial + O(1) mask would lose
@@ -299,14 +309,22 @@ def secure_psum(partial: torch.Tensor, gen: torch.Generator,
     masked = partial + delta
     if transcript is not None:
         transcript.append(masked)
+    return _xi(masked, delta, schedule_faithful).to(out_dtype)
+
+
+def _xi(masked: torch.Tensor, delta: torch.Tensor,
+        schedule_faithful: bool) -> torch.Tensor:
+    """ξ₁ − ξ₂ over dimension 0: the masked values reduced over T1 and the
+    masks over T2 of ``trees.default_tree_pair(q)`` when
+    ``schedule_faithful``, else both plain sums."""
     if schedule_faithful:
-        t1, t2 = trees_lib.default_tree_pair(q)
+        t1, t2 = trees_lib.default_tree_pair(masked.shape[0])
         xi1 = tree_psum_collective_permute(masked, t1)[0]
         xi2 = tree_psum_collective_permute(delta, t2)[0]
     else:
         xi1 = masked.sum(0)
         xi2 = delta.sum(0)
-    return (xi1 - xi2).to(out_dtype)
+    return xi1 - xi2
 
 
 # ---------------------------------------------------------------------------
@@ -456,3 +474,211 @@ def secure_psum_hier_members(partial: torch.Tensor, gen: torch.Generator,
     z_slot = fn(inner, gen, av, mask_scale, transcript)
     slot_alive = av.float().sum(0).clamp_max(1.0)
     return fn(z_slot, gen, slot_alive, mask_scale, transcript).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# forms over a process group: one member a slot of a device mesh
+# ---------------------------------------------------------------------------
+#
+# A flat device mesh (one party a slot) aggregates over the model group
+# with party p's stream, keyed (key..., _L1_SALT, p).  A packed one runs
+# level 1 within the member's slot with its parties' streams, then level
+# 2 across the slots with the slot's stream, keyed (key..., _L2_SALT, s).
+
+_L1_SALT = 0x51071   # the parties' mask streams
+_L2_SALT = 0x1e2e1   # the slots' (level 2) mask streams
+
+
+class PartyStreams:
+    """The mask streams one member of a device mesh draws from: one
+    generator for each of its logical ``parties``, one for its ``slot``
+    where the mesh is packed, and, for the ring, the stream of the party
+    (flat) or slot (packed) before it.  :meth:`seed` seeds every one from
+    ``(key..., salt, id)``, so the member can reproduce its own streams
+    and no other's but that one.  ``identities`` names each stream as
+    (salt, id), in the order of :meth:`generators`."""
+
+    def __init__(self, parties, slot: int, q: int, slots: int, ring: bool,
+                 device):
+        parties = list(parties)
+        dev = torch.device(device)
+        ids = [(_L1_SALT, p) for p in parties]
+        if q > slots:
+            ids.append((_L2_SALT, slot))
+        if ring:
+            ids.append((_L2_SALT, (slot - 1) % slots) if q > slots
+                       else (_L1_SALT, (parties[0] - 1) % q))
+        self.identities = tuple(ids)
+        self._gens = [torch.Generator(device=dev) for _ in ids]
+        self.own = self._gens[:len(parties)]
+        self.slot_gen = self._gens[len(parties)] if q > slots else None
+        self.prev = self._gens[-1] if ring else None
+
+    def seed(self, *key) -> "PartyStreams":
+        for (salt, i), gen in zip(self.identities, self._gens):
+            seed_generator(gen, *key, salt, i)
+        return self
+
+    def generators(self) -> List[torch.Generator]:
+        return list(self._gens)
+
+
+def _normal(shape, gen: torch.Generator, device) -> torch.Tensor:
+    """One party's mask draw from its own stream ``gen``."""
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32)
+
+
+def _draws(shape, gens, device) -> torch.Tensor:
+    """(len(gens), *shape): each party's draw from its own stream."""
+    return torch.stack([_normal(shape, g, device) for g in gens])
+
+
+def psum_dist(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every member's ``x`` over ``group`` (an ``all_reduce``
+    into a new tensor)."""
+    import torch.distributed as dist
+    out = x.clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def tree_psum_dist(x: torch.Tensor, tree: trees_lib.ReductionTree,
+                   group) -> torch.Tensor:
+    """Reduce every member's ``x`` over ``group`` replaying ``tree``'s
+    rounds (member i is the tree's party i), then broadcast the root's
+    total back down the tree: the process-group form of
+    :func:`tree_psum_collective_permute`, each round one
+    ``batch_isend_irecv`` of its scheduled pairs (the reference's
+    ``ppermute``).  Returns the total, on every member."""
+    import torch.distributed as dist
+    if x.device.type == "cuda" and dist.get_backend(group) == "gloo":
+        raise RuntimeError("gloo's point-to-point sends read host memory: "
+                           "a tree replay of CUDA tensors needs NCCL")
+    if dist.get_world_size(group) != tree.q:
+        raise ValueError(f"group of {dist.get_world_size(group)} members "
+                         f"!= tree.q {tree.q}")
+    me = dist.get_group_rank(group, dist.get_rank())
+    acc, buf = x.clone(), torch.empty_like(x)
+
+    def move(pairs, up: bool) -> bool:
+        """One round: src sends to dst (up) or dst to src (down); returns
+        whether this member received."""
+        ops = []
+        for dst, src in pairs:
+            frm, to = (src, dst) if up else (dst, src)
+            if me == frm:
+                ops.append(dist.P2POp(dist.isend, acc,
+                                      dist.get_global_rank(group, to), group))
+            elif me == to:
+                ops.append(dist.P2POp(dist.irecv, buf,
+                                      dist.get_global_rank(group, frm),
+                                      group))
+        for work in (dist.batch_isend_irecv(ops) if ops else ()):
+            work.wait()
+        return any(me == (dst if up else src) for dst, src in pairs)
+
+    for rnd in tree.rounds:
+        if move(rnd, True):
+            acc = acc + buf
+    for rnd in reversed(tree.rounds):
+        if move(rnd, False):
+            acc = buf.clone()
+    return acc
+
+
+def secure_psum_dist(partial: torch.Tensor, gen: torch.Generator, group,
+                     mask_scale: float = 1.0,
+                     schedule_faithful: bool = False) -> torch.Tensor:
+    """Algorithm 1 over ``group``: this member masks its ``partial`` with
+    δ from its own stream ``gen``; the masked values are summed (over T1
+    of ``trees.default_tree_pair`` when ``schedule_faithful``) and so
+    are the masks (over T2), two collectives; returns ξ₁ − ξ₂ on every
+    member."""
+    out_dtype = partial.dtype
+    partial = partial.float()
+    delta = mask_scale * _normal(partial.shape, gen, partial.device)
+    masked = partial + delta
+    if schedule_faithful:
+        import torch.distributed as dist
+        t1, t2 = trees_lib.default_tree_pair(dist.get_world_size(group))
+        xi1 = tree_psum_dist(masked, t1, group)
+        xi2 = tree_psum_dist(delta, t2, group)
+    else:
+        xi1 = psum_dist(masked, group)
+        xi2 = psum_dist(delta, group)
+    return (xi1 - xi2).to(out_dtype)
+
+
+def secure_psum_ring_dist(partial: torch.Tensor, gen: torch.Generator,
+                          gen_prev: torch.Generator, group,
+                          mask_scale: float = 1.0) -> torch.Tensor:
+    """Ring masks over ``group``: this member masks with r_self − r_prev,
+    r_self from its own stream ``gen``, r_prev from the stream of the
+    member before it (``gen_prev``), so the masks cancel in the one
+    ``all_reduce``."""
+    out_dtype = partial.dtype
+    partial = partial.float()
+    r_self = _normal(partial.shape, gen, partial.device)
+    r_prev = _normal(partial.shape, gen_prev, partial.device)
+    masked = partial + mask_scale * (r_self - r_prev)
+    return psum_dist(masked, group).to(out_dtype)
+
+
+def secure_psum_members_dist(partial: torch.Tensor, gen: torch.Generator,
+                             alive: torch.Tensor, group,
+                             mask_scale: float = 1.0) -> torch.Tensor:
+    """:func:`secure_psum_members` over ``group``: this member's 0-d
+    ``alive`` flag gates both its masked value and its mask, so the masks
+    cancel over the survivors; never a schedule replay."""
+    out_dtype = partial.dtype
+    partial = partial.float()
+    live = alive.to(partial.dtype)
+    delta = mask_scale * _normal(partial.shape, gen, partial.device)
+    xi1 = psum_dist(live * (partial + delta), group)
+    xi2 = psum_dist(live * delta, group)
+    return (xi1 - xi2).to(out_dtype)
+
+
+def secure_psum_hier_dist(partial: torch.Tensor, streams: PartyStreams,
+                          group, mode: str = "two_tree",
+                          mask_scale: float = 1.0,
+                          schedule_faithful: bool = False) -> torch.Tensor:
+    """Two-level aggregation of this member's slot, ``partial`` (pps, ...)
+    its parties' values: level 1 the flat form over dimension 0 with each
+    party's own stream (ring masks within the slot under ``"ring"``),
+    level 2 the process-group form across the slots with the slot's
+    stream.  The result is the plain sum over all q parties to f32
+    rounding, on every member."""
+    out_dtype = partial.dtype
+    partial = partial.float()
+    draws = _draws(partial.shape[1:], streams.own, partial.device)
+    if mode == "ring":
+        masked = partial + mask_scale * (draws - torch.roll(draws, 1, 0))
+        tot = secure_psum_ring_dist(masked.sum(0), streams.slot_gen,
+                                    streams.prev, group, mask_scale)
+    else:
+        delta = mask_scale * draws
+        z_slot = _xi(partial + delta, delta, schedule_faithful)
+        tot = secure_psum_dist(z_slot, streams.slot_gen, group, mask_scale,
+                               schedule_faithful)
+    return tot.to(out_dtype)
+
+
+def secure_psum_hier_members_dist(partial: torch.Tensor,
+                                  streams: PartyStreams,
+                                  alive: torch.Tensor, group,
+                                  mask_scale: float = 1.0) -> torch.Tensor:
+    """Membership-safe two-level two-tree aggregation over ``group``:
+    level 1 gates each of the slot's parties by its ``alive`` (pps,) flag,
+    level 2 the slot's sum by its any-alive flag, so an all-dead slot adds
+    neither value nor mask."""
+    out_dtype = partial.dtype
+    partial = partial.float()
+    live = _live(alive, partial)
+    delta = mask_scale * _draws(partial.shape[1:], streams.own,
+                                partial.device)
+    z_slot = (live * (partial + delta)).sum(0) - (live * delta).sum(0)
+    slot_alive = alive.float().sum().clamp_max(1.0)
+    return secure_psum_members_dist(z_slot, streams.slot_gen, slot_alive,
+                                    group, mask_scale).to(out_dtype)

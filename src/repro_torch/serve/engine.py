@@ -41,6 +41,18 @@ plain sum stays, so packed serving is flat serving bit for bit.  A data
 axis is ignored: the reference runs its serve programs replicated over
 the axis, and the replicas agree.
 
+Serving over a device mesh
+--------------------------
+Over an engine on ``PartyMesh(mesh=DeviceMesh)`` each rank holds its
+slot's parties' request rows and weight rows; the masked dispatches
+aggregate over the model group (``FusedEngine._agg_dist``), each rank
+drawing its own parties' streams (``FusedEngine.mask_streams``), and
+every rank keeps the same replicated cache.  The dominator's own matvec
+reads party 0's block, which only the rank of slot 0 holds: that rank
+computes the answer and broadcasts it over the model group.  Every rank
+calls ``serve`` with the same ids.  The deep path raises there, as the
+deep epochs do (ROADMAP A17b), and so do the program probes.
+
 Where the port differs in mechanism (not in result)
 ---------------------------------------------------
 * The cache has one extra **trash slot** at index n: pad rows scatter
@@ -75,7 +87,6 @@ from repro_torch import resolve_device
 from repro_torch.core.algorithms import last_occurrence
 from repro_torch.core.deep_vfl import DeepVFLParams
 from repro_torch.core.engine import FusedEngine, pack_features, trace_program
-from repro_torch.core.secure_agg import mask_generator
 
 
 @dataclasses.dataclass
@@ -129,7 +140,7 @@ class ServeEngine:
         self.layout = engine.layout
         self.q = engine.q
         self.xs = engine.xs if x is None else \
-            pack_features(x, engine.layout, self.device)
+            pack_features(x, engine.layout, self.device, engine.parties)
         self.n = int(self.xs.shape[1])
         self.dp = int(self.xs.shape[2])
         self.max_batch = int(max_batch)
@@ -138,7 +149,7 @@ class ServeEngine:
         # payload selector: the dominator (logical party 0) rides the
         # masked aggregation with a zero payload, so the collective's
         # output is exactly the passive sum
-        self._pfq = torch.tensor([0.0] + [1.0] * (self.q - 1),
+        self._pfq = torch.tensor([float(p != 0) for p in engine.parties],
                                  device=self.device)
         self.seed = int(seed)
         self.version = 0
@@ -162,9 +173,9 @@ class ServeEngine:
         aggregation while ``delta_refresh`` holds)."""
         wt = torch.as_tensor(w, dtype=torch.float32, device=self.device)
         wq = wt.clone() if wt.dim() == 2 else self.eng.pack_w(wt)
-        if tuple(wq.shape) != (self.q, self.dp):
+        if tuple(wq.shape) != (self.eng.qloc, self.dp):
             raise ValueError(f"weights shape {tuple(wq.shape)} != (q, dp) = "
-                             f"{(self.q, self.dp)}")
+                             f"{(self.eng.qloc, self.dp)}")
         had = self._wq is not None or self._pq is not None
         self._prev_wq = self._wq if (self.delta_refresh
                                      and not self.deep) else None
@@ -182,6 +193,7 @@ class ServeEngine:
         from ``FusedEngine.pack_deep``.  Deep updates always invalidate
         outright: an encoder change has no linear delta structure, so
         stale entries are recomputed, never repaired."""
+        self.eng._local_only("deep serving")
         pq = self.eng.pack_deep(params) if isinstance(params, DeepVFLParams) \
             else tuple(params)
         if len(pq) != 4:
@@ -215,14 +227,28 @@ class ServeEngine:
         if self._csum is not None:
             self._alloc_cache(tuple(self._csum.shape))
 
-    def _dispatch_gen(self) -> torch.Generator:
+    def _dispatch_gen(self):
         """Fresh mask stream per masked dispatch, seeded by (seed,
         version, counter): no stream is reused across dispatches, and a
-        replayed (version, counter) sequence draws identical masks."""
-        gen = mask_generator(self.seed, self.version, self._counter,
-                             device=self.device)
+        replayed (version, counter) sequence draws identical masks (on a
+        device mesh, the rank's own parties' streams)."""
+        gen = self.eng.mask_streams(self.seed, self.version, self._counter)
         self._counter += 1
         return gen
+
+    def _dominator(self, fn):
+        """The answer ``fn()`` of the dominator's matvec: computed here on
+        one device; on a device mesh by the rank holding party 0 and
+        broadcast over the model group."""
+        eng = self.eng
+        if eng._dist is None:
+            return fn()
+        import torch.distributed as dist
+        grp = eng._mgroup
+        out = fn() if eng.parties[0] == 0 else torch.empty(
+            (self.max_batch,), dtype=torch.float32, device=self.device)
+        dist.broadcast(out, dist.get_global_rank(grp, 0), group=grp)
+        return out
 
     # -- encoder and cache writes ----------------------------------------------
 
@@ -252,7 +278,8 @@ class ServeEngine:
         # repeats an id emits the one stored winner, so a later hit
         # replays this dispatch bit-exactly
         self._store(ids, psum)
-        return self.eng._fwd(self.xs[0][idsc], wq[0]) + self._csum[ids]
+        return self._dominator(
+            lambda: self.eng._fwd(self.xs[0][idsc], wq[0]) + self._csum[ids])
 
     def _delta(self, ids, stale):
         idsc = ids.clamp(max=self.n - 1)
@@ -263,7 +290,8 @@ class ServeEngine:
         dsum = self.eng._agg(self._pfq[:, None] * stale[None, :] * dz,
                              self._dispatch_gen())
         self._store(ids, self._csum[ids] + dsum)
-        return self.eng._fwd(self.xs[0][idsc], wq[0]) + self._csum[ids]
+        return self._dominator(
+            lambda: self.eng._fwd(self.xs[0][idsc], wq[0]) + self._csum[ids])
 
     def _hit(self, ids):
         idsc = ids.clamp(max=self.n - 1)
@@ -271,7 +299,8 @@ class ServeEngine:
             w1q, b1q, w2q, headq = self._pq
             rep0 = self._req_encode(self.xs[0][idsc], w1q[0], b1q[0], w2q[0])
             return (rep0 + self._csum[ids]) @ headq[0]
-        return self.eng._fwd(self.xs[0][idsc], self._wq[0]) + self._csum[ids]
+        return self._dominator(lambda: self.eng._fwd(
+            self.xs[0][idsc], self._wq[0]) + self._csum[ids])
 
     def _deep_full(self, ids):
         idsc = ids.clamp(max=self.n - 1)
@@ -290,6 +319,7 @@ class ServeEngine:
         the ids, the cache and the installed weights are the graph's
         inputs (the weights party-stacked, dim 0), the serving universe
         its private source.  Nothing runs; no state changes."""
+        self.eng._local_only("the serving program probes")
         self._require_weights()
         state = {"ids": torch.zeros((self.max_batch,), dtype=torch.int64,
                                     device=self.device),

@@ -3,13 +3,16 @@ the port of ``repro.sharding.api``'s ``PartyMesh`` and of its ``Runtime``
 (the fields the SSM, dense and MoE paths read).
 
 ``PartyMesh`` factors the q logical parties as slots × parties per slot,
-plus a sample-parallel data axis; the port runs it on one device
-(``mesh=None``), where the factors shape the masked aggregation and the
-data-axis slicing, not the placement.
+plus a sample-parallel data axis.  Without a device mesh (``mesh=None``)
+the engine runs it on one device, where the factors shape the masked
+aggregation and the data-axis slicing, not the placement.  With a
+``torch.distributed`` ``DeviceMesh`` (``launch.mesh.make_device_mesh``)
+each rank holds one slot of parties and one data shard, and the
+aggregations are collectives over the mesh's process groups.
 
-There is no device mesh: the q parties are a leading tensor dimension on one
-device, so ``model_size`` is q itself.  The decode KV cache's sequence
-axis is sharded over the q parties, as the reference's
+The LM stack has no device mesh: the q parties are a leading tensor
+dimension on one device, so ``model_size`` is q itself.  The decode KV
+cache's sequence axis is sharded over the q parties, as the reference's
 ``cache_seq_axes=("model",)`` shards it: on one device the cache is
 viewed as q shards of S/q positions, so no field is needed for it.
 There is no ``use_runtime`` global either: every model function takes
@@ -28,25 +31,28 @@ class PartyMesh:
     """The logical party axis factored as ``q = slots × parties_per_slot``,
     with an optional sample-parallel data axis of ``data_shards``.
 
-    On one device the party axis is the leading tensor dimension; a
-    packed mesh (more than one party a slot) makes the masked aggregation
-    two-level (``secure_agg.secure_psum_hier``: within each slot, then
-    across the slots' sums), and ``data_shards > 1`` splits each fresh
-    SGD and SVRG minibatch into that many disjoint slices, each
-    aggregated with its own mask draw.  The axis names are the
-    reference's and are checked as there; nothing on one device reads
-    them.  ``pods`` is the width of the reference's inter-pod axis,
-    "pod" (``launch.mesh``'s multi-pod production mesh), None where the
-    mesh has none; nothing on one device reads it either.
+    Without ``mesh`` the party axis is the leading tensor dimension on
+    one device; a packed mesh (more than one party a slot) makes the
+    masked aggregation two-level (``secure_agg.secure_psum_hier``: within
+    each slot, then across the slots' sums), and ``data_shards > 1``
+    splits each fresh SGD and SVRG minibatch into that many disjoint
+    slices, each aggregated with a mask draw of its own.  ``pods`` is the
+    width of the reference's inter-pod axis, "pod" (``launch.mesh``'s
+    multi-pod production mesh), None where the mesh has none.
 
-    ``mesh`` is the reference's device mesh.  The port has none, so
-    ``mesh=None`` is the only form it runs: any other value raises
-    ``NotImplementedError`` rather than being emulated silently (the
-    reference's rule for a supplied mesh)."""
+    ``mesh`` is a ``torch.distributed.device_mesh.DeviceMesh`` (the
+    counterpart of the reference's ``jax.sharding.Mesh``, as its
+    ``shard_map`` binds it): its dimension ``axis`` ("model") has size
+    ``slots`` and ``data_axis`` ("data") size ``data_shards``, plus
+    "pod" of size ``pods`` where ``pods`` is set.  A rank then holds
+    slot :attr:`slot`, its logical parties :attr:`parties`, and data
+    shard :attr:`data_index`; :attr:`model_group` and :attr:`data_group`
+    are the process groups its collectives run over.  The pod axis
+    replicates: each pod runs the same program."""
 
     q: int                          # logical party count
     slots: int                      # physical party-axis width
-    mesh: Optional[object] = None   # device mesh; only None runs here
+    mesh: Optional[object] = None   # torch.distributed DeviceMesh, or None
     axis: str = "model"             # outer (slot) axis name
     party_axis: str = "party"       # inner (packed parties) axis name
     data_shards: int = 1            # sample-parallel width
@@ -71,10 +77,31 @@ class PartyMesh:
                 f"axis={self.axis!r}, party_axis={self.party_axis!r}, "
                 f"data_axis={self.data_axis!r}")
         if self.mesh is not None:
-            raise NotImplementedError(
-                "PartyMesh(mesh=...): a device mesh (the multi-device "
-                "torch.distributed port of the party mesh) is not ported; "
-                "the port runs the party mesh on one device, mesh=None")
+            self._check_device_mesh()
+
+    def _check_device_mesh(self):
+        """The reference's shape checks (a ``model`` dimension of size
+        ``slots``, a ``data`` one of size ``data_shards``), plus "pod" of
+        size ``pods`` where it is set."""
+        from torch.distributed.device_mesh import DeviceMesh
+        if not isinstance(self.mesh, DeviceMesh):
+            raise TypeError(
+                f"PartyMesh(mesh=...) takes a torch.distributed "
+                f"DeviceMesh or None; got {type(self.mesh).__name__}")
+        names = self.mesh.mesh_dim_names or ()
+        shape = dict(zip(names, self.mesh.mesh.shape))
+        want = {self.axis: self.slots, self.data_axis: self.data_shards}
+        if self.pods is not None:
+            want["pod"] = self.pods
+        for name, size in want.items():
+            if shape.get(name) != size:
+                raise ValueError(
+                    f"mesh must carry a {name!r} dimension of size {size}; "
+                    f"got dimensions {shape}")
+        extra = set(names) - set(want)
+        if extra:
+            raise ValueError(f"mesh has dimensions {sorted(extra)} beside "
+                             f"{sorted(want)}")
 
     @property
     def parties_per_slot(self) -> int:
@@ -99,6 +126,49 @@ class PartyMesh:
         sizes = (() if self.pods is None else (self.pods,)) \
             + (self.data_shards, self.slots)
         return dict(zip(self.axis_names, sizes))
+
+    # -- this rank's place on a device mesh ----------------------------------
+
+    def _device_mesh(self):
+        if self.mesh is None:
+            raise ValueError("this PartyMesh has no device mesh")
+        return self.mesh
+
+    @property
+    def slot(self) -> int:
+        """This rank's slot: its coordinate on the model dimension."""
+        return self._device_mesh().get_local_rank(self.axis)
+
+    @property
+    def parties(self) -> range:
+        """This rank's logical parties, [slot·pps, (slot+1)·pps)."""
+        pps = self.parties_per_slot
+        return range(self.slot * pps, (self.slot + 1) * pps)
+
+    @property
+    def data_index(self) -> int:
+        """This rank's data shard: its coordinate on the data dimension."""
+        return self._device_mesh().get_local_rank(self.data_axis)
+
+    @property
+    def model_group(self):
+        """The process group of this rank's data shard across the slots:
+        the party-axis collectives run over it."""
+        return self._device_mesh().get_group(self.axis)
+
+    @property
+    def data_group(self):
+        """The process group of this rank's slot across the data shards:
+        the data axis's gradient sum runs over it."""
+        return self._device_mesh().get_group(self.data_axis)
+
+    @property
+    def backend(self) -> str:
+        """The collectives' backend, ``"nccl"`` or ``"gloo"``."""
+        import torch.distributed as dist
+        return str(dist.get_backend(self.model_group))
+
+
 SCAN_IMPLS = ("kernel", "reference")
 ATTN_IMPLS = ("kernel", "reference")
 MOE_DISPATCHES = ("replicated", "alltoall")

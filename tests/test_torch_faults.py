@@ -582,12 +582,14 @@ def test_runner_checks(ds, layout, prob, traces):
     with pytest.raises(ValueError, match="trace horizon"):
         faults.run_guarded_reference(prob, x, y, layout, tr,
                                      **dict(kw, epochs=1))
-    # mesh= takes a PartyMesh on this one device; anything else is
-    # refused, and a device mesh is the multi-device port, never emulated
+    # mesh= takes a PartyMesh; anything else is refused, and so is a
+    # PartyMesh over anything but a torch.distributed DeviceMesh (the
+    # faulted epochs on a real device mesh raise NotImplementedError,
+    # tests/test_torch_dist_mesh.py)
     with pytest.raises(TypeError, match="PartyMesh"):
         faults.run_guarded_fused(prob, x, y, layout, tr, mesh=object(),
                                  **kw)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         faults.run_guarded_fused(prob, x, y, layout, tr,
                                  mesh=PartyMesh(q=Q, slots=2, mesh=object()),
                                  **kw)

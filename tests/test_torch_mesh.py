@@ -145,8 +145,10 @@ def test_partymesh_rejects_bad_shapes(jx, kw, err):
 
 
 def test_device_mesh_is_not_emulated():
-    """A device mesh is the multi-device port: refused, never emulated."""
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    """A mesh that is not a ``torch.distributed`` ``DeviceMesh`` is
+    refused, never emulated on one device (a real device mesh runs in
+    ``tests/test_torch_dist_mesh.py``)."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         PartyMesh(q=8, slots=2, mesh=object())
 
 

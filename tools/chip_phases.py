@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run some of ``chip_smoke.py``'s later phases alone on one card.
 
-    python3 tools/chip_phases.py 10 15 16 17 18 19 20 21 22 23 [--out PATH]
+    python3 tools/chip_phases.py 10 15 16 17 18 19 20 21 22 23 24 [--out PATH]
 
 Builds the kernel libraries the named phases launch, makes phase 7's
 resident data on the card (x (350000, 4096) f32 from the seed, the D4
@@ -10,7 +10,8 @@ functions of ``chip_smoke.py`` (14: faults, 15: deep faults, 16: the
 party mesh, 17: serving over the mesh and the thread simulation, 18: the
 linter on the card, 19: LM training, 20: MoE serving, 21: hybrid
 serving, 22: cross attention and the secure frontends, 23: the dry run
-against the card; 19-23 need no resident data),
+against the card, 24: the device party mesh in spawned ranks, which make
+their own data; 19-24 need no resident data),
 each with its kernel counters set to 0 just before it, its hard checks as
 in the script, and every log line stamped with the seconds since the
 first phase began.  Phase 10 (dense serving, gemma3-4b whole) runs too,
@@ -45,7 +46,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("phases", nargs="+",
                     choices=("10", "14", "15", "16", "17", "18", "19",
-                             "20", "21", "22", "23"))
+                             "20", "21", "22", "23", "24"))
     ap.add_argument("--out", default="chiprun_out/phases.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -58,10 +59,12 @@ def main() -> int:
     dev = torch.device("cuda")
     lm = {"10", "19", "20", "21", "22", "23"}
     vfl = [p for p in args.phases if p not in lm]
-    # vfl_grad for phases 14-18; the scan and flash attention for 19; both
-    # attention kernels for 10, 20 and 22; all three LM kernels for 21, 23
+    resident = [p for p in vfl if p != "24"]
+    # vfl_grad for phases 14-18 and 24; the scan and flash attention for
+    # 19; both attention kernels for 10, 20 and 22; all three LM kernels
+    # for 21, 23
     libs = cs._libs()
-    libs = (libs[:1] if vfl else []) \
+    libs = (list(libs[:1]) if vfl else []) \
         + (list(libs[1:2]) if {"19", "21", "23"} & set(args.phases)
            else []) \
         + (list(libs[2:3]) if lm & set(args.phases) else []) \
@@ -79,7 +82,7 @@ def main() -> int:
            f"{time.perf_counter() - t0:.1f} s")
     layout = PartyLayout.even(cs.D, cs.Q, cs.M_ACT)
     x = y = None
-    if vfl:
+    if resident:
         gen = torch.Generator(device=dev).manual_seed(cs.SEED)
         x = torch.randn((cs.N, cs.D), generator=gen, device=dev)
         y = cs.d4_labels(torch, dev, x)
@@ -99,6 +102,14 @@ def main() -> int:
         t = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         cs.reset_counts()
+        if name == "24":
+            # its checks and launch counts run inside the phase, in ranks
+            res, launches = cs.dist_phase(torch, dev, log)
+            res["seconds"] = time.perf_counter() - t
+            log(f"phase 24: device-mesh launches {launches}; "
+                f"{res['seconds']:.1f} s")
+            out[name] = res
+            continue
         if name in lm:
             # their checks (launches included) run inside the phase
             run = {"10": cs.dense_phase, "19": cs.lm_train_phase,
