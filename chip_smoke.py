@@ -5344,8 +5344,14 @@ def dry_phase(torch, dev, log_):
 DIST_STEPS, DIST_TOL = 2000, 1e-5
 DIST_PROFILE_STEPS = 500         # 24(a)'s profiler windows, each engine
 DIST_SERVE_IDS = 4 * BATCH       # requests of 24(a)'s serve calls
+# 24(a)'s deep and bounded-delay epochs: this prefix of the schedule, at
+# phase 11's τ and seed-0 delays, from the deep start of phases 12-13
+DIST_DEEP_STEPS, DIST_TAU = 500, STALE_TAU
+DIST_DEEP_KINDS = ("deep_sgd", "deep_svrg", "deep_pipelined_sgd",
+                   "deep_pipelined_svrg", "delayed_sgd", "deep_delayed_sgd")
 # 24(b): four gloo ranks sharing the card, one party each, eager steps
 DIST_GLOO_RANKS, DIST_GLOO_STEPS = 4, 300
+DIST_GLOO_DEEP_STEPS = 100       # 24(b)'s deep SGD and delayed epochs
 DIST_TIMEOUT = 300               # seconds a world may take
 
 
@@ -5393,6 +5399,116 @@ def _dist_epoch(torch, e, algo, idx, key):
     return e.gather(w)
 
 
+def _dist_deep_epoch(torch, e, kind, pq, delays, idx, key):
+    """``kind``'s epoch on engine ``e``: a deep one from the packed start
+    ``pq`` (SVRG from its ``deep_full_gradient``), a delayed one from
+    zeroed rings at the engine's rows (w = 0 for the linear one) at step
+    0 with ``delays``, the engine's rows of phase 11's.  Returns every
+    result (leaves, μ, rings, the counter), gathered over the model
+    group."""
+    lr, tau = TRAIN_LR, DIST_TAU
+    fn = getattr(e, f"{kind}_epoch")
+    if kind == "delayed_sgd":
+        ring = torch.zeros((e.qloc, tau + 1, e.dp), device=e.device)
+        w, ring, t = fn(e.pack_w(torch.zeros(D, device=e.device)), ring, 0,
+                        delays, lr, idx, tau, key)
+        return [e.gather(w), e.gather(ring), t]
+    if kind == "deep_delayed_sgd":
+        pq, rings, t = fn(pq, e.deep_delay_buffers(pq, tau), 0, delays, lr,
+                          idx, tau, key)
+        return [e.gather(a) for a in (*pq, *rings)] + [t]
+    if kind.endswith("svrg"):
+        mu = e.deep_full_gradient(pq, key)
+        return [e.gather(a) for a in (*fn(pq, pq, mu, lr, idx, key), *mu)]
+    return [e.gather(a) for a in fn(pq, lr, idx, key)]
+
+
+def _dist_hold(torch, rec, name, mode, world, got, want):
+    """Hold the device-mesh engine's results ``got`` to the ``mesh=None``
+    engine's ``want``: bit for bit under ``off`` at one rank, else each
+    within ``DIST_TOL`` of the larger of 1 and its own scale."""
+    err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+              for a, b in zip(got, want, strict=True))
+    rec[f"{name}_max_err"] = err
+    if mode == "off" and world == 1:
+        rec[f"{name}_bit_equal"] = same = all(
+            torch.equal(a, b) for a, b in zip(got, want))
+        check(same, f"phase 24(a) {name} off: not the mesh=None engine's "
+              f"bits ({err:.3e})")
+    else:
+        check(err <= DIST_TOL, f"phase 24(a) {name} {mode}: {err:.3e} from "
+              "the mesh=None engine")
+
+
+def _dist_deep(torch, dev, e, flat, mode, world, lay, idx, key, rec,
+               tallies):
+    """24(a)'s deep and bounded-delay part of one mode: the epochs of
+    ``DIST_DEEP_KINDS``, ``DIST_DEEP_STEPS`` steps each, under no host sync,
+    ``deep_objective`` and a deep ``ServeEngine`` (full, hit, and full
+    again for the deep SGD epoch's params) on the device-mesh engine
+    ``e`` against the ``mesh=None`` engine ``flat``; then a timed deep SGD
+    and delayed SGD epoch of each (graph replays).  ``tallies`` (mesh,
+    flat) take each engine's launches."""
+    from repro_torch.core import deep_vfl
+    from repro_torch.core import staleness as st
+    from repro_torch.kernels import vfl_grad as vg
+    from repro_torch.serve.engine import ServeEngine
+    p0 = deep_vfl.initial_params(SEED, lay, D, DEEP_HIDDEN, DEEP_DREP)
+    dly = torch.from_numpy(st.party_delay_values(lay, DIST_TAU, SEED)) \
+        .to(dev).long()
+    didx = idx[:DIST_DEEP_STEPS]
+    engines = ((e, e.pack_deep(p0), e.local(dly), tallies[0]),
+               (flat, flat.pack_deep(p0), dly, tallies[1]))
+    trained = None
+    for kind in DIST_DEEP_KINDS:
+        out = []
+        for eng, pq, dl, tally in engines:
+            with no_host_sync(torch):
+                got, n = _counted(vg, lambda: _dist_deep_epoch(
+                    torch, eng, kind, pq, dl, didx, key))
+            tally.update(n)
+            out.append(got)
+        _dist_hold(torch, rec, kind, mode, world, *out)
+        if kind == "deep_sgd":
+            trained = flat.unpack_deep(out[1][:4])
+    objs = []
+    for eng, pq, _, tally in engines:
+        obj, n = _counted(vg, lambda: eng.deep_objective(pq))
+        tally.update(n)
+        objs.append(torch.tensor([obj], dtype=torch.float64))
+    _dist_hold(torch, rec, "deep_objective", mode, world, *([o] for o in objs))
+    ids = (np.arange(DIST_SERVE_IDS) * 997) % N
+    answers = []
+    for eng, _, _, tally in engines:
+        sv = ServeEngine(eng, max_batch=BATCH, device=dev)
+        out = []
+        for params in (p0, None, trained):
+            if params is not None:
+                sv.set_deep_params(params)
+            got, n = _counted(vg, lambda: sv.serve(ids))
+            tally.update(n)
+            out.append(torch.from_numpy(got))
+        answers.append((out, dataclasses.asdict(sv.stats)))
+        del sv
+    (mine, stats), (ref, ref_stats) = answers
+    check(stats == ref_stats and stats["full_dispatches"]
+          and stats["hit_dispatches"],
+          f"phase 24(a) deep serving stats {stats} != {ref_stats}")
+    rec["deep_serve_stats"] = stats
+    _dist_hold(torch, rec, "deep_serve", mode, world, mine, ref)
+    for name, (eng, pq, dl, tally) in zip(("mesh", "flat"), engines):
+        ring = torch.zeros((eng.qloc, DIST_TAU + 1, eng.dp), device=dev)
+        w0 = eng.pack_w(torch.zeros(D, device=dev))
+        for what, epoch in (
+                ("deep", lambda: eng.deep_sgd_epoch(pq, TRAIN_LR, didx,
+                                                    key)),
+                ("delayed", lambda: eng.delayed_sgd_epoch(
+                    w0, ring, 0, dl, TRAIN_LR, didx, DIST_TAU, key))):
+            rec[f"{name}_{what}_step_ms"], n = _counted(
+                vg, lambda: _timed_step_ms(torch, epoch, DIST_DEEP_STEPS))
+            tally.update(n)
+
+
 def _counted(vg, fn):
     """``fn()`` and the vfl_grad launches it made."""
     before = dict(vg.KERNEL.launches)
@@ -5417,8 +5533,9 @@ def _dist_nccl(torch, dev):
     for bit under ``off`` at one rank, within ``DIST_TOL`` otherwise; a
     timed SGD epoch of each; serving (full, hit, delta) against a
     ``ServeEngine`` over the ``mesh=None`` engine; profiler windows over
-    ``DIST_PROFILE_STEPS`` masked SGD steps of each engine.  Returns the
-    rank's record, its device-mesh launches apart."""
+    ``DIST_PROFILE_STEPS`` masked SGD steps of each engine; the deep and
+    bounded-delay part (``_dist_deep``).  Returns the rank's record, its
+    device-mesh launches apart."""
     import torch.distributed as dist
     from repro_torch.core import algorithms as alg
     from repro_torch.core.algorithms import PartyLayout
@@ -5460,6 +5577,8 @@ def _dist_nccl(torch, dev):
             else:
                 check(err <= DIST_TOL, f"phase 24(a) {algo} {mode}: {err:.3e}"
                       f" from the mesh=None epoch")
+        _dist_deep(torch, dev, e, flat, mode, world, lay, idx, key, rec,
+                   (mesh_launches, flat_launches))
         graphs = [lp.graph for lp in e._loops.values()]
         check(graphs and all(g is not None for g in graphs),
               f"phase 24(a) {mode}: an epoch ran uncaptured")
@@ -5512,13 +5631,17 @@ def _dist_nccl(torch, dev):
 
 def _dist_gloo(torch, dev):
     """24(b), in each of four ranks sharing the card: SGD epochs of
-    ``DIST_GLOO_STEPS`` steps on ``PartyMesh(q=4, slots=4)`` over gloo
-    under ``two_tree`` and ``ring``, eagerly (gloo is never captured);
-    rank 0 holds the gathered iterate (every rank gathers the same) to
-    the ``mesh=None`` engine's on the card within ``DIST_TOL``.  Every
-    rank launches ``vfl_grad`` on the card for its own party."""
+    ``DIST_GLOO_STEPS`` steps, then a deep SGD epoch and a delayed SGD
+    epoch (τ = 4, seed-0 delays) of ``DIST_GLOO_DEEP_STEPS`` steps, on
+    ``PartyMesh(q=4, slots=4)`` over gloo under ``two_tree`` and
+    ``ring``, eagerly (gloo is never captured); rank 0 holds the gathered
+    results (every rank gathers the same) to the ``mesh=None`` engine's
+    on the card within ``DIST_TOL``.  Every rank launches ``vfl_grad`` on
+    the card for its own party."""
     import torch.distributed as dist
     from repro_torch.core import algorithms as alg
+    from repro_torch.core import deep_vfl
+    from repro_torch.core import staleness as st
     from repro_torch.core.algorithms import PartyLayout
     from repro_torch.core.engine import EngineConfig, FusedEngine
     from repro_torch.core.losses import logistic_l2
@@ -5529,7 +5652,11 @@ def _dist_gloo(torch, dev):
     pm = make_device_mesh(world, backend="gloo")
     lay, prob = PartyLayout.even(D, world, M_ACT), logistic_l2(1e-4)
     idx = alg.epoch_indices(SEED, 0, N, TRAIN_BATCH, DIST_GLOO_STEPS, dev)
+    didx = idx[:DIST_GLOO_DEEP_STEPS]
     key = (SEED, 24)
+    p0 = deep_vfl.initial_params(SEED, lay, D, DEEP_HIDDEN, DEEP_DREP)
+    dly = torch.from_numpy(st.party_delay_values(lay, DIST_TAU, SEED)) \
+        .to(dev).long()
     res = {"world": world, "backend": pm.backend, "slot": pm.slot,
            "modes": {}}
     launches = Counter()
@@ -5548,16 +5675,33 @@ def _dist_gloo(torch, dev):
         launches.update(n)
         check(not e._loops[("sgd", tuple(idx.shape))].graph,
               "phase 24(b): a gloo epoch was captured")
-        got = e.gather(got)
-        res["modes"][mode] = {"eager_step_ms": step_ms}
+        got = {"sgd": [e.gather(got)]}
+        res["modes"][mode] = rec = {"eager_step_ms": step_ms}
+        pq = e.pack_deep(p0)
+        for kind in ("deep_sgd", "delayed_sgd"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[kind], n = _counted(vg, lambda: _dist_deep_epoch(
+                torch, e, kind, pq, e.local(dly), didx, key))
+            torch.cuda.synchronize()
+            rec[f"{kind}_eager_step_ms"] = \
+                (time.perf_counter() - t0) / DIST_GLOO_DEEP_STEPS * 1e3
+            launches.update(n)
         if pm.slot == 0:
             flat = FusedEngine(prob, x, y, lay, cfg, device=dev)
-            want = flat.sgd_epoch(flat.pack_w(torch.zeros(D, device=dev)),
-                                  TRAIN_LR, idx, key)
-            err = float((got - want).abs().max())
-            check(err <= DIST_TOL, f"phase 24(b) {mode}: {err:.3e} from "
-                  "the mesh=None epoch")
-            res["modes"][mode]["max_abs_err"] = err
+            want = {"sgd": [flat.sgd_epoch(
+                flat.pack_w(torch.zeros(D, device=dev)), TRAIN_LR, idx,
+                key)]}
+            for kind in ("deep_sgd", "delayed_sgd"):
+                want[kind] = _dist_deep_epoch(torch, flat, kind,
+                                              flat.pack_deep(p0), dly, didx,
+                                              key)
+            for kind, ws in want.items():
+                err = max(float((a - b).abs().max())
+                          for a, b in zip(got[kind], ws, strict=True))
+                check(err <= DIST_TOL, f"phase 24(b) {kind} {mode}: "
+                      f"{err:.3e} from the mesh=None epoch")
+                rec[f"{kind}_max_err"] = err
             del flat
         del e
     res["launches"] = dict(launches)
@@ -5611,9 +5755,7 @@ def dist_phase(torch, dev, log_):
     res["a"] = {"seconds": time.perf_counter() - t0, "ranks": ranks}
     for r in ranks:
         launches.update(r["launches"])
-        check(all(r["launches"][p] for p in ("vfl_forward_narrow",
-                                             "vfl_backward_rows",
-                                             "vfl_backward_reduce")),
+        check(all(r["launches"][p] for p in vg.PROGRAMS),
               f"a kernel of the phase 24(a) path was never launched: "
               f"{r['launches']}")
         check(cards > 1 or r["launches"] == r["flat_launches"],
@@ -5642,12 +5784,16 @@ def dist_phase(torch, dev, log_):
     t0 = time.perf_counter()
     ranks = _dist_run(torch, DIST_GLOO_RANKS, "gloo", "b")
     res["b"] = {"seconds": time.perf_counter() - t0, "ranks": ranks}
+    # per mode: the SGD and delayed SGD steps (one forward, one backward
+    # each) and the deep SGD steps (2 and 2)
+    per_mode = implied(steps=DIST_GLOO_STEPS + DIST_GLOO_DEEP_STEPS) \
+        + deep_implied(steps=DIST_GLOO_DEEP_STEPS)
+    want = per_mode + per_mode
     for r in ranks:
         launches.update(r["launches"])
-        check(r["launches"]["vfl_forward_narrow"] == 2 * DIST_GLOO_STEPS
-              and r["launches"]["vfl_backward_rows"] == 2 * DIST_GLOO_STEPS,
+        check(r["launches"] == {p: want[p] for p in vg.PROGRAMS},
               f"phase 24(b) rank {r['slot']}: launches {r['launches']} != "
-              f"one forward and one backward a step")
+              f"{dict(want)} implied by the steps")
         log_(f"phase 24(b) rank {r['slot']} of {DIST_GLOO_RANKS} "
              f"({r['backend']}): {r['modes']}; vfl_grad launches "
              f"{r['launches']}; max_memory_allocated "

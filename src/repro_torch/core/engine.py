@@ -63,20 +63,31 @@ nodes count its launches on the card.
 
 Device mesh.  Given ``PartyMesh(mesh=DeviceMesh)`` each rank holds one
 slot of parties (``PartyMesh.parties``): ``xs`` is its (pps, n, dp)
-slice and an iterate its (pps, dp) rows, as ``shard_map`` binds
-``P("model")``; ``y``, ϑ and the schedule are replicated, as ``P()``.
-Every cross-party aggregation is a collective over the mesh's model group
-(``secure_agg``'s ``*_dist`` forms), each rank drawing only its own
-parties' masks (``secure_agg.PartyStreams``).  On a data axis a fresh SGD
-or SVRG step takes the rank's slice of the minibatch, with mask streams
-of its own, and sums the gradient over the data group.  The fresh linear
-epochs run there — SGD, SVRG and SAGA in their single-dominator,
-multi-dominator and pipelined forms, ``full_gradient``, ``saga_init``
-and ``objective`` — and every other entry point raises
-``NotImplementedError`` (ROADMAP A17b).  Under NCCL an epoch is captured
-with its collectives as on one card; gloo is never captured: its steps
-run eagerly (its collectives on CUDA tensors go through the host), as
-the mesh's backend decides.  Every rank calls every entry point.
+slice and every party-stacked tensor its (pps, ...) rows, as
+``shard_map`` binds ``P("model")`` — the iterates, the deep leaves
+(``w1 b1 w2 head``; the head's copies stay equal on every rank, each
+rank updating its rows from the replicated aggregate), SVRG's snapshot
+and μ, the gradient rings and the delays; ``y``, ϑ, the schedule and
+the step counter are replicated, as ``P()``.  :meth:`FusedEngine.local`
+slices a whole (q, ...) tensor to the rank's rows and
+:meth:`FusedEngine.gather` undoes it.  Every cross-party aggregation is
+a collective over the mesh's model group (``secure_agg``'s ``*_dist``
+forms), each rank drawing only its own parties' masks
+(``secure_agg.PartyStreams``).  On a data axis a fresh linear SGD or
+SVRG step takes the rank's slice of the minibatch, with mask streams of
+its own, and sums the gradient over the data group; every other epoch
+runs whole on each data shard, which draw the same streams and agree.
+There run the linear SGD, SVRG and SAGA epochs in their
+single-dominator, multi-dominator and pipelined forms with
+``full_gradient``, ``saga_init`` and ``objective``; the bounded-delay
+linear and deep epochs in their four forms; the eight deep epochs with
+``deep_full_gradient`` and ``deep_objective``; ``pack_deep`` and
+``unpack_deep``.  The faulted and guarded epochs and tracing raise
+``NotImplementedError`` there (ROADMAP A17b2).  Under NCCL an epoch is
+captured with its collectives as on one card; gloo is never captured:
+its steps run eagerly (its collectives on CUDA tensors go through the
+host), as the mesh's backend decides.  Every rank calls every entry
+point.
 
 Device rule: ``FusedEngine`` defaults to ``device="cuda"`` and raises
 without a card; tests pass ``device="cpu"``.
@@ -235,24 +246,28 @@ def unpack_vec(vq, layout: PartyLayout) -> np.ndarray:
                            for p, (lo, hi) in enumerate(layout.bounds)])
 
 
-def pack_deep_params(params: DeepVFLParams, layout: PartyLayout, device):
+def pack_deep_params(params: DeepVFLParams, layout: PartyLayout, device,
+                     parties=None):
     """``DeepVFLParams`` -> party-stacked ``(w1q, b1q, w2q, headq)``.
 
     ``w1q`` (q, dp, hidden) zero-pads each party's first encoder layer to
     the widest feature block; ``headq`` (q, d_rep) replicates the active
-    parties' head (the stand-in for the dominator broadcasting ϑ_z)."""
+    parties' head (the stand-in for the dominator broadcasting ϑ_z).
+    ``parties`` (default all q) packs only those parties' rows."""
     def f32(a):
         return torch.as_tensor(a, dtype=torch.float32, device=device)
 
     dp = int(party_widths(layout).max())
     hidden = int(params.enc_w1[0].shape[1])
-    w1q = torch.zeros((layout.q, dp, hidden), dtype=torch.float32,
+    ps = _parties(layout, parties)
+    w1q = torch.zeros((len(ps), dp, hidden), dtype=torch.float32,
                       device=device)
-    for p, (lo, hi) in enumerate(layout.bounds):
-        w1q[p, : hi - lo] = f32(params.enc_w1[p])
-    b1q = torch.stack([f32(b) for b in params.enc_b1])
-    w2q = torch.stack([f32(w) for w in params.enc_w2])
-    headq = f32(params.head)[None, :].repeat(layout.q, 1)
+    for i, p in enumerate(ps):
+        lo, hi = layout.bounds[p]
+        w1q[i, : hi - lo] = f32(params.enc_w1[p])
+    b1q = torch.stack([f32(params.enc_b1[p]) for p in ps])
+    w2q = torch.stack([f32(params.enc_w2[p]) for p in ps])
+    headq = f32(params.head)[None, :].repeat(len(ps), 1)
     return w1q, b1q, w2q, headq
 
 
@@ -392,9 +407,11 @@ class FusedEngine:
     the flat one bit for bit), and ``data_shards > 1`` slices the fresh
     SGD and SVRG minibatches (:meth:`_sliced_step`).  With one, each rank
     holds its slot's ``qloc`` parties (see the module's "Device mesh"):
-    the iterates, ``tabq`` and ``avgq`` are the rank's rows,
-    :meth:`pack_w` makes them and :meth:`unpack_w` gathers the whole
-    iterate.
+    the iterates, ``tabq``, ``avgq``, the deep leaves, the gradient rings
+    and the delays are the rank's rows; :meth:`pack_w` and
+    :meth:`pack_deep` make them, :meth:`local` slices a whole tensor to
+    them, and :meth:`unpack_w`, :meth:`unpack_deep` and :meth:`gather`
+    gather the whole.
     """
 
     def __init__(self, problem: Problem, x, y, layout: PartyLayout,
@@ -495,7 +512,7 @@ class FusedEngine:
         """Raise for an entry point that has no device-mesh form yet."""
         if self._dist is not None:
             raise NotImplementedError(
-                f"{what} on a device mesh is not ported (ROADMAP A17b); "
+                f"{what} on a device mesh is not ported (ROADMAP A17b2); "
                 "run it on one device (PartyMesh without mesh=)")
 
     def _dsum(self, g):
@@ -515,6 +532,21 @@ class FusedEngine:
         parts = [torch.empty_like(tq) for _ in range(self._slots)]
         dist.all_gather(parts, tq, group=self._mgroup)
         return torch.cat(parts, 0)
+
+    def local(self, tq) -> torch.Tensor:
+        """This rank's rows (qloc, ...) of the whole party-stacked
+        (q, ...) tensor ``tq``, the inverse of :meth:`gather` (as
+        ``shard_map`` slices a ``P("model")`` argument); ``tq`` itself on
+        one device."""
+        if self._dist is None:
+            return tq
+        return torch.as_tensor(tq).narrow(0, self.parties.start, self.qloc)
+
+    def _check_rows(self, what: str, a) -> None:
+        """Raise unless ``a`` holds this engine's qloc party rows."""
+        if np.shape(a)[0] != self.qloc:
+            raise ValueError(f"{what} holds {np.shape(a)[0]} party rows; "
+                             f"this engine holds {self.qloc}")
 
     # -- X-block contractions (the vfl_grad kernel) ---------------------------
 
@@ -1129,7 +1161,8 @@ class FusedEngine:
 
     def _delayed(self, multi, pipelined, wq, bufq, t0, delays, lr, idx, tau,
                  mask_key):
-        self._local_only("the bounded-delay epochs")
+        self._check_rows("bufq", bufq)
+        self._check_rows("delays", delays)
         if bufq.shape[1] != tau + 1:
             raise ValueError(f"bufq holds {bufq.shape[1]} ring slots; "
                              f"tau={tau} needs {tau + 1}")
@@ -1219,7 +1252,10 @@ class FusedEngine:
     # with (q, m).  ``t0`` is the global step at the epoch's start (an int
     # or a device int tensor); each epoch returns ``(wq, bufq, t0 +
     # steps)``, the counter as a 0-d int64 device tensor, so that the ring
-    # and the counter carry into the next epoch.
+    # and the counter carry into the next epoch.  On a device mesh
+    # ``bufq`` and ``delays`` are the rank's rows (made at qloc rows, or
+    # :meth:`local` of whole ones) and the counter is the same on every
+    # rank.
 
     def delayed_sgd_epoch(self, wq, bufq, t0, delays, lr, idx, tau,
                           mask_key=(0,)):
@@ -1599,7 +1635,7 @@ class FusedEngine:
             ring.index_copy_(1, slot, new)
             eff = (t - (b["delays"] if de is None else de)).clamp_min(0) \
                 % slots                                     # (q[, m])
-            stale = ring.gather(1, eff.view(self.q, 1, -1, 1).expand(
+            stale = ring.gather(1, eff.view(self.qloc, 1, -1, 1).expand(
                 -1, -1, *ring.shape[2:])).sum((1, 2))
             parts = stale.split([b[k][0].numel() for k in _DEEP[:3]], 1)
             self._deep_apply(b, [a.view_as(b[k]) for a, k in zip(parts, _DEEP)]
@@ -1676,7 +1712,6 @@ class FusedEngine:
         and ``carries``; returns the loop's buffers.  The loop's name
         carries the form, ``algo`` and the deep widths.  ``step_fn``
         replaces the fresh step (the faulted epochs')."""
-        self._local_only("the deep epochs")
         kind = "deep_" + ("multi_" if multi else "") \
             + ("pipelined_" if pipelined else "") + algo
         loop = self._loop(kind + "_{}x{}".format(*pq[2].shape[1:]), idx, lr,
@@ -1708,7 +1743,8 @@ class FusedEngine:
 
     def _deep_delayed(self, multi, pipelined, pq, bufq, t0, delays, lr, idx,
                       tau, mask_key):
-        self._local_only("the deep bounded-delay epochs")
+        self._check_rows("bufq", bufq[0])
+        self._check_rows("delays", delays)
         if bufq[0].shape[1] != tau + 1:
             raise ValueError(f"bufq holds {bufq[0].shape[1]} ring slots; "
                              f"tau={tau} needs {tau + 1}")
@@ -1787,7 +1823,8 @@ class FusedEngine:
     def deep_delay_buffers(self, pq, tau: int):
         """Zeroed per-party encoder gradient rings for
         :meth:`deep_delayed_sgd_epoch`: (q, τ+1, ...) per leaf of
-        (w1q, b1q, w2q)."""
+        (w1q, b1q, w2q) — the rows of ``pq``, so on a device mesh the
+        rank's (qloc, τ+1, ...)."""
         return tuple(torch.zeros((a.shape[0], tau + 1) + tuple(a.shape[1:]),
                                  device=self.device) for a in pq[:3])
 
@@ -1795,7 +1832,8 @@ class FusedEngine:
         """Zeroed per-(party, dominator) encoder gradient rings for
         :meth:`deep_multi_delayed_sgd_epoch`: each leaf's dominator axis
         sits before its last, (q, τ+1, dp, m, hid), (q, τ+1, m, hid),
-        (q, τ+1, hid, m, dr)."""
+        (q, τ+1, hid, m, dr) — the rows of ``pq``, as
+        :meth:`deep_delay_buffers`'s."""
         m = self.layout.m
         return tuple(torch.zeros((a.shape[0], tau + 1) + tuple(a.shape[1:-1])
                                  + (m, a.shape[-1]), device=self.device)
@@ -1960,10 +1998,9 @@ class FusedEngine:
         """The full-dataset deep BUM gradient at ``pq`` (SVRG's μ), every
         leaf party-stacked as ``pq`` is: one masked aggregation and the
         two layers' forward and backward over all n samples."""
-        self._local_only("deep_full_gradient")
         prob = self.problem
         b = dict(zip(_DEEP, (self._carry(a) for a in pq)))
-        gen = seed_generator(self._gen, *mask_key, _TAG_FULL)
+        gen = self._reseed(*mask_key, _TAG_FULL)
         h = torch.tanh(self._fwd(self.xs, b["w1"]) + b["b1"][:, None])
         agg = self._agg(self._fwd(h, b["w2"]), gen)
         du, *rest = self._deep_tail(h, agg, self.y, b["w2"], b["head"], 1,
@@ -1975,14 +2012,19 @@ class FusedEngine:
         """Full deep objective (one device sync; per-epoch telemetry).  The
         padded w1 rows are zero and every shipped regulariser maps 0 → 0,
         so summing ``reg`` over the padded stack is exact; the replicated
-        head counts once."""
-        self._local_only("deep_objective")
+        head counts once.  On a device mesh the layer-2 partials and the
+        encoders' regularisers add up over the model group, and the head's
+        regulariser is added once after the sum."""
         prob = self.problem
         w1q, b1q, w2q, headq = pq
         h = torch.tanh(self._fwd(self.xs, w1q) + b1q[:, None])
-        logit = self._fwd(h, w2q).sum(0) @ headq[0]
-        regv = sum(torch.sum(prob.reg(a)) for a in (w1q, b1q, w2q, headq[0]))
-        return float(torch.mean(prob.loss(logit, self.y)) + prob.lam * regv)
+        z = self._fwd(h, w2q).sum(0)
+        regv = sum(torch.sum(prob.reg(a)) for a in (w1q, b1q, w2q))
+        if self._dist is not None:
+            z, regv = psum_dist(z, self._mgroup), psum_dist(regv, self._mgroup)
+        regv = regv + torch.sum(prob.reg(headq[0]))
+        return float(torch.mean(prob.loss(z @ headq[0], self.y))
+                     + prob.lam * regv)
 
     def objective(self, wq) -> float:
         """Full objective (one device sync; for per-epoch telemetry).
@@ -2011,9 +2053,16 @@ class FusedEngine:
         return unpack_vec(self.gather(wq), self.layout)
 
     def pack_deep(self, params: DeepVFLParams):
-        self._local_only("the deep parameters")
-        return pack_deep_params(params, self.layout, self.device)
+        """``DeepVFLParams`` -> this engine's party-stacked ``(w1q, b1q,
+        w2q, headq)`` rows (qloc each)."""
+        return pack_deep_params(params, self.layout, self.device,
+                                self.parties)
 
     def unpack_deep(self, pq) -> DeepVFLParams:
-        self._local_only("the deep parameters")
-        return unpack_deep_params(pq, self.layout)
+        """This engine's party-stacked rows -> the whole ``DeepVFLParams``
+        (on a device mesh each encoder leaf gathered over the model group;
+        the head is read from the rank's first row, every copy being
+        equal)."""
+        w1q, b1q, w2q, headq = pq
+        return unpack_deep_params((self.gather(w1q), self.gather(b1q),
+                                   self.gather(w2q), headq), self.layout)

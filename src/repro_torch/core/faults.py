@@ -680,6 +680,7 @@ def _fused_run(problem, x, y, layout, trace, tau, epochs, lr, batch, algo,
     cfg = engine_config if engine_config is not None else EngineConfig()
     eng = FusedEngine(problem, x, y, layout, cfg, active_only=active_only,
                       mesh=mesh, device=device)
+    eng._local_only("the faulted and guarded runners")
     dev = eng.device
     dq = torch.from_numpy(delays_q).to(dev).long()
     st = {"wq": eng.pack_w(np.zeros(d, np.float32)),

@@ -47,11 +47,15 @@ Over an engine on ``PartyMesh(mesh=DeviceMesh)`` each rank holds its
 slot's parties' request rows and weight rows; the masked dispatches
 aggregate over the model group (``FusedEngine._agg_dist``), each rank
 drawing its own parties' streams (``FusedEngine.mask_streams``), and
-every rank keeps the same replicated cache.  The dominator's own matvec
-reads party 0's block, which only the rank of slot 0 holds: that rank
+every rank keeps the same replicated cache (linear: the (n+1,) passive
+sums; deep: the (n+1, d_rep) masked aggregates of the passive parties'
+representations).  The dominator's own work — its matvec, or its
+encoding of party 0's rows with party 0's encoder and the head — reads
+party 0's block, which only the rank of slot 0 holds: that rank
 computes the answer and broadcasts it over the model group.  Every rank
-calls ``serve`` with the same ids.  The deep path raises there, as the
-deep epochs do (ROADMAP A17b), and so do the program probes.
+calls ``serve`` with the same ids, and ``set_deep_params`` with
+``DeepVFLParams`` or its own rows of them (``FusedEngine.pack_deep``).
+The program probes raise there (ROADMAP A17b2).
 
 Where the port differs in mechanism (not in result)
 ---------------------------------------------------
@@ -192,13 +196,17 @@ class ServeEngine:
         ``DeepVFLParams`` or the party-stacked ``(w1q, b1q, w2q, headq)``
         from ``FusedEngine.pack_deep``.  Deep updates always invalidate
         outright: an encoder change has no linear delta structure, so
-        stale entries are recomputed, never repaired."""
-        self.eng._local_only("deep serving")
+        stale entries are recomputed, never repaired.  On a device mesh
+        the party-stacked form is this rank's rows."""
         pq = self.eng.pack_deep(params) if isinstance(params, DeepVFLParams) \
             else tuple(params)
         if len(pq) != 4:
             raise ValueError("deep params must be the 4-tuple "
                              "(w1q, b1q, w2q, headq)")
+        if any(np.shape(a)[0] != self.eng.qloc for a in pq):
+            raise ValueError(f"deep params hold "
+                             f"{[np.shape(a)[0] for a in pq]} party rows; "
+                             f"the engine holds {self.eng.qloc}")
         had = self._wq is not None or self._pq is not None
         self._pq = tuple(torch.as_tensor(a, dtype=torch.float32,
                                          device=self.device).contiguous()
@@ -296,19 +304,24 @@ class ServeEngine:
     def _hit(self, ids):
         idsc = ids.clamp(max=self.n - 1)
         if self.deep:
-            w1q, b1q, w2q, headq = self._pq
-            rep0 = self._req_encode(self.xs[0][idsc], w1q[0], b1q[0], w2q[0])
-            return (rep0 + self._csum[ids]) @ headq[0]
+            return self._dominator(lambda: self._deep_answer(idsc, ids))
         return self._dominator(lambda: self.eng._fwd(
             self.xs[0][idsc], self._wq[0]) + self._csum[ids])
 
     def _deep_full(self, ids):
         idsc = ids.clamp(max=self.n - 1)
-        w1q, b1q, w2q, headq = self._pq
+        w1q, b1q, w2q, _ = self._pq
         rep = self._req_encode(self.xs[:, idsc], w1q, b1q, w2q)  # (q,R,dr)
         psum = self.eng._agg(self._pfq[:, None, None] * rep,
                              self._dispatch_gen())
         self._store(ids, psum)    # scatter-then-read
+        return self._dominator(lambda: self._deep_answer(idsc, ids))
+
+    def _deep_answer(self, idsc, ids):
+        """The dominator's deep answer: party 0's own encoding of its
+        request rows plus the cached passive aggregate, through the
+        head."""
+        w1q, b1q, w2q, headq = self._pq
         rep0 = self._req_encode(self.xs[0][idsc], w1q[0], b1q[0], w2q[0])
         return (rep0 + self._csum[ids]) @ headq[0]
 

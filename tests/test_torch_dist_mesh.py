@@ -177,21 +177,28 @@ def _errors(dm, eng, cfg, idx):
     z = torch.zeros(eng.qloc, 3, dp)
     pq = (torch.zeros(eng.qloc, dp, 2), torch.zeros(eng.qloc, 2),
           torch.zeros(eng.qloc, 2, 2), torch.zeros(eng.qloc, 2))
+    # a fault trace's channels: forward and backward liveness, straggle,
+    # corrupt codes
+    chan = (np.ones((q, len(idx))), np.ones((q, len(idx))),
+            np.zeros((q, len(idx))), np.zeros((q, len(idx))))
     calls = {
         "model_size": lambda: PartyMesh(q=q, slots=2, mesh=dm),
         "data_size": lambda: PartyMesh(q=q, slots=q, data_shards=2,
                                        mesh=dm),
         "pods": lambda: PartyMesh(q=q, slots=q, pods=2, mesh=dm),
-        "delayed": lambda: eng.delayed_sgd_epoch(wq, z, 0, [0] * q, 0.1,
-                                                 idx, 2),
+        "guarded": lambda: eng.guarded_sgd_epoch(
+            wq, z, 0, [0] * q, *chan, 0.1, idx, 2),
         "faulted": lambda: eng.faulted_sgd_epoch(
-            wq, z, 0, [0] * q, np.ones((q, len(idx))),
-            np.ones((q, len(idx))), np.zeros((q, len(idx))), 0.1, idx, 2),
-        "deep": lambda: eng.deep_sgd_epoch(pq, 0.1, idx),
-        "deep_full_gradient": lambda: eng.deep_full_gradient(pq),
+            wq, z, 0, [0] * q, *chan[:3], 0.1, idx, 2),
+        "deep_faulted": lambda: eng.deep_faulted_sgd_epoch(
+            pq, eng.deep_delay_buffers(pq, 2), 0, [0] * q, *chan[:3], 0.1,
+            idx, 2),
+        "deep_guarded": lambda: eng.deep_guarded_sgd_epoch(
+            pq, eng.deep_delay_buffers(pq, 2), 0, [0] * q, *chan, 0.1, idx,
+            2),
         "tracing": lambda: eng.sgd_epoch_graph(wq, 0.1, idx),
-        "deep_serve": lambda: ServeEngine(eng, device="cpu")
-        .set_deep_params(pq),
+        "serve_probe": lambda: ServeEngine(eng, device="cpu")
+        .serve_full_graph(),
         "nccl_backend": lambda: make_device_mesh(q, backend="nccl",
                                                  device="cpu"),
         "cuda_device": lambda: make_device_mesh(q, backend="gloo",
@@ -662,12 +669,12 @@ def test_membership_forms_cancel_over_the_survivors(runs, world):
     ("model_size", "ValueError", "'model' dimension of size 2"),
     ("data_size", "ValueError", "'data' dimension of size 2"),
     ("pods", "ValueError", "'pod' dimension of size 2"),
-    ("delayed", "NotImplementedError", "A17b"),
-    ("faulted", "NotImplementedError", "A17b"),
-    ("deep", "NotImplementedError", "A17b"),
-    ("deep_full_gradient", "NotImplementedError", "A17b"),
-    ("tracing", "NotImplementedError", "A17b"),
-    ("deep_serve", "NotImplementedError", "A17b"),
+    ("guarded", "NotImplementedError", "A17b2"),
+    ("faulted", "NotImplementedError", "A17b2"),
+    ("deep_faulted", "NotImplementedError", "A17b2"),
+    ("deep_guarded", "NotImplementedError", "A17b2"),
+    ("tracing", "NotImplementedError", "A17b2"),
+    ("serve_probe", "NotImplementedError", "A17b2"),
     ("nccl_backend", "ValueError", "not the requested 'nccl'"),
     ("cuda_device", "RuntimeError", "is_available"),
 ])

@@ -583,8 +583,9 @@ def test_runner_checks(ds, layout, prob, traces):
         faults.run_guarded_reference(prob, x, y, layout, tr,
                                      **dict(kw, epochs=1))
     # mesh= takes a PartyMesh; anything else is refused, and so is a
-    # PartyMesh over anything but a torch.distributed DeviceMesh (the
-    # faulted epochs on a real device mesh raise NotImplementedError,
+    # PartyMesh over anything but a torch.distributed DeviceMesh (on a
+    # real device mesh the faulted and guarded epochs, and these runners,
+    # raise NotImplementedError naming ROADMAP A17b2,
     # tests/test_torch_dist_mesh.py)
     with pytest.raises(TypeError, match="PartyMesh"):
         faults.run_guarded_fused(prob, x, y, layout, tr, mesh=object(),
