@@ -98,7 +98,7 @@ JAX or of the JAX package.
    multi-dominator, pipelined, multi-dominator pipelined}; SVRG with its
    ``deep_full_gradient`` μ), run twice (the second timed and equal to
    the first bit for bit), each under no host sync, finite and below its
-   starting objective; each kind's first 500 steps (their own loop
+   starting objective; each kind's first 250 steps (their own loop
    shape) against the port's float64 oracle ``train_deep_vfl`` on the
    same schedule (every leaf within ‖·−·₆₄‖/‖·₆₄‖ ≤ 1e-4, the objective
    within a relative 1e-5); deep SGD under ``off`` and ``ring`` against
@@ -107,7 +107,7 @@ JAX or of the JAX package.
    engine="fused")`` for one SGD epoch, which must give the engine-driven
    iterate bit for bit.  Samples/s and host µs a step per kind,
    ``deep_full_gradient``'s time beside its bytes bound (X read twice),
-   and profiler windows over 500 deep SGD and 500 pipelined deep SGD
+   and profiler windows over 250 deep SGD and 250 pipelined deep SGD
    steps.  It runs after phase 11 and before phase 13.
 13. Bounded-delay deep training on phase 12's universe and start, τ = 4,
    phase 11's seed-0 delays: one full epoch of each of the 4 deep
@@ -115,7 +115,7 @@ JAX or of the JAX package.
    ``deep_pipelined_delayed``, ``deep_multi_pipelined_delayed`` SGD)
    under ``two_tree``, run twice (the second timed and equal to the
    first bit for bit), each under no host sync, finite and below its
-   start's objective; each kind's first 500 steps against the port's
+   start's objective; each kind's first 250 steps against the port's
    float64 staleness oracle (``train_deep_delayed`` /
    ``train_deep_multi_delayed``) on the same schedule and delays (every
    leaf and every ring slot within 1e-4 relative, the objective within
@@ -124,10 +124,10 @@ JAX or of the JAX package.
    form, and at τ = 0 lies within 1e-6 of it.  Deep delayed SGD under
    ``off`` and ``ring`` against ``two_tree`` (1e-4); a second full epoch
    chained on the first (the counter reaches 2 × steps) and a chained
-   500-step prefix against the chained oracle; ``run_deep_delayed_fused``
+   250-step prefix against the chained oracle; ``run_deep_delayed_fused``
    and ``run_deep_multi_delayed_fused(pipelined=True)`` bit-equal to
    their epochs.  Samples/s and host µs a step per kind, and profiler
-   windows over 500 delayed and multi delayed deep SGD steps.  It runs
+   windows over 250 delayed and multi delayed deep SGD steps.  It runs
    after phase 12 and before phase 14.
 14. Faults, guards, checkpoints and the supervisor on phase 7's resident
    data and problem, τ = 4, phase 11's seed-0 delays: one full epoch
@@ -135,7 +135,7 @@ JAX or of the JAX package.
    ``random_trace`` of crashes, rejoins, straggles and dropped broadcasts,
    and of each guarded kind on a trace with NaN and Inf corruptions added,
    under ``two_tree``, run twice (the second timed and equal to the first
-   bit for bit), each under no host sync; each kind's first 500 steps
+   bit for bit), each under no host sync; each kind's first 250 steps
    against the port's float64 faulted or guarded oracle (iterate and ring
    within 1e-4 relative; guarded: ``finite``/``alive`` equal, the norms
    within 1e-4); guarded with ``guard=True`` finite with no poisoned step,
@@ -145,7 +145,7 @@ JAX or of the JAX package.
    checkpointed after 1 epoch and resumed to 2, bit-equal to an
    uninterrupted 2-epoch run; ``train(supervise=True)`` on ridge at a
    divergent learning rate, finite after at least one heal; profiler
-   windows over 500 faulted, guarded and delayed SGD steps.  It runs
+   windows over 250 faulted, guarded and delayed SGD steps.  It runs
    after phase 13 and before phase 15.
 15. Deep faults and guards on phase 12's universe and start, τ = 4,
    phase 11's seed-0 delays and phase 14's traces: one full epoch of deep
@@ -169,10 +169,10 @@ JAX or of the JAX package.
    one SGD and one SVRG epoch each in every secure mode under no host
    sync, ``off`` bit-equal to the flat epoch where packed (1e-4 over the
    data axis), ``two_tree``/``ring`` within 1e-4 of the flat ``two_tree``
-   iterate, a 500-step ``two_tree`` prefix within 1e-4 of the float64
+   iterate, a 250-step ``two_tree`` prefix within 1e-4 of the float64
    oracle; host µs a step beside the flat step;
    ``run_faulted_fused(mesh=PartyMesh(q=8, slots=2))`` within 1e-4 of the
-   flat runner; profiler windows over 500 packed and flat SGD steps.
+   flat runner; profiler windows over 250 packed and flat SGD steps.
    It runs before phase 9.
 17. Serving over the mesh and the thread simulation, on phase 7's data
    and problem.  (a) ``ServeEngine`` over ``PartyMesh(q=64, slots=8)``:
@@ -261,7 +261,7 @@ JAX or of the JAX package.
    launching 6 times a prefill or forward and ``decode_attention`` 6
    times a step, counted on their own.
 19. LM training at full width, the depth cut so that one card holds the
-   parameters and the optimiser state: falcon-mamba-7b with 4 of its 64
+   parameters and the optimiser state: falcon-mamba-7b with 2 of its 64
    layers (batch 4 × 512 tokens), gemma3-4b with 6 of its 34 (layers
    0-4 local with the 1,024 window, layer 5 global; batch 2 × 2,048) and
    granite-moe-1b-a400m whole (24 layers, 32 experts top-8; batch 2 ×
@@ -402,21 +402,29 @@ JAX or of the JAX package.
    none for training); each ratio is printed.
 24. The party mesh on a ``torch.distributed`` device mesh
    (``PartyMesh(mesh=DeviceMesh)``), in spawned ranks after the kernels
-   are built.  (a) ``PartyMesh(q=8, slots=cards)`` over NCCL, one rank a
-   card (one on this machine), on phase 7's data: SGD, SVRG and SAGA
-   epochs of 2,000 steps of phase 7's schedule under ``off``,
-   ``two_tree`` and ``ring``, each step a replay of a CUDA graph that
-   holds its collectives, under no host sync, against the same epochs of
-   the ``mesh=None`` engine: bit for bit under ``off`` at one rank, within
-   1e-5 under the masked modes; a timed SGD epoch of each engine; a
-   ``ServeEngine`` over the mesh answering full, hit and delta requests
-   against one over the ``mesh=None`` engine; the launches equal to the
-   ``mesh=None`` engine's.  (b) Four gloo ranks sharing the card, q = 4:
-   SGD epochs of 300 steps under ``two_tree`` and ``ring``, eager (gloo is
-   never captured), within 1e-5 of the ``mesh=None`` epoch, each rank's
-   ``vfl_grad`` launches one forward and one backward a step; the tree
-   replay (``schedule_faithful``) is held in the CPU tests, since gloo's
-   sends take host tensors, and the phase says so.  It runs last.
+   are built.  First the ring's survivor-rank counter stream on the card
+   against the CPU's (Philox words equal, normals within 1e-6).  (a)
+   ``PartyMesh(q=8, slots=cards)`` over NCCL, one rank a card (one on
+   this machine), on phase 7's data: SGD, SVRG and SAGA epochs of 2,000
+   steps of phase 7's schedule under ``off``, ``two_tree`` and ``ring``,
+   each step a replay of a CUDA graph that holds its collectives, under
+   no host sync, against the same epochs of the ``mesh=None`` engine: bit
+   for bit under ``off`` at one rank, within 1e-5 under the masked modes;
+   the deep SGD and SVRG epochs fresh and pipelined, a linear and a deep
+   delayed SGD epoch (500 steps), ``deep_objective`` and deep serving;
+   the six linear and four deep faulted and guarded epochs (250 steps on
+   phases 14-15's traces, NaN and Inf codes included; the telemetry's
+   flags equal); timed epochs of each engine; a ``ServeEngine`` over the
+   mesh answering full, hit and delta requests against one over the
+   ``mesh=None`` engine; the launches equal to the ``mesh=None``
+   engine's.  (b) Four gloo ranks sharing the card, q = 4: SGD epochs of
+   300 steps, deep SGD and delayed SGD epochs of 100, faulted, guarded
+   and deep guarded SGD epochs of 100 under ``two_tree`` and ``ring``,
+   eager (gloo is never captured), and one ``run_guarded_fused`` epoch
+   over the mesh, within 1e-5 of the ``mesh=None`` engine and runner,
+   each rank's ``vfl_grad`` launches as its steps imply; the tree replay
+   (``schedule_faithful``) is held in the CPU tests, since gloo's sends
+   take host tensors, and the phase says so.  It runs last.
 
 The ``vfl_grad`` source holds five kernel programs:
 ``vfl_forward_narrow`` (M <= 4, the linear path), ``vfl_forward_wide``
@@ -563,8 +571,9 @@ DECODE_P_TOL = 1e-4
 # and the optimiser state fit the card: (arch, layers, q, batch, seq).
 # granite-moe runs whole at 2 × 2,048 under remat (without it the τ = 4
 # ring's run ran out of the 80 GB: some 1.75 GB of saved activations a
-# layer)
-TRAIN_LM = (("falcon_mamba_7b", 4, 8, 4, 512),
+# layer); falcon at 2 layers, whose plain scan loop is host-bound (about
+# 1.5 s a remat step a layer)
+TRAIN_LM = (("falcon_mamba_7b", 2, 8, 4, 512),
             ("gemma3_4b", 6, 8, 2, 2048),
             ("granite_moe_1b_a400m", 24, 8, 2, 2048))
 # the configuration whose AdamW steps also run with remat=False, and the
@@ -2241,7 +2250,7 @@ def stale_phase(torch, dev, x, y, layout, first_sgd, fresh, log_):
     return res, expected
 
 
-DEEP_PREFIX = 500                # steps of the oracle and profiler runs
+DEEP_PREFIX = 250                # steps of the oracle and profiler runs
 # deep kind -> (multi-dominator, pipelined)
 DEEP_KINDS = {"fresh": (False, False), "multi": (True, False),
               "pipelined": (False, True), "multi_pipelined": (True, True)}
@@ -2710,7 +2719,7 @@ def deep_stale_phase(torch, dev, x, y, layout, fresh, log_):
     return res, expected
 
 
-FAULT_PREFIX = 500               # steps of the oracle and profiler runs
+FAULT_PREFIX = 250               # steps of the oracle and profiler runs
 FAULT_ALGOS = ("sgd", "svrg", "saga")
 FAULT_P_CORRUPT = 0.002          # a NaN or Inf partial per party and step
 # ridge SGD on phase 7's data diverges at lr = 0.1 and at 0.01 and holds at
@@ -5353,6 +5362,24 @@ DIST_DEEP_KINDS = ("deep_sgd", "deep_svrg", "deep_pipelined_sgd",
 DIST_GLOO_RANKS, DIST_GLOO_STEPS = 4, 300
 DIST_GLOO_DEEP_STEPS = 100       # 24(b)'s deep SGD and delayed epochs
 DIST_TIMEOUT = 300               # seconds a world may take
+# 24(a)'s faulted and guarded epochs: this prefix of phase 7's schedule on
+# the prefix of phases 14-15's random_trace(seed=0) windows (the guarded
+# one with its NaN and Inf codes: an Inf at step 104, a NaN at 222), at
+# phase 11's τ and seed-0 delays, from w = 0 and the deep start
+DIST_FAULT_STEPS = 250
+DIST_FAULT_KINDS = tuple(f"{k}_{a}" for k in ("faulted", "guarded")
+                         for a in ("sgd", "svrg", "saga")) \
+    + tuple(f"deep_{k}_{a}" for k in ("faulted", "guarded")
+            for a in ("sgd", "svrg"))
+DIST_FAULT_TIMED = ("faulted_sgd", "guarded_sgd", "deep_guarded_sgd")
+# 24(b)'s: 100 eager steps each of faulted, guarded and deep guarded SGD
+# on a q = 4 trace with more corruptions (a NaN or Inf partial per party
+# and step at 0.02), and one run_guarded_fused epoch of 100 steps
+DIST_GLOO_FAULT_STEPS, DIST_GLOO_P_CORRUPT = 100, 0.02
+DIST_GLOO_FAULT_KINDS = ("faulted_sgd", "guarded_sgd", "deep_guarded_sgd")
+# the counter stream's words on the card against the CPU's: counters and
+# normals of the ring's survivor-rank stream
+DIST_STREAM_BLOCKS, DIST_STREAM_NUMEL, DIST_STREAM_TOL = 65_536, 4_096, 1e-6
 
 
 def _dist_world(rank, world, backend, base, part):
@@ -5509,6 +5536,161 @@ def _dist_deep(torch, dev, e, flat, mode, world, lay, idx, key, rec,
             tally.update(n)
 
 
+def _dist_fault_windows(torch, dev, lay, steps, seed, p_corrupt, k):
+    """The first ``k`` columns of the faulted and the guarded (NaN and
+    Inf at ``p_corrupt``) ``random_trace`` windows of ``steps`` steps over
+    ``lay``, whole (q, k) device tensors, and phase 11's seed delays
+    (within the budget of both): ``{"faulted": [fwd, bwd, extra],
+    "guarded": [..., codes]}``, delays (q,)."""
+    from repro_torch.core import faults
+    from repro_torch.core import staleness as st
+    traces = {"faulted": faults.random_trace(lay, steps, seed=seed),
+              "guarded": faults.random_trace(lay, steps, seed=seed,
+                                             p_corrupt=p_corrupt,
+                                             corrupt_modes=("nan", "inf"))}
+    scheds = {name: tr.compile(lay.m) for name, tr in traces.items()}
+    delays = st.party_delay_values(lay, DIST_TAU, seed)
+    for sched in scheds.values():
+        faults._check_delay_budget(delays, sched, DIST_TAU)
+    out = {}
+    for name, sched in scheds.items():
+        win = sched.epoch(0, steps)
+        rows = list(win.party_rows())
+        if name == "guarded":
+            rows.append(win.corrupt_rows())
+        out[name] = [torch.from_numpy(a[:, :k].copy()).to(dev) for a in rows]
+    return out, torch.from_numpy(delays).to(dev).long()
+
+
+def _dist_fault_epoch(torch, e, kind, wins, delays, idx, key, pq):
+    """``kind``'s faulted or guarded epoch on engine ``e`` from w = 0
+    (SVRG from its full gradient, SAGA from its ``saga_init``) or the
+    deep start ``pq``, the engine's packed rows (SVRG from its
+    ``deep_full_gradient``), zeroed
+    rings at the engine's rows and step 0, on the engine's rows of the
+    whole channels ``wins`` and ``delays``.  Returns (every result
+    gathered over the model group, the gathered ``HealthStats`` or
+    None)."""
+    tau, lr = DIST_TAU, TRAIN_LR
+    guarded = "guarded" in kind
+    chans = [e.local(a) for a in wins["guarded" if guarded else "faulted"]]
+    kw = {"guard": True} if guarded else {}
+    fn = getattr(e, f"{kind}_epoch")
+    if kind.startswith("deep"):
+        head = (pq, pq, e.deep_full_gradient(pq, key)) \
+            if kind.endswith("svrg") else (pq,)
+        out = fn(*head, e.deep_delay_buffers(pq, tau), 0, e.local(delays),
+                 *chans, lr, idx, tau, key, **kw)
+        got = [e.gather(a) for a in (*out[0], *out[1])] + [out[2]]
+    else:
+        w0 = e.pack_w(torch.zeros(D, device=e.device))
+        head = (w0,)
+        if kind.endswith("svrg"):
+            head = (w0, w0, e.full_gradient(w0, key))
+        elif kind.endswith("saga"):
+            head = (w0, *e.saga_init(w0, key))
+        ring = torch.zeros((e.qloc, tau + 1, e.dp), device=e.device)
+        out = fn(*head, ring, 0, e.local(delays), *chans, lr, idx, tau, key,
+                 **kw)
+        n = 3 if kind.endswith("saga") else 1
+        got = [e.gather(a) for a in out[:n + 1]] + [out[n + 1]]
+    return got, ([e.gather(a) for a in out[-1]] if guarded else None)
+
+
+def _dist_hold_health(torch, rec, name, mode, world, got, want):
+    """Hold a guarded epoch's gathered telemetry to the ``mesh=None``
+    engine's: ``finite`` and ``alive`` equal; the norms' NaN and infinite
+    entries the same, and their finite entries bit for bit under ``off``
+    at one rank, else within ``DIST_TOL`` of the finite entries' scale."""
+    for field, a, b in zip(("finite", "alive"), got, want):
+        check(torch.equal(a, b), f"phase 24 {name} {mode}: {field} differs "
+              "from the mesh=None engine's")
+    for field, a, b in zip(("pnorm", "gnorm"), got[2:], want[2:]):
+        fin = b.isfinite()
+        check(torch.equal(a.isnan(), b.isnan())
+              and torch.equal(a.isinf(), b.isinf())
+              and torch.equal(a[b.isinf()], b[b.isinf()]),
+              f"phase 24 {name} {mode}: {field}'s non-finite entries differ")
+        a, b = torch.where(fin, a, 0.0), torch.where(fin, b, 0.0)
+        err = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+        rec[f"{name}_{field}_max_err"] = err
+        if mode == "off" and world == 1:
+            check(torch.equal(a, b), f"phase 24 {name} off: {field} not the "
+                  f"mesh=None engine's bits ({err:.3e})")
+        else:
+            check(err <= DIST_TOL, f"phase 24 {name} {mode}: {field} "
+                  f"{err:.3e} from the mesh=None engine")
+
+
+def _dist_faults(torch, dev, e, flat, mode, world, lay, idx, key, rec,
+                 tallies):
+    """24(a)'s faulted and guarded part of one mode: the six linear and
+    four deep faulted and guarded epochs of ``DIST_FAULT_KINDS``,
+    ``DIST_FAULT_STEPS`` steps each on phases 14-15's traces, under no
+    host sync, on the device-mesh engine ``e`` against the ``mesh=None``
+    engine ``flat`` (results, counter and telemetry); then a timed epoch
+    of each of ``DIST_FAULT_TIMED`` on each engine (graph replays).
+    ``tallies`` (mesh, flat) take each engine's launches."""
+    from repro_torch.core import deep_vfl
+    from repro_torch.kernels import vfl_grad as vg
+    p0 = deep_vfl.initial_params(SEED, lay, D, DEEP_HIDDEN, DEEP_DREP)
+    wins, delays = _dist_fault_windows(torch, dev, lay, N // TRAIN_BATCH,
+                                       SEED, FAULT_P_CORRUPT,
+                                       DIST_FAULT_STEPS)
+    fidx = idx[:DIST_FAULT_STEPS]
+    engines = ((e, e.pack_deep(p0), tallies[0]),
+               (flat, flat.pack_deep(p0), tallies[1]))
+    for kind in DIST_FAULT_KINDS:
+        out = []
+        for eng, pq, tally in engines:
+            with no_host_sync(torch):
+                got, n = _counted(vg, lambda: _dist_fault_epoch(
+                    torch, eng, kind, wins, delays, fidx, key, pq))
+            tally.update(n)
+            out.append(got)
+        (got, health), (want, ref_health) = out
+        check(int(got[-1]) == int(want[-1]) == DIST_FAULT_STEPS,
+              f"phase 24 {kind} {mode}: counter {int(got[-1])}")
+        _dist_hold(torch, rec, kind, mode, world, got, want)
+        if health is not None:
+            check(not bool((health[0] == 0).all()) and bool(
+                (health[0] == 0).any()), f"phase 24 {kind}: no quarantine")
+            _dist_hold_health(torch, rec, kind, mode, world, health,
+                              ref_health)
+    for name, (eng, pq, tally) in zip(("mesh", "flat"), engines):
+        for kind in DIST_FAULT_TIMED:
+            rec[f"{name}_{kind}_step_ms"], n = _counted(
+                vg, lambda: _timed_step_ms(torch, lambda: _dist_fault_epoch(
+                    torch, eng, kind, wins, delays, fidx, key, pq),
+                    DIST_FAULT_STEPS))
+            tally.update(n)
+
+
+def _dist_stream(torch, dev):
+    """The ring's survivor-rank counter stream on the card against the
+    CPU's: Philox's words on ``DIST_STREAM_BLOCKS`` random counters equal,
+    ``_counter_normal``'s normals of 8 rows within ``DIST_STREAM_TOL``;
+    returns the record."""
+    from repro_torch.core import secure_agg as sa
+    gen = torch.Generator().manual_seed(SEED)
+    ctr = torch.randint(0, 1 << 32, (4, DIST_STREAM_BLOCKS), generator=gen)
+    key = torch.tensor([*sa.key_words(SEED, 24), 7])
+    words = [sa._philox(ctr.to(d), key[:2].to(d)).cpu() for d in ("cpu", dev)]
+    fp, rows = torch.tensor(0x5A5A), torch.arange(8)
+    normals = [sa._counter_normal(key.to(d), fp.to(d), rows.to(d),
+                                  DIST_STREAM_NUMEL).cpu()
+               for d in ("cpu", dev)]
+    rec = {"words_equal": bool(torch.equal(*words)),
+           "normals_max_abs_err": float((normals[0] - normals[1])
+                                        .abs().max())}
+    check(rec["words_equal"], "phase 24: the counter stream's words on the "
+          "card differ from the CPU's")
+    check(rec["normals_max_abs_err"] <= DIST_STREAM_TOL,
+          f"phase 24: the counter stream's normals on the card "
+          f"{rec['normals_max_abs_err']:.3e} from the CPU's")
+    return rec
+
+
 def _counted(vg, fn):
     """``fn()`` and the vfl_grad launches it made."""
     before = dict(vg.KERNEL.launches)
@@ -5534,8 +5716,9 @@ def _dist_nccl(torch, dev):
     timed SGD epoch of each; serving (full, hit, delta) against a
     ``ServeEngine`` over the ``mesh=None`` engine; profiler windows over
     ``DIST_PROFILE_STEPS`` masked SGD steps of each engine; the deep and
-    bounded-delay part (``_dist_deep``).  Returns the rank's record, its
-    device-mesh launches apart."""
+    bounded-delay part (``_dist_deep``); the faulted and guarded part
+    (``_dist_faults``).  Returns the rank's record, its device-mesh
+    launches apart."""
     import torch.distributed as dist
     from repro_torch.core import algorithms as alg
     from repro_torch.core.algorithms import PartyLayout
@@ -5579,6 +5762,8 @@ def _dist_nccl(torch, dev):
                       f" from the mesh=None epoch")
         _dist_deep(torch, dev, e, flat, mode, world, lay, idx, key, rec,
                    (mesh_launches, flat_launches))
+        _dist_faults(torch, dev, e, flat, mode, world, lay, idx, key, rec,
+                     (mesh_launches, flat_launches))
         graphs = [lp.graph for lp in e._loops.values()]
         check(graphs and all(g is not None for g in graphs),
               f"phase 24(a) {mode}: an epoch ran uncaptured")
@@ -5634,13 +5819,18 @@ def _dist_gloo(torch, dev):
     ``DIST_GLOO_STEPS`` steps, then a deep SGD epoch and a delayed SGD
     epoch (τ = 4, seed-0 delays) of ``DIST_GLOO_DEEP_STEPS`` steps, on
     ``PartyMesh(q=4, slots=4)`` over gloo under ``two_tree`` and
-    ``ring``, eagerly (gloo is never captured); rank 0 holds the gathered
+    ``ring``, eagerly (gloo is never captured); then ``DIST_GLOO_FAULT_KINDS``
+    (faulted, guarded and deep guarded SGD, ``DIST_GLOO_FAULT_STEPS``
+    steps each, on a q = 4 trace's NaN and Inf codes: under ``ring`` the
+    survivor-rank stream across the processes) and, under ``ring``, one
+    ``run_guarded_fused`` epoch over the mesh; rank 0 holds the gathered
     results (every rank gathers the same) to the ``mesh=None`` engine's
-    on the card within ``DIST_TOL``.  Every rank launches ``vfl_grad`` on
-    the card for its own party."""
+    and runner's on the card within ``DIST_TOL``, the telemetry's flags
+    equal.  Every rank launches ``vfl_grad`` on the card for its own
+    party."""
     import torch.distributed as dist
     from repro_torch.core import algorithms as alg
-    from repro_torch.core import deep_vfl
+    from repro_torch.core import deep_vfl, faults
     from repro_torch.core import staleness as st
     from repro_torch.core.algorithms import PartyLayout
     from repro_torch.core.engine import EngineConfig, FusedEngine
@@ -5657,6 +5847,17 @@ def _dist_gloo(torch, dev):
     p0 = deep_vfl.initial_params(SEED, lay, D, DEEP_HIDDEN, DEEP_DREP)
     dly = torch.from_numpy(st.party_delay_values(lay, DIST_TAU, SEED)) \
         .to(dev).long()
+    fsteps = DIST_GLOO_FAULT_STEPS
+    fwins, fdly = _dist_fault_windows(torch, dev, lay, fsteps, SEED,
+                                      DIST_GLOO_P_CORRUPT, fsteps)
+    fidx = idx[:fsteps]
+    # the runner's epoch: fsteps minibatches of phase 7's first rows
+    nrun = fsteps * TRAIN_BATCH
+    run_kw = dict(tau=DIST_TAU, epochs=1, lr=TRAIN_LR, batch=TRAIN_BATCH,
+                  seed=SEED, device=dev)
+    run_trace = faults.random_trace(lay, fsteps, seed=SEED,
+                                    p_corrupt=DIST_GLOO_P_CORRUPT,
+                                    corrupt_modes=("nan", "inf"))
     res = {"world": world, "backend": pm.backend, "slot": pm.slot,
            "modes": {}}
     launches = Counter()
@@ -5687,6 +5888,22 @@ def _dist_gloo(torch, dev):
             rec[f"{kind}_eager_step_ms"] = \
                 (time.perf_counter() - t0) / DIST_GLOO_DEEP_STEPS * 1e3
             launches.update(n)
+        health = {}
+        for kind in DIST_GLOO_FAULT_KINDS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (got[kind], health[kind]), n = _counted(
+                vg, lambda: _dist_fault_epoch(torch, e, kind, fwins, fdly,
+                                              fidx, key, pq))
+            torch.cuda.synchronize()
+            rec[f"{kind}_eager_step_ms"] = \
+                (time.perf_counter() - t0) / fsteps * 1e3
+            launches.update(n)
+        if mode == "ring":
+            run, n = _counted(vg, lambda: faults.run_guarded_fused(
+                prob, x[:nrun], y[:nrun], lay, run_trace, engine_config=cfg,
+                mesh=pm, **run_kw))
+            launches.update(n)
         if pm.slot == 0:
             flat = FusedEngine(prob, x, y, lay, cfg, device=dev)
             want = {"sgd": [flat.sgd_epoch(
@@ -5696,6 +5913,27 @@ def _dist_gloo(torch, dev):
                 want[kind] = _dist_deep_epoch(torch, flat, kind,
                                               flat.pack_deep(p0), dly, didx,
                                               key)
+            for kind in DIST_GLOO_FAULT_KINDS:
+                want[kind], ref_health = _dist_fault_epoch(
+                    torch, flat, kind, fwins, fdly, fidx, key,
+                    flat.pack_deep(p0))
+                if ref_health is not None:
+                    check(bool((ref_health[0] == 0).any()),
+                          f"phase 24(b) {kind}: no quarantine")
+                    _dist_hold_health(torch, rec, kind, mode, world,
+                                      health[kind], ref_health)
+            if mode == "ring":
+                ref_w, ref_h = faults.run_guarded_fused(
+                    prob, x[:nrun], y[:nrun], lay, run_trace,
+                    engine_config=cfg, **run_kw)
+                for field, a, b in zip(("finite", "alive"), run[1], ref_h):
+                    check(np.array_equal(a, b), f"phase 24(b) "
+                          f"run_guarded_fused: {field} differs")
+                err = float(np.abs(run[0] - ref_w).max()) \
+                    / max(1.0, float(np.abs(ref_w).max()))
+                check(err <= DIST_TOL, f"phase 24(b) run_guarded_fused: "
+                      f"{err:.3e} from the mesh=None runner")
+                rec["run_guarded_fused_max_err"] = err
             for kind, ws in want.items():
                 err = max(float((a - b).abs().max())
                           for a, b in zip(got[kind], ws, strict=True))
@@ -5742,14 +5980,17 @@ def dist_phase(torch, dev, log_):
     spawned ranks (the kernels are built before they start, so a rank
     only loads the libraries).  (a) ``PartyMesh(q=8, slots=cards)`` over
     NCCL, one rank a card (``_dist_nccl``); (b) four gloo ranks sharing
-    the card, q = 4 (``_dist_gloo``).  Returns (record, the vfl_grad
-    launches of the device-mesh engines, summed over the ranks)."""
+    the card, q = 4 (``_dist_gloo``).  First the ring's counter stream
+    on the card against the CPU's (``_dist_stream``).  Returns (record,
+    the vfl_grad launches of the device-mesh engines, summed over the
+    ranks)."""
     from repro_torch.kernels import vfl_grad as vg
     vg.KERNEL.library()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     cards = torch.cuda.device_count()
-    res, launches = {}, Counter()
+    res, launches = {"stream": _dist_stream(torch, dev)}, Counter()
+    log_(f"phase 24: the counter stream on the card: {res['stream']}")
     t0 = time.perf_counter()
     ranks = _dist_run(torch, cards, "nccl", "a")
     res["a"] = {"seconds": time.perf_counter() - t0, "ranks": ranks}
@@ -5784,11 +6025,13 @@ def dist_phase(torch, dev, log_):
     t0 = time.perf_counter()
     ranks = _dist_run(torch, DIST_GLOO_RANKS, "gloo", "b")
     res["b"] = {"seconds": time.perf_counter() - t0, "ranks": ranks}
-    # per mode: the SGD and delayed SGD steps (one forward, one backward
-    # each) and the deep SGD steps (2 and 2)
-    per_mode = implied(steps=DIST_GLOO_STEPS + DIST_GLOO_DEEP_STEPS) \
-        + deep_implied(steps=DIST_GLOO_DEEP_STEPS)
-    want = per_mode + per_mode
+    # per mode: the SGD, delayed SGD, faulted SGD and guarded SGD steps
+    # (one forward, one backward each) and the deep SGD and deep guarded
+    # SGD steps (2 and 2); under ring the runner's guarded SGD steps
+    per_mode = implied(steps=DIST_GLOO_STEPS + DIST_GLOO_DEEP_STEPS
+                       + 2 * DIST_GLOO_FAULT_STEPS) \
+        + deep_implied(steps=DIST_GLOO_DEEP_STEPS + DIST_GLOO_FAULT_STEPS)
+    want = per_mode + per_mode + implied(steps=DIST_GLOO_FAULT_STEPS)
     for r in ranks:
         launches.update(r["launches"])
         check(r["launches"] == {p: want[p] for p in vg.PROGRAMS},

@@ -82,8 +82,12 @@ single-dominator, multi-dominator and pipelined forms with
 ``full_gradient``, ``saga_init`` and ``objective``; the bounded-delay
 linear and deep epochs in their four forms; the eight deep epochs with
 ``deep_full_gradient`` and ``deep_objective``; ``pack_deep`` and
-``unpack_deep``.  The faulted and guarded epochs and tracing raise
-``NotImplementedError`` there (ROADMAP A17b2).  Under NCCL an epoch is
+``unpack_deep``; the six linear and four deep faulted and guarded
+epochs, whose survivor aggregation is a membership form over the model
+group (``_agg_members``; the ring's masks from a counter stream on the
+loop's step key ``key``), with the fault channels, the rings, the delays
+and the telemetry the rank's rows.  Tracing raises
+``NotImplementedError`` there (ROADMAP A17b3).  Under NCCL an epoch is
 captured with its collectives as on one card; gloo is never captured:
 its steps run eagerly (its collectives on CUDA tensors go through the
 host), as the mesh's backend decides.  Every rank calls every entry
@@ -106,15 +110,19 @@ from repro_torch.core.algorithms import PartyLayout, last_occurrence
 from repro_torch.core.deep_vfl import DeepVFLParams
 from repro_torch.core.faults import HealthStats, apply_corruption
 from repro_torch.core.losses import Problem
-from repro_torch.core.secure_agg import (PartyStreams, mask_generator,
+from repro_torch.core.secure_agg import (PartyStreams, gather_flags_dist,
+                                         key_words, mask_generator,
                                          psum_dist, secure_psum,
                                          secure_psum_dist, secure_psum_hier,
                                          secure_psum_hier_dist,
                                          secure_psum_hier_members,
+                                         secure_psum_hier_members_dist,
                                          secure_psum_members,
+                                         secure_psum_members_dist,
                                          secure_psum_ring,
                                          secure_psum_ring_dist,
                                          secure_psum_ring_members,
+                                         secure_psum_ring_members_dist,
                                          seed_generator)
 from repro_torch.kernels import ops
 from repro_torch.kernels import vfl_grad as _vg
@@ -512,7 +520,7 @@ class FusedEngine:
         """Raise for an entry point that has no device-mesh form yet."""
         if self._dist is not None:
             raise NotImplementedError(
-                f"{what} on a device mesh is not ported (ROADMAP A17b2); "
+                f"{what} on a device mesh is not ported (ROADMAP A17b3); "
                 "run it on one device (PartyMesh without mesh=)")
 
     def _dsum(self, g):
@@ -661,7 +669,7 @@ class FusedEngine:
                                 mask_scale=cfg.mask_scale,
                                 schedule_faithful=cfg.schedule_faithful)
 
-    def _agg_members(self, z, gen: torch.Generator, alive):
+    def _agg_members(self, z, gen: torch.Generator, alive, key=None):
         """Survivor-aware masked aggregation (the faulted epochs'
         Algorithm 1) over the parties whose ``alive`` (q,) flag is set: the
         masks cancel over the survivors.  ``two_tree`` always lowers to the
@@ -669,8 +677,12 @@ class FusedEngine:
         fixed tree schedule is not membership-safe (a crashed party is a
         hole in it), while mask cancellation does not depend on the
         schedule.  A packed ``PartyMesh``: the two-level membership form,
-        each slot's any-alive flag its liveness across the slots."""
+        each slot's any-alive flag its liveness across the slots.  On a
+        device mesh: :meth:`_agg_members_dist`, ``key`` the step key of
+        the ring's counter stream."""
         cfg = self.cfg
+        if self._dist is not None:
+            return self._agg_members_dist(z, gen, alive, key)
         if cfg.secure == "off":
             return (alive.view(-1, *([1] * (z.dim() - 1))) * z).sum(0)
         if self._slots < self.q:
@@ -681,6 +693,29 @@ class FusedEngine:
             return secure_psum_ring_members(z, gen, alive,
                                             mask_scale=cfg.mask_scale)
         return secure_psum_members(z, gen, alive, mask_scale=cfg.mask_scale)
+
+    def _agg_members_dist(self, z, streams: PartyStreams, alive, key):
+        """:meth:`_agg_members` over the model group, ``z`` and ``alive``
+        the rank's (qloc, ...) and (qloc,) rows: the survivors' plain sum
+        (``off``); flat, the rank's party masked from its own stream
+        (``two_tree``) or from the counter stream on the step key ``key``
+        at its rank among the survivors, the alive vector gathered over
+        the ranks (``ring``); packed, the two-level membership form.
+        Every rank enters every collective, a rank whose parties are all
+        dead with zeros."""
+        cfg, grp = self.cfg, self._mgroup
+        if cfg.secure == "off":
+            return psum_dist((alive.view(-1, *([1] * (z.dim() - 1))) * z)
+                             .sum(0), grp)
+        if self._slots < self.q:
+            return secure_psum_hier_members_dist(
+                z, streams, alive, grp, cfg.mask_scale, mode=cfg.secure,
+                key=key)
+        if cfg.secure == "ring":
+            return secure_psum_ring_members_dist(
+                z[0], key, gather_flags_dist(alive, grp), grp, cfg.mask_scale)
+        return secure_psum_members_dist(z[0], streams.own[0], alive[0], grp,
+                                        cfg.mask_scale)
 
     # -- running an epoch ----------------------------------------------------
 
@@ -702,6 +737,9 @@ class FusedEngine:
                                     device=self.device)
             bufs["lr"] = torch.zeros((), dtype=torch.float32,
                                      device=self.device)
+            if self._dist is not None:
+                bufs["key"] = torch.zeros((2,), dtype=torch.int64,
+                                          device=self.device)
             loop = self._loops[key] = _StepLoop(bufs)
         b = loop.bufs
         for k, v in carries.items():
@@ -709,6 +747,9 @@ class FusedEngine:
         b["idx"].copy_(idx)
         b["t"].zero_()
         b["lr"].fill_(float(lr))
+        if "key" in b:              # filled in on the device, as lr is
+            for i, w in enumerate(key_words(*mask_key, _TAG_STEPS)):
+                b["key"][i].fill_(w)
         self._reseed(*mask_key, _TAG_STEPS)
         return loop
 
@@ -1355,14 +1396,20 @@ class FusedEngine:
         return b["chan"].index_select(2, t).squeeze(2), \
             b["idx"].index_select(0, t).squeeze(0)
 
+    def _step_key(self, b):
+        """The ring's step key on a device mesh: the loop's key words and
+        the step counter ``t``, (3,) int64 on the device (None on one
+        device)."""
+        return torch.cat([b["key"], b["t"]]) if "key" in b else None
+
     def _guard_fwd(self, z, code, live, guard: bool):
-        """Corrupt each party's partial (q, ...) by its code, take the
+        """Corrupt each party's partial (qloc, ...) by its code, take the
         per-party finiteness verdict and, under ``guard``, quarantine: a
         non-finite partial is zeroed by ``where`` (0·NaN is NaN) and its
         party leaves the step's forward alive set.  Returns (the shipped
         partials, the liveness, the healthy flags, max |·| of each
         corrupted partial)."""
-        shape = (self.q,) + (1,) * (z.dim() - 1)
+        shape = (self.qloc,) + (1,) * (z.dim() - 1)
         z = apply_corruption(z, code.view(shape))
         healthy = torch.isfinite(z).flatten(1).all(1).float()
         pnorm = z.abs().flatten(1).amax(1)
@@ -1382,7 +1429,7 @@ class FusedEngine:
         live = ch[0]
         if guard is not None:
             z, live, healthy, pnorm = self._guard_fwd(z, ch[2], live, guard)
-        agg = self._agg_members(z, self._gen, live)
+        agg = self._agg_members(z, self._gen, live, self._step_key(b))
         th, denom, aux = parts.theta(b, agg, ib, self.y.index_select(0, ib))
         v = parts.apply(b, self._bwd(xb, th, denom),
                         (aux, ch[1], ch[3].long()))
@@ -1394,15 +1441,16 @@ class FusedEngine:
     def _fault_channels(self, delays, fwdq, bwdq, extraq, corruptq,
                         steps: int, guard, carries):
         """Stack an epoch's fault channels into the loop buffer ``chan``
-        (4, q, steps) and, for a guarded epoch, add the zeroed health
+        (4, qloc, steps) and, for a guarded epoch, add the zeroed health
         buffer to ``carries``."""
+        self._check_rows("delays", delays)
         chan = torch.stack(torch.broadcast_tensors(*(
             self._carry(a).float() for a in (
                 fwdq, bwdq, corruptq,
                 self._carry(delays)[:, None] + self._carry(extraq)))))
-        if chan.shape[1:] != (self.q, steps):
+        if chan.shape[1:] != (self.qloc, steps):
             raise ValueError(f"fault channels {tuple(chan.shape[1:])} != "
-                             f"(q, steps) = ({self.q}, {steps})")
+                             f"(party rows, steps) = ({self.qloc}, {steps})")
         carries["chan"] = chan
         if guard is not None:
             carries["health"] = torch.zeros_like(chan)
@@ -1411,9 +1459,9 @@ class FusedEngine:
                  lr, idx, tau, mask_key, **carries):
         """Run one faulted (``guard`` None) or guarded epoch of ``algo``;
         returns the state, the counter as a 0-d int64 device tensor, and
-        (guarded) the epoch's ``HealthStats`` of (q, steps) device
+        (guarded) the epoch's ``HealthStats`` of (qloc, steps) device
         tensors."""
-        self._local_only("the faulted and guarded epochs")
+        self._check_rows("bufq", carries["bufq"])
         if carries["bufq"].shape[1] != tau + 1:
             raise ValueError(f"bufq holds {carries['bufq'].shape[1]} ring "
                              f"slots; tau={tau} needs {tau + 1}")
@@ -1904,7 +1952,7 @@ class FusedEngine:
                 z, live, healthy, pnorm = self._guard_fwd(z, ch[2], live,
                                                           guard)
                 stats.extend((healthy, pnorm))
-            return self._agg_members(z, self._gen, live)
+            return self._agg_members(z, self._gen, live, self._step_key(b))
 
         hs, aggv = self._deep_acts(
             b, self._fwd(xb, self._deep_cols(b, dk.sides)), dk.sides, True,
@@ -1925,7 +1973,7 @@ class FusedEngine:
                       muq=None):
         """Run one deep faulted (``guard`` None) or guarded epoch; returns
         ``(pq, bufq, t0 + steps)`` and, guarded, the ``HealthStats``."""
-        self._local_only("the deep faulted and guarded epochs")
+        self._check_rows("bufq", bufq[0])
         if bufq[0].shape[1] != tau + 1:
             raise ValueError(f"bufq holds {bufq[0].shape[1]} ring slots; "
                              f"tau={tau} needs {tau + 1}")

@@ -667,7 +667,13 @@ def _fused_run(problem, x, y, layout, trace, tau, epochs, lr, batch, algo,
     """The fused runners' shared loop; ``guard`` None runs the faulted
     epochs.  The state — iterate, ring, counter (SAGA's table and
     average, the guarded telemetry so far) — is checkpointed after every
-    epoch."""
+    epoch.  On a device mesh the engine holds the rank's rows of the
+    state, the delays and each window's channels (``eng.local``), each
+    epoch's telemetry is gathered over the model group, and a checkpoint
+    holds the whole gathered state, written by the rank of model slot 0
+    and data index 0 (a barrier follows); a resume loads it on every rank
+    and slices the rank's rows, so one bundle resumes a run on any
+    mesh."""
     from repro_torch.checkpoint import ckpt  # looked up at call time
     from repro_torch.core.engine import EngineConfig, FusedEngine  # cycle
 
@@ -680,30 +686,42 @@ def _fused_run(problem, x, y, layout, trace, tau, epochs, lr, batch, algo,
     cfg = engine_config if engine_config is not None else EngineConfig()
     eng = FusedEngine(problem, x, y, layout, cfg, active_only=active_only,
                       mesh=mesh, device=device)
-    eng._local_only("the faulted and guarded runners")
     dev = eng.device
-    dq = torch.from_numpy(delays_q).to(dev).long()
+
+    def rows_of(a):                 # the rank's rows of a whole (q, ...)
+        return eng.local(torch.from_numpy(np.asarray(a)).to(dev))
+
+    rows_keys = ("wq", "bufq", "tabq", "avgq")   # party-stacked state
+    dq = rows_of(delays_q).long()
     st = {"wq": eng.pack_w(np.zeros(d, np.float32)),
-          "bufq": torch.zeros((layout.q, tau + 1, eng.dp), device=dev),
+          "bufq": torch.zeros((eng.qloc, tau + 1, eng.dp), device=dev),
           "t0": torch.zeros((), dtype=torch.int64, device=dev)}
     if algo == "saga":
         st["tabq"], st["avgq"] = eng.saga_init(st["wq"], (seed,))
     if guard is not None:
         st["health"] = HealthStats(*(np.zeros((layout.q, horizon * steps),
                                               np.float32) for _ in range(4)))
+
+    def whole(state):               # the gathered state, as on one device
+        return {k: eng.gather(v) if k in rows_keys else v
+                for k, v in state.items()}
+
     ep0 = 0
     if resume_from is not None:
-        loaded = ckpt.load_checkpoint(resume_from, st)
+        loaded = ckpt.load_checkpoint(resume_from, whole(st))
         ep0 = ckpt.checkpoint_step(resume_from)
-        st = {k: (HealthStats(*v) if k == "health"
-                  else torch.from_numpy(v).to(dev)) for k, v in loaded.items()}
+        st = {k: (HealthStats(*v) if k == "health" else rows_of(v)
+                  if k in rows_keys else torch.from_numpy(v).to(dev))
+              for k, v in loaded.items()}
+    writer = eng._dist is None or (eng._dist.slot == 0
+                                   and eng._dist.data_index == 0)
     kind = "faulted" if guard is None else "guarded"
     for ep in range(ep0, epochs):
         win = sched.epoch(ep, steps)
-        rows = [torch.from_numpy(a).to(dev) for a in win.party_rows()]
+        rows = [rows_of(a) for a in win.party_rows()]
         kw = {}
         if guard is not None:
-            rows.append(torch.from_numpy(win.corrupt_rows()).to(dev))
+            rows.append(rows_of(win.corrupt_rows()))
             kw["guard"] = guard
         idx = epoch_indices(seed, ep, n, batch, steps, dev)
         key = (seed, ep)
@@ -723,10 +741,15 @@ def _fused_run(problem, x, y, layout, trace, tau, epochs, lr, batch, algo,
         if guard is not None:
             sl = slice(ep * steps, (ep + 1) * steps)
             for dst, src in zip(st["health"], out[-1]):
-                dst[:, sl] = _host(src)
+                dst[:, sl] = _host(eng.gather(src))
         if checkpoint_dir is not None:
-            ckpt.save_checkpoint(checkpoint_dir, st, step=ep + 1,
-                                 keep_last=keep_last)
+            bundle = whole(st)
+            if writer:
+                ckpt.save_checkpoint(checkpoint_dir, bundle, step=ep + 1,
+                                     keep_last=keep_last)
+            if eng._dist is not None:
+                import torch.distributed as dist
+                dist.barrier()      # no rank reads a bundle before it is
     w = eng.unpack_w(st["wq"])
     return w if guard is None else (w, st["health"])
 
@@ -753,8 +776,10 @@ def run_faulted_fused(problem: Problem, x, y, layout: PartyLayout, trace,
     killed run resumes from the last epoch boundary bit for bit, since
     each epoch is a function of that state and ``(seed, ep)``.  ``mesh=``
     (a ``PartyMesh`` on this one device) routes the survivor aggregation
-    through the two-level membership form.  Returns the final (d,)
-    iterate."""
+    through the two-level membership form; a ``PartyMesh`` over a
+    ``torch.distributed`` device mesh runs the epochs across its ranks,
+    each holding its slot's rows, and every rank calls the runner and
+    gets the whole iterate.  Returns the final (d,) iterate."""
     return _fused_run(problem, x, y, layout, trace, tau, epochs, lr, batch,
                       algo, seed, delays_q, engine_config, active_only, mesh,
                       checkpoint_dir, resume_from, keep_last, horizon_epochs,

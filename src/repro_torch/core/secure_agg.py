@@ -57,9 +57,17 @@ the generators of a :class:`PartyStreams` seeded per party — the
 counterpart of the reference's ``fold_in(key, axis_index)``.  A ``psum``
 is an ``all_reduce``, a tree round a ``batch_isend_irecv`` of its pairs.
 The ring's r_prev, the mask of the party before, comes from that party's
-stream: the one stream a member holds that is not its own.  The ring's
-membership form picks its predecessor by the survivors, a choice made on
-the device, so it has no process-group form here.
+stream: the one stream a member holds that is not its own.
+
+The ring's membership form over a process group
+(``secure_psum_ring_members_dist``) picks a survivor's predecessor by the
+survivors, a choice made on the device at every step, so its masks come
+from a counter-based stream keyed by device data instead of a generator:
+``_counter_normal``, Philox-4x32-10 in plain torch integer ops, keyed by
+the step key, the fingerprint of the gathered alive vector and the
+survivor's rank r.  A member draws exactly two rows of it, r and
+(r − 1) mod n_alive (``_ring_member_mask``), the reference's
+``fold_in(fold_in(key, fingerprint), rank)``.
 
 Re-keying: the reference folds the alive-set fingerprint
 (``_alive_fingerprint``) into the step's threefry key, so that no mask
@@ -67,7 +75,7 @@ stream of one membership set is reused under another.  The port cannot
 re-seed a generator from device data inside a captured step; instead
 every aggregation draws its masks fresh from the step's generator, so one
 step's masks serve exactly one membership set and no draw is ever used
-twice.
+twice.  The counter stream re-keys on membership as the reference does.
 """
 from __future__ import annotations
 
@@ -668,17 +676,168 @@ def secure_psum_hier_dist(partial: torch.Tensor, streams: PartyStreams,
 def secure_psum_hier_members_dist(partial: torch.Tensor,
                                   streams: PartyStreams,
                                   alive: torch.Tensor, group,
-                                  mask_scale: float = 1.0) -> torch.Tensor:
-    """Membership-safe two-level two-tree aggregation over ``group``:
-    level 1 gates each of the slot's parties by its ``alive`` (pps,) flag,
-    level 2 the slot's sum by its any-alive flag, so an all-dead slot adds
-    neither value nor mask."""
+                                  mask_scale: float = 1.0,
+                                  mode: str = "two_tree",
+                                  key: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """Membership-safe two-level aggregation over ``group``: level 1
+    gates each of the slot's parties by its ``alive`` (pps,) flag, level
+    2 the slot's sum by its any-alive flag, so an all-dead slot adds
+    neither value nor mask.  ``"two_tree"``: both levels the masked-psum
+    form.  ``"ring"``: level 1 a sub-ring over the slot's survivors, each
+    masking with its own stream's draw less its predecessor's (the
+    survivor of the rank before, found by a device index), level 2
+    :func:`secure_psum_ring_members_dist` across the slots on the step
+    key ``key``."""
     out_dtype = partial.dtype
     partial = partial.float()
     live = _live(alive, partial)
-    delta = mask_scale * _draws(partial.shape[1:], streams.own,
-                                partial.device)
+    draws = _draws(partial.shape[1:], streams.own, partial.device)
+    slot_alive = alive.float().amax().clamp_max(1.0).view(1)
+    if mode == "ring":
+        av = (alive > 0).long()
+        rank = torch.cumsum(av, 0) - av
+        prev = (rank - 1) % av.sum().clamp_min(1)
+        # party i's predecessor: the survivor whose rank is prev[i]
+        pred = ((rank[None, :] == prev[:, None]) & (av[None, :] > 0)) \
+            .long().argmax(1)
+        delta = mask_scale * (draws - draws.index_select(0, pred))
+        z_slot = (live * (partial + delta)).sum(0)
+        return secure_psum_ring_members_dist(
+            z_slot, key, gather_flags_dist(slot_alive, group), group,
+            mask_scale).to(out_dtype)
+    delta = mask_scale * draws
     z_slot = (live * (partial + delta)).sum(0) - (live * delta).sum(0)
-    slot_alive = alive.float().sum().clamp_max(1.0)
-    return secure_psum_members_dist(z_slot, streams.slot_gen, slot_alive,
+    return secure_psum_members_dist(z_slot, streams.slot_gen, slot_alive[0],
                                     group, mask_scale).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# the ring's survivor-rank stream over a process group
+# ---------------------------------------------------------------------------
+#
+# Philox-4x32-10 (Salmon et al., SC'11) on int64 tensors holding 32-bit
+# words: each 32 x 32-bit product is formed from 16-bit limbs, so no
+# intermediate reaches 2^35 (torch's signed overflow is not a contract).
+# The words are the same on every device; the Box–Muller step runs in
+# float64 and rounds to float32 once, so a device's normals lie within
+# float32 rounding of another's.
+
+_M32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)    # the round multipliers
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)    # the key schedule's increments
+_PHILOX_ROUNDS = 10
+
+
+def key_words(*key) -> Tuple[int, int]:
+    """Two 32-bit words from the ints ``key`` (as :func:`seed_generator`
+    seeds a generator): the counter stream's key, to be filled into a
+    device buffer."""
+    w = np.random.SeedSequence([int(k) for k in key]).generate_state(
+        2, np.uint32)
+    return int(w[0]), int(w[1])
+
+
+def _pair_const(vals, like: torch.Tensor) -> torch.Tensor:
+    """(2, 1) int64 of two constants, made by device arithmetic (no host
+    copy, so a captured step can make it)."""
+    a, b = vals
+    return (torch.arange(2, device=like.device, dtype=torch.int64) * (b - a)
+            + a).view(2, 1)
+
+
+def _philox(ctr: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Philox-4x32-10 of the counters ``ctr`` (4, k) under the key words
+    ``key`` (2,), both int64 tensors of 32-bit words; returns (4, k)."""
+    m = _pair_const(_PHILOX_M, ctr)
+    m_hi, m_lo = m >> 16, m & 0xFFFF
+    w = _pair_const(_PHILOX_W, ctr)
+    k = (key & _M32).view(2, 1)
+    x = ctr
+    for _ in range(_PHILOX_ROUNDS):
+        a = x[0::2]                                  # words 0 and 2
+        a_hi, a_lo = a >> 16, a & 0xFFFF
+        mid = a_hi * m_lo + a_lo * m_hi              # < 2^33
+        t = a_lo * m_lo + ((mid & 0xFFFF) << 16)     # < 2^33
+        lo = t & _M32
+        hi = a_hi * m_hi + (mid >> 16) + (t >> 32)
+        # (hi1 ^ x1 ^ k0, lo1, hi0 ^ x3 ^ k1, lo0)
+        even = hi.flip(0) ^ x[1::2] ^ k
+        x = torch.stack((even, lo.flip(0)), 1).view(4, -1)
+        k = (k + w) & _M32
+    return x
+
+
+def _counter_normal(key: torch.Tensor, fp: torch.Tensor, rows: torch.Tensor,
+                    numel: int) -> torch.Tensor:
+    """(len(rows), numel) float32 standard normals: row i is the stream
+    of counter (j, rows[i], fp, key[2]) under the key words key[:2], four
+    normals per counter block j (Box–Muller on its four words).  ``key``
+    is an int64 device tensor of three 32-bit words (the step key),
+    ``fp`` the 0-d fingerprint, ``rows`` int64 (k,).  Device ops only."""
+    nb = (numel + 3) // 4
+    k = rows.shape[0]
+    j = torch.arange(nb, device=rows.device, dtype=torch.int64)
+    ctr = torch.stack([j.expand(k, nb), (rows & _M32)[:, None].expand(k, nb),
+                       (fp.long() & _M32).expand(k, nb),
+                       (key[2] & _M32).expand(k, nb)]).view(4, -1)
+    words = _philox(ctr, key[:2]).view(4, k, nb)
+    u = ((words >> 8).double() + 0.5) * 2.0 ** -24           # in (0, 1)
+    rad = torch.sqrt(-2.0 * torch.log(u[0::2]))               # (2, k, nb)
+    ang = (2.0 * np.pi) * u[1::2]
+    z = torch.stack((rad * torch.cos(ang), rad * torch.sin(ang)))
+    return z.permute(2, 3, 1, 0).reshape(k, 4 * nb)[:, :numel].float()
+
+
+def _ring_member_mask(key: torch.Tensor, alive_all: torch.Tensor,
+                      rows: torch.Tensor, shape) -> torch.Tensor:
+    """The ring masks (len(rows), *shape) of the members ``rows`` (int64
+    positions in ``alive_all``): the member of survivor rank r (an
+    exclusive cumsum of the alive vector) draws R[r] − R[(r − 1) mod
+    n_alive] from :func:`_counter_normal` keyed by ``key`` and the
+    fingerprint of ``alive_all``, so the masks cancel over the survivors
+    for any survivor count (a lone survivor's two rows coincide: 0).  A
+    dead member's mask is computed all the same; the caller gates it.  No
+    collective."""
+    av = (alive_all > 0).long()
+    rank = torch.cumsum(av, 0) - av
+    r = rank.index_select(0, rows)
+    prev = (r - 1) % av.sum().clamp_min(1)
+    numel = int(np.prod(shape, dtype=np.int64))
+    draws = _counter_normal(key, _alive_fingerprint(av), torch.cat([r, prev]),
+                            numel)
+    n = rows.shape[0]
+    return (draws[:n] - draws[n:]).view(n, *shape)
+
+
+def gather_flags_dist(flags: torch.Tensor, group) -> torch.Tensor:
+    """Every member's ``flags`` (k,) side by side over ``group``, (k·n,)
+    float32: an ``all_reduce`` of a zero vector holding this member's flags
+    at its own positions."""
+    import torch.distributed as dist
+    k = flags.shape[0]
+    me = dist.get_group_rank(group, dist.get_rank())
+    full = torch.zeros(k * dist.get_world_size(group), dtype=torch.float32,
+                       device=flags.device)
+    full.narrow(0, me * k, k).copy_(flags)
+    dist.all_reduce(full, group=group)
+    return full
+
+
+def secure_psum_ring_members_dist(partial: torch.Tensor, key: torch.Tensor,
+                                  alive_all: torch.Tensor, group,
+                                  mask_scale: float = 1.0) -> torch.Tensor:
+    """:func:`secure_psum_ring_members` over ``group``: ``alive_all`` (n,)
+    is every member's flag (:func:`gather_flags_dist`); this member masks
+    its ``partial`` with :func:`_ring_member_mask`'s two rows of the
+    counter stream on the step key ``key`` and sends it gated by its own
+    flag, one ``all_reduce``; returns the survivor sum on every member.
+    Every member enters the collective, a dead one with zeros."""
+    import torch.distributed as dist
+    out_dtype = partial.dtype
+    partial = partial.float()
+    me = dist.get_group_rank(group, dist.get_rank())
+    rows = torch.full((1,), me, dtype=torch.int64, device=partial.device)
+    delta = _ring_member_mask(key, alive_all, rows, partial.shape)[0]
+    masked = alive_all[me] * (partial + mask_scale * delta)
+    return psum_dist(masked, group).to(out_dtype)

@@ -55,7 +55,7 @@ party 0's block, which only the rank of slot 0 holds: that rank
 computes the answer and broadcasts it over the model group.  Every rank
 calls ``serve`` with the same ids, and ``set_deep_params`` with
 ``DeepVFLParams`` or its own rows of them (``FusedEngine.pack_deep``).
-The program probes raise there (ROADMAP A17b2).
+The program probes raise there (ROADMAP A17b3).
 
 Where the port differs in mechanism (not in result)
 ---------------------------------------------------

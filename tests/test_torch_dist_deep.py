@@ -242,6 +242,9 @@ def _rank(rank, world, kind, base):
         dist.barrier()          # no rank leaves while another still sends
     finally:
         dist.destroy_process_group()
+    # leave without the interpreter's teardown: a gloo thread still
+    # joinable there can abort a rank whose record is already written
+    os._exit(0)
 
 
 # ---------------------------------------------------------------------------

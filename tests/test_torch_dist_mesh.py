@@ -177,25 +177,29 @@ def _errors(dm, eng, cfg, idx):
     z = torch.zeros(eng.qloc, 3, dp)
     pq = (torch.zeros(eng.qloc, dp, 2), torch.zeros(eng.qloc, 2),
           torch.zeros(eng.qloc, 2, 2), torch.zeros(eng.qloc, 2))
-    # a fault trace's channels: forward and backward liveness, straggle,
-    # corrupt codes
+    # a fault trace's channels (forward and backward liveness, straggle,
+    # corrupt codes), whole (q, steps) and the rank's (qloc, steps) rows
     chan = (np.ones((q, len(idx))), np.ones((q, len(idx))),
             np.zeros((q, len(idx))), np.zeros((q, len(idx))))
+    mine = tuple(eng.local(torch.from_numpy(a)) for a in chan)
+    rings = eng.deep_delay_buffers(pq, 2)
     calls = {
         "model_size": lambda: PartyMesh(q=q, slots=2, mesh=dm),
         "data_size": lambda: PartyMesh(q=q, slots=q, data_shards=2,
                                        mesh=dm),
         "pods": lambda: PartyMesh(q=q, slots=q, pods=2, mesh=dm),
+        # whole channels, a whole ring, whole rings, whole delays fed to a
+        # rank that holds qloc rows
         "guarded": lambda: eng.guarded_sgd_epoch(
-            wq, z, 0, [0] * q, *chan, 0.1, idx, 2),
+            wq, z, 0, [0] * eng.qloc, *chan, 0.1, idx, 2),
         "faulted": lambda: eng.faulted_sgd_epoch(
-            wq, z, 0, [0] * q, *chan[:3], 0.1, idx, 2),
-        "deep_faulted": lambda: eng.deep_faulted_sgd_epoch(
-            pq, eng.deep_delay_buffers(pq, 2), 0, [0] * q, *chan[:3], 0.1,
+            wq, torch.zeros(q, 3, dp), 0, [0] * eng.qloc, *mine[:3], 0.1,
             idx, 2),
+        "deep_faulted": lambda: eng.deep_faulted_sgd_epoch(
+            pq, tuple(torch.zeros(q, *r.shape[1:]) for r in rings), 0,
+            [0] * eng.qloc, *mine[:3], 0.1, idx, 2),
         "deep_guarded": lambda: eng.deep_guarded_sgd_epoch(
-            pq, eng.deep_delay_buffers(pq, 2), 0, [0] * q, *chan, 0.1, idx,
-            2),
+            pq, rings, 0, [0] * q, *mine, 0.1, idx, 2),
         "tracing": lambda: eng.sgd_epoch_graph(wq, 0.1, idx),
         "serve_probe": lambda: ServeEngine(eng, device="cpu")
         .serve_full_graph(),
@@ -336,6 +340,9 @@ def _rank(rank, world, kind, base):
         dist.barrier()          # no rank leaves while another still sends
     finally:
         dist.destroy_process_group()
+    # leave without the interpreter's teardown: a gloo thread still
+    # joinable there can abort a rank whose record is already written
+    os._exit(0)
 
 
 # ---------------------------------------------------------------------------
@@ -669,17 +676,21 @@ def test_membership_forms_cancel_over_the_survivors(runs, world):
     ("model_size", "ValueError", "'model' dimension of size 2"),
     ("data_size", "ValueError", "'data' dimension of size 2"),
     ("pods", "ValueError", "'pod' dimension of size 2"),
-    ("guarded", "NotImplementedError", "A17b2"),
-    ("faulted", "NotImplementedError", "A17b2"),
-    ("deep_faulted", "NotImplementedError", "A17b2"),
-    ("deep_guarded", "NotImplementedError", "A17b2"),
-    ("tracing", "NotImplementedError", "A17b2"),
-    ("serve_probe", "NotImplementedError", "A17b2"),
+    ("guarded", "ValueError", r"fault channels \(4, 8\) != \(party rows"),
+    ("faulted", "ValueError", "bufq holds 4 party rows; this engine holds 1"),
+    ("deep_faulted", "ValueError",
+     "bufq holds 4 party rows; this engine holds 1"),
+    ("deep_guarded", "ValueError",
+     "delays holds 4 party rows; this engine holds 1"),
+    ("tracing", "NotImplementedError", "A17b3"),
+    ("serve_probe", "NotImplementedError", "A17b3"),
     ("nccl_backend", "ValueError", "not the requested 'nccl'"),
     ("cuda_device", "RuntimeError", "is_available"),
 ])
 def test_device_mesh_errors(runs, name, exc, match):
     """A mesh whose model or data size is not the ``PartyMesh``'s raises
+    ``ValueError``; a faulted or guarded epoch fed whole (q, ...)
+    channels, rings or delays on a rank of qloc rows raises
     ``ValueError``; an entry point outside the slice raises
     ``NotImplementedError`` naming its ROADMAP item; a device mesh is
     never built on another backend or device than the one asked for."""

@@ -584,9 +584,8 @@ def test_runner_checks(ds, layout, prob, traces):
                                      **dict(kw, epochs=1))
     # mesh= takes a PartyMesh; anything else is refused, and so is a
     # PartyMesh over anything but a torch.distributed DeviceMesh (on a
-    # real device mesh the faulted and guarded epochs, and these runners,
-    # raise NotImplementedError naming ROADMAP A17b2,
-    # tests/test_torch_dist_mesh.py)
+    # real device mesh these runners run across the ranks,
+    # tests/test_torch_dist_faults.py)
     with pytest.raises(TypeError, match="PartyMesh"):
         faults.run_guarded_fused(prob, x, y, layout, tr, mesh=object(),
                                  **kw)
