@@ -417,14 +417,23 @@ JAX or of the JAX package.
    flags equal); timed epochs of each engine; a ``ServeEngine`` over the
    mesh answering full, hit and delta requests against one over the
    ``mesh=None`` engine; the launches equal to the ``mesh=None``
-   engine's.  (b) Four gloo ranks sharing the card, q = 4: SGD epochs of
-   300 steps, deep SGD and delayed SGD epochs of 100, faulted, guarded
+   engine's; under ``ring``, every kind it ran traced once more on the
+   mesh (``FusedEngine.tracing``: the rank's own program, its
+   collectives c10d nodes), each traced step's ``repro_torch.vfl_grad``
+   nodes equal to the launches one replay of that kind's captured step
+   makes.  (b) Four gloo ranks sharing the card, q = 4: SGD epochs of
+   100 steps, deep SGD and delayed SGD epochs of 100, faulted, guarded
    and deep guarded SGD epochs of 100 under ``two_tree`` and ``ring``,
    eager (gloo is never captured), and one ``run_guarded_fused`` epoch
    over the mesh, within 1e-5 of the ``mesh=None`` engine and runner,
-   each rank's ``vfl_grad`` launches as its steps imply; the tree replay
-   (``schedule_faithful``) is held in the CPU tests, since gloo's sends
-   take host tensors, and the phase says so.  It runs last.
+   each rank's ``vfl_grad`` launches as its steps imply; then the quick
+   device-mesh lint (``repro_torch.analysis.mesh.lint_world``: the flat
+   world's quick entries under ``off``, ``two_tree`` and ``ring``, each
+   rank tracing its own programs on the card), gathered and held to the
+   committed manifest: taint codes, ring verdicts, host transfers, the
+   released answers, the per-rank collective volume and the census; the
+   tree replay (``schedule_faithful``) is held in the CPU tests, since
+   gloo's sends take host tensors, and the phase says so.  It runs last.
 
 The ``vfl_grad`` source holds five kernel programs:
 ``vfl_forward_narrow`` (M <= 4, the linear path), ``vfl_forward_wide``
@@ -5359,9 +5368,10 @@ DIST_DEEP_STEPS, DIST_TAU = 500, STALE_TAU
 DIST_DEEP_KINDS = ("deep_sgd", "deep_svrg", "deep_pipelined_sgd",
                    "deep_pipelined_svrg", "delayed_sgd", "deep_delayed_sgd")
 # 24(b): four gloo ranks sharing the card, one party each, eager steps
-DIST_GLOO_RANKS, DIST_GLOO_STEPS = 4, 300
+DIST_GLOO_RANKS, DIST_GLOO_STEPS = 4, 100
 DIST_GLOO_DEEP_STEPS = 100       # 24(b)'s deep SGD and delayed epochs
 DIST_TIMEOUT = 300               # seconds a world may take
+DIST_TAG_CALLS = 20000           # 24(b): trace_tag enters timed
 # 24(a)'s faulted and guarded epochs: this prefix of phase 7's schedule on
 # the prefix of phases 14-15's random_trace(seed=0) windows (the guarded
 # one with its NaN and Inf codes: an Inf at step 104, a NaN at 222), at
@@ -5691,6 +5701,47 @@ def _dist_stream(torch, dev):
     return rec
 
 
+def _dist_census(torch, dev, e, lay, idx, key):
+    """24(a)'s census at the NCCL rank: every kind the phase ran on the
+    device-mesh engine ``e`` traced once more (``FusedEngine.tracing``:
+    fake tensors, the rank's own program, its collectives c10d nodes),
+    each step's ``repro_torch.vfl_grad`` nodes against the launches one
+    replay of that kind's captured step makes (``_StepLoop.per_step``).
+    Returns {kind: {"nodes", "replay"}}."""
+    from repro_torch.analysis.walkers import vfl_grad_census
+    from repro_torch.core import deep_vfl
+    from repro_torch.core import staleness as st
+    pq = e.pack_deep(deep_vfl.initial_params(SEED, lay, D, DEEP_HIDDEN,
+                                             DEEP_DREP))
+    dly = e.local(torch.from_numpy(st.party_delay_values(
+        lay, DIST_TAU, SEED)).to(dev).long())
+    wins, delays = _dist_fault_windows(torch, dev, lay, N // TRAIN_BATCH,
+                                       SEED, FAULT_P_CORRUPT,
+                                       DIST_FAULT_STEPS)
+    e._programs.clear()
+    with e.tracing():
+        for algo in ("sgd", "svrg", "saga"):
+            _dist_epoch(torch, e, algo, idx, key)
+        for kind in DIST_DEEP_KINDS:
+            _dist_deep_epoch(torch, e, kind, pq, dly, idx[:DIST_DEEP_STEPS],
+                             key)
+        for kind in DIST_FAULT_KINDS:
+            _dist_fault_epoch(torch, e, kind, wins, delays,
+                              idx[:DIST_FAULT_STEPS], key, pq)
+    out = {}
+    for kind, gm in e._programs.items():
+        loop = e._loops[gm.meta["loop"]]
+        nodes = vfl_grad_census(gm)
+        check(loop.per_step is not None
+              and nodes == sum(loop.per_step.values()),
+              f"phase 24(a) {kind}: {nodes} vfl_grad nodes a traced step, "
+              f"one replay of the captured step launches {loop.per_step}")
+        out[kind] = {"nodes": nodes, "replay": dict(loop.per_step)}
+    check(len(out) == 3 + len(DIST_DEEP_KINDS) + len(DIST_FAULT_KINDS),
+          f"phase 24(a) census: traced {sorted(out)}")
+    return out
+
+
 def _counted(vg, fn):
     """``fn()`` and the vfl_grad launches it made."""
     before = dict(vg.KERNEL.launches)
@@ -5767,6 +5818,10 @@ def _dist_nccl(torch, dev):
         graphs = [lp.graph for lp in e._loops.values()]
         check(graphs and all(g is not None for g in graphs),
               f"phase 24(a) {mode}: an epoch ran uncaptured")
+        if mode == "ring":          # every kind's traced step, its replay
+            t0 = time.perf_counter()
+            rec["census"] = _dist_census(torch, dev, e, lay, idx, key)
+            rec["census_seconds"] = time.perf_counter() - t0
         # a step of each engine: its SGD epoch once more, graph replays
         for name, eng, tally in (("mesh", e, mesh_launches),
                                  ("flat", flat, flat_launches)):
@@ -5944,7 +5999,56 @@ def _dist_gloo(torch, dev):
         del e
     res["launches"] = dict(launches)
     res["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["lint"] = _dist_lint(torch, dev)
     return res
+
+
+def _dist_lint(torch, dev):
+    """24(b)'s linter, in each of the four gloo ranks on the card: the
+    quick device-mesh matrix (``repro_torch.analysis.mesh.lint_world``:
+    the flat world's quick entries under ``off``, ``two_tree`` and
+    ``ring``, each rank tracing its own programs over fake tensors on the
+    card, its collectives c10d nodes; the census, the per-rank collective
+    volume, the mutants, the seed check), gathered and merged on every
+    rank; rank 0 holds it to the committed manifest
+    (``analysis/INVARIANTS_torch.json``: codes, host transfers, ring
+    verdicts, releases, volumes, census).  Returns the record."""
+    import torch.distributed as dist
+    from repro_torch.analysis import mesh as mesh_lint
+    from repro_torch.analysis import runner
+    from repro_torch.core.secure_agg import trace_tag
+    # what a call site's tag costs an eager step (a captured replay runs
+    # no Python): one enter and exit, on the host clock
+    t0 = time.perf_counter()
+    for _ in range(DIST_TAG_CALLS):
+        with trace_tag(collective="model"):
+            pass
+    tag_us = (time.perf_counter() - t0) / DIST_TAG_CALLS * 1e6
+    t0 = time.perf_counter()
+    mine = mesh_lint.lint_world("flat", quick=True, device=dev)
+    recs = [None] * dist.get_world_size()
+    dist.all_gather_object(recs, mine)
+    merged = mesh_lint.merge({"flat": recs})
+    rec = {"seconds": time.perf_counter() - t0, "tag_us": tag_us,
+           "entries": len(merged["mesh_matrix"]),
+           "released": sum(merged["mesh_released"].values()),
+           "collectives": merged["mesh_collectives"],
+           "kernels": merged["mesh_kernels"],
+           "mutants_ok": all(m["ok"] for m in merged["mesh_mutants"]
+                             .values()),
+           "unknown": merged["_mesh_unknown"]}
+    if dist.get_rank() == 0:
+        manifest = json.loads((ROOT / "analysis" / "INVARIANTS_torch.json")
+                              .read_text())
+        errors, warnings = list(merged["_mesh_errors"]), []
+        runner.check_mesh(merged, manifest, errors, warnings)
+        rec["errors"] = errors
+        check(not errors, f"phase 24(b) mesh lint: {errors[:5]}")
+        check(rec["entries"] == 18 and rec["released"] == 3
+              and not rec["unknown"],
+              f"phase 24(b) mesh lint: {rec['entries']} entries, "
+              f"{rec['released']} released, unknown {rec['unknown']}")
+    return rec
 
 
 def _dist_run(torch, world, backend, part):
@@ -6002,6 +6106,12 @@ def dist_phase(torch, dev, log_):
         check(cards > 1 or r["launches"] == r["flat_launches"],
               f"phase 24(a): launches {r['launches']} against the "
               f"mesh=None engine's {r['flat_launches']}")
+        census = r["modes"]["ring"].pop("census")
+        log_(f"phase 24(a) rank {r['slot']} census (ring), traced in "
+             f"{r['modes']['ring']['census_seconds']:.1f} s: vfl_grad "
+             f"nodes a traced step against one replay's launches: "
+             f"{ {k: (v['nodes'], v['replay']) for k, v in census.items()} }")
+        res.setdefault("census", {})[r["slot"]] = census
         for mode, rec in r["modes"].items():
             log_(f"phase 24(a) rank {r['slot']} of {cards} ({r['backend']}, "
                  f"parties {r['parties'][0]}-{r['parties'][-1]}) {mode}: "
@@ -6018,6 +6128,7 @@ def dist_phase(torch, dev, log_):
              f"{r['launches']}, the mesh=None engine's "
              f"{r['flat_launches']}; max_memory_allocated "
              f"{r['max_memory_allocated_gb']:.2f} GB")
+
     log_("phase 24(b): schedule_faithful (the tree rounds' point-to-point "
          "sends) is held in the CPU tests (tests/test_torch_dist_mesh.py), "
          "not here: gloo's send of a CUDA tensor fails (writev: Bad "
@@ -6041,6 +6152,13 @@ def dist_phase(torch, dev, log_):
              f"({r['backend']}): {r['modes']}; vfl_grad launches "
              f"{r['launches']}; max_memory_allocated "
              f"{r['max_memory_allocated_gb']:.2f} GB")
+        log_(f"phase 24(b) rank {r['slot']} mesh lint: {r['lint']}")
+        # a two_tree SGD step enters two tags (the masked sum, the masks')
+        step_us = r["modes"]["two_tree"]["eager_step_ms"] * 1e3
+        log_(f"phase 24(b) rank {r['slot']}: trace_tag "
+             f"{r['lint']['tag_us']:.3f} us an enter, two a two_tree SGD "
+             f"step of {step_us:.1f} us eager: "
+             f"{2 * r['lint']['tag_us'] / step_us:.3%}")
     return res, dict(launches)
 
 

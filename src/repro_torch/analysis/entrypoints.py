@@ -23,6 +23,17 @@ its data drawn by numpy from seed 0.  An epoch's index schedule only
 shapes the trace; ``indices`` (``(n, batch, steps) -> (steps, batch)``)
 supplies it, by default ``core.algorithms.epoch_indices``.
 
+On a device mesh (``PartyMesh(mesh=DeviceMesh)``, :mod:`repro_torch.
+analysis.mesh`) a fixture's engine holds the rank's rows of the same
+data, iterate, buffers, delays and fault channels (``FusedEngine.local``)
+and every entry traces the rank's own program.  The entries run in three
+worlds (``MESH_WORLDS``): ``flat``, Q ranks of one party each, the 19
+entries without a packing; ``hier``, Q/2 ranks of 2 parties, the
+``hier_*`` entries of ``HIER``; ``hier_ddp``, model Q/2 × data 2, the
+``hier_sgd_ddp`` entry.  Every rank calls every entry in the same order
+(the collectives of a fixture's serving weights and storage audit run
+for real).
+
 Device rule: ``analyze_matrix``, ``kernel_census`` and ``Fixture``
 default to ``device="cuda"`` and raise without a card.
 """
@@ -36,7 +47,9 @@ import torch
 
 from repro_torch.analysis.schedule import ring_audit
 from repro_torch.analysis.taint import Analyzer, finding_codes
-from repro_torch.analysis.walkers import count_host_transfers, vfl_grad_census
+from repro_torch.analysis.walkers import (count_host_transfers,
+                                          count_model_collectives,
+                                          vfl_grad_census)
 from repro_torch.core import deep_vfl, losses
 from repro_torch.core.algorithms import PartyLayout, epoch_indices
 from repro_torch.core.engine import EngineConfig, FusedEngine
@@ -55,6 +68,12 @@ HIER_DDP = PartyMesh(q=Q, slots=Q // 2, data_shards=2)
 
 #: security modes ("two_tree_sf": two_tree replaying the T1/T2 rounds)
 SECURE_MODES = ("off", "two_tree", "ring", "two_tree_sf")
+
+#: the device-mesh worlds: name -> (ranks, model size, the one-device
+#: packing whose entries it runs); a rank's mesh is
+#: ``make_device_mesh(model size, q=Q)``, data = ranks // model size
+MESH_WORLDS = {"flat": (Q, Q, None), "hier": (Q // 2, Q // 2, HIER),
+               "hier_ddp": (Q, Q // 2, HIER_DDP)}
 
 
 def default_indices(n: int, batch: int, steps: int) -> torch.Tensor:
@@ -88,6 +107,8 @@ class EntryReport:
     gated: bool
     census: int = 0            # vfl_grad nodes a step
     unknown: List[str] = dataclasses.field(default_factory=list)
+    collectives: Optional[int] = None  # model-group collectives (a rank)
+    released: int = 0          # served answers broadcast (a rank)
 
     @property
     def key(self) -> str:
@@ -110,21 +131,26 @@ class Fixture:
         self.cfg = EngineConfig(secure=mode, schedule_faithful=sf)
         self.eng = FusedEngine(self.prob, self.x, self.y, self.layout,
                                self.cfg, mesh=pmesh, device=device)
-        dev = self.eng.device
+        dev, mine = self.eng.device, self.eng.local
         indices = indices or default_indices
         self.idx = torch.as_tensor(np.array(indices(N, BATCH, STEPS)))
         self.idx_m = torch.as_tensor(np.array(indices(N, M * BATCH, STEPS)))
         self.w = self.eng.pack_w(np.zeros(D, np.float32))
         self.dp = int(self.w.shape[1])
-        self.delays = torch.ones(Q, dtype=torch.int64, device=dev)
-        self.delays_qm = torch.ones((Q, M), dtype=torch.int64, device=dev)
-        self.buf = torch.zeros((Q, TAU + 1, self.dp), device=dev)
-        self.bufm = torch.zeros((Q, TAU + 1, self.dp, M), device=dev)
-        self.fwdq = torch.ones((Q, STEPS), device=dev)
-        self.bwdq = torch.ones((Q, STEPS), device=dev)
-        self.extraq = torch.zeros((Q, STEPS), dtype=torch.int64, device=dev)
-        self.corruptq = torch.zeros((Q, STEPS), dtype=torch.int64,
-                                    device=dev)
+        # the rank's rows of each party-stacked (Q, ...) input (all of
+        # them on one device)
+        self.delays = mine(torch.ones(Q, dtype=torch.int64, device=dev))
+        self.delays_qm = mine(torch.ones((Q, M), dtype=torch.int64,
+                                         device=dev))
+        self.buf = mine(torch.zeros((Q, TAU + 1, self.dp), device=dev))
+        self.bufm = mine(torch.zeros((Q, TAU + 1, self.dp, M), device=dev))
+        self.tabq = mine(torch.zeros((Q, N), device=dev))
+        self.fwdq = mine(torch.ones((Q, STEPS), device=dev))
+        self.bwdq = mine(torch.ones((Q, STEPS), device=dev))
+        self.extraq = mine(torch.zeros((Q, STEPS), dtype=torch.int64,
+                                       device=dev))
+        self.corruptq = mine(torch.zeros((Q, STEPS), dtype=torch.int64,
+                                         device=dev))
         self._deep_pq = None
         self._serve = None
         self._deep_serve = None
@@ -172,8 +198,7 @@ def entries() -> List[Entry]:
                                torch.zeros_like(fx.w), lr, fx.idx)
 
     def saga(eng, fx):
-        tabq = torch.zeros((Q, N), device=eng.device)
-        return eng.epoch_graph("saga", eng.saga_epoch, fx.w, tabq,
+        return eng.epoch_graph("saga", eng.saga_epoch, fx.w, fx.tabq,
                                torch.zeros_like(fx.w), lr, fx.idx)
 
     def multi_sgd(eng, fx):
@@ -303,6 +328,12 @@ def entry_names() -> List[str]:
     return [e.name for e in entries()]
 
 
+def world_entries(world: str) -> List[Entry]:
+    """The entries a device-mesh world runs (``MESH_WORLDS``)."""
+    packing = MESH_WORLDS[world][2]
+    return [e for e in entries() if e.pmesh == packing]
+
+
 def analyze_entry(ent: Entry, fx: Fixture, secure: str) -> EntryReport:
     """Trace one entry on ``fx``'s engine and run the passes."""
     program = ent.trace(fx.eng, fx)
@@ -314,15 +345,21 @@ def analyze_entry(ent: Entry, fx: Fixture, secure: str) -> EntryReport:
         host_transfers=count_host_transfers(program),
         cross_party=len(an.boundaries), rings=rings,
         membership=ent.membership, gated=ent.gated,
-        census=vfl_grad_census(program), unknown=sorted(an.unknown))
+        census=vfl_grad_census(program), unknown=sorted(an.unknown),
+        collectives=(None if fx.eng._dist is None
+                     else count_model_collectives(program)),
+        released=an.released)
 
 
 def analyze_matrix(secure_modes: Sequence[str] = SECURE_MODES,
                    names: Optional[Sequence[str]] = None,
                    progress: Optional[Callable[[str], None]] = None,
-                   device="cuda", indices=None) -> List[EntryReport]:
+                   device="cuda", indices=None,
+                   mesh: Optional[PartyMesh] = None) -> List[EntryReport]:
     """Trace and analyse the entry-point matrix: one
-    :class:`EntryReport` per (security mode, entry)."""
+    :class:`EntryReport` per (security mode, entry).  With ``mesh`` (a
+    ``PartyMesh`` on a device mesh; every rank of it calls) every chosen
+    entry runs on it, the rank's program."""
     reports: List[EntryReport] = []
     chosen = [e for e in entries() if names is None or e.name in set(names)]
     for secure in secure_modes:
@@ -330,10 +367,10 @@ def analyze_matrix(secure_modes: Sequence[str] = SECURE_MODES,
         for ent in chosen:
             if progress is not None:
                 progress(f"{secure}/{ent.name}")
-            if ent.pmesh not in fixtures:
-                fixtures[ent.pmesh] = Fixture(secure, device, ent.pmesh,
-                                              indices)
-            reports.append(analyze_entry(ent, fixtures[ent.pmesh], secure))
+            pmesh = ent.pmesh if mesh is None else mesh
+            if pmesh not in fixtures:
+                fixtures[pmesh] = Fixture(secure, device, pmesh, indices)
+            reports.append(analyze_entry(ent, fixtures[pmesh], secure))
     return reports
 
 
@@ -365,6 +402,12 @@ def check_reports(reports: Sequence[EntryReport]) -> List[str]:
         if r.cross_party < 1:
             errors.append(f"{where}: no party-axis boundary in the program "
                           f"(walker vacuity?)")
+        if r.collectives is not None and r.collectives < 1:
+            errors.append(f"{where}: no model-group collective in the "
+                          f"rank's program")
+        for op in r.unknown:
+            if op.startswith("c10d."):
+                errors.append(f"{where}: no rule for the collective {op}")
         for ring in r.rings:
             if not ring["bounded"]:
                 errors.append(f"{where}: ring {ring['buffer']} staleness "
@@ -380,12 +423,14 @@ def check_reports(reports: Sequence[EntryReport]) -> List[str]:
 
 
 def kernel_census(names: Sequence[str] = ("sgd", "pipelined_sgd"),
-                  device="cuda", indices=None) -> Dict[str, List[int]]:
+                  device="cuda", indices=None,
+                  mesh: Optional[PartyMesh] = None) -> Dict[str, List[int]]:
     """``repro_torch.vfl_grad`` nodes in one traced step of each named
     kind, as one-element lists (the reference's per-``scan``-body
     counts): the sequential SGD step launches forward and backward (2),
-    the pipelined step one split-batch launch (1)."""
-    fx = Fixture("ring", device, indices=indices)
+    the pipelined step one split-batch launch (1).  With ``mesh``, one
+    rank's."""
+    fx = Fixture("ring", device, pmesh=mesh, indices=indices)
     out: Dict[str, List[int]] = {}
     for ent in entries():
         if ent.name in set(names) and ent.pmesh is None:

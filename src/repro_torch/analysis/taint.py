@@ -35,6 +35,40 @@ adds none: a value expanded over q is the same for every party.
   feature block itself (the step's minibatch rows) is the party's own
   selection.
 
+**On a device mesh** (``PartyMesh(mesh=DeviceMesh)``) a program is one
+rank's: its qloc party rows, and its messages the c10d collectives
+``make_fx`` records.  Each carries its call site's tags
+(``secure_agg.trace_tag``, in ``meta["custom"]``):
+
+* the c10d rule (``Analyzer._c10d``): over the model group an
+  ``allreduce_`` is an ``all-reduce`` boundary on its operand (its
+  result flows on through the ``getitem``s), a ``send`` a
+  ``collective-permute`` boundary on the sent operand and a
+  ``broadcast_`` a ``collective-broadcast`` boundary; a ``recv_`` and a
+  ``broadcast_`` write their buffer in place, and later reads of it come
+  from the collective (the in-place-write rule below).  A collective
+  over the data group (the data shards of the same parties) is a plain
+  sum.  A c10d op with no rule fails closed: a boundary on each operand,
+  and recorded in ``Analyzer.unknown``.  At a collective the tainted
+  operand's stream must also differ from rank to rank
+  (``RANK_DISTINCT``): a draw from the rank's own party stream (stacked
+  over its parties, one stream distinct along them), its slot's stream
+  or a row of the counter stream (``secure_agg._counter_normal``, one
+  draw whose rows are the survivor ranks); the ring's ``prev`` draw is
+  the rank before's own, the shared seed of a pair, as the one-device
+  ``roll`` rule has it.
+* the release rule: the model-group ``broadcast_`` tagged
+  ``release=SERVED_ANSWER`` is the served answer leaving slot 0's rank
+  (the reference computes it outside the program it lints); it is
+  counted (``Analyzer.released``) and its value public.  Any other
+  broadcast of a tainted value is a boundary as above.
+* the seed check (:func:`seed_findings`): seeds are runtime values no
+  trace holds, so the linter gathers every rank's ``(role, level, index,
+  initial seed)`` after the same ``seed(*key)`` and requires own-party
+  seeds pairwise distinct over the q parties, slot seeds distinct over
+  the slots and each rank's ``prev`` equal to its neighbour's own seed;
+  a violation is ``mask-not-party-distinct``.
+
 Selecting one row of a party-stacked tensor (``head[0]``, the tree's root
 ``acc[0]``) reads state every party holds (the replicated head) or the
 result of the boundary just crossed; it is not a boundary.
@@ -94,6 +128,7 @@ import torch
 from torch import fx
 
 from repro_torch.analysis.walkers import op_packet
+from repro_torch.core.secure_agg import SERVED_ANSWER
 
 Ann = Tuple[int, ...]
 
@@ -101,16 +136,27 @@ UNMASKED = "unmasked-boundary"
 EQUAL_SEEDED = "mask-not-party-distinct"
 MASK_REUSED = "mask-feeds-two-aggregations"
 
+#: the stream roles whose draws differ from rank to rank of the model
+#: group: a party's own stream, its slot's, the counter stream's row of
+#: the member's survivor rank (the ring's ``prev`` stream is the rank
+#: before's own, the shared seed of a pair)
+RANK_DISTINCT = frozenset({"own", "slot", "counter"})
+#: the c10d collectives with a rule; any other fails closed
+_C10D = {"c10d.allreduce_", "c10d.send", "c10d.recv_", "c10d.broadcast_"}
+
 
 @dataclasses.dataclass(frozen=True)
 class Stream:
     """A mask draw in a value's provenance: the draw node's name, the
-    number of distinct draws along each of the value's dimensions, and
-    whether it has yet to cross a boundary."""
+    number of distinct draws along each of the value's dimensions,
+    whether it has yet to cross a boundary, and, on a device mesh, the
+    role of the stream it came from (``"own"``, ``"slot"``, ``"prev"``,
+    ``"counter"``; None for a draw from no declared stream)."""
 
     draw: str
     var: Ann
     fresh: bool = True
+    role: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,7 +175,7 @@ class Props:
     def mapped(self, fn) -> "Props":
         """The same state through a shape map ``fn`` (Ann -> Ann)."""
         return Props(self.taint, self.source, fn(self.party),
-                     frozenset(Stream(s.draw, fn(s.var), s.fresh)
+                     frozenset(dataclasses.replace(s, var=fn(s.var))
                                for s in self.streams))
 
 
@@ -149,8 +195,11 @@ class TaintFinding:
 @dataclasses.dataclass
 class Boundary:
     """One party-axis crossing: its node, kind (``"all-reduce"``,
-    ``"scan"`` or ``"collective-permute"``), the operand's state, shape
-    and dtype, and the party groups the crossing spans."""
+    ``"scan"``, ``"collective-permute"`` or ``"collective-broadcast"``),
+    the operand's state, shape and dtype, the party groups the crossing
+    spans, and whether it is a collective over the model group of a
+    device mesh (a c10d node: the operand is this rank's, every byte of
+    it sent)."""
 
     node: fx.Node
     kind: str
@@ -158,6 +207,7 @@ class Boundary:
     shape: Tuple[int, ...]
     dtype: torch.dtype
     groups: int
+    collective: bool = False
 
     @property
     def bytes_per_party(self) -> int:
@@ -177,6 +227,12 @@ def _itemsize(dtype) -> int:
 
 def _zeros(n: int) -> Ann:
     return (0,) * n
+
+
+def _crossing(a: int) -> bool:
+    """A dimension of ``a`` party groups crosses parties if it holds two
+    or more (a device mesh rank's one party row is one party)."""
+    return a > 1
 
 
 def _bcast(ann: Ann, src, dst) -> Ann:
@@ -342,6 +398,7 @@ class Analyzer:
         self.findings: List[TaintFinding] = []
         self.boundaries: List[Boundary] = []
         self.unknown: set = set()
+        self.released = 0                     # served answers broadcast
         self._emit = False
         self._writes: Dict[str, Props] = {}
         self._fed: Dict[str, str] = {}        # draw -> first aggregation
@@ -391,29 +448,41 @@ class Analyzer:
                      props.streams | w.streams)
 
     def _boundary(self, node, kind: str, props: Props, shape, dims,
-                  aggregation: bool):
+                  aggregation: bool, operand=None,
+                  collective: bool = False) -> bool:
+        """Record a crossing (on the last walk) and check its operand;
+        returns whether a party-private operand crossed unmasked (its
+        result is then not checked again: the leak is reported once)."""
+        unmasked = props.taint and not props.streams
         if not self._emit:
-            return
-        marked = [props.party[d] for d in dims if props.party[d] > 0]
-        groups = math.prod(marked) if marked \
+            return unmasked
+        marked = [props.party[d] for d in dims if _crossing(props.party[d])]
+        groups = 1 if collective else math.prod(marked) if marked \
             else math.prod(shape[d] for d in dims)
+        dtype = _dtype(node.args[0] if operand is None else operand)
         self.boundaries.append(Boundary(node, kind, props, tuple(shape),
-                                        _dtype(node.args[0]), groups))
+                                        dtype, groups, collective))
         if not props.taint:
-            return
+            return False
         op = op_packet(node)
-        pdims = [d for d, a in enumerate(props.party) if a > 0]
-        if not props.streams:
+        pdims = [d for d, a in enumerate(props.party) if _crossing(a)]
+        if unmasked:
             self._find(UNMASKED, op, node,
                        "party-private operand crosses the boundary with no "
                        "mask draw in its provenance")
-            return
+            return True
         if not any(all(s.var[d] >= props.party[d] for d in pdims)
                    for s in props.streams):
             self._find(EQUAL_SEEDED, op, node,
                        f"no mask stream is distinct along every party "
                        f"dimension {pdims} of the operand (a draw repeated "
                        f"over parties cancels in the aggregator's view)")
+        elif collective and not any(s.role in RANK_DISTINCT
+                                    for s in props.streams):
+            self._find(EQUAL_SEEDED, op, node,
+                       "no mask stream of the operand differs from rank to "
+                       "rank of the model group (a draw from no party's or "
+                       "slot's own stream is the same on every rank)")
         if self.membership and aggregation:
             for s in props.streams:
                 if not s.fresh:
@@ -431,9 +500,12 @@ class Analyzer:
             self.findings.append(f)
 
     @staticmethod
-    def _crossed(props: Props) -> Props:
-        return Props(props.taint, False, props.party,
-                     frozenset(Stream(s.draw, s.var, False)
+    def _crossed(props: Props, leaked: bool = False) -> Props:
+        """The result of a crossing: its streams no longer fresh; its
+        taint dropped where the crossing already reported it unmasked
+        (the two levels of an unmasked two-level sum are one leak)."""
+        return Props(props.taint and not leaked, False, props.party,
+                     frozenset(dataclasses.replace(s, fresh=False)
                                for s in props.streams))
 
     # -- transfer ------------------------------------------------------------
@@ -495,8 +567,8 @@ class Analyzer:
                     self._writes[root] = Props(
                         prev.taint or out.taint, False, (),
                         prev.streams | frozenset(
-                            Stream(s.draw, s.var if same
-                                   else _zeros(len(rshape)), s.fresh)
+                            s if same else dataclasses.replace(
+                                s, var=_zeros(len(rshape)))
                             for s in out.streams))
                 return
             if schema.returns and schema.returns[0].alias_info is not None:
@@ -512,7 +584,12 @@ class Analyzer:
         in_shape = _shape(args[0]) if args and isinstance(args[0], fx.Node) \
             else None
 
-        if packet in _DRAW:
+        tag = node.meta.get("custom") or {}
+        if packet.startswith("c10d."):
+            return self._c10d(node, packet, tag)
+        if packet in _DRAW or tag.get("mask_draw"):
+            # a draw; on a device mesh tagged with its stream's role, and
+            # the counter stream's one tagged node (its rows distinct)
             n = len(shape or ())
             if packet in ("aten.normal_", "aten.uniform_") and first:
                 base = first
@@ -520,7 +597,8 @@ class Analyzer:
                 base = Props(party=_zeros(n))
             var = tuple(s if s > 1 else 0 for s in shape or ())
             return Props(base.taint, False, base.party,
-                         base.streams | {Stream(node.name, var)})
+                         base.streams | {Stream(node.name, var, True,
+                                                tag.get("mask_draw"))})
         if packet in _CREATE:
             return Props(party=_zeros(len(shape or ())))
         if first is None and shape is not None:
@@ -575,9 +653,9 @@ class Analyzer:
         if packet in _SCAN:
             d = _norm_dims(args[1] if len(args) > 1
                            else node.kwargs.get("dim"), len(in_shape))
-            if any(first.party[k] > 0 for k in d):
-                self._boundary(node, "scan", first, in_shape, d, False)
-                return self._crossed(first)
+            if any(_crossing(first.party[k]) for k in d):
+                return self._crossed(first, self._boundary(
+                    node, "scan", first, in_shape, d, False))
             return first
         if packet in ("aten.roll", "aten.flip"):
             dims = args[2] if packet == "aten.roll" else args[1]
@@ -697,8 +775,8 @@ class Analyzer:
             out = Props(out.taint or p.taint, False,
                         p.party if same else out.party,
                         out.streams | frozenset(
-                            Stream(s.draw, s.var if same else _zeros(n),
-                                   s.fresh) for s in p.streams))
+                            s if same else dataclasses.replace(
+                                s, var=_zeros(n)) for s in p.streams))
         if isinstance(node.meta.get("val"), (tuple, list)):
             return tuple(out for _ in node.meta["val"])
         return out
@@ -706,13 +784,13 @@ class Analyzer:
     def _permute_along(self, node, operand: Props, in_shape, dims,
                        out: Props) -> Props:
         if operand.source or operand.mask_only \
-                or not any(operand.party[d] > 0 for d in dims):
+                or not any(_crossing(operand.party[d]) for d in dims):
             if operand.source:
                 return Props(True, False, out.party, out.streams)
             return out
-        self._boundary(node, "collective-permute", operand, in_shape,
-                       [d for d in dims if operand.party[d] > 0], False)
-        return self._crossed(out)
+        return self._crossed(out, self._boundary(
+            node, "collective-permute", operand, in_shape,
+            [d for d in dims if _crossing(operand.party[d])], False))
 
     def _reduce(self, node, packet, first, in_shape, shape):
         args, kw = node.args, node.kwargs
@@ -731,11 +809,11 @@ class Analyzer:
             node.meta.get("val"), (tuple, list)) else \
             len(node.meta["val"][0].shape) == n
         out = first.mapped(lambda a: _drop(a, dims, keep))
-        crosses = any(first.party[d] > 0 for d in dims) \
+        crosses = any(_crossing(first.party[d]) for d in dims) \
             or (first.mask_only and 0 in dims and in_shape and in_shape[0] > 1)
         if crosses:
-            self._boundary(node, "all-reduce", first, in_shape, dims, True)
-            out = self._crossed(out)
+            out = self._crossed(out, self._boundary(
+                node, "all-reduce", first, in_shape, dims, True))
         if isinstance(node.meta.get("val"), (tuple, list)):
             return tuple(out for _ in node.meta["val"])
         return out
@@ -761,7 +839,27 @@ class Analyzer:
             out = Props(out.taint or p.taint, False,
                         tuple(max(x, y) for x, y in zip(out.party, p.party)),
                         out.streams | p.streams)
+        if packet == "aten.stack":
+            out = self._stacked_draws(node, tensors, d, out)
         return out
+
+    def _stacked_draws(self, node, tensors, d: int, out: Props) -> Props:
+        """A stack of k draws, each from another party's own stream (a
+        device mesh rank's parties, ``secure_agg._draws``), is distinct
+        along the stacked dimension: one stream of k rows."""
+        own = []
+        for t in tensors:
+            p = self._get(t)
+            s = [x for x in (p.streams if p else ()) if x.role == "own"]
+            if not s or not p.mask_only:
+                return out
+            own.append(s[0])
+        if len(tensors) < 2 or len({s.draw for s in own}) < len(own):
+            return out
+        var = list(own[0].var[:d] + (0,) + own[0].var[d:])
+        var[d] = len(own)
+        return Props(out.taint, out.source, out.party, out.streams | {
+            Stream(node.name, tuple(var), True, "own")})
 
     def _index(self, node, first, in_shape, shape):
         indices = node.args[1]
@@ -776,7 +874,7 @@ class Analyzer:
             len(shape) == lo + len(bshape) + len(in_shape) - hi - 1
         if not contiguous:
             out = Props(first.taint, False, _zeros(n_out),
-                        frozenset(Stream(s.draw, _zeros(n_out), s.fresh)
+                        frozenset(dataclasses.replace(s, var=_zeros(n_out))
                                   for s in first.streams))
         else:
             def remap(a: Ann) -> Ann:
@@ -853,17 +951,105 @@ class Analyzer:
                 return tuple(res)
 
             contracted = [k for k, ch in enumerate(sub) if ch not in out_sub]
-            if any(p.party[k] > 0 for k in contracted) and crossing is None:
-                crossing = (p, s, [k for k in contracted if p.party[k] > 0])
+            if any(_crossing(p.party[k]) for k in contracted) \
+                    and crossing is None:
+                crossing = (p, s, [k for k in contracted
+                                   if _crossing(p.party[k])])
             q = p.mapped(remap)
             out = Props(out.taint or p.taint, False,
                         tuple(max(x, y) for x, y in zip(out.party, q.party)),
                         out.streams | q.streams)
         if crossing is not None:
             p, s, dims = crossing
-            self._boundary(node, "all-reduce", p, s, dims, True)
-            out = self._crossed(out)
+            out = self._crossed(out, self._boundary(node, "all-reduce", p, s,
+                                                    dims, True))
         return out
+
+    def _c10d(self, node, packet, tag):
+        """A collective over a device mesh's process group (the c10d node
+        ``make_fx`` records); its group's role comes from the call site's
+        tag (``secure_agg.trace_tag``), the model group where there is
+        none.  Over the model group an ``allreduce_`` is an all-reduce
+        boundary on its operand, a ``send`` a collective-permute boundary
+        on the sent operand, a ``broadcast_`` a collective-broadcast
+        boundary (the root's operand leaves it), each a collective: its
+        operand must carry a stream that differs from rank to rank
+        (``RANK_DISTINCT``).  A model-group ``broadcast_`` tagged
+        ``release=SERVED_ANSWER`` is the served answer, released: counted,
+        and its value public.  A ``broadcast_`` writes its result into its
+        buffer, so later reads of the buffer come from the collective; a
+        ``recv_`` writes another party's message, checked at its sender's
+        ``send``, into its buffer and adds nothing to it.  Over the data
+        group (the data shards of the same
+        parties) a collective is a plain sum.  Any other c10d op fails
+        closed: a boundary on every operand, and recorded as unknown."""
+        role = tag.get("collective", "model")
+        if packet not in _C10D:
+            return self._c10d_unknown(node, packet)
+        tensors = node.args[0] if node.args \
+            and isinstance(node.args[0], (list, tuple)) else ()
+        ins = [(t, self._get(t)) for t in tensors if isinstance(t, fx.Node)]
+        if packet == "c10d.recv_":
+            return None
+        outs = []
+        for t, p in ins:
+            if p is None:
+                outs.append(None)
+                continue
+            shape = _shape(t) or ()
+            if packet == "c10d.broadcast_" and role == "model" \
+                    and tag.get("release") == SERVED_ANSWER:
+                if self._emit:
+                    self.released += 1
+                out = Props(party=_zeros(len(shape)))
+            elif role == "data":
+                out = p
+            else:
+                kind = {"c10d.allreduce_": "all-reduce",
+                        "c10d.send": "collective-permute",
+                        "c10d.broadcast_": "collective-broadcast"}[packet]
+                out = self._crossed(p, self._boundary(
+                    node, kind, p, shape, (), kind == "all-reduce", t, True))
+            if packet == "c10d.broadcast_":
+                self._write_root(t, out)
+            outs.append(out)
+        return None if packet == "c10d.send" else (tuple(outs), None)
+
+    def _c10d_unknown(self, node, packet):
+        """A c10d op with no rule, over either group: recorded as unknown,
+        a boundary on each tensor operand (whichever argument holds it),
+        and every operand's state in every tensor it writes or returns."""
+        self.unknown.add(packet)
+        flat = []
+        for a in node.args:
+            flat.extend(a if isinstance(a, (list, tuple)) else (a,))
+        ins = [(t, p) for t in flat for p in (self._get(t),) if p is not None]
+        taint, streams = False, frozenset()
+        for t, p in ins:
+            crossed = self._crossed(p, self._boundary(
+                node, packet, p, _shape(t) or (), (), False, t, True))
+            taint, streams = taint or crossed.taint, streams | crossed.streams
+        for t, _ in ins:
+            self._write_root(t, Props(taint, False, (), streams))
+
+        def like(val):
+            if isinstance(val, (list, tuple)):
+                return tuple(like(v) for v in val)
+            if not isinstance(val, torch.Tensor):
+                return None
+            return Props(taint, False, _zeros(val.dim()), frozenset(
+                dataclasses.replace(s, var=_zeros(val.dim()))
+                for s in streams))
+        return like(node.meta.get("val"))
+
+    def _write_root(self, target, props: Props) -> None:
+        """Join ``props`` into what later reads of ``target``'s root see."""
+        root = self.root.get(target.name, target.name)
+        n = len(self._shapes.get(root) or ())
+        prev = self._writes.get(root, Props())
+        self._writes[root] = Props(
+            prev.taint or props.taint, False, (), prev.streams | frozenset(
+                dataclasses.replace(s, var=_zeros(n)) for s in props.streams))
 
     def _vfl_grad(self, node, ins):
         """``repro_torch.vfl_grad``: forward z = x·w, backward g = xᵀθ, fused
@@ -895,6 +1081,46 @@ class Analyzer:
                 lambda a: _bcast(a, _shape(node.args[2]), tuple(vals.shape))))
         return (fwd(node.args[1], ins[1], tuple(vals[0].shape)),
                 bwd(node.args[2], ins[2], tuple(vals[1].shape)))
+
+
+def seed_findings(tables) -> List[TaintFinding]:
+    """The seed check of a device mesh's mask streams, whose seeds are
+    runtime values no trace holds.  ``tables`` has one entry a rank,
+    ``(data index, PartyStreams.seeds())`` after the same ``seed(*key)``
+    on every rank.  Own-party seeds must be pairwise distinct over the q
+    parties, slot seeds over the slots, and each rank's ``prev`` seed the
+    own (flat) or slot (packed) seed of the party or slot before it on
+    the same data shard; each violation is a ``mask-not-party-distinct``
+    finding (equal seeds draw equal masks, which cancel in the
+    aggregator's view; a ``prev`` that is not its neighbour's leaves the
+    ring's masks uncancelled)."""
+    findings: List[TaintFinding] = []
+
+    def find(detail):
+        f = TaintFinding(EQUAL_SEEDED, "seed", "streams", detail)
+        if f not in findings:
+            findings.append(f)
+
+    own = {}
+    for d, rows in tables:
+        for role, level, index, seed in rows:
+            if role in ("own", "slot"):
+                own[(d, level, index)] = seed
+    for level in ("party", "slot"):
+        by_seed: Dict[int, set] = {}
+        for (_, lv, i), seed in own.items():
+            if lv == level:
+                by_seed.setdefault(seed, set()).add(i)
+        for seed, ids in sorted(by_seed.items()):
+            if len(ids) > 1:
+                find(f"the {level} streams {sorted(ids)} share the seed "
+                     f"{seed}")
+    for d, rows in tables:
+        for role, level, index, seed in rows:
+            if role == "prev" and own.get((d, level, index)) != seed:
+                find(f"a ring's prev stream is not seeded as {level} "
+                     f"{index}'s own stream")
+    return findings
 
 
 def analyze_program(program, membership: bool = False,

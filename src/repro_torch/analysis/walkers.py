@@ -14,6 +14,11 @@ its nodes:
   party-stacked tensor, permutations along it);
 * the kernel census: ``repro_torch.vfl_grad`` nodes, each one launch of
   the kernel on the card;
+* on a device mesh, the rank's model-group collectives: the c10d nodes
+  (``c10d.allreduce_``, ``send``, ``recv_``, ``broadcast_``) not tagged
+  with the data group (``secure_agg.trace_tag``).  A c10d node is no host
+  transfer: where its backend stages a card's tensor through the host
+  (gloo), that is the transport, not a read of the value;
 * a histogram of node targets.
 
 The census counts the nodes of one step (those an epoch trace marks with
@@ -103,6 +108,17 @@ def vfl_grad_census(program) -> int:
     on the card (``FusedEngine._StepLoop.per_step``)."""
     step = any(n.meta.get("step") for n in _graph(program).nodes)
     return count_op(program, VFL_GRAD_OP, step_only=step)
+
+
+def is_model_collective(node) -> bool:
+    """A c10d collective over the model group: tagged so, or untagged."""
+    return op_packet(node).startswith("c10d.") and (
+        node.meta.get("custom") or {}).get("collective", "model") == "model"
+
+
+def count_model_collectives(program) -> int:
+    """The model group's c10d collective nodes in a rank's program."""
+    return sum(is_model_collective(n) for n in nodes(program))
 
 
 def count_cross_party(program) -> int:

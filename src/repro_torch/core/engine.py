@@ -86,12 +86,25 @@ linear and deep epochs in their four forms; the eight deep epochs with
 epochs, whose survivor aggregation is a membership form over the model
 group (``_agg_members``; the ring's masks from a counter stream on the
 loop's step key ``key``), with the fault channels, the rings, the delays
-and the telemetry the rank's rows.  Tracing raises
-``NotImplementedError`` there (ROADMAP A17b3).  Under NCCL an epoch is
+and the telemetry the rank's rows.  Under NCCL an epoch is
 captured with its collectives as on one card; gloo is never captured:
 its steps run eagerly (its collectives on CUDA tensors go through the
 host), as the mesh's backend decides.  Every rank calls every entry
 point.
+
+Tracing on a device mesh records the rank's own program: its (qloc, ...)
+loop buffers, its slice of ``xs``, and each collective as the c10d node
+``make_fx`` records (``c10d.allreduce_``, ``send``, ``recv_``,
+``broadcast_``), tagged at its call site with its group's role (model or
+data, ``secure_agg.trace_tag``), each mask draw with its stream's role
+and index (``secure_agg.PartyStreams.roles``; a traced draw leaves its
+generator out, which some torch releases cannot record, so the tag
+declares the stream).  Over fake tensors no collective runs, so a rank
+may trace alone: tracing neither waits for nor sends to another rank
+(``tests/test_torch_dist_lint.py`` holds one rank of two tracing while
+the other does not).  The linter (``repro_torch.analysis.mesh``) has
+every rank trace the same entries in the same order, so that the ranks'
+records line up.
 
 Device rule: ``FusedEngine`` defaults to ``device="cuda"`` and raises
 without a card; tests pass ``device="cpu"``.
@@ -134,10 +147,11 @@ _TAG_STEPS, _TAG_FULL, _TAG_SAGA_INIT, _TAG_DATA = 0x5EC, 0xF, 0xA, 0xDA7A
 # the deep parameter leaves, as the loops' buffers name them
 _DEEP = ("w1", "b1", "w2", "head")
 # the party dimension of a loop buffer where it is not dim 0: the schedule,
-# the counters, the learning rate and the carried aggregate have none; the
-# fault channels and the health telemetry (4, q, steps) hold it at dim 1
+# the counters, the learning rate, the carried aggregate and a device
+# mesh's step key have none; the fault channels and the health telemetry
+# (4, q, steps) hold it at dim 1
 _BUF_PARTY_DIM = {"idx": None, "t": None, "lr": None, "step": None,
-                  "agg": None, "chan": 1, "health": 1}
+                  "agg": None, "key": None, "chan": 1, "health": 1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,12 +313,18 @@ def trace_program(fn, inputs: dict, party_dims: dict, consts=()):
     maps each ``get_attr`` constant that is one of ``consts`` — (tensor,
     party dim or None, is the feature block) triples, matched by identity —
     to ``(party dims, is the feature block)``, and ``gm.meta["party_dim"]``
-    is 0, the party axis of every party-stacked tensor."""
+    is 0, the party axis of every party-stacked tensor.  The nodes
+    recorded inside a ``secure_agg.trace_tag`` carry its tags in
+    ``meta["custom"]``."""
+    from torch.fx import traceback as fx_traceback
     from torch.fx.experimental.proxy_tensor import make_fx
 
     keys = list(inputs)
-    gm = make_fx(lambda *ts: fn(dict(zip(keys, ts))), tracing_mode="fake",
-                 _allow_non_fake_inputs=True)(*inputs.values())
+    # the call sites' trace tags (secure_agg.trace_tag) reach the nodes
+    with fx_traceback.preserve_node_meta():
+        gm = make_fx(lambda *ts: fn(dict(zip(keys, ts))),
+                     tracing_mode="fake",
+                     _allow_non_fake_inputs=True)(*inputs.values())
     holders = [n for n in gm.graph.nodes if n.op == "placeholder"]
     for node, key in zip(holders, keys):
         pd = party_dims.get(key)
@@ -516,18 +536,11 @@ class FusedEngine:
     def _generators(self):
         return [self._gen] if self._dist is None else self._gen.generators()
 
-    def _local_only(self, what: str) -> None:
-        """Raise for an entry point that has no device-mesh form yet."""
-        if self._dist is not None:
-            raise NotImplementedError(
-                f"{what} on a device mesh is not ported (ROADMAP A17b3); "
-                "run it on one device (PartyMesh without mesh=)")
-
     def _dsum(self, g):
         """Sum a rank's gradient over its data group (the reference's
         ``_dsum``); the data shards share a party's trust domain, so the
         sum is plain."""
-        return psum_dist(g, self._dgroup) if self._ddp > 1 else g
+        return psum_dist(g, self._dgroup, "data") if self._ddp > 1 else g
 
     def gather(self, tq) -> torch.Tensor:
         """The whole party-stacked (q, ...) tensor of every rank's rows
@@ -769,8 +782,9 @@ class FusedEngine:
     def tracing(self):
         """Within this context an epoch call records its kind's program
         (:meth:`party_program`) instead of running: its loop is loaded,
-        nothing else changes, and it returns the loaded state."""
-        self._local_only("tracing (the linter's party programs)")
+        nothing else changes, and it returns the loaded state.  On a
+        device mesh the program is this rank's (see the module's
+        "Tracing on a device mesh")."""
         prev, self._tracing = self._tracing, True
         try:
             yield self
@@ -811,9 +825,12 @@ class FusedEngine:
             finally:
                 loop.bufs = saved
 
-        self._programs[kind] = trace_program(
+        gm = self._programs[kind] = trace_program(
             fn, saved, {k: _BUF_PARTY_DIM.get(k, 0) for k in saved},
             self.party_consts())
+        # the loop whose captured step the program's step is
+        gm.meta["loop"] = next(k for k, v in self._loops.items()
+                               if v is loop)
 
     def epoch_graph(self, kind: str, epoch, *args, **kw):
         """Trace one call of ``epoch`` and return ``kind``'s program."""

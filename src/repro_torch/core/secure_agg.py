@@ -79,14 +79,17 @@ twice.  The counter stream re-keys on membership as the reference does.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import re
 import warnings
+import weakref
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.fx import traceback as fx_traceback
 from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
 from repro_torch.core import trees as trees_lib
@@ -496,6 +499,36 @@ def secure_psum_hier_members(partial: torch.Tensor, gen: torch.Generator,
 _L1_SALT = 0x51071   # the parties' mask streams
 _L2_SALT = 0x1e2e1   # the slots' (level 2) mask streams
 
+#: the role of every live ``PartyStreams`` generator by its ``id``,
+#: ("own", p), ("slot", s) or ("prev", the party or slot before), which
+#: :func:`_normal` tags a traced draw with (a ``torch.Generator`` takes no
+#: weak reference in every torch release; its ``PartyStreams`` drops the
+#: entries when it goes, and holds the generator until then)
+_ROLES: dict = {}
+
+
+#: the ``release`` tag of the served answer's broadcast on a device mesh
+#: (``serve.engine``): the one unmasked value the linter lets cross the
+#: model group (``repro_torch.analysis.taint``)
+SERVED_ANSWER = "served-answer"
+
+
+def trace_tag(**meta):
+    """Annotate the nodes a ``make_fx`` trace records inside this context
+    (their ``meta["custom"]``; ``core.engine.trace_program`` traces under
+    ``preserve_node_meta``): a collective's group role
+    (``collective="model"`` or ``"data"``), the served answer's release
+    (``release=SERVED_ANSWER``), a mask draw's stream (``mask_draw=role``,
+    ``stream=index``).  ``repro_torch.analysis`` reads them.  Outside a
+    trace nothing reads them: the context costs a dict update and a
+    captured replay never runs it."""
+    return fx_traceback.annotate(meta)
+
+
+def _forget_roles(keys) -> None:
+    for key in keys:
+        _ROLES.pop(key, None)
+
 
 class PartyStreams:
     """The mask streams one member of a device mesh draws from: one
@@ -504,20 +537,29 @@ class PartyStreams:
     (flat) or slot (packed) before it.  :meth:`seed` seeds every one from
     ``(key..., salt, id)``, so the member can reproduce its own streams
     and no other's but that one.  ``identities`` names each stream as
-    (salt, id), in the order of :meth:`generators`."""
+    (salt, id), in the order of :meth:`generators`; ``roles`` as
+    ("own", party), ("slot", slot) or ("prev", the party or slot
+    before)."""
 
     def __init__(self, parties, slot: int, q: int, slots: int, ring: bool,
                  device):
         parties = list(parties)
         dev = torch.device(device)
         ids = [(_L1_SALT, p) for p in parties]
+        roles = [("own", p) for p in parties]
         if q > slots:
             ids.append((_L2_SALT, slot))
+            roles.append(("slot", slot))
         if ring:
             ids.append((_L2_SALT, (slot - 1) % slots) if q > slots
                        else (_L1_SALT, (parties[0] - 1) % q))
+            roles.append(("prev", ids[-1][1]))
         self.identities = tuple(ids)
+        self.roles = tuple(roles)
         self._gens = [torch.Generator(device=dev) for _ in ids]
+        keys = [id(gen) for gen in self._gens]
+        _ROLES.update(zip(keys, roles))
+        weakref.finalize(self, _forget_roles, keys)
         self.own = self._gens[:len(parties)]
         self.slot_gen = self._gens[len(parties)] if q > slots else None
         self.prev = self._gens[-1] if ring else None
@@ -530,11 +572,29 @@ class PartyStreams:
     def generators(self) -> List[torch.Generator]:
         return list(self._gens)
 
+    def seeds(self) -> List[Tuple[str, str, int, int]]:
+        """``(role, level, index, initial seed)`` of every stream, level
+        ``"party"`` or ``"slot"``: the table the linter's seed check reads
+        (``repro_torch.analysis.taint.seed_findings``)."""
+        return [(role, "party" if salt == _L1_SALT else "slot", i,
+                 gen.initial_seed())
+                for (role, _), (salt, i), gen in zip(self.roles,
+                                                     self.identities,
+                                                     self._gens)]
+
 
 def _normal(shape, gen: torch.Generator, device) -> torch.Tensor:
-    """One party's mask draw from its own stream ``gen``."""
-    return torch.randn(shape, generator=gen, device=device,
-                       dtype=torch.float32)
+    """One party's mask draw from its own stream ``gen``.  Inside a
+    ``make_fx`` trace, where nothing runs, the draw leaves the generator
+    out (as :func:`_party_normal`: some torch releases cannot record one)
+    and is tagged with the stream's role (:class:`PartyStreams`)."""
+    if get_proxy_mode() is None:
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32)
+    role = _ROLES.get(id(gen))
+    with (trace_tag(mask_draw=role[0], stream=role[1]) if role
+          else contextlib.nullcontext()):
+        return torch.randn(shape, device=device, dtype=torch.float32)
 
 
 def _draws(shape, gens, device) -> torch.Tensor:
@@ -542,23 +602,27 @@ def _draws(shape, gens, device) -> torch.Tensor:
     return torch.stack([_normal(shape, g, device) for g in gens])
 
 
-def psum_dist(x: torch.Tensor, group) -> torch.Tensor:
+def psum_dist(x: torch.Tensor, group, role: str = "model") -> torch.Tensor:
     """The sum of every member's ``x`` over ``group`` (an ``all_reduce``
-    into a new tensor)."""
+    into a new tensor).  ``role`` names the group for the linter
+    (:func:`trace_tag`): ``"model"``, a party boundary, or ``"data"``,
+    the data shards of the same parties."""
     import torch.distributed as dist
     out = x.clone()
-    dist.all_reduce(out, group=group)
+    with trace_tag(collective=role):
+        dist.all_reduce(out, group=group)
     return out
 
 
 def tree_psum_dist(x: torch.Tensor, tree: trees_lib.ReductionTree,
-                   group) -> torch.Tensor:
+                   group, role: str = "model") -> torch.Tensor:
     """Reduce every member's ``x`` over ``group`` replaying ``tree``'s
     rounds (member i is the tree's party i), then broadcast the root's
     total back down the tree: the process-group form of
     :func:`tree_psum_collective_permute`, each round one
     ``batch_isend_irecv`` of its scheduled pairs (the reference's
-    ``ppermute``).  Returns the total, on every member."""
+    ``ppermute``).  Returns the total, on every member.  ``role`` as in
+    :func:`psum_dist`."""
     import torch.distributed as dist
     if x.device.type == "cuda" and dist.get_backend(group) == "gloo":
         raise RuntimeError("gloo's point-to-point sends read host memory: "
@@ -582,7 +646,9 @@ def tree_psum_dist(x: torch.Tensor, tree: trees_lib.ReductionTree,
                 ops.append(dist.P2POp(dist.irecv, buf,
                                       dist.get_global_rank(group, frm),
                                       group))
-        for work in (dist.batch_isend_irecv(ops) if ops else ()):
+        with trace_tag(collective=role):
+            works = dist.batch_isend_irecv(ops) if ops else ()
+        for work in works:
             work.wait()
         return any(me == (dst if up else src) for dst, src in pairs)
 
@@ -786,7 +852,10 @@ def _counter_normal(key: torch.Tensor, fp: torch.Tensor, rows: torch.Tensor,
     rad = torch.sqrt(-2.0 * torch.log(u[0::2]))               # (2, k, nb)
     ang = (2.0 * np.pi) * u[1::2]
     z = torch.stack((rad * torch.cos(ang), rad * torch.sin(ang)))
-    return z.permute(2, 3, 1, 0).reshape(k, 4 * nb)[:, :numel].float()
+    z = z.permute(2, 3, 1, 0).reshape(k, 4 * nb)[:, :numel]
+    # one mask draw to the linter, its rows (the survivor ranks) distinct
+    with trace_tag(mask_draw="counter"):
+        return z.float()
 
 
 def _ring_member_mask(key: torch.Tensor, alive_all: torch.Tensor,
@@ -820,7 +889,8 @@ def gather_flags_dist(flags: torch.Tensor, group) -> torch.Tensor:
     full = torch.zeros(k * dist.get_world_size(group), dtype=torch.float32,
                        device=flags.device)
     full.narrow(0, me * k, k).copy_(flags)
-    dist.all_reduce(full, group=group)
+    with trace_tag(collective="model"):
+        dist.all_reduce(full, group=group)
     return full
 
 

@@ -55,7 +55,12 @@ party 0's block, which only the rank of slot 0 holds: that rank
 computes the answer and broadcasts it over the model group.  Every rank
 calls ``serve`` with the same ids, and ``set_deep_params`` with
 ``DeepVFLParams`` or its own rows of them (``FusedEngine.pack_deep``).
-The program probes raise there (ROADMAP A17b3).
+The program probes trace the rank's own dispatch there; the answer's
+broadcast is tagged as the release of the served answer
+(``trace_tag(release=SERVED_ANSWER)``), the one unmasked value the
+linter lets cross the model group (``repro_torch.analysis.taint``).  The
+reference computes the answer outside the per-party program it lints;
+on a device mesh the passive ranks receive it (ROADMAP C).
 
 Where the port differs in mechanism (not in result)
 ---------------------------------------------------
@@ -91,6 +96,7 @@ from repro_torch import resolve_device
 from repro_torch.core.algorithms import last_occurrence
 from repro_torch.core.deep_vfl import DeepVFLParams
 from repro_torch.core.engine import FusedEngine, pack_features, trace_program
+from repro_torch.core.secure_agg import SERVED_ANSWER, trace_tag
 
 
 @dataclasses.dataclass
@@ -255,7 +261,8 @@ class ServeEngine:
         grp = eng._mgroup
         out = fn() if eng.parties[0] == 0 else torch.empty(
             (self.max_batch,), dtype=torch.float32, device=self.device)
-        dist.broadcast(out, dist.get_global_rank(grp, 0), group=grp)
+        with trace_tag(collective="model", release=SERVED_ANSWER):
+            dist.broadcast(out, dist.get_global_rank(grp, 0), group=grp)
         return out
 
     # -- encoder and cache writes ----------------------------------------------
@@ -331,8 +338,8 @@ class ServeEngine:
         """Trace ``program(state)`` for a batch of ``max_batch`` zero ids:
         the ids, the cache and the installed weights are the graph's
         inputs (the weights party-stacked, dim 0), the serving universe
-        its private source.  Nothing runs; no state changes."""
-        self.eng._local_only("the serving program probes")
+        its private source.  Nothing runs; no state changes.  On a
+        device mesh, the rank's own program."""
         self._require_weights()
         state = {"ids": torch.zeros((self.max_batch,), dtype=torch.int64,
                                     device=self.device),

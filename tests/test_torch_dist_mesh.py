@@ -200,9 +200,6 @@ def _errors(dm, eng, cfg, idx):
             [0] * eng.qloc, *mine[:3], 0.1, idx, 2),
         "deep_guarded": lambda: eng.deep_guarded_sgd_epoch(
             pq, rings, 0, [0] * q, *mine, 0.1, idx, 2),
-        "tracing": lambda: eng.sgd_epoch_graph(wq, 0.1, idx),
-        "serve_probe": lambda: ServeEngine(eng, device="cpu")
-        .serve_full_graph(),
         "nccl_backend": lambda: make_device_mesh(q, backend="nccl",
                                                  device="cpu"),
         "cuda_device": lambda: make_device_mesh(q, backend="gloo",
@@ -215,6 +212,24 @@ def _errors(dm, eng, cfg, idx):
             out[name] = None
         except Exception as e:          # recorded, checked by the test
             out[name] = (type(e).__name__, str(e))
+    return out
+
+
+def _traces(eng, cfg, idx):
+    """The linter's probes on the device mesh: an epoch traced
+    (``FusedEngine.tracing``) and the serving program probe, each the
+    rank's program; whether each is one, and its model-group c10d
+    collectives."""
+    from repro_torch.analysis.walkers import count_model_collectives
+    from repro_torch.serve.engine import ServeEngine
+    sv = ServeEngine(eng, device="cpu")
+    sv.set_weights(_w0(cfg))
+    out = {}
+    for name, gm in (("tracing", eng.sgd_epoch_graph(eng.pack_w(_w0(cfg)),
+                                                     0.1, idx)),
+                     ("serve_probe", sv.serve_full_graph())):
+        out[name] = (isinstance(gm, torch.fx.GraphModule),
+                     count_model_collectives(gm))
     return out
 
 
@@ -282,6 +297,7 @@ def _case_flat(inputs):
         if mode == "off":
             res["xs_shape"] = tuple(eng.xs.shape)
             res["errors"] = _errors(pm.mesh, eng, cfg, inputs[1])
+            res["traces"] = _traces(eng, cfg, inputs[1])
     res["bum"] = _bum(pm)
     res["members"] = _members(pm, False)
     return res
@@ -682,8 +698,6 @@ def test_membership_forms_cancel_over_the_survivors(runs, world):
      "bufq holds 4 party rows; this engine holds 1"),
     ("deep_guarded", "ValueError",
      "delays holds 4 party rows; this engine holds 1"),
-    ("tracing", "NotImplementedError", "A17b3"),
-    ("serve_probe", "NotImplementedError", "A17b3"),
     ("nccl_backend", "ValueError", "not the requested 'nccl'"),
     ("cuda_device", "RuntimeError", "is_available"),
 ])
@@ -691,11 +705,20 @@ def test_device_mesh_errors(runs, name, exc, match):
     """A mesh whose model or data size is not the ``PartyMesh``'s raises
     ``ValueError``; a faulted or guarded epoch fed whole (q, ...)
     channels, rings or delays on a rank of qloc rows raises
-    ``ValueError``; an entry point outside the slice raises
-    ``NotImplementedError`` naming its ROADMAP item; a device mesh is
-    never built on another backend or device than the one asked for."""
+    ``ValueError``; a device mesh is never built on another backend or
+    device than the one asked for."""
     import re
     for r in runs[1]["flat"]:
         got = r["errors"][name]
         assert got is not None and got[0] == exc, got
         assert re.search(match, got[1]), got
+
+
+@pytest.mark.parametrize("name", ("tracing", "serve_probe"))
+def test_device_mesh_traces(runs, name):
+    """An epoch traced on the device mesh and the serving program probe
+    each give the rank's program, whose model-group collectives are c10d
+    nodes (``tests/test_torch_dist_lint.py`` lints them)."""
+    for r in runs[1]["flat"]:
+        is_program, collectives = r["traces"][name]
+        assert is_program and collectives >= 1, r["traces"]

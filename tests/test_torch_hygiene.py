@@ -23,6 +23,7 @@ import torch
 
 from repro_torch import convert, resolve_device
 from repro_torch.analysis import entrypoints as lint_entrypoints
+from repro_torch.analysis import mesh as lint_mesh
 from repro_torch.analysis import runner as lint_runner
 from repro_torch.configs.base import ShapeConfig, get_arch
 from repro_torch.configs.inputs import make_batch
@@ -82,7 +83,8 @@ def _cpu_engine():
     "run_deep_guarded_fused", "run_deep_faulted_reference",
     "run_deep_guarded_reference", "supervised_guarded_run_deep",
     "FusedEngine_mesh", "ServeEngine_mesh", "run_async", "run_sync",
-    "analysis_main", "analyze_matrix", "lm_train", "lm_make_train_batch",
+    "analysis_main", "analyze_matrix", "lint_mesh_run", "lint_mesh_spawn",
+    "lm_train", "lm_make_train_batch",
     "serve_granite_moe", "serve_qwen3_moe", "lm_init_params_moe",
     "lm_init_cache_moe", "lm_params_moe", "lm_train_moe"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
@@ -200,6 +202,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
         "analysis_main": lambda: lint_runner.main(["--quick"]),
         "analyze_matrix": lambda: lint_entrypoints.analyze_matrix(
             ("off",), ("sgd",)),
+        "lint_mesh_run": lambda: lint_mesh.run(quick=True),
+        "lint_mesh_spawn": lambda: lint_mesh.spawn(lint_mesh.lint_world,
+                                                   {"flat": 4}),
         "lm_train": lambda: lm_train.train("falcon_mamba_7b", 1, 1, 4, 1e-3),
         "lm_make_train_batch": lambda: make_batch(
             get_arch("falcon_mamba_7b").reduced(),
