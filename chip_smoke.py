@@ -6029,7 +6029,8 @@ def _dist_lint(torch, dev):
     recs = [None] * dist.get_world_size()
     dist.all_gather_object(recs, mine)
     merged = mesh_lint.merge({"flat": recs})
-    rec = {"seconds": time.perf_counter() - t0, "tag_us": tag_us,
+    rec = {"seconds": time.perf_counter() - t0, "stages": mine["seconds"],
+           "tag_us": tag_us,
            "entries": len(merged["mesh_matrix"]),
            "released": sum(merged["mesh_released"].values()),
            "collectives": merged["mesh_collectives"],

@@ -351,26 +351,40 @@ def analyze_entry(ent: Entry, fx: Fixture, secure: str) -> EntryReport:
         released=an.released)
 
 
+def fixture(secure: str, device="cuda", pmesh: Optional[PartyMesh] = None,
+            indices=None, cache: Optional[Dict] = None) -> Fixture:
+    """The :class:`Fixture` of ``(secure, pmesh)``: from ``cache`` (a dict
+    shared by callers that use the same ``device`` and ``indices``) where
+    it holds one, else a new one, kept there.  Tracing changes no
+    fixture's state, so every trace may share it."""
+    if cache is None:
+        return Fixture(secure, device, pmesh, indices)
+    if (secure, pmesh) not in cache:
+        cache[secure, pmesh] = Fixture(secure, device, pmesh, indices)
+    return cache[secure, pmesh]
+
+
 def analyze_matrix(secure_modes: Sequence[str] = SECURE_MODES,
                    names: Optional[Sequence[str]] = None,
                    progress: Optional[Callable[[str], None]] = None,
                    device="cuda", indices=None,
-                   mesh: Optional[PartyMesh] = None) -> List[EntryReport]:
+                   mesh: Optional[PartyMesh] = None,
+                   fixtures: Optional[Dict] = None) -> List[EntryReport]:
     """Trace and analyse the entry-point matrix: one
     :class:`EntryReport` per (security mode, entry).  With ``mesh`` (a
     ``PartyMesh`` on a device mesh; every rank of it calls) every chosen
-    entry runs on it, the rank's program."""
+    entry runs on it, the rank's program.  ``fixtures``, a cache as in
+    :func:`fixture`, keeps the engines for the caller's later passes."""
     reports: List[EntryReport] = []
     chosen = [e for e in entries() if names is None or e.name in set(names)]
     for secure in secure_modes:
-        fixtures: Dict[Optional[PartyMesh], Fixture] = {}
+        cache = {} if fixtures is None else fixtures
         for ent in chosen:
             if progress is not None:
                 progress(f"{secure}/{ent.name}")
             pmesh = ent.pmesh if mesh is None else mesh
-            if pmesh not in fixtures:
-                fixtures[pmesh] = Fixture(secure, device, pmesh, indices)
-            reports.append(analyze_entry(ent, fixtures[pmesh], secure))
+            fx = fixture(secure, device, pmesh, indices, cache)
+            reports.append(analyze_entry(ent, fx, secure))
     return reports
 
 
@@ -424,13 +438,14 @@ def check_reports(reports: Sequence[EntryReport]) -> List[str]:
 
 def kernel_census(names: Sequence[str] = ("sgd", "pipelined_sgd"),
                   device="cuda", indices=None,
-                  mesh: Optional[PartyMesh] = None) -> Dict[str, List[int]]:
+                  mesh: Optional[PartyMesh] = None,
+                  fixtures: Optional[Dict] = None) -> Dict[str, List[int]]:
     """``repro_torch.vfl_grad`` nodes in one traced step of each named
     kind, as one-element lists (the reference's per-``scan``-body
     counts): the sequential SGD step launches forward and backward (2),
     the pipelined step one split-batch launch (1).  With ``mesh``, one
-    rank's."""
-    fx = Fixture("ring", device, pmesh=mesh, indices=indices)
+    rank's; ``fixtures`` as in :func:`fixture`."""
+    fx = fixture("ring", device, mesh, indices, fixtures)
     out: Dict[str, List[int]] = {}
     for ent in entries():
         if ent.name in set(names) and ent.pmesh is None:

@@ -15,18 +15,23 @@ party boundaries are the c10d collectives over the model group
   the ``vfl_grad`` census, the volume of the model group's collectives
   (``volume.rank_volume``), the storage audit of a rank's rings and the
   device-mesh mutants (``mutants.run_dist_selftest``); the storage audit
-  outside the quick form.  Every rank of the world calls it, the entries
+  outside the quick form; ``seconds``, each stage's on the host clock
+  (the engines' build, the matrix's traces, the seed check, ...).  Every rank of the world calls it, the entries
   in the same order.
 * :func:`merge` — the ranks' records into the report's ``mesh_*`` parts:
   each entry's taint codes, host transfers, ring verdicts and releases,
   which every rank must give alike, beside each rank's boundary and
   collective counts.
-* :func:`spawn` — the one helper that starts a world of ranks, each in a
-  spawned process (a ``FileStore`` in a temporary directory, one torch
-  thread a rank), runs a function in each and gathers the records (a
-  rank leaves by ``os._exit`` once its record is written: a gloo thread
-  still joinable at interpreter exit can abort it).  gloo on the CPU for
-  ``device="cpu"``; NCCL, one rank a card, for ``device="cuda"``.
+* :func:`start` and :func:`spawn` — start worlds of ranks, each rank in
+  a spawned process (a ``FileStore`` in a temporary directory, one torch
+  thread a rank), run a function in each and gather the records (a rank
+  leaves by ``os._exit`` once its record is written: a gloo thread still
+  joinable at interpreter exit can abort it).  gloo on the CPU for
+  ``device="cpu"``; NCCL, one rank a card, for ``device="cuda"``.  The
+  runner, ``tests/test_torch_dist_lint.py`` and the rank tests of the
+  device mesh (``test_torch_dist_mesh.py``, ``_deep.py``, ``_faults.py``)
+  spawn through it; ``start`` lets a caller compute its reference while
+  the ranks run.
 * :func:`run` — spawn the worlds, merge: ``python -m repro_torch.analysis
   --mesh`` (``runner.py``).
 
@@ -36,9 +41,9 @@ volume and the mutants; ``two_tree_sf`` replays its trees by point-to-
 point sends, which gloo refuses for CUDA tensors, so it runs on the CPU
 only.
 
-Device rule: :func:`run`, :func:`spawn` and :func:`lint_world` default to
-``device="cuda"`` and raise without a card; pass ``device="cpu"`` for
-gloo ranks on the CPU.
+Device rule: :func:`run`, :func:`start`, :func:`spawn` and
+:func:`lint_world` default to ``device="cuda"`` and raise without a card;
+pass ``device="cpu"`` for gloo ranks on the CPU.
 """
 from __future__ import annotations
 
@@ -103,29 +108,49 @@ def lint_world(world: str, quick: bool = False, device="cuda",
     modes = _modes(device, quick)
     names = [e.name for e in ep.world_entries(world)
              if not quick or e.name in ep.QUICK]
-    reports = ep.analyze_matrix(modes, names, progress, device, mesh=pm)
+    seconds: Dict[str, float] = {}      # each stage's, host clock
+    clock = [time.perf_counter()]
+
+    def lap(stage: str) -> None:
+        now = time.perf_counter()
+        seconds[stage], clock[0] = now - clock[0], now
+
+    # one engine a mode, built once and shared by every pass below
+    fixtures: Dict = {}
+    for secure in modes:
+        ep.fixture(secure, device, pm, cache=fixtures)
+    lap("fixtures")
+    reports = ep.analyze_matrix(modes, names, progress, device, mesh=pm,
+                                fixtures=fixtures)
+    lap("matrix")
     rec = {"world": world, "rank": dist.get_rank(), "slot": pm.slot,
            "data_index": pm.data_index,
            "reports": [dataclasses.asdict(r) for r in reports],
-           "seeds": {}}
+           "seeds": {}, "seconds": seconds}
     for secure in modes:
-        eng = ep.Fixture(secure, device, pm).eng
+        eng = ep.fixture(secure, device, pm, cache=fixtures).eng
         tables = [None] * dist.get_world_size()
         dist.all_gather_object(tables, (pm.data_index,
                                         eng.mask_streams(*SEED_KEY).seeds()))
         rec["seeds"][secure] = finding_codes(seed_findings(tables))
+    lap("seeds")
     if world == "flat":
         rec["kernels"] = ep.kernel_census(tuple(ep.CENSUS), device,
-                                          mesh=pm)
-        rec["collectives"] = vol.collective_volume(device=device, mesh=pm)
+                                          mesh=pm, fixtures=fixtures)
+        lap("census")
+        rec["collectives"] = vol.collective_volume(device=device, mesh=pm,
+                                                   fixtures=fixtures)
+        lap("volume")
         rec["mutants"] = {r.name: r.to_dict()
                           for r in mu.run_dist_selftest(pm, device)}
-        if not quick:           # two real epochs of the ring fixture
-            fx = ep.Fixture("ring", device, pm)
+        lap("mutants")
+        if not quick:           # two real epochs of the ring fixture, last
+            fx = ep.fixture("ring", device, pm, cache=fixtures)
             rec["storage"] = storage_audit(
                 fx.eng, lambda: fx.eng.delayed_sgd_epoch(
                     fx.w, fx.buf, 0, fx.delays, 0.1, fx.idx,
                     ep.TAU)).to_dict()
+            lap("storage")
     return rec
 
 
@@ -227,64 +252,98 @@ def _rank(rank, size, world, base, fn, device, args):
     os._exit(code)
 
 
-def spawn(fn, worlds: Dict[str, int], *, device="cuda", args=(),
-          timeout: float = SPAWN_TIMEOUT) -> Dict[str, List]:
-    """Start every world of ``worlds`` (name -> ranks) at once, each rank
-    a spawned process that calls ``fn(world name, *args)`` (a module-level
-    function) on an initialised default process group of the world's
-    size; returns each world's records by rank.  Gloo ranks for
-    ``device="cpu"``, NCCL ranks, one a card, for ``device="cuda"``.  A
-    rank that
-    raises, or a world past ``timeout`` seconds, raises here, and every
-    rank is stopped on the way out."""
-    import torch.multiprocessing as mp
+class Worlds:
+    """Worlds of ranks started by :func:`start`; :meth:`gather` waits for
+    them and returns their records."""
 
-    from repro_torch import resolve_device
-    dev = resolve_device(device)
-    if dev.type == "cuda" and max(worlds.values()) > torch.cuda.device_count():
-        raise ValueError(f"NCCL takes one rank a card: a world of "
-                         f"{max(worlds.values())} ranks on "
-                         f"{torch.cuda.device_count()} cards")
-    root = tempfile.mkdtemp(prefix="repro_torch_mesh_")
-    ctxs = {}
-    try:
-        for world, size in worlds.items():
-            base = os.path.join(root, world)
-            os.makedirs(base)
-            ctxs[world] = mp.start_processes(
-                _rank, args=(size, world, base, fn, str(dev), args),
-                nprocs=size, join=False, start_method="spawn")
-        deadline = time.monotonic() + timeout
-        out = {}
-        for world, ctx in ctxs.items():
-            try:
-                while not ctx.join(timeout=1):
-                    if time.monotonic() > deadline:
-                        raise TimeoutError(f"the {world} world did not "
-                                           f"finish within {timeout} s")
-            except mp.ProcessExitedException:
-                pass                       # its record says why
-            recs = []
-            for r in range(worlds[world]):
-                path = os.path.join(root, world, f"rank{r}.pkl")
-                if not os.path.exists(path):
-                    raise RuntimeError(f"rank {r} of the {world} world left "
-                                       f"no record")
+    def __init__(self, fn, worlds: Dict[str, int], device, args):
+        import torch.multiprocessing as mp
+
+        from repro_torch import resolve_device
+        dev = resolve_device(device)
+        if dev.type == "cuda" and \
+                max(worlds.values()) > torch.cuda.device_count():
+            raise ValueError(f"NCCL takes one rank a card: a world of "
+                             f"{max(worlds.values())} ranks on "
+                             f"{torch.cuda.device_count()} cards")
+        self.sizes = dict(worlds)
+        self.root = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+        self.ctxs = {}
+        try:
+            for world, size in worlds.items():
+                base = os.path.join(self.root, world)
+                os.makedirs(base)
+                self.ctxs[world] = mp.start_processes(
+                    _rank, args=(size, world, base, fn, str(dev), args),
+                    nprocs=size, join=False, start_method="spawn")
+        except BaseException:
+            self.stop()
+            raise
+
+    def _records(self, world) -> List:
+        recs = [None] * self.sizes[world]
+        for r in range(self.sizes[world]):
+            path = os.path.join(self.root, world, f"rank{r}.pkl")
+            if os.path.exists(path):
                 with open(path, "rb") as f:
-                    rec = pickle.load(f)
-                if "error" in rec:
-                    raise RuntimeError(f"rank {r} of the {world} world "
-                                       f"failed:\n{rec['error']}")
-                recs.append(rec["ok"])
-            out[world] = recs
-        return out
-    finally:
-        for ctx in ctxs.values():
+                    recs[r] = pickle.load(f)
+        for r, rec in enumerate(recs):      # a rank's error first
+            if rec is not None and "error" in rec:
+                raise RuntimeError(f"rank {r} of the {world} world "
+                                   f"failed:\n{rec['error']}")
+        for r, rec in enumerate(recs):
+            if rec is None:
+                raise RuntimeError(f"rank {r} of the {world} world left "
+                                   f"no record")
+        return [rec["ok"] for rec in recs]
+
+    def gather(self, timeout: float = SPAWN_TIMEOUT) -> Dict[str, List]:
+        """Each world's records by rank, once every rank has left.  A rank
+        that raised, or a world past ``timeout`` seconds, raises here;
+        every rank is stopped on the way out."""
+        import torch.multiprocessing as mp
+        try:
+            deadline = time.monotonic() + timeout
+            out = {}
+            for world, ctx in self.ctxs.items():
+                try:
+                    while not ctx.join(timeout=1):
+                        if time.monotonic() > deadline:
+                            raise TimeoutError(
+                                f"the {world} world did not finish within "
+                                f"{timeout} s")
+                except mp.ProcessExitedException:
+                    pass                   # its records say why
+                out[world] = self._records(world)
+            return out
+        finally:
+            self.stop()
+
+    def stop(self) -> None:
+        """Stop every rank still running and remove the worlds' files."""
+        for ctx in self.ctxs.values():
             for p in ctx.processes:
                 if p.is_alive():
                     p.kill()
                 p.join()
-        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+def start(fn, worlds: Dict[str, int], *, device="cuda",
+          args=()) -> Worlds:
+    """Start every world of ``worlds`` (name -> ranks) at once, each rank
+    a spawned process that calls ``fn(world name, *args)`` (a module-level
+    function) on an initialised default process group of the world's
+    size, and return at once: the caller may work while the ranks run,
+    then calls :meth:`Worlds.gather`.  Gloo ranks for ``device="cpu"``,
+    NCCL ranks, one a card, for ``device="cuda"``."""
+    return Worlds(fn, worlds, device, args)
+
+
+def spawn(fn, worlds: Dict[str, int], *, device="cuda", args=(),
+          timeout: float = SPAWN_TIMEOUT) -> Dict[str, List]:
+    """:func:`start` the worlds and :meth:`Worlds.gather` their records."""
+    return start(fn, worlds, device=device, args=args).gather(timeout)
 
 
 def run(quick: bool = False, device="cuda",

@@ -52,7 +52,8 @@ rank's: its qloc party rows, and its messages the c10d collectives
   and recorded in ``Analyzer.unknown``.  At a collective the tainted
   operand's stream must also differ from rank to rank
   (``RANK_DISTINCT``): a draw from the rank's own party stream (stacked
-  over its parties, one stream distinct along them), its slot's stream
+  over its parties, one stream distinct along them where each row's tag
+  names another party), its slot's stream
   or a row of the counter stream (``secure_agg._counter_normal``, one
   draw whose rows are the survivor ranks); the ring's ``prev`` draw is
   the rank before's own, the shared seed of a pair, as the one-device
@@ -151,12 +152,14 @@ class Stream:
     number of distinct draws along each of the value's dimensions,
     whether it has yet to cross a boundary, and, on a device mesh, the
     role of the stream it came from (``"own"``, ``"slot"``, ``"prev"``,
-    ``"counter"``; None for a draw from no declared stream)."""
+    ``"counter"``; None for a draw from no declared stream) and that
+    stream's party or slot index (None where the tag gives none)."""
 
     draw: str
     var: Ann
     fresh: bool = True
     role: Optional[str] = None
+    index: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -598,7 +601,8 @@ class Analyzer:
             var = tuple(s if s > 1 else 0 for s in shape or ())
             return Props(base.taint, False, base.party,
                          base.streams | {Stream(node.name, var, True,
-                                                tag.get("mask_draw"))})
+                                                tag.get("mask_draw"),
+                                                tag.get("stream"))})
         if packet in _CREATE:
             return Props(party=_zeros(len(shape or ())))
         if first is None and shape is not None:
@@ -846,7 +850,9 @@ class Analyzer:
     def _stacked_draws(self, node, tensors, d: int, out: Props) -> Props:
         """A stack of k draws, each from another party's own stream (a
         device mesh rank's parties, ``secure_agg._draws``), is distinct
-        along the stacked dimension: one stream of k rows."""
+        along the stacked dimension: one stream of k rows.  The rows' tags
+        must name k different parties; two draws of one party's stream
+        are not distinct along the stack."""
         own = []
         for t in tensors:
             p = self._get(t)
@@ -854,7 +860,9 @@ class Analyzer:
             if not s or not p.mask_only:
                 return out
             own.append(s[0])
-        if len(tensors) < 2 or len({s.draw for s in own}) < len(own):
+        parties = [s.index for s in own]
+        if len(own) < 2 or None in parties \
+                or len(set(parties)) < len(parties):
             return out
         var = list(own[0].var[:d] + (0,) + own[0].var[d:])
         var[d] = len(own)

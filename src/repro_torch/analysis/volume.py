@@ -72,11 +72,12 @@ def collective_volume(secure_modes: Sequence[str] = DEFAULT_MODES,
                       names: Sequence[str] = DEFAULT_ENTRIES,
                       device="cuda", indices=None,
                       progress: Optional[Callable[[str], None]] = None,
-                      mesh=None) -> Dict[str, dict]:
+                      mesh=None, fixtures=None) -> Dict[str, dict]:
     """``{"<mode>/<entry>": step_volume}`` of the fixture's ``sgd`` and
     ``delayed`` (τ = ``entrypoints.TAU``) epochs; with ``mesh`` (a
     ``PartyMesh`` on a device mesh, every rank calling) this rank's
-    :func:`rank_volume` of them."""
+    :func:`rank_volume` of them.  ``fixtures``: a cache of engines, as in
+    ``entrypoints.fixture``."""
     from repro_torch.analysis import entrypoints as ep
 
     entries = {e.name: e for e in ep.entries()}
@@ -84,7 +85,7 @@ def collective_volume(secure_modes: Sequence[str] = DEFAULT_MODES,
     count = step_volume if mesh is None else rank_volume
     out: Dict[str, dict] = {}
     for secure in secure_modes:
-        fx = ep.Fixture(secure, device, pmesh=mesh, indices=indices)
+        fx = ep.fixture(secure, device, mesh, indices, fixtures)
         for name in names:
             if name not in want:
                 continue

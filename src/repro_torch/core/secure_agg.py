@@ -615,14 +615,15 @@ def psum_dist(x: torch.Tensor, group, role: str = "model") -> torch.Tensor:
 
 
 def tree_psum_dist(x: torch.Tensor, tree: trees_lib.ReductionTree,
-                   group, role: str = "model") -> torch.Tensor:
+                   group) -> torch.Tensor:
     """Reduce every member's ``x`` over ``group`` replaying ``tree``'s
     rounds (member i is the tree's party i), then broadcast the root's
     total back down the tree: the process-group form of
     :func:`tree_psum_collective_permute`, each round one
     ``batch_isend_irecv`` of its scheduled pairs (the reference's
-    ``ppermute``).  Returns the total, on every member.  ``role`` as in
-    :func:`psum_dist`."""
+    ``ppermute``).  Returns the total, on every member.  ``group`` is a
+    party boundary: each round is tagged ``collective="model"``
+    (:func:`trace_tag`)."""
     import torch.distributed as dist
     if x.device.type == "cuda" and dist.get_backend(group) == "gloo":
         raise RuntimeError("gloo's point-to-point sends read host memory: "
@@ -646,7 +647,7 @@ def tree_psum_dist(x: torch.Tensor, tree: trees_lib.ReductionTree,
                 ops.append(dist.P2POp(dist.irecv, buf,
                                       dist.get_global_rank(group, frm),
                                       group))
-        with trace_tag(collective=role):
+        with trace_tag(collective="model"):
             works = dist.batch_isend_irecv(ops) if ops else ()
         for work in works:
             work.wait()

@@ -1,8 +1,8 @@
 """The port's deep and bounded-delay VFB² on a ``torch.distributed`` device
 mesh (``PartyMesh(mesh=DeviceMesh)``) against the JAX package.
 
-Two worlds of gloo ranks on the CPU, spawned once each (a ``FileStore``
-under the test's temporary directory, one torch thread a rank); each runs
+Two worlds of gloo ranks on the CPU, spawned once each through
+``repro_torch.analysis.mesh.start`` (one torch thread a rank); each runs
 all of its cases and hands its results back as numpy arrays:
 
 * ``flat``: 4 ranks, ``PartyMesh(q=4, slots=4)``, on
@@ -30,13 +30,12 @@ replicas of each slot agree bit for bit.  JAX runs only in this process,
 inside the fixtures; the ranks import torch and the port alone.
 """
 import dataclasses
-import os
-import pickle
-import time
 
 import numpy as np
 import pytest
 import torch
+
+from repro_torch.analysis import mesh
 
 ATOL = 1e-5
 MODES = ("off", "two_tree", "ring")
@@ -227,54 +226,13 @@ def _case_data(inputs):
     return res
 
 
-def _rank(rank, world, kind, base):
-    torch.set_num_threads(1)
-    import torch.distributed as dist
-    dist.init_process_group(
-        "gloo", store=dist.FileStore(os.path.join(base, "store"), world),
-        rank=rank, world_size=world)
-    try:
-        with open(os.path.join(base, "inputs.pkl"), "rb") as f:
-            inputs = pickle.load(f)
-        res = {"flat": _case_flat, "data": _case_data}[kind](inputs)
-        with open(os.path.join(base, f"rank{rank}.pkl"), "wb") as f:
-            pickle.dump(res, f)
-        dist.barrier()          # no rank leaves while another still sends
-    finally:
-        dist.destroy_process_group()
-    # leave without the interpreter's teardown: a gloo thread still
-    # joinable there can abort a rank whose record is already written
-    os._exit(0)
+def _rank(kind, inputs):
+    return {"flat": _case_flat, "data": _case_data}[kind](inputs[kind])
 
 
 # ---------------------------------------------------------------------------
 # this process: the worlds, the reference
 # ---------------------------------------------------------------------------
-
-def _spawn(kind, base, inputs):
-    import torch.multiprocessing as mp
-    os.makedirs(base, exist_ok=True)
-    with open(os.path.join(base, "inputs.pkl"), "wb") as f:
-        pickle.dump(inputs, f)
-    return mp.start_processes(_rank, args=(WORLDS[kind], kind, str(base)),
-                              nprocs=WORLDS[kind], join=False,
-                              start_method="spawn")
-
-
-def _join(ctx, base, world):
-    deadline = time.monotonic() + SPAWN_TIMEOUT
-    while not ctx.join(timeout=1):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            raise TimeoutError(f"a world of {world} ranks did not finish "
-                               f"within {SPAWN_TIMEOUT} s")
-    out = []
-    for r in range(world):
-        with open(os.path.join(base, f"rank{r}.pkl"), "rb") as f:
-            out.append(pickle.load(f))
-    return out
-
 
 @pytest.fixture(scope="module")
 def jx():
@@ -377,13 +335,11 @@ def _ref_serve(jx, je, inputs):
 
 
 @pytest.fixture(scope="module")
-def runs(jx, tmp_path_factory):
+def runs(jx):
     """Start the two worlds, compute the reference while they run, then
     collect every rank's results."""
-    base = tmp_path_factory.mktemp("dist_deep")
     inputs = {"flat": _inputs(jx, FLAT, 21), "data": _inputs(jx, SMALL, 41)}
-    ctxs = {kind: _spawn(kind, base / kind, inputs[kind])
-            for kind in WORLDS}
+    ranks = mesh.start(_rank, WORLDS, device="cpu", args=(inputs,))
     try:
         ref = {}
         for mode in MODES:
@@ -405,8 +361,7 @@ def runs(jx, tmp_path_factory):
                 ref["data", mode, kind] = _ref_kind(
                     jx, je, SMALL, kind, inputs["data"], 41)[0]
     finally:
-        got = {kind: _join(ctxs[kind], base / kind, WORLDS[kind])
-               for kind in WORLDS}
+        got = ranks.gather(SPAWN_TIMEOUT)
     return ref, got
 
 

@@ -2,8 +2,8 @@
 device mesh (``PartyMesh(mesh=DeviceMesh)``) against the JAX package, the
 ring's survivor-rank counter stream, and the fault runners over a mesh.
 
-Two worlds of gloo ranks on the CPU, spawned once each (a ``FileStore``
-under the test's temporary directory, one torch thread a rank); each runs
+Two worlds of gloo ranks on the CPU, spawned once each through
+``repro_torch.analysis.mesh.start`` (one torch thread a rank); each runs
 all of its cases and hands its results back as numpy arrays:
 
 * ``flat``: 4 ranks, ``PartyMesh(q=4, slots=4)``, on
@@ -45,13 +45,12 @@ the ranks import torch and the port alone.
 """
 import itertools
 import os
-import pickle
-import time
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import mesh
 from repro_torch.core import algorithms, engine, faults, losses, secure_agg
 
 ATOL, DEEP_RTOL = 1e-5, 1e-4
@@ -300,55 +299,15 @@ def _case(world, inputs, base):
     return res
 
 
-def _rank(rank, world_size, world, base):
-    torch.set_num_threads(1)
-    import torch.distributed as dist
-    dist.init_process_group(
-        "gloo", store=dist.FileStore(os.path.join(base, "store"),
-                                     world_size),
-        rank=rank, world_size=world_size)
-    try:
-        with open(os.path.join(base, "inputs.pkl"), "rb") as f:
-            inputs = pickle.load(f)
-        res = _case(world, inputs, base)
-        with open(os.path.join(base, f"rank{rank}.pkl"), "wb") as f:
-            pickle.dump(res, f)
-        dist.barrier()          # no rank leaves while another still sends
-    finally:
-        dist.destroy_process_group()
-    # leave without the interpreter's teardown: a gloo thread still
-    # joinable there can abort a rank whose record is already written
-    os._exit(0)
+def _rank(world, inputs, base):
+    base = os.path.join(base, world)
+    os.makedirs(base, exist_ok=True)
+    return _case(world, inputs[world], base)
 
 
 # ---------------------------------------------------------------------------
 # this process: the worlds, the reference
 # ---------------------------------------------------------------------------
-
-def _spawn(world, base, inputs):
-    import torch.multiprocessing as mp
-    os.makedirs(base, exist_ok=True)
-    with open(os.path.join(base, "inputs.pkl"), "wb") as f:
-        pickle.dump(inputs, f)
-    return mp.start_processes(_rank, args=(WORLDS[world], world, str(base)),
-                              nprocs=WORLDS[world], join=False,
-                              start_method="spawn")
-
-
-def _join(ctx, base, size):
-    deadline = time.monotonic() + SPAWN_TIMEOUT
-    while not ctx.join(timeout=1):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            raise TimeoutError(f"a world of {size} ranks did not finish "
-                               f"within {SPAWN_TIMEOUT} s")
-    out = []
-    for r in range(size):
-        with open(os.path.join(base, f"rank{r}.pkl"), "rb") as f:
-            out.append(pickle.load(f))
-    return out
-
 
 @pytest.fixture(scope="module")
 def jx():
@@ -463,7 +422,8 @@ def runs(jx, tmp_path_factory):
     torch.set_num_threads(1)
     base = tmp_path_factory.mktemp("dist_faults")
     inputs = {w: _inputs(jx, CFGS[w], 31) for w in WORLDS}
-    ctxs = {w: _spawn(w, base / w, inputs[w]) for w in WORLDS}
+    ranks = mesh.start(_rank, WORLDS, device="cpu",
+                       args=(inputs, str(base)))
     try:
         ref = {}
         for world in ("flat", "packed"):
@@ -478,7 +438,7 @@ def runs(jx, tmp_path_factory):
                         events=BLOWUP)
         ref["runners"] = _port_runners()
     finally:
-        got = {w: _join(ctxs[w], base / w, WORLDS[w]) for w in WORLDS}
+        got = ranks.gather(SPAWN_TIMEOUT)
         torch.set_num_threads(torch_threads)
     return ref, got, base
 

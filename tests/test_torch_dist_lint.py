@@ -21,7 +21,11 @@ one traces while the other does not.  The ranks' records are held to:
   answer released once a probe, a broadcast with another tag flagged),
   an unknown collective failing closed;
 * the committed ``analysis/INVARIANTS_torch.json``: the merged report
-  passes ``runner.check_mesh``;
+  passes ``runner.check_mesh``; ``runner.main --mesh --quick --update``
+  passes and writes the same mesh keys, and an ``--update`` without
+  ``--mesh`` keeps them;
+* the stacked-draw rule: a stack of draws masks a reduction over a rank's
+  parties only where each row is another party's stream;
 * no side effects: a traced epoch leaves a rank's inputs as they were and
   the next real epoch is bit-equal to one with no trace before it; one
   rank traces while the other waits outside every collective.
@@ -270,6 +274,15 @@ def test_kernel_census_on_every_rank(worlds, kind):
         assert rec["kernels"][kind] == [ep.CENSUS[kind]]
 
 
+@pytest.mark.parametrize("world", sorted(ep.MESH_WORLDS))
+def test_lint_records_each_stage_seconds(worlds, world):
+    stages = ["fixtures", "matrix", "seeds"] + (
+        ["census", "volume", "mutants", "storage"] if world == "flat" else [])
+    for rec in worlds[world]:
+        assert list(rec["seconds"]) == stages
+        assert all(t >= 0 for t in rec["seconds"].values())
+
+
 # -- mutants, seeds, the release rule ----------------------------------------------
 
 @pytest.mark.parametrize("name", ["dist_off_psum", "dist_same_seed",
@@ -336,6 +349,67 @@ def test_unknown_collective_fails_closed(worlds):
         g = rec["probes"]["gather"]
         assert g["unknown"] == ["c10d._allgather_base_"]
         assert g["codes"] == {UNMASKED: 1}
+
+
+@pytest.mark.parametrize("parties,codes", [((0, 1), {}),
+                                            ((0, 0), {EQUAL_SEEDED: 1})])
+def test_stacked_draws_need_distinct_parties(parties, codes):
+    """A rank's stack of its parties' draws masks the reduction over them
+    only where each row is another party's stream: two draws of party 0's
+    stream stacked as two parties are not distinct along the stack."""
+    from repro_torch.analysis.taint import analyze_program, finding_codes
+    from repro_torch.core.engine import trace_program
+    from repro_torch.core.secure_agg import PartyStreams, _draws
+    streams = PartyStreams((0, 1), 0, 2, 1, False, "cpu").seed(0, 1)
+    gens = [streams.own[p] for p in parties]
+    gm = trace_program(lambda b: (b["z"] + _draws((8,), gens, "cpu")).sum(0),
+                       {"z": torch.zeros((2, 8))}, {"z": 0})
+    assert finding_codes(analyze_program(gm, sources=("z",))) == codes
+
+
+# -- the runner's --mesh stage ------------------------------------------------------
+
+def _manifest_copy(tmp_path):
+    path = tmp_path / "INVARIANTS_torch.json"
+    path.write_text(runner.DEFAULT_MANIFEST.read_text())
+    return path, json.loads(path.read_text())
+
+
+def test_runner_mesh_stage_updates_manifest(tmp_path, capsys):
+    """``--mesh --quick --update`` passes the committed manifest's gates,
+    prints the mesh summary and writes this run's mesh keys, each entry
+    as the committed one, and no per-rank detail."""
+    path, before = _manifest_copy(tmp_path)
+    rc = runner.main(["--mesh", "--quick", "--device", "cpu", "--manifest",
+                      str(path), "--update", "--ci"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "analysis --mesh: 18 entries over 1 worlds" in out, out
+    after = json.loads(path.read_text())
+    assert sorted(k for k in after if k.startswith("mesh_")) \
+        == sorted(runner.MESH_KEYS)
+    assert len(after["mesh_matrix"]) == 18
+    for key, entry in after["mesh_matrix"].items():
+        assert entry == before["mesh_matrix"][key], key
+    for key in ("mesh_collectives", "mesh_kernels"):
+        assert after[key] == before[key]
+    assert after["mesh_released"] == {
+        k: v for k, v in before["mesh_released"].items()
+        if k in after["mesh_matrix"]}
+
+
+def test_runner_without_mesh_keeps_mesh_keys(tmp_path, capsys):
+    """An ``--update`` run without ``--mesh`` carries the manifest's mesh
+    keys over unchanged."""
+    path, before = _manifest_copy(tmp_path)
+    rc = runner.main(["--quick", "--device", "cpu", "--manifest", str(path),
+                      "--update", "--ci"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "analysis --mesh" not in out
+    after = json.loads(path.read_text())
+    for key in runner.MESH_KEYS:
+        assert after[key] == before[key], key
 
 
 # -- no side effects ---------------------------------------------------------------

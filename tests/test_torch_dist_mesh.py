@@ -1,8 +1,8 @@
 """The port's party mesh on a ``torch.distributed`` device mesh
 (``PartyMesh(mesh=DeviceMesh)``) against the JAX package.
 
-Three worlds of gloo ranks on the CPU, spawned once each (a ``FileStore``
-under the test's temporary directory, one torch thread a rank); each runs
+Three worlds of gloo ranks on the CPU, spawned once each through
+``repro_torch.analysis.mesh.start`` (one torch thread a rank); each runs
 all of its cases and hands its results back as numpy arrays:
 
 * ``flat``: 4 ranks, ``PartyMesh(q=4, slots=4)``, the case of
@@ -28,14 +28,11 @@ reproduce its own parties' streams and no other slot's, the ring's r_prev
 being the one exception.  JAX runs only in this process, inside the
 fixtures; the ranks import torch and the port alone.
 """
-import os
-import pickle
-import time
-
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import mesh
 from repro_torch.core import secure_agg
 
 MODES = {"off": dict(secure="off"), "two_tree": dict(secure="two_tree"),
@@ -330,65 +327,24 @@ def _case_data(inputs):
     res = {"slot": pm.slot, "data_index": pm.data_index}
     x, y = _data(cfg)
     for (q, slots), mode, algo in DATA_CASES:
-        mesh = PartyMesh(q=q, slots=slots, data_shards=2, mesh=pm.mesh)
+        pmesh = PartyMesh(q=q, slots=slots, data_shards=2, mesh=pm.mesh)
         eng = engine.FusedEngine(
             _port_problem(cfg), x, y,
             algorithms.PartyLayout.even(cfg["d"], q, 1 if q == 2 else 2),
-            engine.EngineConfig(**MODES[mode]), mesh=mesh, device="cpu")
+            engine.EngineConfig(**MODES[mode]), mesh=pmesh, device="cpu")
         res[(q, slots), mode, algo] = _epoch(
             eng, algo, eng.pack_w(_w0(cfg)), inputs[1], (41,), cfg["lr"])
     return res
 
 
-def _rank(rank, world, kind, base):
-    torch.set_num_threads(1)
-    import torch.distributed as dist
-    dist.init_process_group(
-        "gloo", store=dist.FileStore(os.path.join(base, "store"), world),
-        rank=rank, world_size=world)
-    try:
-        with open(os.path.join(base, "inputs.pkl"), "rb") as f:
-            inputs = pickle.load(f)
-        res = {"flat": _case_flat, "packed": _case_packed,
-               "data": _case_data}[kind](inputs)
-        with open(os.path.join(base, f"rank{rank}.pkl"), "wb") as f:
-            pickle.dump(res, f)
-        dist.barrier()          # no rank leaves while another still sends
-    finally:
-        dist.destroy_process_group()
-    # leave without the interpreter's teardown: a gloo thread still
-    # joinable there can abort a rank whose record is already written
-    os._exit(0)
+def _rank(kind, inputs):
+    return {"flat": _case_flat, "packed": _case_packed,
+            "data": _case_data}[kind](inputs[kind])
 
 
 # ---------------------------------------------------------------------------
 # this process: the worlds, the reference
 # ---------------------------------------------------------------------------
-
-def _spawn(kind, base, inputs):
-    import torch.multiprocessing as mp
-    os.makedirs(base, exist_ok=True)
-    with open(os.path.join(base, "inputs.pkl"), "wb") as f:
-        pickle.dump(inputs, f)
-    return mp.start_processes(_rank, args=(WORLDS[kind], kind, str(base)),
-                              nprocs=WORLDS[kind], join=False,
-                              start_method="spawn")
-
-
-def _join(ctx, base, world):
-    deadline = time.monotonic() + SPAWN_TIMEOUT
-    while not ctx.join(timeout=5):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            raise TimeoutError(f"a world of {world} ranks did not finish "
-                               f"within {SPAWN_TIMEOUT} s")
-    out = []
-    for r in range(world):
-        with open(os.path.join(base, f"rank{r}.pkl"), "rb") as f:
-            out.append(pickle.load(f))
-    return out
-
 
 @pytest.fixture(scope="module")
 def jx():
@@ -466,15 +422,13 @@ def _ref_serve(jx, cfg, mode):
 
 
 @pytest.fixture(scope="module")
-def runs(jx, tmp_path_factory):
+def runs(jx):
     """Start the three worlds, compute the reference while they run, then
     collect every rank's results."""
-    base = tmp_path_factory.mktemp("dist_mesh")
     inputs = {"flat": _schedules(jx, FLAT, 21),
               "packed": _schedules(jx, SMALL, 21),
               "data": _schedules(jx, SMALL, 41)}
-    ctxs = {kind: _spawn(kind, base / kind, inputs[kind])
-            for kind in WORLDS}
+    ranks = mesh.start(_rank, WORLDS, device="cpu", args=(inputs,))
     try:
         ref = {}
         for mode in MODES:
@@ -494,8 +448,7 @@ def runs(jx, tmp_path_factory):
             ref["data", (q, slots), mode, algo] = _ref_epoch(
                 jx, je, SMALL, algo, 41)
     finally:
-        got = {kind: _join(ctxs[kind], base / kind, WORLDS[kind])
-               for kind in WORLDS}
+        got = ranks.gather(SPAWN_TIMEOUT)
     return ref, got
 
 

@@ -84,6 +84,7 @@ def _cpu_engine():
     "run_deep_guarded_reference", "supervised_guarded_run_deep",
     "FusedEngine_mesh", "ServeEngine_mesh", "run_async", "run_sync",
     "analysis_main", "analyze_matrix", "lint_mesh_run", "lint_mesh_spawn",
+    "lint_mesh_start",
     "lm_train", "lm_make_train_batch",
     "serve_granite_moe", "serve_qwen3_moe", "lm_init_params_moe",
     "lm_init_cache_moe", "lm_params_moe", "lm_train_moe"])
@@ -204,6 +205,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card,
             ("off",), ("sgd",)),
         "lint_mesh_run": lambda: lint_mesh.run(quick=True),
         "lint_mesh_spawn": lambda: lint_mesh.spawn(lint_mesh.lint_world,
+                                                   {"flat": 4}),
+        "lint_mesh_start": lambda: lint_mesh.start(lint_mesh.lint_world,
                                                    {"flat": 4}),
         "lm_train": lambda: lm_train.train("falcon_mamba_7b", 1, 1, 4, 1e-3),
         "lm_make_train_batch": lambda: make_batch(
